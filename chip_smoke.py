@@ -11,16 +11,24 @@ result lines):
 2. kernel checks at the main path's shape, 16^3x32: every on-path variant of
    the hopping kernel K1, the gauge-cotangent kernel K2, and HoppingDiff
    forward and backward, each against its plain PyTorch version on the same
-   card tensors.
-3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, kernel and plain
-   version, with GF/s at 1320 flops/site and the share of the bandwidth of a
-   device-to-device copy measured in the same run.
+   card tensors; the multi-RHS hopping K1-R (R = 12 and 3) against its plain
+   version and against R single K1 launches.
+3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
+   sizes beside 12 launches of K1, kernel and plain version, with GF/s at
+   1320 flops/site, the share of the bandwidth of a device-to-device copy
+   measured in the same run, and the bound at the card's published rates.
 4. end-to-end parity: one Nf=2 Hasenbusch trajectory at 8^4 on the kernel
    path (CUDA tensors) and on the plain path (CPU tensors) with the same
    injected draws; |ddH| against its bound.
-5. main path: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived from
-   sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories), with the
-   kernel launch counters read around it.
+5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
+   from sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories, the ONLINE
+   measurement on the third, an ILDG checkpoint read back), with the kernel
+   launch counters read around it.
+6. main path 2: `tmlqcd_tpu_torch.cli.invert.main` on phase 5's checkpoint:
+   the 12 spin-colour columns of a point source as one batched CG on K1-R,
+   the propagator file read back, every column's true residual, two columns
+   against single-column solves, the pion correlator; then one profiled
+   batched solve for the device's busy share.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -28,6 +36,8 @@ line is the JSON result object.  No JAX is imported.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -53,6 +63,23 @@ KERNEL_RTOL = 1e-5
 # so 3e-3 is 10x that spread while an operator error shifts dH by O(1).
 DDH_BOUND = 3e-3
 FLOPS_SITE = 1320
+# flops per site of K2: per direction two half-spinor projections (48 adds)
+# and 9 x 2 complex multiply-adds (144)
+FLOPS_SITE_K2 = 8 * (48 + 144)
+# published peaks of one H100 SXM, for `bound_ms` (NVIDIA data sheet)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS_S = 67e12
+NRHS = 12
+# True relative residual |M x - b| / |b| of a propagator column, checked with
+# the unpacked plain operator `d_full`: CG stops at 1e-7 of the
+# normal-equation right-hand side; |Qhat^-1| <~ 10 at kappa = 0.13 on a rough
+# gauge takes that to ~1e-6 of |b|, and f32 fields add ~1e-7 per operator
+# application.  1e-5 leaves 10x; a wrong Schur step leaves O(1).
+RESIDUAL_BOUND = 1e-5
+# batched vs single-column solution of the same system: the same kernel
+# arithmetic, f64 reductions in another order, both stopped at 1e-7: they
+# differ by ~1e-6 of max|x| at most.  1e-5 leaves 10x.
+BATCH_VS_SINGLE = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -143,7 +170,7 @@ def phase_kernels(lat, dev="cuda"):
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
     params, fg18, fg12, psi, psi_o, g = _fields(lat, dev, 11)
-    worst = {"K1": 0.0, "K2": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0}
     for gname, fg in (("18-real", fg18), ("12-real", fg12)):
         for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
             for vname, epi in _variants(params):
@@ -163,6 +190,35 @@ def phase_kernels(lat, dev="cuda"):
         worst["K2"] = max(worst["K2"], err)
         _say(f"[check] K2 p={p}: max|d| {err:.3e} (rel {rel:.2e})")
         _check(rel <= KERNEL_RTOL, f"K2 p={p} off by {rel:.3e}")
+    # K1-R against its plain version and against R launches of K1
+    for nrhs in (NRHS, 3):
+        gen = torch.Generator(device=dev).manual_seed(100 + nrhs)
+        shape = (2, 4, 3, nrhs) + lat.eo_site_shape
+        psis = torch.randn(shape, generator=gen, device=dev)
+        psis_o = torch.randn(shape, generator=gen, device=dev)
+        for gname, fg in (("18-real", fg18), ("12-real", fg12)):
+            for vname, epi in _variants(params):
+                mhat = epi[0] == "mhat"
+                kw = dict(epi=epi, gcomp=fg.gcomp)
+                out = dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None,
+                                           r_axis=3, **kw)
+                ref = dc.hopping_split_rhs_plain(fg.ug_odd, psis, 1, lat,
+                                                 psi_o=psis_o if mhat else None, **kw)
+                _sync(dev)
+                err, rel = _rel_err(out, ref)
+                worst["K1-R"] = max(worst["K1-R"], err)
+                vs_k1 = 0.0
+                for r in range(nrhs):
+                    one = dc.hopping_split(fg.ug_odd, psis[:, :, :, r].contiguous(), 1, lat,
+                                           psi_o=psis_o[:, :, :, r].contiguous() if mhat else None,
+                                           **kw)
+                    vs_k1 = max(vs_k1, float((out[:, :, :, r] - one).abs().max()))
+                _say(f"[check] K1-R R={nrhs:2d} {vname:9s} {gname}: max|d| {err:.3e} "
+                     f"(rel {rel:.2e}), vs {nrhs} x K1 {vs_k1:.3e}")
+                _check(rel <= KERNEL_RTOL, f"K1-R R={nrhs} {vname} {gname} off by {rel:.3e}")
+                _check(vs_k1 <= KERNEL_RTOL * max(1.0, float(ref.abs().max())),
+                       f"K1-R R={nrhs} {vname} {gname} differs from K1 by {vs_k1:.3e}")
+        del psis, psis_o, out, ref
     # HoppingDiff (K1 forward, K2 + adjoint K1 backward) against autograd of
     # the plain version
     for p in (0, 1):
@@ -216,7 +272,16 @@ def _copy_bandwidth() -> float:
     return bw
 
 
+def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time at the published peaks: the larger of bytes over the memory
+    rate and flops over the f32 rate, and which of the two it is."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
 def phase_timings(lat16, lat32):
+    import torch
+
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
     bw = _copy_bandwidth()
@@ -238,20 +303,70 @@ def phase_timings(lat16, lat32):
                 nbytes = (gbytes + 2 * 96 + (96 if po is not None else 0)) * sites
                 gfs = FLOPS_SITE * sites / (ms * 1e-3) / 1e9
                 share = nbytes / (ms * 1e-3) / bw
-                rows[(tag, gname, vname)] = (ms, pms)
+                bound = _bound_ms(nbytes, FLOPS_SITE * sites)
+                rows[(tag, gname, vname)] = (ms, pms, *bound)
                 _say(f"[time] K1 {tag} {gname} {vname:8s}: kernel {ms * 1e3:9.1f} us "
                      f"({gfs:7.1f} GF/s, {share:6.1%} of copy bandwidth at "
-                     f"{nbytes / sites:.0f} B/site)  plain {pms * 1e3:10.1f} us "
-                     f"({pms / ms:5.1f}x)")
+                     f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
+                     f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
+                     f"plain {pms * 1e3:10.1f} us ({pms / ms:5.1f}x)")
         if lat is lat16:
             ms = _time_ms(lambda: dc.hopping_ug_vjp(g, psi, 0, lat), 200)
             pms = _time_ms(lambda: dc.hopping_ug_vjp_plain(g, psi, 0, lat), 20)
             nbytes = (2 * 96 + 576) * sites
+            bound = _bound_ms(nbytes, FLOPS_SITE_K2 * sites)
             _say(f"[time] K2 {tag}: kernel {ms * 1e3:9.1f} us ({nbytes / (ms * 1e-3) / bw:6.1%} "
-                 f"of copy bandwidth at {nbytes / sites:.0f} B/site)  plain {pms * 1e3:10.1f} us "
-                 f"({pms / ms:5.1f}x)")
-            rows[(tag, "K2")] = (ms, pms)
-        del params, fg18, fg12, psi, psi_o, g
+                 f"of copy bandwidth at {nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us "
+                 f"by {bound[1]}, {nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
+                 f"plain {pms * 1e3:10.1f} us ({pms / ms:5.1f}x)")
+            rows[(tag, "K2")] = (ms, pms, *bound)
+        # K1-R at R = 12 beside 12 launches of K1 on the same fields
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        shape = (2, 4, 3, NRHS) + lat.eo_site_shape
+        psis = torch.randn(shape, generator=gen, device="cuda")
+        psis_o = torch.randn(shape, generator=gen, device="cuda")
+        cols = [(psis[:, :, :, r].contiguous(), psis_o[:, :, :, r].contiguous())
+                for r in range(NRHS)]
+        for gname, fg, gbytes, vname, epi in (
+                ("12-real", fg12, 384, "mhat+g5", ("mhat", params.mutld, 1.0, params.kappa ** 2, True)),
+                ("18-real", fg18, 576, "none", ("none",))):
+            mhat = epi[0] == "mhat"
+            kw = dict(epi=epi, gcomp=fg.gcomp)
+            n = 100 if lat is lat16 else 20
+
+            def k1_loop():
+                for c, co in cols:
+                    dc.hopping_split(fg.ug_odd, c, 1, lat, psi_o=co if mhat else None, **kw)
+
+            # at 32^3x64 K1-R walks the sites t-blocked: hold that order
+            # against K1 too (phase 2 ran the memory order)
+            out = dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None,
+                                       r_axis=3, **kw)
+            for r in (0, NRHS - 1):
+                one = dc.hopping_split(fg.ug_odd, cols[r][0], 1, lat,
+                                       psi_o=cols[r][1] if mhat else None, **kw)
+                err, rel = _rel_err(out[:, :, :, r], one)
+                _check(rel <= KERNEL_RTOL, f"K1-R {tag} {gname} {vname} column {r} differs from "
+                                           f"K1 by {err:.3e}")
+            del out, one
+            ms = _time_ms(lambda: dc.hopping_split_rhs(
+                fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None, r_axis=3, **kw), n)
+            ms1 = _time_ms(k1_loop, max(n // 4, 5))
+            pms = float("nan")
+            if lat is lat16:
+                pms = _time_ms(lambda: dc.hopping_split_rhs_plain(
+                    fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None, **kw), 5)
+            nbytes = (gbytes + NRHS * (2 * 96 + (96 if mhat else 0))) * sites
+            bound = _bound_ms(nbytes, FLOPS_SITE * NRHS * sites)
+            gfs = FLOPS_SITE * NRHS * sites / (ms * 1e-3) / 1e9
+            rows[(tag, "K1-R", gname, vname)] = (ms, pms, *bound, ms1)
+            _say(f"[time] K1-R {tag} R={NRHS} {gname} {vname:8s}: kernel {ms * 1e3:9.1f} us "
+                 f"({gfs:7.1f} GF/s, {nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth at "
+                 f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
+                 f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
+                 f"{NRHS} x K1 {ms1 * 1e3:9.1f} us ({ms1 / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
+        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols
+        torch.cuda.empty_cache()
     return rows, bw
 
 
@@ -305,20 +420,15 @@ MAXITER = 1000
 
 
 def smoke_input(text: str) -> str:
-    """hmc2-nf2-tm-hasenbusch with the ONLINE block dropped, 3 trajectories,
-    NSave = 3 and the physics point of bench/bench_traj.py (kappa = 0.13,
+    """hmc2-nf2-tm-hasenbusch with 3 trajectories, NSave = 3, the ONLINE
+    measurement every 3rd trajectory and the physics point of
+    bench/bench_traj.py for the monomials and the measurement (kappa = 0.13,
     2KappaMu = 0.0026, 2KappaMu2 = 0.026, steps 2/2/5, precisions 1e-16 /
     1e-14, MaxSolverIterations 1000): hmc2's own kappa = 0.163 from a hot
     start runs its solves to maxiter."""
-    out, block, skip = [], None, False
+    out, block = [], None
     for line in text.splitlines():
         s = line.split("#", 1)[0].strip()
-        if re.match(r"(?i)^BeginMeasurement\b", s):
-            skip = True
-        if skip:
-            if re.match(r"(?i)^EndMeasurement\b", s):
-                skip = False
-            continue
         m = re.match(r"(?i)^BeginMonomial\s+(\S+)", s)
         if m:
             block = m.group(1).upper()
@@ -326,7 +436,7 @@ def smoke_input(text: str) -> str:
             block = None
         kv = re.match(r"^([A-Za-z0-9_]+)\s*=", s)
         key = kv.group(1).lower() if kv else None
-        sub = {"measurements": "3", "nsave": "3", "kappa": "0.13",
+        sub = {"measurements": "3", "nsave": "3", "kappa": "0.13", "frequency": "3",
                "acceptanceprecision": "1e-16", "forceprecision": "1e-14",
                "maxsolveriterations": str(MAXITER), "2kappamu2": "0.026"}
         if key == "2kappamu":
@@ -339,12 +449,25 @@ def smoke_input(text: str) -> str:
     return "\n".join(out) + "\n"
 
 
+def _read_counts(dc) -> dict:
+    return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
+            "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
+            "K1-R plain": dc.hopping_split_rhs_plain.calls,
+            "K2 plain": dc.hopping_ug_vjp_plain.calls}
+
+
+def _check_no_plain(counts: dict) -> None:
+    plain = {k: v for k, v in counts.items() if k.endswith("plain")}
+    _check(not any(plain.values()), f"a plain version served the main path: {counts}")
+
+
 def phase_main_path(workdir: str):
     import numpy as np
 
     from tmlqcd_tpu_torch.cli import hmc as cli
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.lime import read_lime
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
     with open(SAMPLE) as f:
@@ -353,15 +476,15 @@ def phase_main_path(workdir: str):
     with open(path, "w") as f:
         f.write(text)
     cfg = read_input(path)
-    _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == 3 and not cfg.meas,
-           "smoke input was not derived as intended")
+    _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == 3
+           and [(m.type, m.frequency, m.kappa, m.two_kappa_mu) for m in cfg.meas]
+           == [("ONLINE", 3, 0.13, 0.0026)], "smoke input was not derived as intended")
     run_dir = os.path.join(workdir, "run")
     dc.reset_counters()
     t0 = time.perf_counter()
-    rc = cli.main(["-f", path, "-o", run_dir])
+    rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
     wall = time.perf_counter() - t0
-    counts = {"K1": dc.hopping_split.launches, "K2": dc.hopping_ug_vjp.launches,
-              "K1 plain": dc.hopping_split_plain.calls, "K2 plain": dc.hopping_ug_vjp_plain.calls}
+    counts = _read_counts(dc)
     _say(f"[main] cli.hmc exit {rc}, {wall:.1f} s wall; launches {counts}")
     _check(rc == 0, f"cli.hmc returned {rc}")
     with open(os.path.join(run_dir, "output.data")) as f:
@@ -375,16 +498,173 @@ def phase_main_path(workdir: str):
         _check(all(i < MAXITER for i in acc_iters), f"a solve reached maxiter: {cols}")
         secs.append(float(cols[6]))
     _check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
-    _check(counts["K1 plain"] == 0 and counts["K2 plain"] == 0,
-           f"a plain version served the main path: {counts}")
-    conf = os.path.join(run_dir, "conf.000003.npz")
-    _check(os.path.exists(conf), "conf.000003.npz was not written")
-    arr, traj, _ = load_checkpoint(conf, cfg.lat)
+    _check_no_plain(counts)
+    # the ONLINE measurement of the third trajectory
+    meas = os.path.join(run_dir, "onlinemeas.000002")
+    _check(os.path.exists(meas), "onlinemeas.000002 was not written")
+    with open(meas) as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    cpp = [float(r[3]) for r in rows]
+    _check(len(rows) == 32 and all(r[:3] == ["1", "1", str(t)] for t, r in enumerate(rows)),
+           f"onlinemeas.000002 has {len(rows)} lines or a wrong column layout")
+    _check(all(math.isfinite(c) and c > 0.0 for c in cpp)
+           and all(math.isfinite(float(r[4])) for r in rows),
+           "onlinemeas.000002: C_PP must be positive and finite on every timeslice")
+    _say(f"[main] onlinemeas.000002: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
+         f"min C_PP {min(cpp):.6e}")
+    # the ILDG checkpoint, read back with its checksum verified
+    conf = os.path.join(run_dir, "conf.000003.lime")
+    _check(os.path.exists(conf), "conf.000003.lime was not written")
+    _check("scidac-checksum" in [r.type for r in read_lime(conf)],
+           "conf.000003.lime carries no checksum record")
+    arr, traj, _ = load_checkpoint(conf, cfg.lat)  # raises on a checksum mismatch
     _check(traj == 3 and arr.shape == (3, 3, 4) + cfg.lat.site_shape
-           and bool(np.isfinite(arr).all()), "conf.000003.npz does not read back")
+           and bool(np.isfinite(arr).all()), "conf.000003.lime does not read back")
+    dev = np.abs(np.einsum("ij...,kj...->ik...", arr, arr.conj()) - np.eye(3).reshape(3, 3, 1, 1, 1, 1))
+    _check(float(dev.max()) < 1e-5, f"links read back are not unitary ({dev.max():.2e})")
     _say(f"[main] s/trajectory {secs} (mean of the last two {sum(secs[1:]) / 2:.3f} s); "
-         f"conf.000003.npz read back")
-    return counts, secs
+         f"conf.000003.lime read back, checksum verified")
+    return counts, secs, conf
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+INVERT_INPUT = """L = 16
+T = 32
+BeginOperator TMWILSON
+  kappa = 0.13
+  2KappaMu = 0.0026
+  Solver = cg
+  SolverPrecision = 1e-14
+  MaxSolverIterations = 1000
+  PropagatorPrecision = 32
+EndOperator
+"""
+
+
+def phase_invert(workdir: str, conf: str):
+    import numpy as np
+    import torch
+
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.inverter import invert_eo, invert_eo_rhs
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.propagator import read_propagator
+    from tmlqcd_tpu_torch.meas.correlators import pion_correlator
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, d_full
+
+    path = os.path.join(workdir, "invert.input")
+    with open(path, "w") as f:
+        f.write(INVERT_INPUT)
+    cfg = read_input(path)
+    op = cfg.operators[0]
+    lat = cfg.lat
+    out_dir = os.path.join(workdir, "prop")
+    dc.reset_counters()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["-f", path, "-c", conf, "--format", "lime", "-o", out_dir])
+    wall = time.perf_counter() - t0
+    counts = _read_counts(dc)
+    sys.stdout.write(log.getvalue())
+    _check(rc == 0, f"cli.invert returned {rc}")
+    m = re.search(r"12 sources batched: (\d+) iters, max\|r\|\^2=(\S+), (\S+)s", log.getvalue())
+    _check(m is not None, "cli.invert did not report a batched solve of 12 sources")
+    iters, solve_s = int(m.group(1)), float(m.group(3))
+    _say(f"[invert] cli.invert exit {rc}, {wall:.1f} s wall")
+    _say(f"[invert] batched solve seconds {solve_s}")
+    _say(f"[invert] iterations {iters}")
+    _say(f"[invert] launches K1 {counts['K1']} K1-R {counts['K1-R']} (4 per iteration + 8)")
+    _check(0 < iters < op.max_solver_iterations, f"the batched solve ran {iters} iterations")
+    _check(counts["K1-R"] == 4 * iters + 8, f"K1-R launches {counts['K1-R']} != 4 * {iters} + 8")
+    _check_no_plain(counts)
+
+    # the propagator file: 12 columns, every checksum verified on reading
+    prop = os.path.join(out_dir, "propagator.00.000003.lime")
+    _check(os.path.exists(prop), "propagator.00.000003.lime was not written")
+    cols, prec = read_propagator(prop, lat)  # raises on a checksum mismatch
+    _check(len(cols) == NRHS and prec == 32, f"{len(cols)} columns at precision {prec}")
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa))
+    x = [torch.as_tensor(c, device="cuda").to(torch.complex64) for c in cols]
+    worst, cpp = 0.0, 0.0
+    for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
+        b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+        res = float(torch.linalg.vector_norm(d_full(u, x[i], params, lat) - b))  # |b| = 1
+        worst = max(worst, res)
+        _check(res <= RESIDUAL_BOUND, f"column {i}: |M x - b| / |b| = {res:.3e}")
+        cpp = cpp + pion_correlator(x[i], lat, 0)
+    _say(f"[invert] true residual |M x - b| / |b| over the 12 columns: max {worst:.3e} "
+         f"(bound {RESIDUAL_BOUND:.0e})")
+    _check(bool((cpp > 0).all()) and bool(torch.isfinite(cpp).all()),
+           "the pion correlator of the point propagator must be positive on every timeslice")
+    _say(f"[invert] pion correlator C_PP(0) {float(cpp[0]):.6e}, C_PP(T/2) "
+         f"{float(cpp[lat.dims[0] // 2]):.6e}, min {float(cpp.min()):.6e}")
+    tol = float(op.precision) ** 0.5
+    for i in (0, 7):
+        b = point_source(lat, i // 3, i % 3, (0, 0, 0, 0), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = invert_eo(u, b, params, lat, tol=tol, maxiter=op.max_solver_iterations)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        diff = float((one.x - x[i]).abs().max())
+        scale = float(one.x.abs().max())
+        _say(f"[invert] column {i}: single-column solve {one.iterations} iters in {dt:.3f} s, "
+             f"max|x_batch - x_single| {diff:.3e} (max|x| {scale:.3e})")
+        _check(diff <= BATCH_VS_SINGLE * scale, f"column {i}: batch and single differ by {diff:.3e}")
+
+    # where the batched solve's time goes: one profiled solve
+    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+                      for s in range(4) for c in range(3)])
+    invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
+        torch.cuda.synchronize()
+    # device ops only, as intervals on the device's clock: their union is the
+    # busy time (a sum over `key_averages()` counts overlapping entries twice)
+    spans, k1r = [], 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = float(ev.time_range.start), float(ev.time_range.end)
+        if end <= start:
+            continue
+        spans.append((start, end))
+        if "hopping_rhs_kernel" in ev.name:
+            k1r += end - start
+    if spans:
+        spans.sort()
+        busy, (lo, hi) = 0.0, spans[0]
+        for start, end in spans[1:]:
+            if start > hi:
+                busy += hi - lo
+                lo, hi = start, end
+            else:
+                hi = max(hi, end)
+        busy += hi - lo
+        window = max(e for _, e in spans) - spans[0][0]
+        _say(f"[profile] batched solve {plain_wall:.4f} s unprofiled; profiled window "
+             f"{window / 1e6:.4f} s from the first to the last of {len(spans)} device ops, device "
+             f"busy {busy / 1e6:.4f} s: idle share {1.0 - busy / window:.1%}; K1-R "
+             f"{k1r / 1e6:.4f} s ({k1r / busy:.1%} of device time)")
+    else:
+        _say(f"[profile] batched solve {plain_wall:.4f} s unprofiled; the profiler reported no "
+             f"device time, idle share not measured")
+    return counts, iters, solve_s
 
 
 def main() -> int:
@@ -409,21 +689,28 @@ def main() -> int:
         rows, _ = phase_timings(lat16, Lattice((64, 32, 32, 32)))
         phase_parity()
         with tempfile.TemporaryDirectory() as workdir:
-            counts, _ = phase_main_path(workdir)
+            hmc_counts, _, conf = phase_main_path(workdir)
+            inv_counts, _, _ = phase_invert(workdir, conf)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
-    k1 = rows[("16x16x16x32", "12-real", "mhat+g5")]
-    k2 = rows[("16x16x16x32", "K2")]
+    src = "tmlqcd_tpu_torch/csrc/hopping.cu"
+
+    def entry(name, replaces, key, row):
+        ms, plain_ms, bound_ms, bound_by = row[:4]
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": hmc_counts[key] + inv_counts[key],
+                "launches_hmc": hmc_counts[key], "launches_invert": inv_counts[key],
+                "max_abs_err": worst[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
     kernels = [
-        {"name": "hopping_split (K1)", "route": "cuda",
-         "source": "tmlqcd_tpu_torch/csrc/hopping.cu",
-         "replaces": "tmlqcd_tpu/ops/dslash_pallas.py:520", "launches": counts["K1"],
-         "max_abs_err": worst["K1"], "ms": k1[0], "plain_ms": k1[1]},
-        {"name": "hopping_ug_vjp (K2)", "route": "cuda",
-         "source": "tmlqcd_tpu_torch/csrc/hopping.cu",
-         "replaces": "tmlqcd_tpu/ops/dslash_pallas.py:1489", "launches": counts["K2"],
-         "max_abs_err": worst["K2"], "ms": k2[0], "plain_ms": k2[1]},
+        entry("hopping_split (K1)", "tmlqcd_tpu/ops/dslash_pallas.py:520", "K1",
+              rows[("16x16x16x32", "12-real", "mhat+g5")]),
+        entry("hopping_ug_vjp (K2)", "tmlqcd_tpu/ops/dslash_pallas.py:1489", "K2",
+              rows[("16x16x16x32", "K2")]),
+        entry("hopping_split_rhs (K1-R)", "tmlqcd_tpu/ops/dslash_pallas.py:491", "K1-R",
+              rows[("16x16x16x32", "K1-R", "12-real", "mhat+g5")]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

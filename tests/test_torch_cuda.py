@@ -71,6 +71,55 @@ def test_hopping_kernel_matches_plain(cuda, dims, compress):
             assert _close(out, dc.hopping_split_plain(ug, psi, p, lat, **kw)), (p, epi)
 
 
+@pytest.mark.parametrize("dims, nrhs", [((8, 4, 4, 4), 3), ((6, 4, 6, 10), 12), ((8, 8, 8, 8), 13),
+                                        ((8, 32, 16, 16), 12)])
+@pytest.mark.parametrize("compress", [False, True], ids=["18real", "12real"])
+def test_hopping_rhs_kernel_matches_plain_and_single_rhs_kernel(cuda, dims, nrhs, compress):
+    """K1-R against its plain version (RTOL) and, column by column, against
+    K1 (the same device arithmetic: equal to the last bit).  13 columns need
+    two blocks along the R axis; 8 x 32 x 16 x 16 with 12 columns is large
+    enough for the kernel's t-blocked block order."""
+    lat, u, _ = _setup(dims, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(nrhs)
+    shape = (2, 4, 3, nrhs) + lat.eo_site_shape
+    psi = torch.randn(shape, generator=gen, device=cuda)
+    psi_o = torch.randn(shape, generator=gen, device=cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=compress)
+    for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+        for epi in EPIS:
+            mhat = epi[0] == "mhat"
+            kw = dict(epi=epi, gcomp=fg.gcomp)
+            n, n1 = dc.hopping_split_rhs.launches, dc.hopping_split.launches
+            out = dc.hopping_split_rhs(ug, psi, p, lat, psi_o=psi_o if mhat else None, r_axis=3,
+                                       **kw)
+            assert (dc.hopping_split_rhs.launches, dc.hopping_split.launches) == (n + 1, n1)
+            ref = dc.hopping_split_rhs_plain(ug, psi, p, lat, psi_o=psi_o if mhat else None, **kw)
+            assert _close(out, ref), (p, epi)
+            for r in (0, nrhs - 1):
+                one = dc.hopping_split(ug, psi[:, :, :, r].contiguous(), p, lat,
+                                       psi_o=psi_o[:, :, :, r].contiguous() if mhat else None,
+                                       **kw)
+                assert torch.equal(out[:, :, :, r], one), (p, epi, r)
+
+
+def test_batched_inversion_runs_on_the_rhs_kernel(cuda):
+    """invert_eo_rhs on CUDA tensors launches K1-R, calls no plain version and
+    agrees with the plain path on the CPU to 2e-5 (f32 CG, tol 1e-7)."""
+    from tmlqcd_tpu_torch.inverter import invert_eo_rhs
+    from tmlqcd_tpu_torch.meas.sources import point_source
+
+    lat, u, _ = _setup((8, 4, 4, 4), cuda)
+    bs = torch.stack([point_source(lat, s, c, device=cuda) for s, c in ((0, 0), (1, 2), (3, 1))])
+    dc.reset_counters()
+    out = invert_eo_rhs(u, bs, PARAMS, lat, tol=1e-7, maxiter=500)
+    # Schur prologue 1, right-hand side 2, r0 = b - A x0 4, 4 per iteration, epilogue 1
+    assert dc.hopping_split_rhs.launches == 4 * out.iterations + 8
+    assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+    ref = invert_eo_rhs(u.cpu(), bs.cpu(), PARAMS, lat, tol=1e-7, maxiter=500)
+    assert out.iterations == ref.iterations
+    assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
 @pytest.mark.parametrize("dims", [(8, 4, 4, 4), (6, 4, 6, 10)])
 def test_ug_vjp_kernel_and_hopping_diff_match_plain(cuda, dims):
     lat, u, (psi, _, g) = _setup(dims, cuda)
@@ -93,6 +142,13 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
         dc.hopping_split(fg.ug_even, psi.half(), 0, lat)
     with pytest.raises(ValueError):
         dc.hopping_ug_vjp(psi, psi[..., :4].contiguous(), 0, lat)
+    batch = torch.stack([psi, psi], dim=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.hopping_split_rhs(fg.ug_even, torch.stack([batch, batch], dim=-1)[..., 0], 0, lat)
+    with pytest.raises(ValueError):
+        dc.hopping_split_rhs(fg.ug_even, batch.cpu(), 0, lat)  # mixed devices
+    with pytest.raises(NotImplementedError):
+        dc.hopping_split_rhs(fg.ug_even, batch, 0, lat, r_axis=1)
 
 
 def test_trajectory_kernel_path_matches_plain_path(cuda):

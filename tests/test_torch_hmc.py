@@ -282,15 +282,14 @@ def test_sample_inputs_parse_like_reference(name):
 
 
 def test_hmc2_lowers_to_the_reference_monomials():
-    """hmc2 without its ONLINE block builds the same lattice and monomial
-    parameters in both packages; with it, the port names what it lacks."""
+    """hmc2 as shipped, ONLINE block included, builds the same lattice and
+    monomial parameters in both packages."""
     with open(os.path.join(SAMPLES, "hmc2-nf2-tm-hasenbusch.input")) as f:
         text = f.read()
-    with pytest.raises(NotImplementedError, match="measurement"):
-        config.build_hmc(config_tmlqcd.parse_input(text))
-    text = text[: text.index("BeginMeasurement")]
+    cfg = config_tmlqcd.parse_input(text)
+    assert [m.type for m in cfg.meas] == ["ONLINE"]
     ref = jconfig.build_hmc(jconfig_tmlqcd.parse_input(text))
-    out = config.build_hmc(config_tmlqcd.parse_input(text))
+    out = config.build_hmc(cfg)
     assert out.lat.dims == ref.lat.dims == (32, 16, 16, 16)
     assert [type(m).__name__ for m in out.monomials] == [type(m).__name__ for m in ref.monomials]
     for mo, mr in zip(out.monomials, ref.monomials):
@@ -309,15 +308,12 @@ def test_hmc2_lowers_to_the_reference_monomials():
     ("CLOVERDET", "BeginMonomial CLOVERDET\n kappa = 0.1\nEndMonomial\n"),
     ("NrTProcs", "NrTProcs = 2\n"),
     ("NrYProcs", "NrYProcs = 2\n"),
-    ("ReversibilityCheck", "ReversibilityCheck = yes\n"),
-    ("DebugLevel", "DebugLevel = 2\n"),
-    ("ildg", None),
+    ("NDRAT", "BeginMonomial NDRAT\n kappa = 0.1\nEndMonomial\n"),
+    ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
+    ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
 ])
 def test_unported_features_raise(what, text):
-    if text is None:  # the checkpoint format is set on the RunConfig, not in the input
-        cfg = dataclasses.replace(config_tmlqcd.parse_input(""), checkpoint_format=what)
-    else:
-        cfg = config_tmlqcd.parse_input(text)
+    cfg = config_tmlqcd.parse_input(text)
     with pytest.raises(NotImplementedError, match=f"(?i){what}.*not yet ported"):
         config.build_hmc(cfg)
 
@@ -336,8 +332,8 @@ def test_checkpoints_cross_read(tmp_path, gauge):
     info_ref = jckpt.latest_checkpoint(str(tmp_path / "torch"))
     info = checkpoint.latest_checkpoint(str(tmp_path / "jax"))
     assert (info_ref.trajectory, info.trajectory) == (9, 7)
-    with pytest.raises(NotImplementedError):
-        checkpoint.save_checkpoint(str(tmp_path / "torch"), ut, 10, 45, LAT, fmt="ildg")
+    with pytest.raises(ValueError, match="unknown checkpoint format"):
+        checkpoint.save_checkpoint(str(tmp_path / "torch"), ut, 10, 45, LAT, fmt="hdf5")
 
 
 def test_cli_runs_on_cpu_and_requires_cuda_otherwise(tmp_path):

@@ -23,8 +23,12 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tmlqcd_tpu."))
              or m == "tmlqcd_tpu")
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+# the modules that the inverter path and the measurements added
+_INVERTER_PATH = ("cli.invert", "inverter", "io.lime", "io.ildg", "io.propagator", "native",
+            "meas.sources", "meas.correlators", "meas.runner", "hmc.monitor", "utils")
 
 
 def test_port_imports_no_jax():
@@ -33,6 +37,23 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 20  # every slice module was imported
+    count, bad, names = res.stdout.strip().split(" ", 2)
+    assert int(count) >= 31  # every slice module was imported
     assert bad == "[]", bad
+    for name in _INVERTER_PATH:
+        assert f"tmlqcd_tpu_torch.{name}" in names.split()
+
+
+def test_port_sources_name_no_jax_import():
+    """No `import jax` / `from tmlqcd_tpu ...` line in the package or in
+    chip_smoke.py (a static look, beside the run-time probe above)."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tmlqcd_tpu)(\.|\s|$)", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "tmlqcd_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= 32
+    for path in paths:
+        with open(path) as f:
+            assert not pat.search(f.read()), path

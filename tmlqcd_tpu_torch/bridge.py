@@ -5,6 +5,7 @@ numpy arrays in the shared layouts:
 
     gauge     complex64 [3, 3, 4, T, X, Y*Z]
     spinor    complex64 [4, 3, T, X, M]
+    source    complex64 [4, 3, T, X, Y*Z] or a batch [R, 4, 3, T, X, Y*Z]
     split     float32   [2, ...]          (re/im leading)
     FastGauge float32   ug_even/ug_odd [2, 8, 3|2, 3, T, X, M] + gcomp
     chrono    fields [n, ...field] + count
@@ -18,13 +19,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tmlqcd_tpu_torch.inverter import InvertResult
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops.wilson_fast import FastGauge
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory
 
-__all__ = ["gauge_from_numpy", "spinor_from_numpy", "split_from_numpy",
-           "fast_gauge_from_numpy", "chrono_from_numpy", "to_numpy", "numpy_su3",
-           "numpy_spinor"]
+__all__ = ["gauge_from_numpy", "spinor_from_numpy", "sources_from_numpy",
+           "split_from_numpy", "fast_gauge_from_numpy", "chrono_from_numpy",
+           "invert_result_from_numpy", "to_numpy", "numpy_su3", "numpy_spinor"]
 
 
 def _as(arr, dtype: torch.dtype, shape_tail: tuple, device) -> torch.Tensor:
@@ -40,6 +42,19 @@ def gauge_from_numpy(arr, lat: Lattice, device="cpu") -> torch.Tensor:
 
 def spinor_from_numpy(arr, lat: Lattice, device="cpu") -> torch.Tensor:
     return _as(arr, torch.complex64, (4, 3) + lat.eo_site_shape, device)
+
+
+def sources_from_numpy(arr, lat: Lattice, device="cpu") -> torch.Tensor:
+    """One full-lattice source [4,3,T,X,Y*Z] or a batch [R,4,3,T,X,Y*Z]."""
+    return _as(arr, torch.complex64, (4, 3) + lat.site_shape, device)
+
+
+def invert_result_from_numpy(x, iterations, residual_sq, lat: Lattice,
+                             device="cpu") -> InvertResult:
+    """The reference's InvertResult fields (as numpy) -> the port's."""
+    return InvertResult(x=sources_from_numpy(x, lat, device), iterations=int(iterations),
+                        residual_sq=torch.as_tensor(np.array(residual_sq, np.float64),
+                                                    device=device))
 
 
 def split_from_numpy(arr, device="cpu") -> torch.Tensor:

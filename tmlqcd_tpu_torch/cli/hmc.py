@@ -2,10 +2,13 @@
 
 Port of `tmlqcd_tpu/cli/hmc.py`: read input -> start configuration
 (hot/cold/continue) -> trajectory loop writing output.data and printing one
-line per trajectory -> native checkpoints every NSave and at the end.
+line per trajectory, with the force monitor every 10 trajectories at
+DebugLevel >= 2, the configured measurements (ONLINE, PIONNORM) and the
+ReversibilityCheck -> native or ILDG checkpoints every NSave and at the end.
 
 Usage:
     python -m tmlqcd_tpu_torch.cli.hmc -f sample.input [-o rundir] [--cpu]
+        [--checkpoint-format native|ildg]
 
 Without --cpu the run needs a CUDA device and raises if there is none; with
 --cpu it runs the plain PyTorch versions of the kernels on the CPU.
@@ -17,6 +20,7 @@ output.data, one line per trajectory:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import signal
 import sys
@@ -48,6 +52,8 @@ def main(argv=None):
     ap.add_argument("-o", "--output-dir", default=None, help="run directory")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU with the kernels' plain PyTorch versions")
+    ap.add_argument("--checkpoint-format", default=None, choices=["native", "ildg"],
+                    help="conf.NNNNNN.npz (native, the default) or conf.NNNNNN.lime (ILDG)")
     args = ap.parse_args(argv)
 
     if args.cpu:
@@ -60,16 +66,20 @@ def main(argv=None):
     from tmlqcd_tpu_torch import rng, su3
     from tmlqcd_tpu_torch.config import build_hmc
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
-    from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory
+    from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory, reversibility_check
+    from tmlqcd_tpu_torch.hmc.monitor import monitor_forces
     from tmlqcd_tpu_torch.io.checkpoint import (
         checkpoint_at,
         latest_checkpoint,
         load_checkpoint,
         save_checkpoint,
     )
+    from tmlqcd_tpu_torch.meas.runner import run_measurements
     from tmlqcd_tpu_torch.ops.gauge_action import rectangle
 
     cfg = read_input(args.input)
+    if args.checkpoint_format is not None:
+        cfg = dataclasses.replace(cfg, checkpoint_format=args.checkpoint_format)
     run_dir = args.output_dir or cfg.output_dir
     hmc = build_hmc(cfg)
     os.makedirs(run_dir, exist_ok=True)
@@ -90,7 +100,7 @@ def main(argv=None):
             u = hot_start()
         else:
             arr, start_traj, _ = load_checkpoint(info.path, lat)
-            u = torch.as_tensor(arr, device=device)
+            u = torch.as_tensor(arr, device=device).to(torch.complex64)
             print(f"[hmc] resumed at trajectory {start_traj} from {info.path}")
     elif cfg.start_condition == "cold":
         u = torch.eye(3, dtype=torch.complex64, device=device).reshape(3, 3, 1, 1, 1, 1)
@@ -99,6 +109,7 @@ def main(argv=None):
         u = hot_start()
 
     chrono = chrono_states(hmc, device)
+    monitor_every = 10
     stopper = _GracefulStop()
     n_acc = 0
     traj = start_traj - 1
@@ -120,11 +131,30 @@ def main(argv=None):
             if cfg.debug_level >= 1:
                 print(f"[traj {traj}] plaq={st.plaquette:.6f} dH={st.delta_h:+.4f} "
                       f"acc={acc} ({dt:.1f}s) force_iters=[{fiters}]", flush=True)
+            if cfg.debug_level >= 2 and (traj + 1) % monitor_every == 0:
+                # per-monomial force norms and the SU(3) drift of the links
+                with torch.no_grad():
+                    stats = monitor_forces(hmc, u, key.fold(-2 * traj - 2))
+                for fs in stats:
+                    msg = (f"# force {fs.name} ts={fs.timescale} |F|^2={fs.norm_sq:.6e} "
+                           f"max={fs.max_abs:.6e} rms={fs.rms:.6e}")
+                    print(msg, flush=True)
+                    out.write(msg + "\n")
+                udef = float(su3.unitarity_defect(u))
+                print(f"# unitarity defect max|U^+U - 1| = {udef:.3e}", flush=True)
+                out.write(f"# unitarity_defect {udef:.6e}\n")
+            with torch.no_grad():
+                run_measurements(cfg, u, lat, traj, run_dir, key)
+            if cfg.reversibility_check and (traj + 1) % cfg.reversibility_interval == 0:
+                with torch.no_grad():
+                    ddh, du = reversibility_check(hmc, u, key.fold(-traj - 1))
+                print(f"[traj {traj}] reversibility: |ddH|={ddh:.3e} max|dU|={du:.3e}",
+                      flush=True)
             last = traj == start_traj + cfg.measurements - 1
             if (traj + 1) % cfg.nsave == 0 or last or stopper.stop:
                 path = save_checkpoint(run_dir, u, traj + 1, cfg.seed, lat,
                                        fmt=cfg.checkpoint_format, plaquette=st.plaquette,
-                                       beta=cfg.beta)
+                                       beta=cfg.beta, precision=cfg.gauge_write_precision)
                 if cfg.debug_level >= 1:
                     print(f"[traj {traj}] checkpoint -> {path}", flush=True)
             if stopper.stop:

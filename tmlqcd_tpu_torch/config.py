@@ -3,11 +3,12 @@
 Port of `tmlqcd_tpu/config.py`.  The dataclasses carry the reference's full
 input schema, so every tmLQCD input the reference accepts parses here too.
 `build_hmc` lowers the ported subset — the GAUGE, DET and DETRATIO
-monomials on one device — and raises `NotImplementedError`, naming the
-feature, for everything else: other monomial types, measurement blocks,
-NrTProcs/NrXProcs/NrYProcs/NrZProcs > 1, ReversibilityCheck, the
-DebugLevel >= 2 force monitor and ILDG checkpoints.  Nothing is skipped
-silently.
+monomials on one device, with the ONLINE and PIONNORM measurements, the
+force monitor, ReversibilityCheck and native or ILDG checkpoints — and
+raises `NotImplementedError`, naming the feature, for everything else: other
+monomial and measurement types and NrTProcs/NrXProcs/NrYProcs/NrZProcs > 1.
+`check_invert_ported` does the same for the inverter's operators, solvers
+and smearing options.  Nothing is skipped silently.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from tmlqcd_tpu_torch.hmc import (
     IntegratorConfig,
     Level,
 )
+from tmlqcd_tpu_torch.inverter import check_solver
 from tmlqcd_tpu_torch.lattice import Lattice
+from tmlqcd_tpu_torch.meas.runner import PORTED as PORTED_MEASUREMENTS
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
 __all__ = [
@@ -35,8 +38,10 @@ __all__ = [
     "build_monomial",
     "build_hmc",
     "check_ported",
+    "check_invert_ported",
 ]
 
+PORTED_OPERATORS = ("TMWILSON", "WILSON")
 GAUGE_ACTIONS = {"wilson": 0.0, "tlsym": -1.0 / 12.0, "iwasaki": -0.331, "dbw2": -1.4088}
 
 
@@ -200,22 +205,40 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
     raise _not_ported(f"monomial type {spec.type!r}")
 
 
-def check_ported(cfg: RunConfig) -> None:
-    """Raise for every run feature this slice of the port does not carry."""
-    if cfg.meas:
-        raise _not_ported("measurement block(s) " + ", ".join(m.type for m in cfg.meas))
+def _check_one_device(cfg: RunConfig) -> None:
     names = ("NrTProcs", "NrXProcs", "NrYProcs", "NrZProcs")
     for name, n in zip(names, cfg.nr_procs):
         if n > 1:
             raise _not_ported(f"domain decomposition ({name} = {n})")
-    if cfg.reversibility_check:
-        raise _not_ported("ReversibilityCheck")
-    if cfg.debug_level >= 2:
-        raise _not_ported("the DebugLevel >= 2 force monitor")
-    if cfg.checkpoint_format != "native":
-        raise _not_ported(f"checkpoint format {cfg.checkpoint_format!r}")
+
+
+def check_ported(cfg: RunConfig) -> None:
+    """Raise for every run feature this slice of the port does not carry."""
+    for m in cfg.meas:
+        if m.type.upper() not in PORTED_MEASUREMENTS:
+            raise _not_ported(f"measurement type {m.type!r}")
+    _check_one_device(cfg)
+    if cfg.checkpoint_format not in ("native", "ildg"):
+        raise ValueError(f"unknown checkpoint format {cfg.checkpoint_format!r}")
     if cfg.gauge_action.lower() not in GAUGE_ACTIONS:
         raise ValueError(f"unknown gauge action {cfg.gauge_action!r}")
+
+
+def check_invert_ported(cfg: RunConfig) -> None:
+    """Raise for every inverter feature this slice of the port does not
+    carry: operators other than TMWILSON / WILSON, solvers other than cg /
+    fastcg, stout and source smearing, domain decomposition."""
+    _check_one_device(cfg)
+    if cfg.use_stout_smearing and cfg.stout_iterations > 0:
+        raise _not_ported("UseStoutSmearing")
+    if cfg.use_source_smearing:
+        raise _not_ported("UseSourceSmearing")
+    for op in cfg.operators:
+        if op.type.upper() not in PORTED_OPERATORS:
+            raise _not_ported(f"operator type {op.type!r}")
+        if op.csw != 0.0:
+            raise _not_ported(f"operator {op.type!r} with CSW = {op.csw}")
+        check_solver(op.solver)
 
 
 def build_hmc(cfg: RunConfig) -> HMCConfig:

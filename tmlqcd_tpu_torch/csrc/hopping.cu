@@ -1,14 +1,17 @@
-// Even/odd Wilson hopping (K1) and its gauge-cotangent kernel (K2) for
-// NVIDIA Hopper (sm_90a), bound to Python through a plain C interface.
+// Even/odd Wilson hopping (K1), its multi-right-hand-side form (K1-R) and the
+// gauge-cotangent kernel (K2) for NVIDIA Hopper (sm_90a), bound to Python
+// through a plain C interface.
 //
 // K1 replaces the Pallas kernel `_dslash_kernel` (+ `_stencil_accum`,
-// `_apply_epilogue`) of tmlqcd_tpu/ops/dslash_pallas.py; K2 replaces
-// `_ug_vjp_kernel` of the same file.  Both read the reference's split
-// structure-of-arrays layout unchanged:
+// `_apply_epilogue`) of tmlqcd_tpu/ops/dslash_pallas.py; K1-R replaces
+// `_dslash_kernel_r` / `_dslash_kernel_tb_r`; K2 replaces `_ug_vjp_kernel` of
+// the same file.  All read the reference's split structure-of-arrays layout
+// unchanged:
 //
 //   psi  [2 re/im][4 spin][3 colour][V]          V = T * X * M sites of one parity
-//   ug   [2 re/im][8 dir][R rows][3 col][V]      R = 3 (18 reals) or 2 (12 reals)
-//   out  like psi (K1) or [2][8][3][3][V] (K2)
+//   psi  [2 re/im][4 spin][3 colour][R][V]       K1-R: R right-hand sides
+//   ug   [2 re/im][8 dir][rows][3 col][V]        rows = 3 (18 reals) or 2 (12 reals)
+//   out  like psi (K1, K1-R) or [2][8][3][3][V] (K2)
 //
 // with direction d = 2 mu + fb (fb = 0 forward, 1 backward), the boundary
 // phases already folded into the gauge copy.
@@ -29,6 +32,22 @@
 // the only lever is bytes.  This first version relies on L1/L2 for
 // neighbour reuse; shared-memory tiling and several sites per thread are
 // later work.
+//
+// K1-R: one thread per (site, right-hand side); threadIdx.x runs along the
+// sites (one 128-byte line per component load of a warp, as in K1) and
+// threadIdx.y along the right-hand sides.  The rows of a block first share
+// out the 8 directions and stage the links of the block's 32 sites in
+// shared memory (18 KB, row 2 of the 12-real copy rebuilt once), so the
+// gauge is read once per block; left to L1, the link lines were evicted by
+// the spinor stream between the rows and came from L2 for each of them.
+// Then each thread runs K1's per-site arithmetic (the same device
+// functions) on its column, which keeps the register count at K1's.
+// Bound: memory, G + R * (192 [+ 96 for mhat]) bytes per site with G = 576
+// or 384.  On large lattices the blocks walk a few timeslices innermost
+// (rhs_t_inner), which keeps the t-neighbours of the whole batch in L2.
+// The field is addressed through three element strides (re/im, component,
+// right-hand side), so another position of the R axis is a change of the
+// wrapper only.
 
 #include <cuda_runtime.h>
 
@@ -85,6 +104,13 @@ struct Geo {
   int T, X, M, zh, p;
 };
 
+// element strides of a spinor field: re -> im, and component (s, c) ->
+// the next.  K1: {12 V, V}; K1-R with the R axis before the sites:
+// {12 R V, R V}.
+struct Strides {
+  long long im, comp;
+};
+
 // flat neighbour site of direction d for the parity-p site (t, x, m)
 __device__ __forceinline__ void neighbours(const Geo& g, int site, int nb[8]) {
   const int m = site % g.M;
@@ -108,32 +134,13 @@ __device__ __forceinline__ void neighbours(const Geo& g, int site, int nb[8]) {
   nb[7] = tx * g.M + mzb;
 }
 
+// the 3 x 3 link of direction D at `site` into (gr, gi); the 12-real copy
+// stores rows 0 and 1 and row 2 is rebuilt
 template <int D, bool COMP>
-__device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
-                                          const float* __restrict__ ug, long long V,
-                                          int nsite, int site, const Corr& corr,
-                                          float (&ar)[4][3], float (&ai)[4][3]) {
-  float nr[4][3], ni[4][3];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      nr[s][c] = __ldg(psi + (s * 3 + c) * V + nsite);
-      ni[s][c] = __ldg(psi + (12 + s * 3 + c) * V + nsite);
-    }
-  // h[a][c] = sum_s conj(W[s][a]) nbr[s][c]
-  float hr[2][3], hi[2][3];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      hr[a][c] = nr[a][c];
-      hi[a][c] = ni[a][c];
-#pragma unroll
-      for (int s = 2; s < 4; ++s) cadd(wconj(wcode(D, s, a)), nr[s][c], ni[s][c], hr[a][c], hi[a][c]);
-    }
+__device__ __forceinline__ void load_link(const float* __restrict__ ug, long long V, int site,
+                                          const Corr& corr, float (&gr)[3][3],
+                                          float (&gi)[3][3]) {
   constexpr int R = COMP ? 2 : 3;
-  float gr[3][3], gi[3][3];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -155,6 +162,33 @@ __device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
       gi[2][j] = ci * tr - cr * ti;
     }
   }
+}
+
+// acc += W_D U (W_D^+ psi(nsite)) for the link (gr, gi) of direction D
+template <int D>
+__device__ __forceinline__ void hop_dir(const float* __restrict__ psi, const Strides& st,
+                                        int nsite, const float (&gr)[3][3],
+                                        const float (&gi)[3][3], float (&ar)[4][3],
+                                        float (&ai)[4][3]) {
+  float nr[4][3], ni[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      nr[s][c] = __ldg(psi + (s * 3 + c) * st.comp + nsite);
+      ni[s][c] = __ldg(psi + st.im + (s * 3 + c) * st.comp + nsite);
+    }
+  // h[a][c] = sum_s conj(W[s][a]) nbr[s][c]
+  float hr[2][3], hi[2][3];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      hr[a][c] = nr[a][c];
+      hi[a][c] = ni[a][c];
+#pragma unroll
+      for (int s = 2; s < 4; ++s) cadd(wconj(wcode(D, s, a)), nr[s][c], ni[s][c], hr[a][c], hi[a][c]);
+    }
   // uh[a][i] = sum_j U[i][j] h[a][j]
   float ur[2][3], ui[2][3];
 #pragma unroll
@@ -182,39 +216,55 @@ __device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
   }
 }
 
-// EPI: 0 none (out = H psi), 1 mee_inv (out = Mee^-1 H psi),
-//      2 mhat (out = [g5] (Mee psi_o - k2 H psi))
-template <int EPI, bool G5, bool COMP>
-__global__ void __launch_bounds__(128)
-hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
-               const float* __restrict__ psi_o, float* __restrict__ out, Geo geo,
-               float mt, float inv, float k2, Corr corr) {
-  const long long V = (long long)geo.T * geo.X * geo.M;
-  const int site = blockIdx.x * blockDim.x + threadIdx.x;
-  if (site >= V) return;
+template <int D, bool COMP>
+__device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
+                                          const float* __restrict__ ug, long long V,
+                                          const Strides& st, int nsite, int site,
+                                          const Corr& corr,
+                                          float (&ar)[4][3], float (&ai)[4][3]) {
+  float gr[3][3], gi[3][3];
+  load_link<D, COMP>(ug, V, site, corr, gr, gi);
+  hop_dir<D>(psi, st, nsite, gr, gi, ar, ai);
+}
+
+// all 8 directions of one site of one field into (ar, ai)
+template <bool COMP>
+__device__ __forceinline__ void accum_site(const float* __restrict__ psi,
+                                           const float* __restrict__ ug, const Geo& geo,
+                                           long long V, const Strides& st, int site,
+                                           const Corr& corr, float (&ar)[4][3],
+                                           float (&ai)[4][3]) {
   int nb[8];
   neighbours(geo, site, nb);
-  float ar[4][3], ai[4][3];
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) { ar[s][c] = 0.f; ai[s][c] = 0.f; }
-  accum_dir<0, COMP>(psi, ug, V, nb[0], site, corr, ar, ai);
-  accum_dir<1, COMP>(psi, ug, V, nb[1], site, corr, ar, ai);
-  accum_dir<2, COMP>(psi, ug, V, nb[2], site, corr, ar, ai);
-  accum_dir<3, COMP>(psi, ug, V, nb[3], site, corr, ar, ai);
-  accum_dir<4, COMP>(psi, ug, V, nb[4], site, corr, ar, ai);
-  accum_dir<5, COMP>(psi, ug, V, nb[5], site, corr, ar, ai);
-  accum_dir<6, COMP>(psi, ug, V, nb[6], site, corr, ar, ai);
-  accum_dir<7, COMP>(psi, ug, V, nb[7], site, corr, ar, ai);
+  accum_dir<0, COMP>(psi, ug, V, st, nb[0], site, corr, ar, ai);
+  accum_dir<1, COMP>(psi, ug, V, st, nb[1], site, corr, ar, ai);
+  accum_dir<2, COMP>(psi, ug, V, st, nb[2], site, corr, ar, ai);
+  accum_dir<3, COMP>(psi, ug, V, st, nb[3], site, corr, ar, ai);
+  accum_dir<4, COMP>(psi, ug, V, st, nb[4], site, corr, ar, ai);
+  accum_dir<5, COMP>(psi, ug, V, st, nb[5], site, corr, ar, ai);
+  accum_dir<6, COMP>(psi, ug, V, st, nb[6], site, corr, ar, ai);
+  accum_dir<7, COMP>(psi, ug, V, st, nb[7], site, corr, ar, ai);
+}
+
+// EPI: 0 none (out = H psi), 1 mee_inv (out = Mee^-1 H psi),
+//      2 mhat (out = [g5] (Mee psi_o - k2 H psi))
+template <int EPI, bool G5>
+__device__ __forceinline__ void store_epilogue(const float (&ar)[4][3], const float (&ai)[4][3],
+                                               const float* __restrict__ psi_o,
+                                               float* __restrict__ out, const Strides& st,
+                                               int site, float mt, float inv, float k2) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const float gs = s < 2 ? 1.f : -1.f;  // gamma5 = diag(+,+,-,-)
     const float gmt = mt * gs;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const long long ore = (s * 3 + c) * V + site;
-      const long long oim = (12 + s * 3 + c) * V + site;
+      const long long ore = (s * 3 + c) * st.comp + site;
+      const long long oim = st.im + ore;
       const float xr = ar[s][c], xi = ai[s][c];
       if (EPI == 0) {
         out[ore] = xr;
@@ -234,6 +284,137 @@ hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
       }
     }
   }
+}
+
+template <int EPI, bool G5, bool COMP>
+__global__ void __launch_bounds__(128)
+hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
+               const float* __restrict__ psi_o, float* __restrict__ out, Geo geo,
+               float mt, float inv, float k2, Corr corr) {
+  const long long V = (long long)geo.T * geo.X * geo.M;
+  const int site = blockIdx.x * blockDim.x + threadIdx.x;
+  if (site >= V) return;
+  const Strides st{12 * V, V};
+  float ar[4][3], ai[4][3];
+  accum_site<COMP>(psi, ug, geo, V, st, site, corr, ar, ai);
+  store_epilogue<EPI, G5>(ar, ai, psi_o, out, st, site, mt, inv, k2);
+}
+
+// K1-R: block (kRhsSites sites, up to kRhsCols right-hand sides); the
+// thread of (site, r) runs K1's arithmetic on column r, whose fields start
+// r * rstride elements into psi, psi_o and out.
+constexpr int kRhsSites = 32;
+constexpr int kRhsCols = 12;
+constexpr int kRhsTin = 8;
+
+constexpr long long kRhsSlabBytes = 4ll << 20;
+
+// Timeslices that consecutive blocks of K1-R walk innermost.  In memory
+// order a site's t-neighbours are one timeslice of the whole batch away,
+// R * X * M * 96 bytes; once that outgrows a few MB the t-hops start to
+// miss L2, and walking kRhsTin timeslices innermost keeps all but one in
+// kRhsTin of them one block apart.  Measured on an H100 with chip_smoke.py
+// (R = 12, 12-real, mhat, links not yet staged): 32^3 x 64, 19 MB per
+// timeslice, 2445 us in memory order and 2212 us in this order; 16^3 x 32,
+// 2.4 MB per timeslice, lies below kRhsSlabBytes and keeps memory order.
+// Needs whole m-tiles and whole t-chunks; 1 is memory order.
+inline int rhs_t_inner(const Geo& g, int R) {
+  const bool tiles = g.M % kRhsSites == 0 && g.T % kRhsTin == 0;
+  return (tiles && (long long)R * g.X * g.M * 96 >= kRhsSlabBytes) ? kRhsTin : 1;
+}
+
+// the link of direction D of the block's site `lane` into shared memory,
+// sl[D][re 3x3 | im 3x3][lane]
+template <int D, bool COMP>
+__device__ __forceinline__ void stage_link(const float* __restrict__ ug, long long V, int site,
+                                           const Corr& corr, float* __restrict__ sl, int lane) {
+  float gr[3][3], gi[3][3];
+  load_link<D, COMP>(ug, V, site, corr, gr, gi);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      sl[(D * 18 + i * 3 + j) * kRhsSites + lane] = gr[i][j];
+      sl[(D * 18 + 9 + i * 3 + j) * kRhsSites + lane] = gi[i][j];
+    }
+}
+
+// hop_dir on the staged link of direction D
+template <int D>
+__device__ __forceinline__ void hop_staged(const float* __restrict__ psi, const Strides& st,
+                                           int nsite, const float* __restrict__ sl, int lane,
+                                           float (&ar)[4][3], float (&ai)[4][3]) {
+  float gr[3][3], gi[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      gr[i][j] = sl[(D * 18 + i * 3 + j) * kRhsSites + lane];
+      gi[i][j] = sl[(D * 18 + 9 + i * 3 + j) * kRhsSites + lane];
+    }
+  hop_dir<D>(psi, st, nsite, gr, gi, ar, ai);
+}
+
+template <int EPI, bool G5, bool COMP>
+__global__ void __launch_bounds__(kRhsSites * kRhsCols)
+hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
+                   const float* __restrict__ psi_o, float* __restrict__ out, Geo geo, int R,
+                   Strides st, long long rstride, int tin, float mt, float inv, float k2,
+                   Corr corr) {
+  __shared__ float sl[8 * 18 * kRhsSites];
+  const long long V = (long long)geo.T * geo.X * geo.M;
+  int site = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tin > 1) {
+    // blocks walk tin timeslices innermost, then the m-tiles, x and the
+    // t-chunks (see rhs_t_inner)
+    const int mtiles = geo.M / kRhsSites;
+    int b = blockIdx.x;
+    const int t_in = b % tin;
+    b /= tin;
+    const int mtile = b % mtiles;
+    b /= mtiles;
+    const int x = b % geo.X;
+    const int t = (b / geo.X) * tin + t_in;
+    site = (t * geo.X + x) * geo.M + mtile * kRhsSites + threadIdx.x;
+  }
+  const int lane = threadIdx.x;
+  // the rows of the block share out the 8 directions: each link of the
+  // block's sites is read (and its row 2 rebuilt) once for all columns
+  if (site < V)
+    for (int d = threadIdx.y; d < 8; d += blockDim.y) {
+      switch (d) {
+        case 0: stage_link<0, COMP>(ug, V, site, corr, sl, lane); break;
+        case 1: stage_link<1, COMP>(ug, V, site, corr, sl, lane); break;
+        case 2: stage_link<2, COMP>(ug, V, site, corr, sl, lane); break;
+        case 3: stage_link<3, COMP>(ug, V, site, corr, sl, lane); break;
+        case 4: stage_link<4, COMP>(ug, V, site, corr, sl, lane); break;
+        case 5: stage_link<5, COMP>(ug, V, site, corr, sl, lane); break;
+        case 6: stage_link<6, COMP>(ug, V, site, corr, sl, lane); break;
+        default: stage_link<7, COMP>(ug, V, site, corr, sl, lane); break;
+      }
+    }
+  __syncthreads();
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (site >= V || r >= R) return;
+  const long long off = r * rstride;
+  const float* psi_r = psi + off;
+  int nb[8];
+  neighbours(geo, site, nb);
+  float ar[4][3], ai[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) { ar[s][c] = 0.f; ai[s][c] = 0.f; }
+  hop_staged<0>(psi_r, st, nb[0], sl, lane, ar, ai);
+  hop_staged<1>(psi_r, st, nb[1], sl, lane, ar, ai);
+  hop_staged<2>(psi_r, st, nb[2], sl, lane, ar, ai);
+  hop_staged<3>(psi_r, st, nb[3], sl, lane, ar, ai);
+  hop_staged<4>(psi_r, st, nb[4], sl, lane, ar, ai);
+  hop_staged<5>(psi_r, st, nb[5], sl, lane, ar, ai);
+  hop_staged<6>(psi_r, st, nb[6], sl, lane, ar, ai);
+  hop_staged<7>(psi_r, st, nb[7], sl, lane, ar, ai);
+  store_epilogue<EPI, G5>(ar, ai, EPI == 2 ? psi_o + off : psi_o, out + off, st, site, mt, inv,
+                          k2);
 }
 
 template <int D>
@@ -309,23 +490,63 @@ ug_vjp_kernel(const float* __restrict__ g, const float* __restrict__ psi,
 
 constexpr int kBlock = 128;
 
+// one launch of K1 (R == 0) or K1-R (R > 0)
+struct Args {
+  const float* psi;
+  const float* ug;
+  const float* psi_o;
+  float* out;
+  Geo geo;
+  float mt, inv, k2;
+  Corr corr;
+  int R;
+  Strides st;
+  long long rstride;
+  cudaStream_t stream;
+};
+
 template <int EPI, bool G5, bool COMP>
-void launch(const float* psi, const float* ug, const float* psi_o, float* out, Geo geo,
-            float mt, float inv, float k2, const Corr& corr, cudaStream_t st) {
-  const long long V = (long long)geo.T * geo.X * geo.M;
-  const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);
-  hopping_kernel<EPI, G5, COMP><<<blocks, kBlock, 0, st>>>(psi, ug, psi_o, out, geo, mt, inv,
-                                                           k2, corr);
+void launch(const Args& a) {
+  const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
+  if (a.R == 0) {
+    const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);
+    hopping_kernel<EPI, G5, COMP><<<blocks, kBlock, 0, a.stream>>>(
+        a.psi, a.ug, a.psi_o, a.out, a.geo, a.mt, a.inv, a.k2, a.corr);
+  } else {
+    const int cols = a.R < kRhsCols ? a.R : kRhsCols;
+    const dim3 block(kRhsSites, cols);
+    const dim3 grid((unsigned)((V + kRhsSites - 1) / kRhsSites),
+                    (unsigned)((a.R + cols - 1) / cols));
+    const int tin = rhs_t_inner(a.geo, a.R);
+    hopping_rhs_kernel<EPI, G5, COMP><<<grid, block, 0, a.stream>>>(
+        a.psi, a.ug, a.psi_o, a.out, a.geo, a.R, a.st, a.rstride, tin, a.mt, a.inv,
+        a.k2, a.corr);
+  }
 }
 
 template <bool COMP>
-void dispatch_epi(int epi, int g5, const float* psi, const float* ug, const float* psi_o,
-                  float* out, Geo geo, float mt, float inv, float k2, const Corr& corr,
-                  cudaStream_t st) {
-  if (epi == 0) launch<0, false, COMP>(psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
-  else if (epi == 1) launch<1, false, COMP>(psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
-  else if (g5) launch<2, true, COMP>(psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
-  else launch<2, false, COMP>(psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
+void dispatch_epi(int epi, int g5, const Args& a) {
+  if (epi == 0) launch<0, false, COMP>(a);
+  else if (epi == 1) launch<1, false, COMP>(a);
+  else if (g5) launch<2, true, COMP>(a);
+  else launch<2, false, COMP>(a);
+}
+
+bool bad_geometry(int T, int X, int M, int zh, int p) {
+  return T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1);
+}
+
+// validates the shared arguments, fills corr and launches; R == 0 is K1
+int run_hopping(Args a, int epi, int g5, int comp, const float* corr16) {
+  if (epi < 0 || epi > 2 || (epi == 2 && a.psi_o == nullptr) || (comp && corr16 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int d = 0; d < 8; ++d) {
+    a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
+    a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  }
+  if (comp) dispatch_epi<true>(epi, g5, a);
+  else dispatch_epi<false>(epi, g5, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -338,26 +559,32 @@ extern "C" {
 int tm_hopping(const float* psi, const float* ug, const float* psi_o, float* out, int T, int X,
                int M, int zh, int p, int epi, int g5, int comp, float mt, float inv,
                float k2, const float* corr16, void* stream) {
-  if (T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1) ||
-      epi < 0 || epi > 2 || (epi == 2 && psi_o == nullptr) || (comp && corr16 == nullptr))
+  if (bad_geometry(T, X, M, zh, p)) return (int)cudaErrorInvalidValue;
+  const long long V = (long long)T * X * M;
+  const Args a{psi, ug, psi_o, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, 0,
+               Strides{12 * V, V}, 0, (cudaStream_t)stream};
+  return run_hopping(a, epi, g5, comp, corr16);
+}
+
+// K1-R: R right-hand sides on one read of the gauge.  psi, psi_o and out
+// are addressed as base + r * r_stride + im_stride * (0|1) + (3 s + c) *
+// comp_stride + site (element strides); the other arguments are K1's.
+int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, float* out, int T,
+                   int X, int M, int zh, int p, int epi, int g5, int comp, float mt, float inv,
+                   float k2, const float* corr16, int R, long long im_stride,
+                   long long comp_stride, long long r_stride, void* stream) {
+  if (bad_geometry(T, X, M, zh, p) || R <= 0 || im_stride <= 0 || comp_stride <= 0 ||
+      r_stride <= 0)
     return (int)cudaErrorInvalidValue;
-  Corr corr;
-  for (int d = 0; d < 8; ++d) {
-    corr.re[d] = comp ? corr16[2 * d] : 1.f;
-    corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
-  }
-  const Geo geo{T, X, M, zh, p};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (comp) dispatch_epi<true>(epi, g5, psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
-  else dispatch_epi<false>(epi, g5, psi, ug, psi_o, out, geo, mt, inv, k2, corr, st);
-  return (int)cudaGetLastError();
+  const Args a{psi, ug, psi_o, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
+               Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream};
+  return run_hopping(a, epi, g5, comp, corr16);
 }
 
 // K2.  Returns cudaGetLastError() after the launch.
 int tm_hopping_ug_vjp(const float* g, const float* psi, float* out, int T, int X, int M, int zh,
                       int p, void* stream) {
-  if (T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1))
-    return (int)cudaErrorInvalidValue;
+  if (bad_geometry(T, X, M, zh, p)) return (int)cudaErrorInvalidValue;
   const Geo geo{T, X, M, zh, p};
   const long long V = (long long)T * X * M;
   const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);

@@ -12,4 +12,5 @@ from tmlqcd_tpu_torch.hmc.trajectory import (  # noqa: F401
     TrajectoryStats,
     chrono_states,
     hmc_trajectory,
+    reversibility_check,
 )

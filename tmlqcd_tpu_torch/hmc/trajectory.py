@@ -1,12 +1,11 @@
 """One HMC trajectory: momentum heatbath, pseudofermion heatbaths, MD
 integration, Metropolis accept/reject.
 
-Port of `tmlqcd_tpu/hmc/trajectory.py` (`reversibility_check` is not ported
-yet).  The Metropolis select, and the chrono reset on reject, are a plain
-`if`.  Random draws come from `rng.Key` purposes (0: momenta, 1: heatbaths,
-folded with 1000 + monomial index, 2: the Metropolis uniform); `draws=`
-injects them instead, which is how the parity tests feed the reference's
-draws to the port.
+Port of `tmlqcd_tpu/hmc/trajectory.py`.  The Metropolis select, and the
+chrono reset on reject, are a plain `if`.  Random draws come from `rng.Key`
+purposes (0: momenta, 1: heatbaths, folded with 1000 + monomial index, 2:
+the Metropolis uniform); `draws=` injects them instead, which is how the
+parity tests feed the reference's draws to the port.
 """
 
 from __future__ import annotations
@@ -20,7 +19,8 @@ from tmlqcd_tpu_torch import rng, su3
 from tmlqcd_tpu_torch.hmc.integrators import IntegratorConfig, integrate
 from tmlqcd_tpu_torch.ops.gauge_action import plaquette
 
-__all__ = ["HMCConfig", "Draws", "TrajectoryStats", "hmc_trajectory", "chrono_states"]
+__all__ = ["HMCConfig", "Draws", "TrajectoryStats", "hmc_trajectory", "chrono_states",
+           "reversibility_check"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +110,30 @@ def hmc_trajectory(cfg: HMCConfig, u: torch.Tensor, key: rng.Key, chrono=None,
     if chrono is not None:
         return u_out, stats, (ch if accept else chrono_states(cfg, device))
     return u_out, stats
+
+
+def reversibility_check(cfg: HMCConfig, u: torch.Tensor, key: rng.Key,
+                        draws: Draws | None = None):
+    """Integrate forward, flip the momenta, integrate back; returns |ddH| and
+    the largest deviation of the gauge field from its start (the
+    ReversibilityCheck input key).  Draws as in `hmc_trajectory` (purposes 0
+    and 1; the uniform is not used)."""
+    device = u.device
+    k_mom, k_pf = key.fold(0), key.fold(1)
+    p = draws.momenta if draws is not None else rng.random_momenta(k_mom, u.shape[2:], device)
+    aux_list = []
+    s_old = torch.zeros((), dtype=torch.float64, device=device)
+    for i, m in enumerate(cfg.monomials):
+        aux, s0 = m.heatbath(u, k_pf.fold(1000 + i), draws.etas[i] if draws is not None else None)
+        aux_list.append(aux)
+        s_old = s_old + s0
+    h_old = su3.kinetic_energy(p) + s_old
+
+    u1, p1 = integrate(cfg.integrator, cfg.monomials, aux_list, u, p)
+    u2, p2 = integrate(cfg.integrator, cfg.monomials, aux_list, u1, -p1)
+
+    s_back = torch.zeros((), dtype=torch.float64, device=device)
+    for i, m in enumerate(cfg.monomials):
+        s_back = s_back + m.action_info(u2, aux_list[i])[0]
+    h_back = su3.kinetic_energy(p2) + s_back
+    return float(torch.abs(h_back - h_old)), float(torch.max(torch.abs(u2 - u)))

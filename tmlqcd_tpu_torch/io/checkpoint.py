@@ -1,12 +1,12 @@
-"""Checkpoint / resume in the native `conf.NNNNNN.npz` format.
+"""Checkpoint / resume: `conf.NNNNNN.npz` (native) or `conf.NNNNNN.lime`
+(ILDG).
 
-Port of the native half of `tmlqcd_tpu/io/checkpoint.py`: the same npz keys
-(`gauge` complex [3,3,4,T,X,Y*Z], `trajectory`, `seed`, `dims`, `meta`), the
-same `nstore_counter` file ("<trajectory> <name> <seed>"), tmp+rename
-atomic writes and pruning to the newest `keep` configurations — so a file
-written by either package reads in the other.  The RNG state is (seed,
-trajectory counter), as in the reference.  ILDG/LIME is not ported yet and
-raises.
+Port of `tmlqcd_tpu/io/checkpoint.py`: the same npz keys (`gauge` complex
+[3,3,4,T,X,Y*Z], `trajectory`, `seed`, `dims`, `meta`), the same ILDG records
+(`io/ildg.py`), the same `nstore_counter` file ("<trajectory> <name> <seed>"),
+tmp+rename atomic writes and pruning to the newest `keep` configurations —
+so a file written by either package reads in the other.  The RNG state is
+(seed, trajectory counter), as in the reference.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ import json
 import os
 
 import numpy as np
-import torch
 
+from tmlqcd_tpu_torch.io import ildg
 from tmlqcd_tpu_torch.lattice import Lattice
+from tmlqcd_tpu_torch.utils import to_host
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint", "checkpoint_at",
            "CheckpointInfo"]
@@ -25,26 +26,27 @@ __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint", "checkpoin
 _COUNTER_FILE = "nstore_counter"
 
 
-def _ildg():
-    return NotImplementedError("ILDG/LIME checkpoints are not yet ported to tmlqcd_tpu_torch")
-
-
 def save_checkpoint(run_dir: str, u, trajectory: int, seed: int, lat: Lattice,
-                    fmt: str = "native", keep: int = 2, **meta) -> str:
-    """Write conf.{trajectory:06d}.npz + nstore_counter atomically and prune
-    to the newest `keep` configurations."""
-    if fmt != "native":
-        raise _ildg() if fmt == "ildg" else ValueError(f"unknown checkpoint format {fmt!r}")
+                    fmt: str = "native", keep: int = 2, precision: int = 64, **meta) -> str:
+    """Write conf.{trajectory:06d}(.npz|.lime) + nstore_counter atomically and
+    prune to the newest `keep` configurations."""
+    if fmt not in ("native", "ildg"):
+        raise ValueError(f"unknown checkpoint format {fmt!r}")
     os.makedirs(run_dir, exist_ok=True)
-    arr = u.detach().cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
-    name = f"conf.{trajectory:06d}.npz"
-    tmp = os.path.join(run_dir, name + ".tmp")
-    with open(tmp, "wb") as f:
-        np.savez(f, gauge=arr, trajectory=np.int64(trajectory), seed=np.int64(seed),
-                 dims=np.asarray(lat.dims, np.int64), meta=json.dumps(meta))
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, os.path.join(run_dir, name))
+    arr = to_host(u)
+    if fmt == "native":
+        name = f"conf.{trajectory:06d}.npz"
+        tmp = os.path.join(run_dir, name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, gauge=arr, trajectory=np.int64(trajectory), seed=np.int64(seed),
+                     dims=np.asarray(lat.dims, np.int64), meta=json.dumps(meta))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(run_dir, name))
+    else:
+        name = f"conf.{trajectory:06d}.lime"
+        ildg.write_gauge_field(os.path.join(run_dir, name), arr, lat, trajectory=trajectory,
+                               precision=precision, **meta)
 
     tmp = os.path.join(run_dir, _COUNTER_FILE + ".tmp")
     with open(tmp, "w") as f:
@@ -98,12 +100,13 @@ def checkpoint_at(run_dir: str, trajectory: int) -> CheckpointInfo | None:
 
 
 def load_checkpoint(path: str, expect_lat: Lattice | None = None):
-    """Load a native checkpoint -> (gauge numpy, trajectory, seed)."""
-    if not path.endswith(".npz"):
-        raise _ildg()
-    with np.load(path, allow_pickle=False) as z:
-        u = z["gauge"]
-        dims = tuple(int(d) for d in z["dims"])
-        if expect_lat is not None and dims != expect_lat.dims:
-            raise ValueError(f"{path}: lattice {dims} != {expect_lat.dims}")
-        return u, int(z["trajectory"]), int(z["seed"])
+    """Load a native or ILDG checkpoint -> (gauge numpy, trajectory, seed)."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            u = z["gauge"]
+            dims = tuple(int(d) for d in z["dims"])
+            if expect_lat is not None and dims != expect_lat.dims:
+                raise ValueError(f"{path}: lattice {dims} != {expect_lat.dims}")
+            return u, int(z["trajectory"]), int(z["seed"])
+    u, hdr = ildg.read_gauge_field(path, expect_lat)
+    return u, int(hdr.trajectory or 0), 0

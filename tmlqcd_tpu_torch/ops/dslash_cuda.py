@@ -1,6 +1,6 @@
-"""The even/odd hopping kernel (K1) and its gauge-cotangent kernel (K2) on
-Hopper, each beside its plain PyTorch version, plus the differentiable
-hopping built from both.
+"""The even/odd hopping kernel (K1), its multi-right-hand-side form (K1-R)
+and the gauge-cotangent kernel (K2) on Hopper, each beside its plain PyTorch
+version, plus the differentiable hopping built from K1 and K2.
 
 Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
 
@@ -14,6 +14,13 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   or 12-real gauge copy.  Bound by memory: 1320 flops/site against
   576 B (18-real) or 384 B (12-real) of gauge, 96 B per spinor read or
   written; `mhat` reads one spinor more.
+* `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
+  batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
+  `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
+  right-hand sides [2,4,3,R,T,X,M] with the gauge read once for all of them.
+  The batch axis is an explicit argument (`r_axis`), never inferred from a
+  shape.  Bound by memory: G + R * (192 [+ 96 for mhat]) bytes per site,
+  G = 576 or 384.
 * `hopping_ug_vjp` (K2) replaces `hopping_ug_vjp` and `_ug_vjp_kernel`
   (dslash_pallas.py:1489, built by `_build_ug_vjp` :1541): the cotangent of
   Re<g, H psi> with respect to ug[p].  Bound by memory: 96 B of g and 96 B of
@@ -23,8 +30,8 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
 Routing: the device of the tensors decides.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor takes the plain version.  There is no
 fallback between the two.  Each wrapper counts its kernel launches in a
-plain int attribute (`hopping_split.launches`, `hopping_ug_vjp.launches`);
-each plain version counts its calls (`.calls`).
+plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
+`hopping_ug_vjp.launches`); each plain version counts its calls (`.calls`).
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/` with
 nvcc into a shared library with a plain C interface, loaded with ctypes;
@@ -63,6 +70,8 @@ __all__ = [
     "compress_ug",
     "hopping_split",
     "hopping_split_plain",
+    "hopping_split_rhs",
+    "hopping_split_rhs_plain",
     "hopping_ug_vjp",
     "hopping_ug_vjp_plain",
     "HoppingDiff",
@@ -126,9 +135,12 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
                 print(res.stderr, flush=True)
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.tm_hopping.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp, vp]
         lib.tm_hopping.restype = i
+        lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp,
+                                       i, ll, ll, ll, vp]
+        lib.tm_hopping_rhs.restype = i
         lib.tm_hopping_ug_vjp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         lib.tm_hopping_ug_vjp.restype = i
         _lib_handle = lib
@@ -207,18 +219,21 @@ def _row2(ug: torch.Tensor, gcomp: tuple) -> torch.Tensor:
 _EPI = {"none": 0, "mee_inv": 1, "mhat": 2}
 
 
-def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp):
+def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None = None):
+    """Raise on anything the kernels do not take; `nrhs` set means spinors
+    carry an R axis of that extent before the sites."""
     site = lat.eo_site_shape
+    spinor = (2, 4, 3) + (() if nrhs is None else (nrhs,)) + site
     rows = 2 if gcomp is not None else 3
     if epi[0] not in _EPI:
         raise ValueError(f"epilogue {epi[0]!r} is not on the ported path (have {sorted(_EPI)})")
     if gcomp is not None and len(gcomp) != 8:
         raise ValueError("gcomp must hold 8 (re, im) pairs")
-    need = [("psi_q", psi_q, (2, 4, 3) + site), ("ug_p", ug_p, (2, 8, rows, 3) + site)]
+    need = [("psi_q", psi_q, spinor), ("ug_p", ug_p, (2, 8, rows, 3) + site)]
     if epi[0] == "mhat":
         if psi_o is None:
             raise ValueError("the mhat epilogue needs psi_o")
-        need.append(("psi_o", psi_o, (2, 4, 3) + site))
+        need.append(("psi_o", psi_o, spinor))
     for name, t, shape in need:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -228,6 +243,28 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp):
             raise ValueError(f"{name} must be contiguous")
         if t.device != psi_q.device:
             raise ValueError(f"{name} is on {t.device}, psi_q on {psi_q.device}")
+
+
+def _epilogue_args(epi: tuple) -> tuple:
+    """epi -> (code, g5, mt, inv, k2) as the C entries take them."""
+    kind = epi[0]
+    mt = inv = k2 = 0.0
+    g5 = 0
+    if kind == "mee_inv":
+        mutld, sign = float(epi[1]), float(epi[2])
+        mt, inv = sign * mutld, 1.0 / (1.0 + mutld * mutld)
+    elif kind == "mhat":
+        mutld, sign, k2, g5 = float(epi[1]), float(epi[2]), float(epi[3]), int(bool(epi[4]))
+        mt = sign * mutld
+    return _EPI[kind], g5, mt, inv, k2
+
+
+def _corr_arg(gcomp):
+    """(keep-alive ctypes array, void pointer) of the 8 row-2 constants."""
+    if gcomp is None:
+        return None, None
+    corr = (ctypes.c_float * 16)(*[v for pair in gcomp for v in pair])
+    return corr, ctypes.cast(corr, ctypes.c_void_p)
 
 
 def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
@@ -248,27 +285,16 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
     if psi_q.device.type != "cuda":
         raise ValueError(f"no kernel for device {psi_q.device}")
     lib = kernel_library()
-    kind = epi[0]
-    mt = inv = k2 = 0.0
-    g5 = 0
-    if kind == "mee_inv":
-        mutld, sign = float(epi[1]), float(epi[2])
-        mt, inv = sign * mutld, 1.0 / (1.0 + mutld * mutld)
-    elif kind == "mhat":
-        mutld, sign, k2, g5 = float(epi[1]), float(epi[2]), float(epi[3]), int(bool(epi[4]))
-        mt = sign * mutld
-    corr = None
-    if gcomp is not None:
-        corr = (ctypes.c_float * 16)(*[v for pair in gcomp for v in pair])
+    code, g5, mt, inv, k2 = _epilogue_args(epi)
+    corr, corr_ptr = _corr_arg(gcomp)
     out = torch.empty_like(psi_q)
     t, x, _, _ = lat.dims
     with torch.cuda.device(psi_q.device):
         stream = torch.cuda.current_stream(psi_q.device).cuda_stream
         rc = lib.tm_hopping(
-            psi_q.data_ptr(), ug_p.data_ptr(), psi_o.data_ptr() if kind == "mhat" else None,
-            out.data_ptr(), t, x, lat.m, lat.zh, int(p), _EPI[kind], g5,
-            int(gcomp is not None), mt, inv, k2,
-            ctypes.cast(corr, ctypes.c_void_p) if corr is not None else None, stream)
+            psi_q.data_ptr(), ug_p.data_ptr(), psi_o.data_ptr() if code == 2 else None,
+            out.data_ptr(), t, x, lat.m, lat.zh, int(p), code, g5,
+            int(gcomp is not None), mt, inv, k2, corr_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"hopping kernel (K1) launch failed: CUDA error {rc}")
     hopping_split.launches += 1
@@ -278,16 +304,10 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
 hopping_split.launches = 0
 
 
-def hopping_split_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
-                        epi: tuple = ("none",), psi_o=None,
-                        gcomp: tuple | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K1, written from the ops/wilson.py arithmetic
-    (hop_packed rolls, SU(3) matrix-vector, dense spin projector)."""
-    hopping_split_plain.calls += 1
-    ug = merge_c(ug_p)
-    if gcomp is not None:
-        ug = _row2(ug, gcomp)
-    psi = merge_c(psi_q)
+def _hop_epilogue(ug: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, epi: tuple,
+                  psi_o) -> torch.Tensor:
+    """epilogue(sum_d P_d U_d psi(x + d)) on complex fields, split on the way
+    out; ug [8, 3, 3, *sites] broadcasts against psi [4, 3, *sites]."""
     acc = None
     for d in range(8):
         mu, fb = d // 2, d % 2
@@ -308,7 +328,92 @@ def hopping_split_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: La
     return split_c(out)
 
 
+def hopping_split_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
+                        epi: tuple = ("none",), psi_o=None,
+                        gcomp: tuple | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K1, written from the ops/wilson.py arithmetic
+    (hop_packed rolls, SU(3) matrix-vector, dense spin projector)."""
+    hopping_split_plain.calls += 1
+    ug = merge_c(ug_p)
+    if gcomp is not None:
+        ug = _row2(ug, gcomp)
+    return _hop_epilogue(ug, merge_c(psi_q), p, lat, epi, psi_o)
+
+
 hopping_split_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K1-R: the hopping on R right-hand sides, one read of the gauge
+# ---------------------------------------------------------------------------
+
+_R_AXIS = 3  # the generic batch axis [2, 4, 3, R, T, X, M]
+
+
+def _check_r_axis(r_axis: int, psi_q: torch.Tensor) -> int:
+    if r_axis != _R_AXIS:
+        raise NotImplementedError(
+            f"r_axis = {r_axis}: only the generic batch axis {_R_AXIS} ([2,4,3,R,T,X,M]) is "
+            "ported; the flavour-doublet axis 1 is not yet ported to tmlqcd_tpu_torch")
+    if psi_q.ndim != 7:
+        raise ValueError(f"psi_q has shape {tuple(psi_q.shape)}, expected [2,4,3,R,T,X,M]")
+    return int(psi_q.shape[r_axis])
+
+
+def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
+                      epi: tuple = ("none",), psi_o=None, gcomp: tuple | None = None,
+                      r_axis: int = _R_AXIS) -> torch.Tensor:
+    """K1-R: out[r] = epilogue(H_{p,q} psi_q[r]) for the R right-hand sides
+    along `r_axis`, the gauge read once for all of them.
+
+    psi_q, psi_o: [2,4,3,R,T,X,M] f32 (`r_axis` = 3, the only position
+    ported); ug_p and epi as for `hopping_split` (the gauge has no R axis;
+    `mhat` needs psi_o with the same R axis)."""
+    epi = tuple(epi)
+    nrhs = _check_r_axis(r_axis, psi_q)
+    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, nrhs)
+    if psi_q.device.type == "cpu":
+        return hopping_split_rhs_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp, r_axis)
+    if psi_q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi_q.device}")
+    lib = kernel_library()
+    code, g5, mt, inv, k2 = _epilogue_args(epi)
+    corr, corr_ptr = _corr_arg(gcomp)
+    out = torch.empty_like(psi_q)
+    t, x, _, _ = lat.dims
+    # element strides of the contiguous [2,4,3,R,T,X,M] field
+    im_stride, comp_stride, r_stride = psi_q.stride(0), psi_q.stride(2), psi_q.stride(r_axis)
+    with torch.cuda.device(psi_q.device):
+        stream = torch.cuda.current_stream(psi_q.device).cuda_stream
+        rc = lib.tm_hopping_rhs(
+            psi_q.data_ptr(), ug_p.data_ptr(), psi_o.data_ptr() if code == 2 else None,
+            out.data_ptr(), t, x, lat.m, lat.zh, int(p), code, g5,
+            int(gcomp is not None), mt, inv, k2, corr_ptr, nrhs, im_stride, comp_stride,
+            r_stride, stream)
+    if rc != 0:
+        raise RuntimeError(f"multi-RHS hopping kernel (K1-R) launch failed: CUDA error {rc}")
+    hopping_split_rhs.launches += 1
+    return out
+
+
+hopping_split_rhs.launches = 0
+
+
+def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
+                            epi: tuple = ("none",), psi_o=None, gcomp: tuple | None = None,
+                            r_axis: int = _R_AXIS) -> torch.Tensor:
+    """Plain PyTorch version of K1-R: the arithmetic of `hopping_split_plain`
+    with the links broadcast over the R axis."""
+    hopping_split_rhs_plain.calls += 1
+    _check_r_axis(r_axis, psi_q)
+    ug = merge_c(ug_p)
+    if gcomp is not None:
+        ug = _row2(ug, gcomp)
+    ug = ug.unsqueeze(3)  # [8, 3, 3, 1, T, X, M]: one link for every column
+    return _hop_epilogue(ug, merge_c(psi_q), p, lat, epi, psi_o)
+
+
+hopping_split_rhs_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +477,10 @@ hopping_ug_vjp_plain.calls = 0
 def reset_counters() -> None:
     """Zero every launch and call counter of this module."""
     hopping_split.launches = 0
+    hopping_split_rhs.launches = 0
     hopping_ug_vjp.launches = 0
     hopping_split_plain.calls = 0
+    hopping_split_rhs_plain.calls = 0
     hopping_ug_vjp_plain.calls = 0
 
 

@@ -24,12 +24,14 @@ import numpy as np
 import torch
 
 from tmlqcd_tpu_torch.gamma import GAMMA, apply_gamma5
-from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, hop_packed
+from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, hop_packed, shift_full
 
 __all__ = [
     "DiracParams",
     "boundary_phases",
     "hop_projector",
+    "dslash_full",
+    "d_full",
     "dslash_packed",
     "mee_packed",
     "mee_inv_packed",
@@ -83,6 +85,37 @@ def color_apply(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """out[s, i] = sum_j u[i, j] v[s, j] for u [3, 3, *sites], v [4, 3, *sites]."""
     return (u[None, :, 0] * v[:, None, 0] + u[None, :, 1] * v[:, None, 1]
             + u[None, :, 2] * v[:, None, 2])
+
+
+def dslash_full(u: torch.Tensor, psi: torch.Tensor, phases: np.ndarray,
+                lat: Lattice) -> torch.Tensor:
+    """Full-lattice hopping sum H psi (no kappa, no diagonal):
+
+        (H psi)(x) = sum_mu [ ph_mu   (1-g_mu) U_mu(x)      psi(x+mu)
+                            + ph_mu^* (1+g_mu) U_mu(x-mu)^+ psi(x-mu) ]
+
+    u: [3, 3, 4, T, X, Mf]; psi: [4, 3, T, X, Mf].  No even/odd packing: this
+    is the independent check of the packed operators and of a solution."""
+    out = None
+    for mu in range(4):
+        umu = u[:, :, mu]
+        fwd = shift_full(psi, mu, +1, lat)
+        term = complex(phases[mu]) * spin_apply(
+            hop_projector(mu, 0, psi), color_apply(umu, fwd))
+        out = term if out is None else out + term
+        bwd = shift_full(psi, mu, -1, lat)
+        ubd = torch.conj_physical(shift_full(umu, mu, -1, lat).transpose(0, 1))
+        out = out + complex(np.conj(phases[mu])) * spin_apply(
+            hop_projector(mu, 1, psi), color_apply(ubd, bwd))
+    return out
+
+
+def d_full(u: torch.Tensor, psi: torch.Tensor, params: DiracParams,
+           lat: Lattice) -> torch.Tensor:
+    """Full twisted-mass Wilson operator (2-kappa normalisation):
+    M psi = (1 + i mutld g5) psi - kappa H psi."""
+    ph = boundary_phases(params, lat)
+    return mee_packed(psi, params.mutld, +1.0) - params.kappa * dslash_full(u, psi, ph, lat)
 
 
 def dslash_packed(ueo: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,

@@ -9,7 +9,10 @@ epilogues.  The force surrogate `q_hat_diff` runs on `HoppingDiff`, whose
 backward is K2 plus the adjoint hop on K1.
 
 Layout: psi [2, 4, 3, T, X, M] f32; gauge as FastGauge (pre-gathered split
-links of both parities, phases folded).
+links of both parities, phases folded).  A batch of R right-hand sides is
+[2, 4, 3, R, T, X, M] (`to_split_rhs`); the operators take it with an explicit
+`r_axis=3` and then run the multi-RHS kernel `dslash_cuda.hopping_split_rhs`
+(K1-R), which reads the gauge once for the whole batch.
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ __all__ = [
     "make_fast_gauge",
     "to_split",
     "from_split",
+    "to_split_rhs",
+    "from_split_rhs",
+    "hop_fast",
     "m_hat_fast",
     "q_hat_fast",
     "q_hat_pm_fast",
+    "mee_split",
+    "mee_inv_split",
     "split_gauge_pair",
     "q_hat_diff",
     "dot_re_f64_split",
@@ -71,29 +79,53 @@ def from_split(psi2: torch.Tensor) -> torch.Tensor:
     return dc.merge_c(psi2)
 
 
+def to_split_rhs(psis: torch.Tensor) -> torch.Tensor:
+    """Batch of complex spinors [R, 4, 3, T, X, M] -> the multi-RHS split
+    layout [2, 4, 3, R, T, X, M] (R inside the spin/colour axes, the sites
+    stay minor-most), contiguous."""
+    return torch.movedim(dc.split_c(psis).to(torch.float32), 1, 3).contiguous()
+
+
+def from_split_rhs(psi2: torch.Tensor) -> torch.Tensor:
+    """[2, 4, 3, R, T, X, M] -> complex [R, 4, 3, T, X, M]."""
+    return dc.merge_c(torch.movedim(psi2, 3, 1))
+
+
+def hop_fast(fg: FastGauge, psi2: torch.Tensor, p: int, lat: Lattice, epi: tuple = ("none",),
+             psi_o=None, r_axis: int | None = None) -> torch.Tensor:
+    """epilogue(H_{p,1-p} psi2) on parity-p sites: K1, or K1-R when `r_axis`
+    names the batch axis of psi2."""
+    ug = fg.ug_even if p == EVEN else fg.ug_odd
+    if r_axis is None:
+        return dc.hopping_split(ug, psi2, p, lat, epi=epi, psi_o=psi_o, gcomp=fg.gcomp)
+    return dc.hopping_split_rhs(ug, psi2, p, lat, epi=epi, psi_o=psi_o, gcomp=fg.gcomp,
+                                r_axis=r_axis)
+
+
 def m_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
-               sign: float = +1.0, g5: bool = False) -> torch.Tensor:
+               sign: float = +1.0, g5: bool = False, r_axis: int | None = None) -> torch.Tensor:
     """Mhat(+-) on odd sites, split layout: two K1 calls, the Mee^{-1}
     diagonal and the Mee psi - k^2 H tmp assembly (plus the optional gamma5
-    of Qhat) fused into their epilogues."""
-    tmp = dc.hopping_split(fg.ug_even, psi2_o, EVEN, lat,
-                           epi=("mee_inv", float(params.mutld), float(sign)), gcomp=fg.gcomp)
-    return dc.hopping_split(
-        fg.ug_odd, tmp, ODD, lat,
-        epi=("mhat", float(params.mutld), float(sign), float(params.kappa * params.kappa),
-             bool(g5)),
-        psi_o=psi2_o, gcomp=fg.gcomp)
+    of Qhat) fused into their epilogues.  With `r_axis` set, psi2_o is a
+    batch along that axis and the two calls are K1-R."""
+    tmp = hop_fast(fg, psi2_o, EVEN, lat, ("mee_inv", float(params.mutld), float(sign)),
+                   r_axis=r_axis)
+    return hop_fast(fg, tmp, ODD, lat,
+                    ("mhat", float(params.mutld), float(sign), float(params.kappa * params.kappa),
+                     bool(g5)),
+                    psi_o=psi2_o, r_axis=r_axis)
 
 
 def q_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
-               sign: float = +1.0) -> torch.Tensor:
-    return m_hat_fast(fg, psi2_o, params, lat, sign, g5=True)
+               sign: float = +1.0, r_axis: int | None = None) -> torch.Tensor:
+    return m_hat_fast(fg, psi2_o, params, lat, sign, g5=True, r_axis=r_axis)
 
 
 def q_hat_pm_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams,
-                  lat: Lattice) -> torch.Tensor:
-    """Qhat_pm on split fields — the CG operator (four K1 calls)."""
-    return q_hat_fast(fg, q_hat_fast(fg, psi2_o, params, lat, +1.0), params, lat, -1.0)
+                  lat: Lattice, r_axis: int | None = None) -> torch.Tensor:
+    """Qhat_pm on split fields — the CG operator (four K1 or K1-R calls)."""
+    return q_hat_fast(fg, q_hat_fast(fg, psi2_o, params, lat, +1.0, r_axis), params, lat, -1.0,
+                      r_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -108,13 +140,14 @@ def split_gauge_pair(u: torch.Tensor, params: DiracParams, lat: Lattice):
     return dc.split_c(ug[EVEN]).to(torch.float32), dc.split_c(ug[ODD]).to(torch.float32)
 
 
-def _mee_split(psi2, mutld: float, sign: float):
+def mee_split(psi2, mutld: float, sign: float):
     """(1 + i sign mutld gamma5) psi."""
     g = gamma5_split(psi2)
     return psi2 + (sign * mutld) * torch.stack([-g[1], g[0]])
 
 
-def _mee_inv_split(psi2, mutld: float, sign: float):
+def mee_inv_split(psi2, mutld: float, sign: float):
+    """(1 - i sign mutld gamma5) psi / (1 + mutld^2)."""
     g = gamma5_split(psi2)
     return (psi2 - (sign * mutld) * torch.stack([-g[1], g[0]])) * (1.0 / (1.0 + mutld * mutld))
 
@@ -125,9 +158,9 @@ def q_hat_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, psi2_o: torch.Tensor,
     respect to (ug_e, ug_o) and psi."""
     k2 = params.kappa * params.kappa
     tmp = dc.HoppingDiff.apply(ug_e, ug_o, psi2_o, EVEN, lat)
-    tmp = _mee_inv_split(tmp, params.mutld, sign)
+    tmp = mee_inv_split(tmp, params.mutld, sign)
     tmp = dc.HoppingDiff.apply(ug_o, ug_e, tmp, ODD, lat)
-    return gamma5_split(_mee_split(psi2_o, params.mutld, sign) - k2 * tmp)
+    return gamma5_split(mee_split(psi2_o, params.mutld, sign) - k2 * tmp)
 
 
 def dot_re_f64_split(a2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:

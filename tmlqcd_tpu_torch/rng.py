@@ -18,7 +18,8 @@ import torch
 
 from tmlqcd_tpu_torch import su3
 
-__all__ = ["Key", "generator", "normal_spinor", "uniform", "random_momenta"]
+__all__ = ["Key", "generator", "normal_spinor", "z2_spinor", "uniform", "randint",
+           "random_momenta"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,20 @@ def normal_spinor(key: Key, shape: tuple, device, dtype=torch.complex64) -> torc
     re = torch.randn(shape, generator=gen, dtype=rdtype, device=device) * s
     im = torch.randn(shape, generator=gen, dtype=rdtype, device=device) * s
     return torch.complex(re, im)
+
+
+def z2_spinor(key: Key, shape: tuple, device, dtype=torch.complex64) -> torch.Tensor:
+    """Z2 x Z2 noise, components (+-1 +- i) / sqrt(2)."""
+    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
+    gen = generator(key, device)
+    bits = torch.randint(0, 2, (2,) + tuple(shape), generator=gen, device=device)
+    signs = (2 * bits - 1).to(rdtype) * 0.7071067811865476
+    return torch.complex(signs[0], signs[1])
+
+
+def randint(key: Key, low: int, high: int) -> int:
+    """One integer in [low, high), drawn on the host."""
+    return int(torch.randint(low, high, (), generator=generator(key, "cpu")))
 
 
 def uniform(key: Key, device) -> float:

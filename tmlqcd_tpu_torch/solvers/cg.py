@@ -1,6 +1,6 @@
 """Conjugate gradient for hermitian positive-definite operators.
 
-Port of `tmlqcd_tpu/solvers/cg.py` (`cg`, `cg_info`).  The reference's
+Port of `tmlqcd_tpu/solvers/cg.py` (`cg`, `cg_rhs`, `cg_info`).  The reference's
 `lax.while_loop` is a Python loop here; the stopping test reads the f64
 residual on the host each iteration.  Dot products accumulate in f64 while
 the fields stay f32 (or complex64); stopping is |r|^2 <= tol^2 |b|^2
@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["cg", "cg_info", "CGResult"]
+__all__ = ["cg", "cg_rhs", "cg_info", "CGResult"]
 
 
 class CGResult(NamedTuple):
@@ -58,6 +58,55 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         beta = (rs_new / rs).to(fdtype)
         p = r + beta * p
         rs = rs_new
+        k += 1
+    return CGResult(x=x, iterations=k, residual_sq=rs)
+
+
+def cg_rhs(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor, rhs_axis: int,
+           x0: torch.Tensor | None = None, tol: float = 1e-9, maxiter: int = 1000,
+           rel_prec: bool = True) -> CGResult:
+    """Simultaneous CG over the right-hand sides stacked along `rhs_axis` of
+    b: independent Krylov recurrences on one shared, batched matvec.
+
+    Each side has its own alpha, beta and stopping test.  A converged side
+    freezes (alpha = beta = 0 under the `live` mask: its x and r stay
+    bit-for-bit as they were) while the others iterate.  Reductions run in
+    f64 over every axis but `rhs_axis`.  `residual_sq` has shape [R];
+    `iterations` is the maximum over the sides.  One host sync per
+    iteration, the `any(rs > target)` stopping test."""
+    axes = tuple(i for i in range(b.ndim) if i != rhs_axis)
+    bshape = tuple(b.shape[rhs_axis] if i == rhs_axis else 1 for i in range(b.ndim))
+    if b.is_complex():
+        raise TypeError("cg_rhs takes split (real) fields")
+    fdtype = b.dtype
+
+    def nsq(v):
+        return torch.sum(v.double() ** 2, dim=axes)
+
+    def dot_re(a, c):
+        return torch.sum(a.double() * c.double(), dim=axes)
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    b_sq = nsq(b)
+    target = float(tol) ** 2 * (b_sq if rel_prec else torch.ones_like(b_sq))
+    r = b - matvec(x)
+    rs = nsq(r)
+    p = r
+    zero = torch.zeros_like(rs)
+    tiny = torch.full_like(rs, 1e-300)
+    k = 0
+    live = rs > target
+    while k < maxiter and bool(live.any()):
+        ap = matvec(p)
+        alpha = torch.where(live, rs / torch.maximum(dot_re(p, ap), tiny), zero)
+        a32 = alpha.to(fdtype).reshape(bshape)
+        x = x + a32 * p
+        r = r - a32 * ap
+        rs_new = nsq(r)
+        beta = torch.where(live, rs_new / torch.maximum(rs, tiny), zero)
+        p = r + beta.to(fdtype).reshape(bshape) * p
+        rs = torch.where(live, rs_new, rs)
+        live = rs > target
         k += 1
     return CGResult(x=x, iterations=k, residual_sq=rs)
 
