@@ -17,9 +17,10 @@ result lines):
    sizes beside 12 launches of K1, kernel and plain version, with GF/s at
    1320 flops/site, the share of the bandwidth of a device-to-device copy
    measured in the same run, and the bound at the card's published rates.
-4. end-to-end parity: one Nf=2 Hasenbusch trajectory at 8^4 on the kernel
-   path (CUDA tensors) and on the plain path (CPU tensors) with the same
-   injected draws; |ddH| against its bound.
+4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory and one
+   twisted-clover Hasenbusch trajectory at 8^4, each on the kernel path
+   (CUDA tensors) and on the plain path (CPU tensors) with the same injected
+   draws; |ddH| against its bound.
 5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
    from sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories, the ONLINE
    measurement on the third, an ILDG checkpoint read back), with the kernel
@@ -29,6 +30,16 @@ result lines):
    the propagator file read back, every column's true residual, two columns
    against single-column solves, the pion correlator; then one profiled
    batched solve for the device's busy share.
+7. main path 3: `cli.hmc.main` on a 16^3x32 input derived from
+   sample-input/hmc6-nf2-clover-hasenbusch.input (GAUGE + CLOVERTRLOG +
+   CLOVERDET + CLOVERDETRATIO, 3 trajectories, ONLINE on the third, an ILDG
+   checkpoint read back), the launch counters read around it; then one
+   profiled trajectory for the device's idle share and the share of the
+   clover block build and of the autograd force.
+8. main path 4: `cli.invert.main` with a CLOVER operator on phase 7's
+   checkpoint: 12 columns in one batched CG on K1-R with the clover
+   epilogues, every column's true residual against the plain unpreconditioned
+   clover operator, one column against `invert_clover_eo`.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -49,6 +60,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = os.path.join(HERE, "sample-input", "hmc2-nf2-tm-hasenbusch.input")
+SAMPLE_CLOVER = os.path.join(HERE, "sample-input", "hmc6-nf2-clover-hasenbusch.input")
 
 # Relative tolerance of a kernel against its plain version on the same card
 # inputs: both compute in f32 and differ only in summation order and FMA
@@ -62,7 +74,21 @@ KERNEL_RTOL = 1e-5
 # kernel path differs from the plain one by the same kind of f32 rounding,
 # so 3e-3 is 10x that spread while an operator error shifts dH by O(1).
 DDH_BOUND = 3e-3
+# The same for the clover trajectory at 8^4.  What it adds to H are the trlog
+# (an f64 sum of logs of f32 determinants, |S| ~ 1e3) and the block inverses
+# inside the operator (f32 closed forms on blocks whose |det| stays above 0.7
+# on a random gauge, so they lose no digits); the pseudofermion actions and
+# |H| ~ 2.4e5 are of the twisted-mass trajectory's size, and the kernel's
+# block matvec differs from the plain one by summation order only.  The
+# port's plain path and the JAX reference differ by 1.2e-5 on the 4^4 clover
+# trajectory (CPU, same draws) against 4.1e-5 on the twisted-mass one, so the
+# same 3e-3 holds; an operator error shifts dH by O(1).
+DDH_BOUND_CLOVER = 3e-3
 FLOPS_SITE = 1320
+# the per-site block matvec of a clover epilogue: 2 chiralities x 6 rows x 6
+# complex multiply-adds of 8 flops; its blocks are 2 x 72 floats per site
+FLOPS_SITE_CLOVER = 2 * 6 * 6 * 8
+BLOCK_BYTES = 2 * 72 * 4
 # flops per site of K2: per direction two half-spinor projections (48 adds)
 # and 9 x 2 complex multiply-adds (144)
 FLOPS_SITE_K2 = 8 * (48 + 144)
@@ -147,6 +173,15 @@ def _fields(lat, dev, seed):
     return params, fg18, fg12, psi, psi_o, g
 
 
+def _random_blocks(lat, dev, seed):
+    """Generic (not hermitian) clover blocks [2, 72, T, X, M] with entries of
+    order one: the kernels read all 72 complex entries whatever they hold."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((2, 72) + lat.eo_site_shape, generator=gen, device=dev)
+
+
 def _variants(params):
     k2 = params.kappa ** 2
     return [("none", ("none",)),
@@ -154,7 +189,16 @@ def _variants(params):
             ("mee_inv-", ("mee_inv", params.mutld, -1.0)),
             ("mhat+g5", ("mhat", params.mutld, 1.0, k2, True)),
             ("mhat-g5", ("mhat", params.mutld, -1.0, k2, True)),
-            ("mhat+", ("mhat", params.mutld, 1.0, k2, False))]
+            ("mhat+", ("mhat", params.mutld, 1.0, k2, False)),
+            ("clov_inv", ("clov_inv",)),
+            ("clov_mhat+g5", ("clov_mhat", k2, True)),
+            ("clov_mhat", ("clov_mhat", k2, False))]
+
+
+def _epi_kw(epi, psi_o, blocks) -> dict:
+    """The extra fields an epilogue reads."""
+    return {"psi_o": psi_o if epi[0] in ("mhat", "clov_mhat") else None,
+            "blocks": blocks if epi[0].startswith("clov") else None}
 
 
 def _sync(dev) -> None:
@@ -169,18 +213,27 @@ def phase_kernels(lat, dev="cuda"):
 
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
     params, fg18, fg12, psi, psi_o, g = _fields(lat, dev, 11)
-    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0}
+    blocks = _random_blocks(lat, dev, 14)
+    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0, "K1-C": 0.0, "K1-RC": 0.0}
+
+    def note(key, epi, err):
+        if epi[0].startswith("clov"):
+            key = {"K1": "K1-C", "K1-R": "K1-RC"}[key]
+        worst[key] = max(worst[key], err)
+
     for gname, fg in (("18-real", fg18), ("12-real", fg12)):
         for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
             for vname, epi in _variants(params):
-                kw = dict(epi=epi, psi_o=psi_o if epi[0] == "mhat" else None, gcomp=fg.gcomp)
+                kw = dict(epi=epi, gcomp=fg.gcomp, **_epi_kw(epi, psi_o, blocks))
                 out = dc.hopping_split(ug, psi, p, lat, **kw)
                 ref = dc.hopping_split_plain(ug, psi, p, lat, **kw)
                 _sync(dev)
                 err, rel = _rel_err(out, ref)
-                worst["K1"] = max(worst["K1"], err)
-                _say(f"[check] K1 {vname:9s} {gname} p={p}: max|d| {err:.3e} (rel {rel:.2e})")
+                note("K1", epi, err)
+                _say(f"[check] K1 {vname:12s} {gname} p={p}: max|d| {err:.3e} (rel {rel:.2e})")
                 _check(rel <= KERNEL_RTOL, f"K1 {vname} {gname} p={p} off by {rel:.3e}")
     for p, ug in ((0, fg18.ug_even), (1, fg18.ug_odd)):
         out = dc.hopping_ug_vjp(g, psi, p, lat)
@@ -198,25 +251,27 @@ def phase_kernels(lat, dev="cuda"):
         psis_o = torch.randn(shape, generator=gen, device=dev)
         for gname, fg in (("18-real", fg18), ("12-real", fg12)):
             for vname, epi in _variants(params):
-                mhat = epi[0] == "mhat"
+                clov = epi[0].startswith("clov")
                 kw = dict(epi=epi, gcomp=fg.gcomp)
-                out = dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None,
-                                           r_axis=3, **kw)
-                ref = dc.hopping_split_rhs_plain(fg.ug_odd, psis, 1, lat,
-                                                 psi_o=psis_o if mhat else None, **kw)
+                out = dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, r_axis=3, **kw,
+                                           **_epi_kw(epi, psis_o, blocks))
+                ref = dc.hopping_split_rhs_plain(fg.ug_odd, psis, 1, lat, **kw,
+                                                 **_epi_kw(epi, psis_o, blocks))
                 _sync(dev)
                 err, rel = _rel_err(out, ref)
-                worst["K1-R"] = max(worst["K1-R"], err)
+                note("K1-R", epi, err)
                 vs_k1 = 0.0
                 for r in range(nrhs):
-                    one = dc.hopping_split(fg.ug_odd, psis[:, :, :, r].contiguous(), 1, lat,
-                                           psi_o=psis_o[:, :, :, r].contiguous() if mhat else None,
-                                           **kw)
+                    one = dc.hopping_split(
+                        fg.ug_odd, psis[:, :, :, r].contiguous(), 1, lat, **kw,
+                        **_epi_kw(epi, psis_o[:, :, :, r].contiguous(), blocks))
                     vs_k1 = max(vs_k1, float((out[:, :, :, r] - one).abs().max()))
-                _say(f"[check] K1-R R={nrhs:2d} {vname:9s} {gname}: max|d| {err:.3e} "
+                _say(f"[check] K1-R R={nrhs:2d} {vname:12s} {gname}: max|d| {err:.3e} "
                      f"(rel {rel:.2e}), vs {nrhs} x K1 {vs_k1:.3e}")
                 _check(rel <= KERNEL_RTOL, f"K1-R R={nrhs} {vname} {gname} off by {rel:.3e}")
-                _check(vs_k1 <= KERNEL_RTOL * max(1.0, float(ref.abs().max())),
+                # the clover epilogue of K1-R runs K1's arithmetic on blocks
+                # staged in shared memory: the same bits
+                _check(vs_k1 <= (0.0 if clov else KERNEL_RTOL * max(1.0, float(ref.abs().max()))),
                        f"K1-R R={nrhs} {vname} {gname} differs from K1 by {vs_k1:.3e}")
         del psis, psis_o, out, ref
     # HoppingDiff (K1 forward, K2 + adjoint K1 backward) against autograd of
@@ -236,6 +291,27 @@ def phase_kernels(lat, dev="cuda"):
             err, rel = _rel_err(x, y)
             _say(f"[check] HoppingDiff p={p} {name}: max|d| {err:.3e} (rel {rel:.2e})")
             _check(rel <= KERNEL_RTOL, f"HoppingDiff p={p} {name} off by {rel:.3e}")
+    # q_hat_clover_diff (two HoppingDiff hops, the block matvecs between
+    # them in plain tensor arithmetic) forward and backward against autograd
+    # of the same operator built from the plain hop
+    blk2 = [dc.blk_unflatten(_random_blocks(lat, dev, s)) for s in (15, 16)]
+    k2 = params.kappa ** 2
+
+    def plain_q(ug_e, ug_o, moo, mee_inv, x):
+        tmp = dc.hopping_split_plain(ug_e, x, 0, lat)
+        tmp = dc.hopping_split_plain(ug_o, wf._blocks_apply_split(mee_inv, tmp), 1, lat)
+        return wf.gamma5_split(wf._blocks_apply_split(moo, x) - k2 * tmp)
+
+    grads = []
+    for fn in (lambda *a: wf.q_hat_clover_diff(*a, params, lat), plain_q):
+        ins = [t.clone().requires_grad_(True) for t in (fg18.ug_even, fg18.ug_odd, *blk2, psi)]
+        out = fn(*ins)
+        grads.append((out.detach(),) + torch.autograd.grad(out, ins, g))
+    _sync(dev)
+    for name, x, y in zip(("fwd", "d ug_e", "d ug_o", "d moo", "d mee_inv", "d psi"), *grads):
+        err, rel = _rel_err(x, y)
+        _say(f"[check] q_hat_clover_diff {name}: max|d| {err:.3e} (rel {rel:.2e})")
+        _check(rel <= KERNEL_RTOL, f"q_hat_clover_diff {name} off by {rel:.3e}")
     return worst
 
 
@@ -272,6 +348,16 @@ def _copy_bandwidth() -> float:
     return bw
 
 
+def _model(epi, gbytes: int, nrhs: int = 1) -> tuple[int, int]:
+    """(bytes, flops) per site of one hopping call by the traffic model:
+    the gauge and the clover blocks once, each spinor read or written once
+    per right-hand side."""
+    clov = epi[0].startswith("clov")
+    spinors = 3 if epi[0] in ("mhat", "clov_mhat") else 2
+    nbytes = gbytes + (BLOCK_BYTES if clov else 0) + nrhs * spinors * 96
+    return nbytes, nrhs * (FLOPS_SITE + (FLOPS_SITE_CLOVER if clov else 0))
+
+
 def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time at the published peaks: the larger of bytes over the memory
     rate and flops over the f32 rate, and which of the two it is."""
@@ -290,22 +376,26 @@ def phase_timings(lat16, lat32):
     for lat in (lat16, lat32):
         tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
         params, fg18, fg12, psi, psi_o, g = _fields(lat, "cuda", 12)
+        blocks = _random_blocks(lat, "cuda", 17)
         sites = lat.volume // 2
+        k2 = params.kappa ** 2
         for gname, fg, gbytes in (("18-real", fg18, 576), ("12-real", fg12, 384)):
             for vname, epi in (("none", ("none",)),
-                               ("mhat+g5", ("mhat", params.mutld, 1.0, params.kappa ** 2, True))):
-                po = psi_o if epi[0] == "mhat" else None
-                kw = dict(epi=epi, psi_o=po, gcomp=fg.gcomp)
+                               ("mhat+g5", ("mhat", params.mutld, 1.0, k2, True)),
+                               ("clov_inv", ("clov_inv",)),
+                               ("clov_mhat+g5", ("clov_mhat", k2, True))):
+                kw = dict(epi=epi, gcomp=fg.gcomp, **_epi_kw(epi, psi_o, blocks))
                 n = 200 if lat is lat16 else 50
                 ms = _time_ms(lambda: dc.hopping_split(fg.ug_odd, psi, 1, lat, **kw), n)
                 pms = _time_ms(lambda: dc.hopping_split_plain(fg.ug_odd, psi, 1, lat, **kw),
                                max(n // 10, 5))
-                nbytes = (gbytes + 2 * 96 + (96 if po is not None else 0)) * sites
-                gfs = FLOPS_SITE * sites / (ms * 1e-3) / 1e9
+                site_bytes, site_flops = _model(epi, gbytes)
+                nbytes = site_bytes * sites
+                gfs = site_flops * sites / (ms * 1e-3) / 1e9
                 share = nbytes / (ms * 1e-3) / bw
-                bound = _bound_ms(nbytes, FLOPS_SITE * sites)
+                bound = _bound_ms(nbytes, site_flops * sites)
                 rows[(tag, gname, vname)] = (ms, pms, *bound)
-                _say(f"[time] K1 {tag} {gname} {vname:8s}: kernel {ms * 1e3:9.1f} us "
+                _say(f"[time] K1 {tag} {gname} {vname:12s}: kernel {ms * 1e3:9.1f} us "
                      f"({gfs:7.1f} GF/s, {share:6.1%} of copy bandwidth at "
                      f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
                      f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
@@ -328,44 +418,48 @@ def phase_timings(lat16, lat32):
         cols = [(psis[:, :, :, r].contiguous(), psis_o[:, :, :, r].contiguous())
                 for r in range(NRHS)]
         for gname, fg, gbytes, vname, epi in (
-                ("12-real", fg12, 384, "mhat+g5", ("mhat", params.mutld, 1.0, params.kappa ** 2, True)),
-                ("18-real", fg18, 576, "none", ("none",))):
-            mhat = epi[0] == "mhat"
+                ("12-real", fg12, 384, "mhat+g5", ("mhat", params.mutld, 1.0, k2, True)),
+                ("18-real", fg18, 576, "none", ("none",)),
+                ("12-real", fg12, 384, "clov_inv", ("clov_inv",)),
+                ("12-real", fg12, 384, "clov_mhat+g5", ("clov_mhat", k2, True))):
             kw = dict(epi=epi, gcomp=fg.gcomp)
             n = 100 if lat is lat16 else 20
 
             def k1_loop():
                 for c, co in cols:
-                    dc.hopping_split(fg.ug_odd, c, 1, lat, psi_o=co if mhat else None, **kw)
+                    dc.hopping_split(fg.ug_odd, c, 1, lat, **kw, **_epi_kw(epi, co, blocks))
+
+            def k1r():
+                return dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, r_axis=3, **kw,
+                                            **_epi_kw(epi, psis_o, blocks))
 
             # at 32^3x64 K1-R walks the sites t-blocked: hold that order
             # against K1 too (phase 2 ran the memory order)
-            out = dc.hopping_split_rhs(fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None,
-                                       r_axis=3, **kw)
+            out = k1r()
             for r in (0, NRHS - 1):
-                one = dc.hopping_split(fg.ug_odd, cols[r][0], 1, lat,
-                                       psi_o=cols[r][1] if mhat else None, **kw)
+                one = dc.hopping_split(fg.ug_odd, cols[r][0], 1, lat, **kw,
+                                       **_epi_kw(epi, cols[r][1], blocks))
                 err, rel = _rel_err(out[:, :, :, r], one)
                 _check(rel <= KERNEL_RTOL, f"K1-R {tag} {gname} {vname} column {r} differs from "
                                            f"K1 by {err:.3e}")
             del out, one
-            ms = _time_ms(lambda: dc.hopping_split_rhs(
-                fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None, r_axis=3, **kw), n)
+            ms = _time_ms(k1r, n)
             ms1 = _time_ms(k1_loop, max(n // 4, 5))
             pms = float("nan")
             if lat is lat16:
                 pms = _time_ms(lambda: dc.hopping_split_rhs_plain(
-                    fg.ug_odd, psis, 1, lat, psi_o=psis_o if mhat else None, **kw), 5)
-            nbytes = (gbytes + NRHS * (2 * 96 + (96 if mhat else 0))) * sites
-            bound = _bound_ms(nbytes, FLOPS_SITE * NRHS * sites)
-            gfs = FLOPS_SITE * NRHS * sites / (ms * 1e-3) / 1e9
+                    fg.ug_odd, psis, 1, lat, **kw, **_epi_kw(epi, psis_o, blocks)), 5)
+            site_bytes, site_flops = _model(epi, gbytes, NRHS)
+            nbytes = site_bytes * sites
+            bound = _bound_ms(nbytes, site_flops * sites)
+            gfs = site_flops * sites / (ms * 1e-3) / 1e9
             rows[(tag, "K1-R", gname, vname)] = (ms, pms, *bound, ms1)
-            _say(f"[time] K1-R {tag} R={NRHS} {gname} {vname:8s}: kernel {ms * 1e3:9.1f} us "
+            _say(f"[time] K1-R {tag} R={NRHS} {gname} {vname:12s}: kernel {ms * 1e3:9.1f} us "
                  f"({gfs:7.1f} GF/s, {nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth at "
                  f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
                  f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
                  f"{NRHS} x K1 {ms1 * 1e3:9.1f} us ({ms1 / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
-        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols
+        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks
         torch.cuda.empty_cache()
     return rows, bw
 
@@ -375,7 +469,7 @@ def phase_timings(lat16, lat32):
 # ---------------------------------------------------------------------------
 
 
-def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu")):
+def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False):
     import torch
 
     from tmlqcd_tpu_torch import rng, su3
@@ -384,14 +478,26 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu")):
     from tmlqcd_tpu_torch.models.suites import nf2_twisted_mass_hasenbusch
 
     lat = Lattice(dims)
-    cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
-                                      steps=(1, 1, 2), acc_tol=1e-10, force_tol=1e-10,
-                                      maxiter=1000)
+    if clover:
+        from tmlqcd_tpu_torch.config import build_hmc
+        from tmlqcd_tpu_torch.config_tmlqcd import parse_input
+
+        with open(SAMPLE_CLOVER) as f:
+            cfg = build_hmc(parse_input(clover_smoke_input(
+                f.read(), dims=dims, steps={"GAUGE": "1", "CLOVERDET": "1", "CLOVERDETRATIO": "2"},
+                precisions=("1e-20", "1e-20"))))
+        bound, tag = DDH_BOUND_CLOVER, "clover "
+    else:
+        cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
+                                          steps=(1, 1, 2), acc_tol=1e-10, force_tol=1e-10,
+                                          maxiter=1000)
+        bound, tag = DDH_BOUND, ""
+    _check(cfg.lat.dims == lat.dims, "parity input was not derived as intended")
     key = rng.Key(2024)
     u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
     p = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
-    etas = [None] + [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
-                     for i in (1, 2)]
+    etas = [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
+            if hasattr(m, "chrono_init_state") else None for i, m in enumerate(cfg.monomials)]
     uni = rng.uniform(key.fold(3), "cpu")
     res = {}
     for dev in devs:
@@ -400,15 +506,16 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu")):
         with torch.no_grad():
             _, st = hmc_trajectory(cfg, u.to(dev), key, draws=d)
         res[dev] = st
-        _say(f"[parity] {lat.dims} trajectory on {dev}: dH {st.delta_h:+.9e} plaq {st.plaquette:.12f} "
+        _say(f"[parity] {tag}{lat.dims} trajectory on {dev}: dH {st.delta_h:+.9e} plaq {st.plaquette:.12f} "
              f"acc_iters {st.acc_iterations} force_iters {st.force_iterations} "
              f"({time.perf_counter() - t0:.1f} s)")
     kern, plain = res[devs[0]], res[devs[1]]
     ddh = abs(kern.delta_h - plain.delta_h)
     dplaq = abs(kern.plaquette - plain.plaquette)
-    _say(f"[parity] |ddH| kernel vs plain {ddh:.3e} (bound {DDH_BOUND:.0e}), |dplaq| {dplaq:.3e}")
+    _say(f"[parity] {tag}|ddH| kernel vs plain {ddh:.3e} (bound {bound:.0e}), "
+         f"|dplaq| {dplaq:.3e}")
     _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
-    _check(ddh <= DDH_BOUND, f"kernel vs plain |ddH| {ddh:.3e} > {DDH_BOUND:.0e}")
+    _check(ddh <= bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {bound:.0e}")
     return ddh
 
 
@@ -449,8 +556,43 @@ def smoke_input(text: str) -> str:
     return "\n".join(out) + "\n"
 
 
+def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
+                       precisions=("1e-16", "1e-14")) -> str:
+    """hmc6-nf2-clover-hasenbusch cut to `dims` (T, LX, LY, LZ) with 3
+    trajectories, NSave = 3, the ONLINE measurement every 3rd trajectory,
+    steps 2/2/5, precisions 1e-16 / 1e-14 and MaxSolverIterations 1000 as
+    `smoke_input` sets them.  The physics point stays hmc6's own (beta =
+    1.726, kappa = 0.1400645, CSW = 1.74, 2KappaMu = 0.0009 / 0.05): unlike
+    hmc2's kappa it converges from a hot start and 1 + T stays invertible
+    there.  Phase 7 checks the first (every solve below MaxSolverIterations)
+    and prints the acceptance iterations; phase 8 prints and checks the
+    smallest |det| of a chirality block on the checkpoint."""
+    steps = steps or {"GAUGE": "2", "CLOVERDET": "2", "CLOVERDETRATIO": "5"}
+    sub = {"t": str(dims[0]), "lx": str(dims[1]), "ly": str(dims[2]), "lz": str(dims[3]),
+           "measurements": "3", "nsave": "3", "frequency": "3",
+           "acceptanceprecision": precisions[0], "forceprecision": precisions[1],
+           "maxsolveriterations": str(MAXITER)}
+    out, block = [], None
+    for line in text.splitlines():
+        s = line.split("#", 1)[0].strip()
+        m = re.match(r"(?i)^BeginMonomial\s+(\S+)", s)
+        if m:
+            block = m.group(1).upper()
+        elif re.match(r"(?i)^EndMonomial\b", s):
+            block = None
+        kv = re.match(r"^([A-Za-z0-9_]+)\s*=", s)
+        key = kv.group(1).lower() if kv else None
+        value = steps.get(block) if key == "integrationsteps" else sub.get(key)
+        if value is not None:
+            line = line[:len(line) - len(line.lstrip())] + f"{kv.group(1)} = {value}"
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
 def _read_counts(dc) -> dict:
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
+            "K1-C": dc.hopping_split.clover_launches,
+            "K1-RC": dc.hopping_split_rhs.clover_launches,
             "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
             "K2 plain": dc.hopping_ug_vjp_plain.calls}
@@ -461,7 +603,7 @@ def _check_no_plain(counts: dict) -> None:
     _check(not any(plain.values()), f"a plain version served the main path: {counts}")
 
 
-def phase_main_path(workdir: str):
+def phase_main_path(workdir: str, clover: bool = False):
     import numpy as np
 
     from tmlqcd_tpu_torch.cli import hmc as cli
@@ -470,34 +612,45 @@ def phase_main_path(workdir: str):
     from tmlqcd_tpu_torch.io.lime import read_lime
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
-    with open(SAMPLE) as f:
-        text = smoke_input(f.read())
-    path = os.path.join(workdir, "smoke.input")
+    tag = "main-clover" if clover else "main"
+    with open(SAMPLE_CLOVER if clover else SAMPLE) as f:
+        text = clover_smoke_input(f.read()) if clover else smoke_input(f.read())
+    path = os.path.join(workdir, f"{tag}.input")
     with open(path, "w") as f:
         f.write(text)
     cfg = read_input(path)
+    online = ("ONLINE", 3, 0.1400645, 0.0009) if clover else ("ONLINE", 3, 0.13, 0.0026)
+    types = (["GAUGE", "CLOVERTRLOG", "CLOVERDET", "CLOVERDETRATIO"] if clover
+             else ["GAUGE", "DET", "DETRATIO"])
     _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == 3
-           and [(m.type, m.frequency, m.kappa, m.two_kappa_mu) for m in cfg.meas]
-           == [("ONLINE", 3, 0.13, 0.0026)], "smoke input was not derived as intended")
-    run_dir = os.path.join(workdir, "run")
+           and [(m.type, m.frequency, m.kappa, m.two_kappa_mu) for m in cfg.meas] == [online]
+           and [m.type for m in cfg.monomials] == types
+           and all(m.csw == (1.74 if clover else 0.0) for m in cfg.monomials[1:]),
+           "smoke input was not derived as intended")
+    run_dir = os.path.join(workdir, f"run-{tag}")
     dc.reset_counters()
     t0 = time.perf_counter()
     rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
     wall = time.perf_counter() - t0
     counts = _read_counts(dc)
-    _say(f"[main] cli.hmc exit {rc}, {wall:.1f} s wall; launches {counts}")
+    _say(f"[{tag}] cli.hmc exit {rc}, {wall:.1f} s wall; launches {counts}")
     _check(rc == 0, f"cli.hmc returned {rc}")
     with open(os.path.join(run_dir, "output.data")) as f:
         lines = [ln.split() for ln in f if ln.strip() and not ln.startswith("#")]
     _check(len(lines) == 3, f"output.data has {len(lines)} lines, expected 3")
-    secs = []
+    secs, acc = [], []
     for cols in lines:
         plaq, dh, acc_iters = float(cols[1]), float(cols[3]), [int(c) for c in cols[7:]]
         _check(math.isfinite(dh), f"non-finite dH in {cols}")
         _check(0.0 < plaq < 1.0, f"plaquette {plaq} outside (0, 1)")
         _check(all(i < MAXITER for i in acc_iters), f"a solve reached maxiter: {cols}")
         secs.append(float(cols[6]))
+        acc.append(acc_iters)
+    _say(f"[{tag}] acceptance-solve iterations per monomial and trajectory {acc}")
     _check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
+    # only the ONLINE solve (twisted mass, no clover term) runs K1 without a
+    # clover epilogue on the clover path, beside the hops of the force
+    _check((counts["K1-C"] > 0) == clover, f"clover epilogue launches: {counts}")
     _check_no_plain(counts)
     # the ONLINE measurement of the third trajectory
     meas = os.path.join(run_dir, "onlinemeas.000002")
@@ -510,7 +663,7 @@ def phase_main_path(workdir: str):
     _check(all(math.isfinite(c) and c > 0.0 for c in cpp)
            and all(math.isfinite(float(r[4])) for r in rows),
            "onlinemeas.000002: C_PP must be positive and finite on every timeslice")
-    _say(f"[main] onlinemeas.000002: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
+    _say(f"[{tag}] onlinemeas.000002: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
          f"min C_PP {min(cpp):.6e}")
     # the ILDG checkpoint, read back with its checksum verified
     conf = os.path.join(run_dir, "conf.000003.lime")
@@ -522,7 +675,7 @@ def phase_main_path(workdir: str):
            and bool(np.isfinite(arr).all()), "conf.000003.lime does not read back")
     dev = np.abs(np.einsum("ij...,kj...->ik...", arr, arr.conj()) - np.eye(3).reshape(3, 3, 1, 1, 1, 1))
     _check(float(dev.max()) < 1e-5, f"links read back are not unitary ({dev.max():.2e})")
-    _say(f"[main] s/trajectory {secs} (mean of the last two {sum(secs[1:]) / 2:.3f} s); "
+    _say(f"[{tag}] s/trajectory {secs} (mean of the last two {sum(secs[1:]) / 2:.3f} s); "
          f"conf.000003.lime read back, checksum verified")
     return counts, secs, conf
 
@@ -542,6 +695,44 @@ BeginOperator TMWILSON
   PropagatorPrecision = 32
 EndOperator
 """
+
+
+def _say_profile(what: str, wall: float, prof, kernels: dict) -> None:
+    """Device ops only, as intervals on the device's clock: their union is
+    the busy time (a sum over `key_averages()` counts overlapping entries
+    twice).  `kernels` maps a label to a substring of the kernel's name."""
+    import torch
+
+    spans, per = [], {k: 0.0 for k in kernels}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = float(ev.time_range.start), float(ev.time_range.end)
+        if end <= start:
+            continue
+        spans.append((start, end))
+        for label, sub in kernels.items():
+            if sub in ev.name:
+                per[label] += end - start
+    if not spans:
+        _say(f"[profile] {what} {wall:.4f} s unprofiled; the profiler reported no device "
+             f"time, idle share not measured")
+        return
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    window = max(e for _, e in spans) - spans[0][0]
+    shares = "; ".join(f"{k} {v / 1e6:.4f} s ({v / busy:.1%} of device time)"
+                       for k, v in per.items())
+    _say(f"[profile] {what} {wall:.4f} s unprofiled; profiled window {window / 1e6:.4f} s from "
+         f"the first to the last of {len(spans)} device ops, device busy {busy / 1e6:.4f} s: "
+         f"idle share {1.0 - busy / window:.1%}; {shares}")
 
 
 def phase_invert(workdir: str, conf: str):
@@ -634,41 +825,221 @@ def phase_invert(workdir: str, conf: str):
     with torch.profiler.profile(activities=acts) as prof:
         invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
         torch.cuda.synchronize()
-    # device ops only, as intervals on the device's clock: their union is the
-    # busy time (a sum over `key_averages()` counts overlapping entries twice)
-    spans, k1r = [], 0.0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = float(ev.time_range.start), float(ev.time_range.end)
-        if end <= start:
-            continue
-        spans.append((start, end))
-        if "hopping_rhs_kernel" in ev.name:
-            k1r += end - start
-    if spans:
-        spans.sort()
-        busy, (lo, hi) = 0.0, spans[0]
-        for start, end in spans[1:]:
-            if start > hi:
-                busy += hi - lo
-                lo, hi = start, end
-            else:
-                hi = max(hi, end)
-        busy += hi - lo
-        window = max(e for _, e in spans) - spans[0][0]
-        _say(f"[profile] batched solve {plain_wall:.4f} s unprofiled; profiled window "
-             f"{window / 1e6:.4f} s from the first to the last of {len(spans)} device ops, device "
-             f"busy {busy / 1e6:.4f} s: idle share {1.0 - busy / window:.1%}; K1-R "
-             f"{k1r / 1e6:.4f} s ({k1r / busy:.1%} of device time)")
-    else:
-        _say(f"[profile] batched solve {plain_wall:.4f} s unprofiled; the profiler reported no "
-             f"device time, idle share not measured")
+    _say_profile("batched solve", plain_wall, prof, {"K1-R": "hopping_rhs_kernel"})
+    return counts, iters, solve_s
+
+
+# ---------------------------------------------------------------------------
+# phase 7 (after the clover run of phase_main_path): where the time goes
+# ---------------------------------------------------------------------------
+
+
+def phase_clover_profile(workdir: str, conf: str):
+    """More trajectories from phase 7's checkpoint, outside the CLI.  Two
+    short ones (the same action at integration steps 1/1/1: 17 fine kicks
+    where the smoke point has 161, since a profile of a whole trajectory
+    holds 1.3 million device ops and takes minutes to read): one timed, one
+    under torch.profiler for the device's idle share and the K1 and K2
+    device time.  Then one whole trajectory with synchronising host timers
+    around the clover block build, the solves and the autograd forces."""
+    import dataclasses
+
+    import torch
+
+    from tmlqcd_tpu_torch import rng
+    from tmlqcd_tpu_torch.config import build_hmc
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory, monomials
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+    rcfg = read_input(os.path.join(workdir, "main-clover.input"))
+    cfg = build_hmc(rcfg)
+    arr, _, _ = load_checkpoint(conf, cfg.lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    chrono = chrono_states(cfg, u.device)
+
+    short = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, levels=tuple(dataclasses.replace(lv, steps=1)
+                                     for lv in cfg.integrator.levels)))
+
+    def traj(c, i, u, chrono):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            u, st, chrono = hmc_trajectory(c, u, rng.Key(900 + i), chrono=chrono)
+        torch.cuda.synchronize()
+        return u, chrono, st, time.perf_counter() - t0
+
+    _, _, st, wall = traj(short, 0, u, chrono)
+    _check(math.isfinite(st.delta_h), "profile trajectory: dH is not finite")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traj(short, 0, u, chrono)
+    _say_profile("clover trajectory at steps 1/1/1", wall, prof,
+                 {"K1": "hopping_kernel", "K2": "ug_vjp_kernel"})
+    del prof
+
+    # host timers, each synchronised on entry and exit (so this trajectory is
+    # slower than the plain one); inclusive times of the named functions
+    spent, calls = {}, {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+                calls[name] = calls.get(name, 0) + 1
+        return wrapper
+
+    patches = [(cl, "sw_blocks_eo", "sw_blocks_eo (clover term, forward)"),
+               (wf, "fast_clover_from", "fast_clover_from (M_oo, M_ee^-1 blocks of one mu)"),
+               (wf, "split_gauge_pair", "split_gauge_pair (gauge copy, forward)"),
+               (monomials._CloverState, "force", "autograd.grad + TA of the fermion forces"),
+               (monomials, "_surrogate_force", "CLOVERTRLOG force (its sw_blocks forward included)"),
+               (monomials, "_solve_qsw", "CG solves (chrono guess included)")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    try:
+        for obj, attr, name in patches:
+            setattr(obj, attr, timed(name, getattr(obj, attr)))
+        u, chrono, st, wall_t = traj(cfg, 2, u, chrono)
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    _say(f"[profile] clover trajectory with synchronising timers {wall_t:.4f} s:")
+    for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
+        _say(f"[profile]   {name}: {sec:.4f} s in {calls[name]} calls ({sec / wall_t:.1%})")
+    return wall
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+INVERT_CLOVER_INPUT = """L = 16
+T = 32
+BeginOperator CLOVER
+  kappa = 0.1400645
+  2KappaMu = 0.0009
+  CSW = 1.74
+  Solver = cg
+  SolverPrecision = 1e-14
+  MaxSolverIterations = 1000
+  PropagatorPrecision = 32
+EndOperator
+"""
+# True relative residual of a clover propagator column against the plain
+# unpreconditioned operator (1 + T + i mutld g5) x - kappa H x.  As for
+# RESIDUAL_BOUND: CG stops at 1e-7 of the normal-equation right-hand side;
+# on the rough smoke gauge |Qsw^-1| stays below ~10 (50 iterations reach 1e-8
+# on a random gauge), the block inverse is conditioned like 1 / 0.7, and f32
+# fields add ~1e-7 per operator application.  1e-5 leaves 10x.
+RESIDUAL_BOUND_CLOVER = 1e-5
+
+
+def phase_invert_clover(workdir: str, conf: str):
+    import torch
+
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.inverter import invert_clover_eo, invert_eo_rhs
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.propagator import read_propagator
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, boundary_phases, dslash_full
+
+    path = os.path.join(workdir, "invert-clover.input")
+    with open(path, "w") as f:
+        f.write(INVERT_CLOVER_INPUT)
+    cfg = read_input(path)
+    op, lat = cfg.operators[0], cfg.lat
+    out_dir = os.path.join(workdir, "prop-clover")
+    dc.reset_counters()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["-f", path, "-c", conf, "--format", "lime", "-o", out_dir])
+    wall = time.perf_counter() - t0
+    counts = _read_counts(dc)
+    sys.stdout.write(log.getvalue())
+    _check(rc == 0, f"cli.invert (CLOVER) returned {rc}")
+    m = re.search(r"\(CLOVER\) 12 sources batched: (\d+) iters, max\|r\|\^2=(\S+), (\S+)s",
+                  log.getvalue())
+    _check(m is not None, "cli.invert did not report a batched CLOVER solve of 12 sources")
+    iters, solve_s = int(m.group(1)), float(m.group(3))
+    _say(f"[invert-clover] cli.invert exit {rc}, {wall:.1f} s wall, batched solve {solve_s} s, "
+         f"{iters} iterations; launches {counts}")
+    _check(0 < iters < op.max_solver_iterations, f"the batched solve ran {iters} iterations")
+    # 4 per iteration + 8 around them, all but the first hop of the Schur
+    # prologue with a clover epilogue
+    _check(counts["K1-R"] == 4 * iters + 8 and counts["K1-RC"] == 4 * iters + 7,
+           f"K1-R launches {counts['K1-R']} / clover {counts['K1-RC']} for {iters} iterations")
+    _check_no_plain(counts)
+
+    prop = os.path.join(out_dir, "propagator.00.000003.lime")
+    cols, prec = read_propagator(prop, lat)  # raises on a checksum mismatch
+    _check(len(cols) == NRHS and prec == 32, f"{len(cols)} columns at precision {prec}")
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa), c_sw=op.csw)
+    with torch.no_grad():
+        sw = cl.sw_blocks(u, params.kappa, params.c_sw, lat)
+        ph = boundary_phases(params, lat)
+        # how far 1 + T + i mu g5 is from singular on this gauge: the 6 x 6
+        # determinant of every chirality block of every site
+        m66 = cl.mee_blocks(sw, params.mutld, +1.0).permute(5, 6, 7, 0, 1, 3, 2, 4)
+        dets = torch.linalg.det(m66.reshape(m66.shape[:4] + (6, 6))).abs()
+        _say(f"[invert-clover] |det(1 + T + i mu g5)| of a chirality block over "
+             f"{dets.numel()} blocks: min {float(dets.min()):.4f} max {float(dets.max()):.4f}")
+        _check(float(dets.min()) > 0.05, "a clover block of the smoke gauge is close to singular")
+        worst = 0.0
+        x = [torch.as_tensor(c, device="cuda").to(torch.complex64) for c in cols]
+        for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
+            b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+            mx = cl.sw_apply(sw, x[i], params.mutld, +1.0) - params.kappa * dslash_full(
+                u, x[i], ph, lat)
+            res = float(torch.linalg.vector_norm(mx - b))  # |b| = 1
+            worst = max(worst, res)
+            _check(res <= RESIDUAL_BOUND_CLOVER, f"clover column {i}: |M x - b| / |b| = {res:.3e}")
+    _say(f"[invert-clover] true residual |M x - b| / |b| against the unpreconditioned clover "
+         f"operator over the 12 columns: max {worst:.3e} (bound {RESIDUAL_BOUND_CLOVER:.0e})")
+    tol = float(op.precision) ** 0.5
+    b = point_source(lat, 7 // 3, 7 % 3, (0, 0, 0, 0), "cuda")
+    n0 = dc.hopping_split.clover_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = invert_clover_eo(u, b, params, lat, tol=tol, maxiter=op.max_solver_iterations)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    diff, scale = float((one.x - x[7]).abs().max()), float(one.x.abs().max())
+    _say(f"[invert-clover] column 7: invert_clover_eo {one.iterations} iters in {dt:.3f} s "
+         f"({dc.hopping_split.clover_launches - n0} K1 clover launches), "
+         f"max|x_batch - x_single| {diff:.3e} (max|x| {scale:.3e})")
+    _check(diff <= BATCH_VS_SINGLE * scale, f"clover column 7: batch and single differ by {diff:.3e}")
+    _check(dc.hopping_split.clover_launches - n0 == 4 * one.iterations + 7,
+           "invert_clover_eo did not run K1 with the clover epilogues as counted")
+    _check_no_plain(_read_counts(dc))
+    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+                      for s in range(4) for c in range(3)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _say(f"[invert-clover] warm batched solve {warm:.4f} s")
     return counts, iters, solve_s
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch")) or not os.path.exists(SAMPLE):
+    if not (os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch")) and os.path.exists(SAMPLE)
+            and os.path.exists(SAMPLE_CLOVER)):
         print("chip_smoke: run from a checkout of the repository "
               "(tmlqcd_tpu_torch/ and sample-input/ are missing)", file=sys.stderr)
         return 2
@@ -682,25 +1053,46 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tmlqcd_tpu_torch.lattice import Lattice
 
+    t_start = time.perf_counter()
+
+    def done(phase):
+        _say(f"[phase] {phase} done at {time.perf_counter() - t_start:.0f} s")
+
     try:
         phase_card()
+        done("1 card and build")
         lat16 = Lattice((32, 16, 16, 16))
         worst = phase_kernels(lat16)
+        done("2 kernel checks")
         rows, _ = phase_timings(lat16, Lattice((64, 32, 32, 32)))
+        done("3 timings")
         phase_parity()
+        phase_parity(clover=True)
+        done("4 parity trajectories")
         with tempfile.TemporaryDirectory() as workdir:
             hmc_counts, _, conf = phase_main_path(workdir)
+            done("5 main path 1")
             inv_counts, _, _ = phase_invert(workdir, conf)
+            done("6 main path 2")
+            chmc_counts, _, cconf = phase_main_path(workdir, clover=True)
+            done("7 main path 3")
+            phase_clover_profile(workdir, cconf)
+            done("7 clover profile")
+            cinv_counts, _, _ = phase_invert_clover(workdir, cconf)
+            done("8 main path 4")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     src = "tmlqcd_tpu_torch/csrc/hopping.cu"
 
+    paths = {"launches_hmc": hmc_counts, "launches_invert": inv_counts,
+             "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts}
+
     def entry(name, replaces, key, row):
         ms, plain_ms, bound_ms, bound_by = row[:4]
+        per_path = {k: c[key] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": hmc_counts[key] + inv_counts[key],
-                "launches_hmc": hmc_counts[key], "launches_invert": inv_counts[key],
+                "launches": sum(per_path.values()), **per_path,
                 "max_abs_err": worst[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
 
@@ -711,6 +1103,10 @@ def main() -> int:
               rows[("16x16x16x32", "K2")]),
         entry("hopping_split_rhs (K1-R)", "tmlqcd_tpu/ops/dslash_pallas.py:491", "K1-R",
               rows[("16x16x16x32", "K1-R", "12-real", "mhat+g5")]),
+        entry("hopping_split clov (K1-C)", "tmlqcd_tpu/ops/dslash_pallas.py:409", "K1-C",
+              rows[("16x16x16x32", "12-real", "clov_mhat+g5")]),
+        entry("hopping_split_rhs clov (K1-RC)", "tmlqcd_tpu/ops/dslash_pallas.py:409", "K1-RC",
+              rows[("16x16x16x32", "K1-R", "12-real", "clov_mhat+g5")]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

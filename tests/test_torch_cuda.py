@@ -33,7 +33,10 @@ PARAMS = DiracParams(kappa=0.15, mu=0.03)
 EPIS = [("none",), ("mee_inv", PARAMS.mutld, 1.0), ("mee_inv", PARAMS.mutld, -1.0),
         ("mhat", PARAMS.mutld, 1.0, PARAMS.kappa ** 2, True),
         ("mhat", PARAMS.mutld, -1.0, PARAMS.kappa ** 2, True),
-        ("mhat", PARAMS.mutld, 1.0, PARAMS.kappa ** 2, False)]
+        ("mhat", PARAMS.mutld, 1.0, PARAMS.kappa ** 2, False),
+        ("clov_inv",), ("clov_mhat", PARAMS.kappa ** 2, True),
+        ("clov_mhat", PARAMS.kappa ** 2, False)]
+CLOVER = DiracParams(kappa=0.13, mu=0.04, c_sw=1.74)
 
 
 @pytest.fixture
@@ -46,6 +49,19 @@ def cuda():
 def _close(out, ref):
     scale = max(1.0, float(ref.abs().max()))
     return float((out - ref).abs().max()) <= RTOL * scale
+
+
+def _extras(epi, psi_o, blocks):
+    """The extra fields an epilogue reads."""
+    return dict(psi_o=psi_o if epi[0] in ("mhat", "clov_mhat") else None,
+                blocks=blocks if epi[0].startswith("clov") else None)
+
+
+def _blocks(lat, dev, seed=5):
+    """Generic clover blocks [2, 72, T, X, M]: the kernels read all 72
+    complex entries whatever they hold."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((2, 72) + lat.eo_site_shape, generator=gen, device=dev)
 
 
 def _setup(dims, dev):
@@ -62,12 +78,14 @@ def _setup(dims, dev):
 def test_hopping_kernel_matches_plain(cuda, dims, compress):
     lat, u, (psi, psi_o, _) = _setup(dims, cuda)
     fg = wf.make_fast_gauge(u, PARAMS, lat, compress=compress)
+    blocks = _blocks(lat, cuda)
     for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
         for epi in EPIS:
-            kw = dict(epi=epi, psi_o=psi_o if epi[0] == "mhat" else None, gcomp=fg.gcomp)
-            n = dc.hopping_split.launches
+            kw = dict(epi=epi, gcomp=fg.gcomp, **_extras(epi, psi_o, blocks))
+            n, nc = dc.hopping_split.launches, dc.hopping_split.clover_launches
             out = dc.hopping_split(ug, psi, p, lat, **kw)
             assert dc.hopping_split.launches == n + 1
+            assert dc.hopping_split.clover_launches == nc + epi[0].startswith("clov")
             assert _close(out, dc.hopping_split_plain(ug, psi, p, lat, **kw)), (p, epi)
 
 
@@ -85,20 +103,19 @@ def test_hopping_rhs_kernel_matches_plain_and_single_rhs_kernel(cuda, dims, nrhs
     psi = torch.randn(shape, generator=gen, device=cuda)
     psi_o = torch.randn(shape, generator=gen, device=cuda)
     fg = wf.make_fast_gauge(u, PARAMS, lat, compress=compress)
+    blocks = _blocks(lat, cuda)
     for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
         for epi in EPIS:
-            mhat = epi[0] == "mhat"
             kw = dict(epi=epi, gcomp=fg.gcomp)
             n, n1 = dc.hopping_split_rhs.launches, dc.hopping_split.launches
-            out = dc.hopping_split_rhs(ug, psi, p, lat, psi_o=psi_o if mhat else None, r_axis=3,
-                                       **kw)
+            out = dc.hopping_split_rhs(ug, psi, p, lat, r_axis=3, **kw,
+                                       **_extras(epi, psi_o, blocks))
             assert (dc.hopping_split_rhs.launches, dc.hopping_split.launches) == (n + 1, n1)
-            ref = dc.hopping_split_rhs_plain(ug, psi, p, lat, psi_o=psi_o if mhat else None, **kw)
+            ref = dc.hopping_split_rhs_plain(ug, psi, p, lat, **kw, **_extras(epi, psi_o, blocks))
             assert _close(out, ref), (p, epi)
             for r in (0, nrhs - 1):
-                one = dc.hopping_split(ug, psi[:, :, :, r].contiguous(), p, lat,
-                                       psi_o=psi_o[:, :, :, r].contiguous() if mhat else None,
-                                       **kw)
+                one = dc.hopping_split(ug, psi[:, :, :, r].contiguous(), p, lat, **kw,
+                                       **_extras(epi, psi_o[:, :, :, r].contiguous(), blocks))
                 assert torch.equal(out[:, :, :, r], one), (p, epi, r)
 
 
@@ -118,6 +135,52 @@ def test_batched_inversion_runs_on_the_rhs_kernel(cuda):
     ref = invert_eo_rhs(u.cpu(), bs.cpu(), PARAMS, lat, tol=1e-7, maxiter=500)
     assert out.iterations == ref.iterations
     assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
+def test_clover_inversions_run_on_the_kernels(cuda):
+    """The clover `invert_eo_rhs` and `invert_clover_eo` on CUDA tensors
+    launch K1-R and K1 with the clover epilogues, call no plain version and
+    agree with the plain path on the CPU to 2e-5 (f32 CG, tol 1e-7)."""
+    from tmlqcd_tpu_torch.inverter import invert_clover_eo, invert_eo_rhs
+    from tmlqcd_tpu_torch.meas.sources import point_source
+
+    lat, u, _ = _setup((8, 4, 4, 4), cuda)
+    bs = torch.stack([point_source(lat, s, c, device=cuda) for s, c in ((0, 0), (1, 2), (3, 1))])
+    dc.reset_counters()
+    out = invert_eo_rhs(u, bs, CLOVER, lat, tol=1e-7, maxiter=500)
+    # Schur prologue 1 (no epilogue), right-hand side 2, r0 = b - A x0 4, 4 per
+    # iteration, epilogue 1: all but the first with a clover epilogue
+    assert dc.hopping_split_rhs.launches == 4 * out.iterations + 8
+    assert dc.hopping_split_rhs.clover_launches == 4 * out.iterations + 7
+    one = invert_clover_eo(u, bs[1], CLOVER, lat, tol=1e-7, maxiter=500)
+    assert dc.hopping_split.clover_launches == 4 * one.iterations + 7
+    assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+    assert float((out.x[1] - one.x).abs().max()) < 2e-5
+    ref = invert_eo_rhs(u.cpu(), bs.cpu(), CLOVER, lat, tol=1e-7, maxiter=500)
+    assert out.iterations == ref.iterations
+    assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
+def test_q_hat_clover_diff_matches_plain(cuda):
+    """Forward and every gradient of the clover force operator (hops on
+    HoppingDiff) against autograd of the same operator on the plain hop."""
+    lat, u, (psi, _, g) = _setup((8, 4, 4, 4), cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=False)
+    blk2 = [dc.blk_unflatten(_blocks(lat, cuda, s)) for s in (6, 7)]
+    k2 = PARAMS.kappa ** 2
+
+    def plain_q(ug_e, ug_o, moo, mee_inv, x):
+        tmp = dc.hopping_split_plain(ug_e, x, 0, lat)
+        tmp = dc.hopping_split_plain(ug_o, wf._blocks_apply_split(mee_inv, tmp), 1, lat)
+        return wf.gamma5_split(wf._blocks_apply_split(moo, x) - k2 * tmp)
+
+    grads = []
+    for fn in (lambda *a: wf.q_hat_clover_diff(*a, PARAMS, lat), plain_q):
+        ins = [t.clone().requires_grad_(True) for t in (fg.ug_even, fg.ug_odd, *blk2, psi)]
+        out = fn(*ins)
+        grads.append((out.detach(),) + torch.autograd.grad(out, ins, g))
+    for x, y in zip(*grads):
+        assert _close(x, y)
 
 
 @pytest.mark.parametrize("dims", [(8, 4, 4, 4), (6, 4, 6, 10)])
@@ -149,6 +212,11 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
         dc.hopping_split_rhs(fg.ug_even, batch.cpu(), 0, lat)  # mixed devices
     with pytest.raises(NotImplementedError):
         dc.hopping_split_rhs(fg.ug_even, batch, 0, lat, r_axis=1)
+    with pytest.raises(ValueError, match="needs blocks"):
+        dc.hopping_split(fg.ug_even, psi, 0, lat, epi=("clov_inv",))
+    with pytest.raises(ValueError):
+        dc.hopping_split(fg.ug_even, psi, 0, lat, epi=("clov_inv",),
+                         blocks=_blocks(lat, "cpu"))  # mixed devices
 
 
 def test_trajectory_kernel_path_matches_plain_path(cuda):
@@ -168,6 +236,68 @@ def test_trajectory_kernel_path_matches_plain_path(cuda):
     for dev in (cuda, torch.device("cpu")):
         d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
         _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+    assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
+    assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
+    assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
+
+
+_CLOVER_INPUT = """L = 4
+T = 4
+beta = 5.3
+NumberOfTimescales = 3
+BeginMonomial GAUGE
+  Timescale = 0
+  IntegrationSteps = 1
+EndMonomial
+BeginMonomial CLOVERTRLOG
+  Timescale = 0
+  kappa = 0.13
+  2KappaMu = 0.0026
+  CSW = 1.74
+EndMonomial
+BeginMonomial CLOVERDET
+  Timescale = 1
+  kappa = 0.13
+  2KappaMu = 0.026
+  CSW = 1.74
+  AcceptancePrecision = 1e-20
+  ForcePrecision = 1e-20
+  IntegrationSteps = 1
+EndMonomial
+BeginMonomial CLOVERDETRATIO
+  Timescale = 2
+  kappa = 0.13
+  2KappaMu = 0.0026
+  2KappaMu2 = 0.026
+  CSW = 1.74
+  AcceptancePrecision = 1e-20
+  ForcePrecision = 1e-20
+  IntegrationSteps = 2
+EndMonomial
+"""
+
+
+def test_clover_trajectory_kernel_path_matches_plain_path(cuda):
+    """One 4^4 twisted-clover Hasenbusch trajectory on CUDA tensors (kernels
+    with the clover epilogues) and on CPU tensors (plain versions) with the
+    same draws; bounds as for the twisted-mass trajectory above."""
+    from tmlqcd_tpu_torch import config, config_tmlqcd
+
+    cfg = config.build_hmc(config_tmlqcd.parse_input(_CLOVER_INPUT))
+    lat = cfg.lat
+    key = rng.Key(8)
+    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    mom = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+    etas = [None, None] + [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
+                           for i in (2, 3)]
+    out = {}
+    dc.reset_counters()
+    for dev in (cuda, torch.device("cpu")):
+        d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
+        _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+        if dev.type == "cuda":
+            assert dc.hopping_split.clover_launches > 0 and dc.hopping_ug_vjp.launches > 0
+            assert dc.hopping_split_plain.calls == 0 and dc.hopping_ug_vjp_plain.calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations

@@ -305,7 +305,7 @@ def test_hmc2_lowers_to_the_reference_monomials():
 
 
 @pytest.mark.parametrize("what, text", [
-    ("CLOVERDET", "BeginMonomial CLOVERDET\n kappa = 0.1\nEndMonomial\n"),
+    ("NDCLOVERRAT", "BeginMonomial NDCLOVERRAT\n kappa = 0.1\n CSW = 1.0\nEndMonomial\n"),
     ("NrTProcs", "NrTProcs = 2\n"),
     ("NrYProcs", "NrYProcs = 2\n"),
     ("NDRAT", "BeginMonomial NDRAT\n kappa = 0.1\nEndMonomial\n"),

@@ -282,11 +282,11 @@ def test_cli_invert_matches_reference_cli(tmp_path, fields, monkeypatch):
 
 
 @pytest.mark.parametrize("what, text", [
-    ("CLOVER", "BeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\nEndOperator\n"),
     ("DBTMWILSON", "BeginOperator DBTMWILSON\n kappa = 0.13\nEndOperator\n"),
     ("DBCLOVER", "BeginOperator DBCLOVER\n kappa = 0.13\nEndOperator\n"),
     ("OVERLAP", "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
-    ("CSW", "BeginOperator TMWILSON\n kappa = 0.13\n CSW = 1.0\nEndOperator\n"),
+    ("NrXProcs", "NrXProcs = 2\nBeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\nEndOperator\n"),
+    ("dfl", "BeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\n Solver = dfl\nEndOperator\n"),
     ("mixedcg", "BeginOperator TMWILSON\n kappa = 0.13\n Solver = mixedcg\nEndOperator\n"),
     ("fastmixed", "BeginOperator TMWILSON\n kappa = 0.13\n Solver = fastmixed\nEndOperator\n"),
     ("dflfgmres", "BeginOperator TMWILSON\n kappa = 0.13\n Solver = dflfgmres\nEndOperator\n"),
@@ -305,11 +305,13 @@ def test_unported_inverter_options_raise(what, text):
 
 
 def test_ported_inverter_options_pass():
-    for op in ("TMWILSON", "WILSON"):
+    for op in ("TMWILSON", "WILSON", "CLOVER"):
         for solver in ("cg", "fastcg"):
-            config.check_invert_ported(config_tmlqcd.parse_input(
-                f"BeginOperator {op}\n kappa = 0.13\n Solver = {solver}\nEndOperator\n"))
-    with pytest.raises(NotImplementedError, match="c_sw"):
-        invert_eo(torch.zeros(1), torch.zeros(1), w.DiracParams(kappa=0.1, c_sw=1.0), LAT)
+            for csw in ("", " CSW = 1.0\n"):
+                config.check_invert_ported(config_tmlqcd.parse_input(
+                    f"BeginOperator {op}\n kappa = 0.13\n{csw} Solver = {solver}\nEndOperator\n"))
+    with pytest.raises(NotImplementedError, match="mixedcg.*not yet ported"):
+        invert_eo(torch.zeros(1), torch.zeros(1), w.DiracParams(kappa=0.1, c_sw=1.0), LAT,
+                  solver="mixedcg")
     with pytest.raises(ValueError, match="unknown solver"):
         invert_eo(torch.zeros(1), torch.zeros(1), TP, LAT, solver="nope")

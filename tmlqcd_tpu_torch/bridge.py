@@ -8,6 +8,8 @@ numpy arrays in the shared layouts:
     source    complex64 [4, 3, T, X, Y*Z] or a batch [R, 4, 3, T, X, Y*Z]
     split     float32   [2, ...]          (re/im leading)
     FastGauge float32   ug_even/ug_odd [2, 8, 3|2, 3, T, X, M] + gcomp
+    clover    complex64 sw_e/sw_o [2, 2, 2, 3, 3, T, X, M] (chirality blocks)
+    FastClover          FastGauge + four float32 [2, 72, T, X, M] block fields
     chrono    fields [n, ...field] + count
 
 `numpy_su3` and `numpy_spinor` draw test inputs from a numpy Generator, so
@@ -21,11 +23,12 @@ import torch
 
 from tmlqcd_tpu_torch.inverter import InvertResult
 from tmlqcd_tpu_torch.lattice import Lattice
-from tmlqcd_tpu_torch.ops.wilson_fast import FastGauge
+from tmlqcd_tpu_torch.ops.wilson_fast import FastClover, FastGauge
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory
 
 __all__ = ["gauge_from_numpy", "spinor_from_numpy", "sources_from_numpy",
-           "split_from_numpy", "fast_gauge_from_numpy", "chrono_from_numpy",
+           "split_from_numpy", "fast_gauge_from_numpy", "clover_blocks_from_numpy",
+           "fast_clover_from_numpy", "fast_clover_to_numpy", "chrono_from_numpy",
            "invert_result_from_numpy", "to_numpy", "numpy_su3", "numpy_spinor"]
 
 
@@ -67,6 +70,28 @@ def split_from_numpy(arr, device="cpu") -> torch.Tensor:
 def fast_gauge_from_numpy(ug_even, ug_odd, gcomp=None, device="cpu") -> FastGauge:
     return FastGauge(split_from_numpy(ug_even, device), split_from_numpy(ug_odd, device),
                      None if gcomp is None else tuple(tuple(map(float, c)) for c in gcomp))
+
+
+def clover_blocks_from_numpy(arr, lat: Lattice, device="cpu") -> torch.Tensor:
+    """Packed clover term of one parity (`sw_e` or `sw_o`), or materialised
+    blocks in the same layout: complex [2, 2, 2, 3, 3, T, X, M]."""
+    return _as(arr, torch.complex64, (2, 2, 2, 3, 3) + lat.eo_site_shape, device)
+
+
+def fast_clover_from_numpy(fg: FastGauge, moo_p, moo_m, mee_inv_p, mee_inv_m, lat: Lattice,
+                           device="cpu") -> FastClover:
+    """The reference's FastClover block fields (numpy, [2, 72, T, X, M]) on a
+    FastGauge of the port."""
+    blk = lambda a: _as(a, torch.float32, (2, 72) + lat.eo_site_shape, device).contiguous()  # noqa: E731
+    return FastClover(fg, blk(moo_p), blk(moo_m), blk(mee_inv_p), blk(mee_inv_m))
+
+
+def fast_clover_to_numpy(fc: FastClover) -> dict:
+    """The port's FastClover as numpy arrays under the reference's field
+    names (`fg` as ug_even / ug_odd / gcomp)."""
+    return {"ug_even": to_numpy(fc.fg.ug_even), "ug_odd": to_numpy(fc.fg.ug_odd),
+            "gcomp": fc.fg.gcomp, "moo_p": to_numpy(fc.moo_p), "moo_m": to_numpy(fc.moo_m),
+            "mee_inv_p": to_numpy(fc.mee_inv_p), "mee_inv_m": to_numpy(fc.mee_inv_m)}
 
 
 def chrono_from_numpy(fields, count: int, device="cpu") -> ChronoHistory:

@@ -8,7 +8,10 @@ columns and `Solver = cg` (or `fastcg`) they run as ONE batched solve
 (`invert_eo_rhs`) on the multi-RHS hopping kernel, otherwise column by column
 (`invert_eo`).  The solver tolerance is sqrt(SolverPrecision).
 
-Ported: the TMWILSON and WILSON operators with cg / fastcg.  CLOVER,
+Ported: the TMWILSON, WILSON and CLOVER operators with cg / fastcg.  As in
+the reference, a single column of a CLOVER operator goes to
+`invert_clover_eo` and of any other operator to `invert_eo`, which does not
+read CSW; the batched solve takes the clover pipeline whenever CSW != 0.
 DBTMWILSON, DBCLOVER, OVERLAP, the other solvers, UseStoutSmearing and
 UseSourceSmearing raise `NotImplementedError` naming themselves.
 
@@ -59,7 +62,7 @@ def main(argv=None):
     from tmlqcd_tpu_torch import rng
     from tmlqcd_tpu_torch.config import check_invert_ported
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
-    from tmlqcd_tpu_torch.inverter import invert_eo, invert_eo_rhs
+    from tmlqcd_tpu_torch.inverter import invert_clover_eo, invert_eo, invert_eo_rhs
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
     from tmlqcd_tpu_torch.io.propagator import write_propagator
     from tmlqcd_tpu_torch.meas.sources import point_source, z2_timeslice_source
@@ -92,6 +95,7 @@ def main(argv=None):
     for iop, op in enumerate(cfg.operators):
         mu = op.two_kappa_mu / (2 * op.kappa) if op.kappa else 0.0
         params = DiracParams(kappa=op.kappa, mu=mu, c_sw=op.csw, theta=tuple(op.theta))
+        inv = invert_clover_eo if op.type.upper() == "CLOVER" else invert_eo
         tol = float(op.precision) ** 0.5
 
         # CLI flags override the input file's SourceType / SourceTimeslice
@@ -121,8 +125,8 @@ def main(argv=None):
             for i, (s, c, src) in enumerate(sources):
                 sync()
                 t0 = time.perf_counter()
-                res = invert_eo(u, src, params, lat, tol=tol, maxiter=op.max_solver_iterations,
-                                solver=op.solver)
+                res = inv(u, src, params, lat, tol=tol, maxiter=op.max_solver_iterations,
+                          solver=op.solver)
                 sync()
                 dt = time.perf_counter() - t0
                 sol[i] = to_host(res.x)

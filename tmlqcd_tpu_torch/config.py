@@ -2,8 +2,9 @@
 
 Port of `tmlqcd_tpu/config.py`.  The dataclasses carry the reference's full
 input schema, so every tmLQCD input the reference accepts parses here too.
-`build_hmc` lowers the ported subset — the GAUGE, DET and DETRATIO
-monomials on one device, with the ONLINE and PIONNORM measurements, the
+`build_hmc` lowers the ported subset — the GAUGE, DET, DETRATIO, CLOVERDET,
+CLOVERDETRATIO and CLOVERTRLOG monomials on one device, with the ONLINE and
+PIONNORM measurements, the
 force monitor, ReversibilityCheck and native or ILDG checkpoints — and
 raises `NotImplementedError`, naming the feature, for everything else: other
 monomial and measurement types and NrTProcs/NrXProcs/NrYProcs/NrZProcs > 1.
@@ -17,6 +18,9 @@ import dataclasses
 from typing import Optional
 
 from tmlqcd_tpu_torch.hmc import (
+    CloverDetMonomial,
+    CloverDetRatioMonomial,
+    CloverTrlogMonomial,
     DetMonomial,
     DetRatioMonomial,
     GaugeMonomial,
@@ -41,7 +45,7 @@ __all__ = [
     "check_invert_ported",
 ]
 
-PORTED_OPERATORS = ("TMWILSON", "WILSON")
+PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER")
 GAUGE_ACTIONS = {"wilson": 0.0, "tlsym": -1.0 / 12.0, "iwasaki": -0.331, "dbw2": -1.4088}
 
 
@@ -178,7 +182,8 @@ def _not_ported(what: str):
 
 
 def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
-    """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO)."""
+    """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO,
+    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG)."""
     ty = spec.type.upper()
     det_common = dict(
         timescale=spec.timescale,
@@ -189,8 +194,8 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
         chrono_n=spec.csg_history,
     )
 
-    def params(two_kappa_mu):
-        return DiracParams(kappa=spec.kappa, mu=_mu(two_kappa_mu, spec.kappa),
+    def params(two_kappa_mu, c_sw=0.0):
+        return DiracParams(kappa=spec.kappa, mu=_mu(two_kappa_mu, spec.kappa), c_sw=c_sw,
                            theta=tuple(spec.theta))
 
     if ty == "GAUGE":
@@ -202,6 +207,19 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
         return DetRatioMonomial(lat=lat, params1=params(spec.two_kappa_mu),
                                 params2=params(spec.two_kappa_mu2),
                                 name=spec.name or "detratio", **det_common)
+    if ty == "CLOVERDET":
+        return CloverDetMonomial(lat=lat, params=params(spec.two_kappa_mu, spec.csw),
+                                 name=spec.name or "cloverdet", **det_common)
+    if ty == "CLOVERDETRATIO":
+        return CloverDetRatioMonomial(lat=lat, params1=params(spec.two_kappa_mu, spec.csw),
+                                      params2=params(spec.two_kappa_mu2, spec.csw),
+                                      name=spec.name or "cloverdetratio", **det_common)
+    if ty == "CLOVERTRLOG":
+        # no boundary phases: the clover term does not see them
+        return CloverTrlogMonomial(
+            lat=lat, params=DiracParams(kappa=spec.kappa, mu=_mu(spec.two_kappa_mu, spec.kappa),
+                                        c_sw=spec.csw),
+            timescale=spec.timescale, name=spec.name or "clovertrlog")
     raise _not_ported(f"monomial type {spec.type!r}")
 
 
@@ -226,8 +244,8 @@ def check_ported(cfg: RunConfig) -> None:
 
 def check_invert_ported(cfg: RunConfig) -> None:
     """Raise for every inverter feature this slice of the port does not
-    carry: operators other than TMWILSON / WILSON, solvers other than cg /
-    fastcg, stout and source smearing, domain decomposition."""
+    carry: operators other than TMWILSON / WILSON / CLOVER, solvers other
+    than cg / fastcg, stout and source smearing, domain decomposition."""
     _check_one_device(cfg)
     if cfg.use_stout_smearing and cfg.stout_iterations > 0:
         raise _not_ported("UseStoutSmearing")
@@ -236,8 +254,6 @@ def check_invert_ported(cfg: RunConfig) -> None:
     for op in cfg.operators:
         if op.type.upper() not in PORTED_OPERATORS:
             raise _not_ported(f"operator type {op.type!r}")
-        if op.csw != 0.0:
-            raise _not_ported(f"operator {op.type!r} with CSW = {op.csw}")
         check_solver(op.solver)
 
 

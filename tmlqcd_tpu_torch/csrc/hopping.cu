@@ -12,6 +12,10 @@
 //   psi  [2 re/im][4 spin][3 colour][R][V]       K1-R: R right-hand sides
 //   ug   [2 re/im][8 dir][rows][3 col][V]        rows = 3 (18 reals) or 2 (12 reals)
 //   out  like psi (K1, K1-R) or [2][8][3][3][V] (K2)
+//   blk  [2 re/im][72][V]                        clover epilogues: two 6 x 6 complex
+//                                                blocks per site, entry
+//                                                k = ((b 2 + s) 2 + s') 9 + 3 c + c'
+//                                                (b chirality, s s' spin in it, c c' colour)
 //
 // with direction d = 2 mu + fb (fb = 0 forward, 1 backward), the boundary
 // phases already folded into the gauge copy.
@@ -24,6 +28,16 @@
 // (rebuilding row 2 as corr * conj(row0 x row1) for the 12-real copy),
 // spreads back with W and accumulates; the twisted-mass epilogue is fused on
 // the way out.
+//
+// Clover epilogues (`_apply_epilogue` clov_inv / clov_mhat with `_blk_matvec`
+// of the same Pallas file): the per-site block matvec runs on the
+// accumulators while they are still in registers, so H psi never makes a
+// round trip through device memory before M_ee^-1 or M_oo is applied.  It
+// works chirality by chirality: the six complex inputs of one chirality
+// against the 72 block floats of that chirality, streamed and used once, so
+// the 24 accumulators are never doubled.  The blocks are not hermitian
+// (1 + T +- i mu gamma5 is only normal): all 72 complex entries are read.
+// They add 576 B per site to the bytes below and 576 flops to the 1320.
 //
 // Bound: memory.  1320 flops per site against 576 B (18-real) or 384 B
 // (12-real) of gauge, 96 B per spinor read (8 neighbour reads of which the
@@ -40,11 +54,14 @@
 // shared memory (18 KB, row 2 of the 12-real copy rebuilt once), so the
 // gauge is read once per block; left to L1, the link lines were evicted by
 // the spinor stream between the rows and came from L2 for each of them.
+// The clover blocks of the block's sites are staged the same way (another
+// 18 KB) for the clover epilogues.
 // Then each thread runs K1's per-site arithmetic (the same device
 // functions) on its column, which keeps the register count at K1's.
 // Bound: memory, G + R * (192 [+ 96 for mhat]) bytes per site with G = 576
-// or 384.  On large lattices the blocks walk a few timeslices innermost
-// (rhs_t_inner), which keeps the t-neighbours of the whole batch in L2.
+// or 384, plus 576 for the clover blocks.  On large lattices the blocks walk
+// a few timeslices innermost (rhs_t_inner), which keeps the t-neighbours of
+// the whole batch in L2.
 // The field is addressed through three element strides (re/im, component,
 // right-hand side), so another position of the R axis is a change of the
 // wrapper only.
@@ -251,7 +268,8 @@ __device__ __forceinline__ void accum_site(const float* __restrict__ psi,
 }
 
 // EPI: 0 none (out = H psi), 1 mee_inv (out = Mee^-1 H psi),
-//      2 mhat (out = [g5] (Mee psi_o - k2 H psi))
+//      2 mhat (out = [g5] (Mee psi_o - k2 H psi)); 3 and 4 are the clover
+//      epilogues of store_clover
 template <int EPI, bool G5>
 __device__ __forceinline__ void store_epilogue(const float (&ar)[4][3], const float (&ai)[4][3],
                                                const float* __restrict__ psi_o,
@@ -286,18 +304,81 @@ __device__ __forceinline__ void store_epilogue(const float (&ar)[4][3], const fl
   }
 }
 
+// The clover epilogues.  EPI 3 clov_inv: out = scale * B (H psi), B the
+// M_ee^-1 blocks of the even sites; EPI 4 clov_mhat: out = [g5] (B psi_o -
+// k2 H psi), B the M_oo blocks of the odd sites.  Block entry (ri, k) of this
+// thread's site is blk[(ri * 72 + k) * bstride + bidx]: device memory for K1
+// (LDG: read-only path), the block's staged copy in shared memory for K1-R.
+template <int EPI, bool G5, bool LDG>
+__device__ __forceinline__ void store_clover(const float (&ar)[4][3], const float (&ai)[4][3],
+                                             const float* __restrict__ psi_o,
+                                             float* __restrict__ out, const Strides& st,
+                                             int site, float scale, float k2,
+                                             const float* __restrict__ blk, long long bstride,
+                                             int bidx) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    // the six complex inputs of chirality b
+    float xr[2][3], xi[2][3];
+#pragma unroll
+    for (int sp = 0; sp < 2; ++sp)
+#pragma unroll
+      for (int cp = 0; cp < 3; ++cp) {
+        if (EPI == 3) {
+          xr[sp][cp] = ar[2 * b + sp][cp];
+          xi[sp][cp] = ai[2 * b + sp][cp];
+        } else {
+          const long long o = ((2 * b + sp) * 3 + cp) * st.comp + site;
+          xr[sp][cp] = __ldg(psi_o + o);
+          xi[sp][cp] = __ldg(psi_o + st.im + o);
+        }
+      }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float sr = 0.f, si = 0.f;
+#pragma unroll
+        for (int sp = 0; sp < 2; ++sp)
+#pragma unroll
+          for (int cp = 0; cp < 3; ++cp) {
+            const int k = ((b * 2 + s) * 2 + sp) * 9 + c * 3 + cp;
+            const float* pr = blk + k * bstride + bidx;
+            const float* pi = blk + (72 + k) * bstride + bidx;
+            const float br = LDG ? __ldg(pr) : *pr;
+            const float bi = LDG ? __ldg(pi) : *pi;
+            sr += br * xr[sp][cp] - bi * xi[sp][cp];
+            si += br * xi[sp][cp] + bi * xr[sp][cp];
+          }
+        const long long ore = ((2 * b + s) * 3 + c) * st.comp + site;
+        const long long oim = st.im + ore;
+        if (EPI == 3) {
+          out[ore] = scale * sr;
+          out[oim] = scale * si;
+        } else {
+          const float g5s = (G5 && b == 1) ? -1.f : 1.f;  // gamma5 = diag(+,+,-,-)
+          out[ore] = g5s * (sr - k2 * ar[2 * b + s][c]);
+          out[oim] = g5s * (si - k2 * ai[2 * b + s][c]);
+        }
+      }
+  }
+}
+
 template <int EPI, bool G5, bool COMP>
 __global__ void __launch_bounds__(128)
 hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
-               const float* __restrict__ psi_o, float* __restrict__ out, Geo geo,
-               float mt, float inv, float k2, Corr corr) {
+               const float* __restrict__ psi_o, const float* __restrict__ blocks,
+               float* __restrict__ out, Geo geo, float mt, float inv, float k2, Corr corr) {
   const long long V = (long long)geo.T * geo.X * geo.M;
   const int site = blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= V) return;
   const Strides st{12 * V, V};
   float ar[4][3], ai[4][3];
   accum_site<COMP>(psi, ug, geo, V, st, site, corr, ar, ai);
-  store_epilogue<EPI, G5>(ar, ai, psi_o, out, st, site, mt, inv, k2);
+  if constexpr (EPI >= 3)
+    store_clover<EPI, G5, true>(ar, ai, psi_o, out, st, site, inv, k2, blocks, V, site);
+  else
+    store_epilogue<EPI, G5>(ar, ai, psi_o, out, st, site, mt, inv, k2);
 }
 
 // K1-R: block (kRhsSites sites, up to kRhsCols right-hand sides); the
@@ -358,10 +439,12 @@ __device__ __forceinline__ void hop_staged(const float* __restrict__ psi, const 
 template <int EPI, bool G5, bool COMP>
 __global__ void __launch_bounds__(kRhsSites * kRhsCols)
 hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
-                   const float* __restrict__ psi_o, float* __restrict__ out, Geo geo, int R,
-                   Strides st, long long rstride, int tin, float mt, float inv, float k2,
-                   Corr corr) {
+                   const float* __restrict__ psi_o, const float* __restrict__ blocks,
+                   float* __restrict__ out, Geo geo, int R, Strides st, long long rstride,
+                   int tin, float mt, float inv, float k2, Corr corr) {
   __shared__ float sl[8 * 18 * kRhsSites];
+  // the clover blocks of the block's sites, sb[(ri * 72 + k)][lane]
+  __shared__ float sb[EPI >= 3 ? 144 * kRhsSites : 1];
   const long long V = (long long)geo.T * geo.X * geo.M;
   int site = blockIdx.x * blockDim.x + threadIdx.x;
   if (tin > 1) {
@@ -393,6 +476,11 @@ hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
         default: stage_link<7, COMP>(ug, V, site, corr, sl, lane); break;
       }
     }
+  // left to L1, each of the R columns of a site would fetch the same 576 B
+  // of blocks; the rows share out the 144 floats and stage them once
+  if (EPI >= 3 && site < V)
+    for (int k = threadIdx.y; k < 144; k += blockDim.y)
+      sb[k * kRhsSites + lane] = __ldg(blocks + k * V + site);
   __syncthreads();
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (site >= V || r >= R) return;
@@ -413,8 +501,12 @@ hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
   hop_staged<5>(psi_r, st, nb[5], sl, lane, ar, ai);
   hop_staged<6>(psi_r, st, nb[6], sl, lane, ar, ai);
   hop_staged<7>(psi_r, st, nb[7], sl, lane, ar, ai);
-  store_epilogue<EPI, G5>(ar, ai, EPI == 2 ? psi_o + off : psi_o, out + off, st, site, mt, inv,
-                          k2);
+  if constexpr (EPI >= 3)
+    store_clover<EPI, G5, false>(ar, ai, EPI == 4 ? psi_o + off : psi_o, out + off, st, site,
+                                 inv, k2, sb, kRhsSites, lane);
+  else
+    store_epilogue<EPI, G5>(ar, ai, EPI == 2 ? psi_o + off : psi_o, out + off, st, site, mt,
+                            inv, k2);
 }
 
 template <int D>
@@ -495,6 +587,7 @@ struct Args {
   const float* psi;
   const float* ug;
   const float* psi_o;
+  const float* blocks;
   float* out;
   Geo geo;
   float mt, inv, k2;
@@ -511,7 +604,7 @@ void launch(const Args& a) {
   if (a.R == 0) {
     const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);
     hopping_kernel<EPI, G5, COMP><<<blocks, kBlock, 0, a.stream>>>(
-        a.psi, a.ug, a.psi_o, a.out, a.geo, a.mt, a.inv, a.k2, a.corr);
+        a.psi, a.ug, a.psi_o, a.blocks, a.out, a.geo, a.mt, a.inv, a.k2, a.corr);
   } else {
     const int cols = a.R < kRhsCols ? a.R : kRhsCols;
     const dim3 block(kRhsSites, cols);
@@ -519,8 +612,8 @@ void launch(const Args& a) {
                     (unsigned)((a.R + cols - 1) / cols));
     const int tin = rhs_t_inner(a.geo, a.R);
     hopping_rhs_kernel<EPI, G5, COMP><<<grid, block, 0, a.stream>>>(
-        a.psi, a.ug, a.psi_o, a.out, a.geo, a.R, a.st, a.rstride, tin, a.mt, a.inv,
-        a.k2, a.corr);
+        a.psi, a.ug, a.psi_o, a.blocks, a.out, a.geo, a.R, a.st, a.rstride, tin, a.mt,
+        a.inv, a.k2, a.corr);
   }
 }
 
@@ -528,8 +621,11 @@ template <bool COMP>
 void dispatch_epi(int epi, int g5, const Args& a) {
   if (epi == 0) launch<0, false, COMP>(a);
   else if (epi == 1) launch<1, false, COMP>(a);
-  else if (g5) launch<2, true, COMP>(a);
-  else launch<2, false, COMP>(a);
+  else if (epi == 2 && g5) launch<2, true, COMP>(a);
+  else if (epi == 2) launch<2, false, COMP>(a);
+  else if (epi == 3) launch<3, false, COMP>(a);
+  else if (g5) launch<4, true, COMP>(a);
+  else launch<4, false, COMP>(a);
 }
 
 bool bad_geometry(int T, int X, int M, int zh, int p) {
@@ -538,7 +634,9 @@ bool bad_geometry(int T, int X, int M, int zh, int p) {
 
 // validates the shared arguments, fills corr and launches; R == 0 is K1
 int run_hopping(Args a, int epi, int g5, int comp, const float* corr16) {
-  if (epi < 0 || epi > 2 || (epi == 2 && a.psi_o == nullptr) || (comp && corr16 == nullptr))
+  const bool needs_psi_o = epi == 2 || epi == 4;
+  if (epi < 0 || epi > 4 || (needs_psi_o && a.psi_o == nullptr) ||
+      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr))
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < 8; ++d) {
     a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
@@ -553,30 +651,34 @@ int run_hopping(Args a, int epi, int g5, int comp, const float* corr16) {
 
 extern "C" {
 
-// K1.  epi: 0 none, 1 mee_inv, 2 mhat.  corr16: 8 (re, im) pairs on the
-// host, read only when comp != 0.  Returns cudaGetLastError() after the
-// launch (0 = success); an invalid argument returns cudaErrorInvalidValue.
-int tm_hopping(const float* psi, const float* ug, const float* psi_o, float* out, int T, int X,
-               int M, int zh, int p, int epi, int g5, int comp, float mt, float inv,
-               float k2, const float* corr16, void* stream) {
+// K1.  epi: 0 none, 1 mee_inv, 2 mhat, 3 clov_inv, 4 clov_mhat (3 and 4
+// read `blocks`, 2 and 4 read `psi_o`; for 3 `inv` is the scale factor).
+// corr16: 8 (re, im) pairs on the host, read only when comp != 0.  Returns
+// cudaGetLastError() after the launch (0 = success); an invalid argument
+// returns cudaErrorInvalidValue.
+int tm_hopping(const float* psi, const float* ug, const float* psi_o, const float* blocks,
+               float* out, int T, int X, int M, int zh, int p, int epi, int g5, int comp,
+               float mt, float inv, float k2, const float* corr16, void* stream) {
   if (bad_geometry(T, X, M, zh, p)) return (int)cudaErrorInvalidValue;
   const long long V = (long long)T * X * M;
-  const Args a{psi, ug, psi_o, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, 0,
+  const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, 0,
                Strides{12 * V, V}, 0, (cudaStream_t)stream};
   return run_hopping(a, epi, g5, comp, corr16);
 }
 
 // K1-R: R right-hand sides on one read of the gauge.  psi, psi_o and out
 // are addressed as base + r * r_stride + im_stride * (0|1) + (3 s + c) *
-// comp_stride + site (element strides); the other arguments are K1's.
-int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, float* out, int T,
-                   int X, int M, int zh, int p, int epi, int g5, int comp, float mt, float inv,
-                   float k2, const float* corr16, int R, long long im_stride,
-                   long long comp_stride, long long r_stride, void* stream) {
+// comp_stride + site (element strides); `blocks` has no R axis; the other
+// arguments are K1's.
+int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, const float* blocks,
+                   float* out, int T, int X, int M, int zh, int p, int epi, int g5, int comp,
+                   float mt, float inv, float k2, const float* corr16, int R,
+                   long long im_stride, long long comp_stride, long long r_stride,
+                   void* stream) {
   if (bad_geometry(T, X, M, zh, p) || R <= 0 || im_stride <= 0 || comp_stride <= 0 ||
       r_stride <= 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{psi, ug, psi_o, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
+  const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
                Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream};
   return run_hopping(a, epi, g5, comp, corr16);
 }

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["GAMMA", "GAMMA5", "apply_gamma5", "gamma5_split"]
+__all__ = ["GAMMA", "GAMMA5", "SIGMA_MUNU", "apply_gamma5", "gamma5_split"]
 
 _i = 1j
 
@@ -26,6 +26,11 @@ GAMMA = np.array(
 )
 
 GAMMA5 = GAMMA[0] @ GAMMA[1] @ GAMMA[2] @ GAMMA[3]
+
+# sigma_munu = (i/2) [gamma_mu, gamma_nu], for the clover term; block-diagonal
+# in the two chirality halves because it commutes with gamma5.
+SIGMA_MUNU = np.array([[0.5j * (GAMMA[mu] @ GAMMA[nu] - GAMMA[nu] @ GAMMA[mu]) for nu in range(4)]
+                       for mu in range(4)])
 
 _G5_SIGN = (1.0, 1.0, -1.0, -1.0)
 

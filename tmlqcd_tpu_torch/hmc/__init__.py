@@ -2,6 +2,9 @@
 
 from tmlqcd_tpu_torch.hmc.integrators import IntegratorConfig, Level  # noqa: F401
 from tmlqcd_tpu_torch.hmc.monomials import (  # noqa: F401
+    CloverDetMonomial,
+    CloverDetRatioMonomial,
+    CloverTrlogMonomial,
     DetMonomial,
     DetRatioMonomial,
     GaugeMonomial,

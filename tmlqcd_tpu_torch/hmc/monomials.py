@@ -1,5 +1,5 @@
-"""Monomials of the Nf=2 twisted-mass Hasenbusch action: GAUGE, DET and
-DETRATIO.
+"""Monomials of the Nf=2 twisted-mass and twisted-clover Hasenbusch
+actions: GAUGE, DET, DETRATIO, CLOVERDET, CLOVERTRLOG and CLOVERDETRATIO.
 
 Port of the main-path parts of `tmlqcd_tpu/hmc/monomials.py`.  Each monomial
 exposes
@@ -22,6 +22,15 @@ runs on `HoppingDiff` (K1 forward, K2 + adjoint K1 backward) and autograd
 carries the chain rule through the gauge copy.  PyTorch's gradient with
 respect to the complex gauge is the conjugate of the reference's convention,
 hence `torch_grad_to_jax` before `ta_force_from_grad`.
+
+Clover monomials: the same routing with the clover epilogues of K1
+(`wf.q_hat_clover_fast`) for every Dirac application and
+`wf.q_hat_clover_diff` for every force surrogate, where the reference runs
+the heatbaths and the whole CLOVERDETRATIO force through its complex jnp
+operator.  The clover-term part of a force is autograd through
+`ops/clover.sw_blocks` -> `mee_blocks` / `mee_inv_blocks` / `sw_logdet`.
+Each call builds the gauge copy and the clover term once (`_CloverState`)
+and shares them between its operators; nothing is cached across calls.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from tmlqcd_tpu_torch import rng
 from tmlqcd_tpu_torch.lattice import Lattice
+from tmlqcd_tpu_torch.ops import clover as cl
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.gauge_action import (
     gauge_action,
@@ -44,7 +54,8 @@ from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers import dispatch
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory, chrono_guess, chrono_init, chrono_push
 
-__all__ = ["GaugeMonomial", "DetMonomial", "DetRatioMonomial", "SolveOut", "eo_spinor_shape"]
+__all__ = ["GaugeMonomial", "DetMonomial", "DetRatioMonomial", "CloverDetMonomial",
+           "CloverTrlogMonomial", "CloverDetRatioMonomial", "SolveOut", "eo_spinor_shape"]
 
 
 def eo_spinor_shape(lat: Lattice) -> tuple:
@@ -219,6 +230,194 @@ class DetRatioMonomial:
             return 2.0 * wf.dot_re_f64_split(x2, t2) - 2.0 * wf.dot_re_f64_split(y2, t1)
 
         return _surrogate_force(u, surrogate), res.hist, res.iterations
+
+    def force(self, u, phi2):
+        return self.force_chrono(u, phi2, None)[0]
+
+
+# ---------------------------------------------------------------------------
+# clover monomials
+# ---------------------------------------------------------------------------
+
+
+def _solve_qsw(fc: wf.FastClover, b2: torch.Tensor, params: DiracParams, lat: Lattice,
+               tol: float, maxiter: int, solver: str = "auto",
+               hist: ChronoHistory | None = None) -> SolveOut:
+    """Solve Qsw_pm x = b (split fields) through the dispatch seam, seeded by
+    the chronological guess of `hist` and pushing the solution into it."""
+    mv = lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat)  # noqa: E731
+    kw = {}
+    if hist is not None:
+        kw["x0"] = chrono_guess(hist, mv, b2)
+    x2, iters, _ = dispatch.solve_degenerate(mv, b2, solver=_resolve_solver(solver),
+                                             tol=tol, maxiter=maxiter, **kw)
+    return SolveOut(x2, int(iters), chrono_push(hist, x2) if hist is not None else None)
+
+
+class _CloverState:
+    """The gauge copy and the clover term at one U, built once per call of a
+    monomial: differentiable (for a force) or not.  `fast(params)` gives the
+    FastClover of one twisted mass from them; `blocks(params)` the
+    differentiable split (moo, mee_inv) blocks of Qsw(+)."""
+
+    def __init__(self, u: torch.Tensor, params: DiracParams, lat: Lattice, grad: bool):
+        self.lat = lat
+        with torch.enable_grad() if grad else torch.no_grad():
+            self.u = u.detach().requires_grad_(True) if grad else u
+            self.ug_e, self.ug_o = wf.split_gauge_pair(self.u, params, lat)
+            self.sw_e, self.sw_o = cl.sw_blocks_eo(self.u, params.kappa, params.c_sw, lat)
+        self.fg = wf.fast_gauge_from_pair(self.ug_e, self.ug_o, params, lat)
+
+    def fast(self, params: DiracParams) -> wf.FastClover:
+        return wf.fast_clover_from(self.fg, self.sw_e, self.sw_o, params.mutld)
+
+    def q_plus_diff(self, psi2: torch.Tensor, params: DiracParams) -> torch.Tensor:
+        moo, mee_inv = wf.split_clover_blocks(self.sw_e, self.sw_o, params.mutld, +1.0)
+        return wf.q_hat_clover_diff(self.ug_e, self.ug_o, moo, mee_inv, psi2, params, self.lat)
+
+    def force(self, surrogate: torch.Tensor) -> torch.Tensor:
+        """F = TA(U G^T), G the gradient of the real surrogate built on this
+        state."""
+        (g,) = torch.autograd.grad(surrogate, self.u)
+        u = self.u.detach()
+        return ta_force_from_grad(u, torch_grad_to_jax(g))
+
+
+@dataclasses.dataclass(frozen=True)
+class CloverDetMonomial:
+    """Two-flavour twisted-clover pseudofermion S = phi^+ (Qsw_pm)^{-1} phi.
+    heatbath: phi = Qsw_- eta, so S_0 = |eta|^2.  Pair with
+    CloverTrlogMonomial for the det(M_ee) factor."""
+
+    lat: Lattice
+    params: DiracParams
+    timescale: int = 1
+    acc_tol: float = 1e-8
+    force_tol: float = 1e-7
+    maxiter: int = 1000
+    solver: str = "auto"
+    chrono_n: int = 3
+    name: str = "cloverdet"
+
+    def heatbath(self, u, key, eta=None):
+        eta2 = _eta2(key, self.lat, u, eta)
+        fc = wf.make_fast_clover(u, self.params, self.lat)
+        return (wf.q_hat_clover_fast(fc, eta2, self.params, self.lat, -1.0),
+                wf.dot_re_f64_split(eta2, eta2))
+
+    def chrono_init_state(self, device):
+        if self.chrono_n <= 0:
+            return None
+        return chrono_init(self.chrono_n, (2,) + eo_spinor_shape(self.lat), torch.float32, device)
+
+    def action_info(self, u, phi2, hist=None):
+        fc = wf.make_fast_clover(u, self.params, self.lat)
+        res = _solve_qsw(fc, phi2, self.params, self.lat, self.acc_tol, self.maxiter,
+                         self.solver, hist)
+        return wf.dot_re_f64_split(phi2, res.x), res.iterations
+
+    def force_chrono(self, u, phi2, hist):
+        st = _CloverState(u, self.params, self.lat, grad=True)
+        fc = st.fast(self.params)
+        res = _solve_qsw(fc, phi2, self.params, self.lat, self.force_tol, self.maxiter,
+                         self.solver, hist)
+        x2 = res.x
+        y2 = wf.q_hat_clover_fast(fc, x2, self.params, self.lat, +1.0)
+        with torch.enable_grad():
+            s = -2.0 * wf.dot_re_f64_split(y2, st.q_plus_diff(x2, self.params))
+        return st.force(s), res.hist, res.iterations
+
+    def force(self, u, phi2):
+        return self.force_chrono(u, phi2, None)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class CloverTrlogMonomial:
+    """S = -sum_{even sites} log |det M_ee(+mu)|^2: the even/even factor of
+    the even/odd-preconditioned two-flavour clover determinant.  Exact action
+    (no solve); force by autograd through the closed-form block
+    determinants."""
+
+    lat: Lattice
+    params: DiracParams
+    timescale: int = 0
+    name: str = "clovertrlog"
+
+    def _action(self, u):
+        sw_e, _ = cl.sw_blocks_eo(u, self.params.kappa, self.params.c_sw, self.lat)
+        return -cl.sw_logdet(sw_e, self.params.mutld, +1.0)
+
+    def heatbath(self, u, key, eta=None):
+        return None, self._action(u)
+
+    def action_info(self, u, aux, hist=None):
+        return self._action(u), 0
+
+    def force(self, u, aux):
+        return _surrogate_force(u, self._action)
+
+
+@dataclasses.dataclass(frozen=True)
+class CloverDetRatioMonomial:
+    """Hasenbusch ratio of the twisted-clover operator,
+    S = phi^+ Qsw_-(mu2) Qsw_pm(mu1)^{-1} Qsw_+(mu2) phi.  params1: the light
+    (target) operator; params2: the heavy preconditioner.  kappa and c_sw are
+    shared, so the gauge copy and the clover term are built once per call and
+    serve both operators.
+    heatbath: phi = Qsw_+(2)^{-1} Qsw_-(1) eta, so S_0 = |eta|^2."""
+
+    lat: Lattice
+    params1: DiracParams
+    params2: DiracParams
+    timescale: int = 1
+    acc_tol: float = 1e-8
+    force_tol: float = 1e-7
+    maxiter: int = 1000
+    solver: str = "auto"
+    chrono_n: int = 3
+    name: str = "cloverdetratio"
+
+    def __post_init__(self):
+        if (self.params1.kappa, self.params1.c_sw) != (self.params2.kappa, self.params2.c_sw):
+            raise ValueError("cloverdetratio: kappa/c_sw must match between operators")
+
+    def heatbath(self, u, key, eta=None):
+        # phi = Qsw_pm(2)^{-1} Qsw_-(2) b with b = Qsw_-(1) eta; the reference
+        # runs this solve as a plain CG whatever `solver` says
+        eta2 = _eta2(key, self.lat, u, eta)
+        st = _CloverState(u, self.params1, self.lat, grad=False)
+        fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
+        b = wf.q_hat_clover_fast(fc1, eta2, self.params1, self.lat, -1.0)
+        b2 = wf.q_hat_clover_fast(fc2, b, self.params2, self.lat, -1.0)
+        phi2 = _solve_qsw(fc2, b2, self.params2, self.lat, self.acc_tol, self.maxiter, "cg").x
+        return phi2, wf.dot_re_f64_split(eta2, eta2)
+
+    def chrono_init_state(self, device):
+        if self.chrono_n <= 0:
+            return None
+        return chrono_init(self.chrono_n, (2,) + eo_spinor_shape(self.lat), torch.float32, device)
+
+    def action_info(self, u, phi2, hist=None):
+        st = _CloverState(u, self.params1, self.lat, grad=False)
+        fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
+        psi2 = wf.q_hat_clover_fast(fc2, phi2, self.params2, self.lat, +1.0)
+        res = _solve_qsw(fc1, psi2, self.params1, self.lat, self.acc_tol, self.maxiter,
+                         self.solver, hist)
+        return wf.dot_re_f64_split(psi2, res.x), res.iterations
+
+    def force_chrono(self, u, phi2, hist):
+        st = _CloverState(u, self.params1, self.lat, grad=True)
+        fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
+        psi2 = wf.q_hat_clover_fast(fc2, phi2, self.params2, self.lat, +1.0)
+        res = _solve_qsw(fc1, psi2, self.params1, self.lat, self.force_tol, self.maxiter,
+                         self.solver, hist)
+        x2 = res.x
+        y2 = wf.q_hat_clover_fast(fc1, x2, self.params1, self.lat, +1.0)
+        with torch.enable_grad():
+            # dS = 2Re<x, dQsw_+(2) phi> - 2Re<y, dQsw_+(1) x>
+            s = (2.0 * wf.dot_re_f64_split(x2, st.q_plus_diff(phi2, self.params2))
+                 - 2.0 * wf.dot_re_f64_split(y2, st.q_plus_diff(x2, self.params1)))
+        return st.force(s), res.hist, res.iterations
 
     def force(self, u, phi2):
         return self.force_chrono(u, phi2, None)[0]

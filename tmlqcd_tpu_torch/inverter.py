@@ -1,13 +1,18 @@
 """Propagator inversion: solve M x = b on the full lattice through even/odd
 Schur preconditioning and CG on the normal equations.
 
-Port of `tmlqcd_tpu/inverter.py` (`InvertResult`, `invert_eo` with `cg` and
-`fastcg`, `invert_eo_rhs` without clover).  For the twisted-mass Wilson
-operator M (2-kappa normalisation), M_eo = -kappa H_eo:
+Port of `tmlqcd_tpu/inverter.py` (`InvertResult`, `invert_eo` and
+`invert_clover_eo` with `cg` and `fastcg`, `invert_eo_rhs` with and without
+clover).  For the twisted-mass Wilson operator M (2-kappa normalisation),
+M_eo = -kappa H_eo:
 
     1. bhat = b_o - M_oe M_ee^{-1} b_e
     2. solve Qhat_pm x_o = Qhat_- g5 bhat        (CG)
     3. x_e  = M_ee^{-1} (b_e - M_eo x_o)
+
+and the same for the twisted-clover operator with M_pp = 1 + T_pp + i mutld
+gamma5 on both parities: M_ee^{-1} is then the per-site block inverse, fused
+into the hop that precedes it as the kernel's clov_inv epilogue.
 
 Routing: every Dirac application runs on split f32 fields through
 `ops/wilson_fast` — the hand-written kernel for CUDA tensors, its plain
@@ -29,7 +34,8 @@ from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers.cg import cg, cg_rhs
 
-__all__ = ["InvertResult", "invert_eo", "invert_eo_rhs", "SOLVERS", "check_solver"]
+__all__ = ["InvertResult", "invert_eo", "invert_clover_eo", "invert_eo_rhs", "SOLVERS",
+           "check_solver"]
 
 SOLVERS = ("cg", "fastcg")
 _NOT_YET_PORTED = ("mixedcg", "fastmixed", "dflfgmres", "dflgcr", "dfl", "increigcg")
@@ -50,12 +56,6 @@ def check_solver(solver: str) -> None:
     if name in _NOT_YET_PORTED:
         raise NotImplementedError(f"solver {solver!r} is not yet ported to tmlqcd_tpu_torch")
     raise ValueError(f"unknown solver {solver!r}; have {sorted(SOLVERS)}")
-
-
-def _check_params(params: DiracParams) -> None:
-    if params.c_sw != 0.0:
-        raise NotImplementedError("the clover operator (c_sw != 0) is not yet ported to "
-                                  "tmlqcd_tpu_torch")
 
 
 def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis):
@@ -79,15 +79,50 @@ def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis):
     return x_e, res
 
 
+def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis):
+    """Steps 1-3 with the clover diagonal.  M_ee^{-1} b_e has no hop in front
+    of it, so it is the plain block matvec; the hop of the epilogue and the
+    Qsw_- of the prologue carry their blocks in the clover epilogues."""
+    fc = wf.make_fast_clover(u, params, lat)
+    kappa = float(params.kappa)
+    minv_be = wf.blocks_apply_flat(fc.mee_inv_p, b_e2, r_axis)
+
+    # bhat = b_o + kappa H_oe Mee^{-1} b_e
+    bhat = b_o2 + kappa * wf.hop_fast(fc.fg, minv_be, ODD, lat, r_axis=r_axis)
+    rhs = wf.q_hat_clover_fast(fc, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
+    mv = lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat, r_axis=r_axis)  # noqa: E731
+    if r_axis is None:
+        res = cg(mv, rhs, tol=tol, maxiter=maxiter)
+    else:
+        res = cg_rhs(mv, rhs, rhs_axis=r_axis, tol=tol, maxiter=maxiter)
+    # x_e = Mee^{-1} (b_e + kappa H_eo x_o), the block inverse of the second
+    # term fused into the hop
+    x_e = minv_be + kappa * wf.hop_fast(fc.fg, res.x, EVEN, lat, ("clov_inv",), r_axis=r_axis,
+                                        blocks=fc.mee_inv_p)
+    return x_e, res
+
+
 def invert_eo(u: torch.Tensor, b: torch.Tensor, params: DiracParams, lat: Lattice,
               tol: float = 1e-10, maxiter: int = 5000, solver: str = "cg") -> InvertResult:
     """Solve M(params) x = b (full lattice) for the twisted-mass Wilson
-    operator.  solver: 'cg' | 'fastcg' (the same route here)."""
+    operator; `params.c_sw` is not read (`invert_clover_eo` is the clover
+    solve).  solver: 'cg' | 'fastcg' (the same route here)."""
+    return _invert_one(_schur_solve, u, b, params, lat, tol, maxiter, solver)
+
+
+def invert_clover_eo(u: torch.Tensor, b: torch.Tensor, params: DiracParams, lat: Lattice,
+                     tol: float = 1e-10, maxiter: int = 5000, solver: str = "cg") -> InvertResult:
+    """Twisted-clover inversion: the Schur pipeline of `invert_eo` with the
+    clover M_ee / M_oo blocks.  solver: 'cg' | 'fastcg' (the same route
+    here, split f32 fields on K1 with the clover epilogues)."""
+    return _invert_one(_schur_solve_clover, u, b, params, lat, tol, maxiter, solver)
+
+
+def _invert_one(schur, u, b, params, lat, tol, maxiter, solver) -> InvertResult:
     check_solver(solver)
-    _check_params(params)
     with torch.no_grad():
         b_e, b_o = eo_pack(b, lat)
-        x_e2, res = _schur_solve(u, wf.to_split(b_e), wf.to_split(b_o), params, lat, tol, maxiter, None)
+        x_e2, res = schur(u, wf.to_split(b_e), wf.to_split(b_o), params, lat, tol, maxiter, None)
         x = eo_unpack(wf.from_split(x_e2), wf.from_split(res.x), lat)
     return InvertResult(x=x.to(b.dtype), iterations=res.iterations, residual_sq=res.residual_sq)
 
@@ -99,12 +134,13 @@ def invert_eo_rhs(u: torch.Tensor, bs: torch.Tensor, params: DiracParams, lat: L
     batched CG (`cg_rhs`) on the multi-RHS operator, which reads the gauge
     once for the whole batch.
 
-    bs: [R, 4, 3, T, X, Mf] complex.  Returns x [R, 4, 3, T, X, Mf];
-    `residual_sq` is per side [R], `iterations` the maximum over sides."""
-    _check_params(params)
+    bs: [R, 4, 3, T, X, Mf] complex; `params.c_sw != 0` selects the clover
+    pipeline.  Returns x [R, 4, 3, T, X, Mf]; `residual_sq` is per side [R],
+    `iterations` the maximum over sides."""
+    schur = _schur_solve_clover if params.c_sw != 0.0 else _schur_solve
     with torch.no_grad():
         b_e, b_o = eo_pack(bs, lat)
-        x_e2, res = _schur_solve(u, wf.to_split_rhs(b_e), wf.to_split_rhs(b_o), params, lat,
-                                 tol, maxiter, 3)
+        x_e2, res = schur(u, wf.to_split_rhs(b_e), wf.to_split_rhs(b_o), params, lat,
+                          tol, maxiter, 3)
         x = eo_unpack(wf.from_split_rhs(x_e2), wf.from_split_rhs(res.x), lat)
     return InvertResult(x=x.to(bs.dtype), iterations=res.iterations, residual_sq=res.residual_sq)

@@ -1,0 +1,285 @@
+"""Clover (Sheikholeslami-Wohlert) term: field strength, 6x6 spin-block
+algebra, the degenerate twisted-clover even/odd operators, and the trlog.
+
+Port of the degenerate part of `tmlqcd_tpu/ops/clover.py`.  The
+O(a)-improvement term adds to the Wilson diagonal
+
+    T(x) = - kappa c_sw sum_{mu<nu} sigma_munu G_munu(x),
+    G_munu = -i/8 [ Q_munu - Q_munu^+ ]   (hermitian, traceless),
+
+with Q_munu the sum of the four clover-leaf plaquettes around x, so the
+twisted-clover diagonal is M_pp = 1 + T + i mutld gamma5 on both parities.
+sigma_munu commutes with gamma5, so T is two hermitian 6x6 (2 spin x 3
+colour) blocks per site, one per chirality.  The inverse is the closed-form
+Schur complement of 3x3 colour blocks with 3x3 inverses by adjugate over
+determinant: plain tensor expressions over the site axes, differentiable,
+so the clover-term force is autograd through `sw_blocks` -> `mee_blocks` /
+`mee_inv_blocks` / `sw_logdet`.
+
+Block storage: sw [2 chirality, 2, 2, 3, 3, T, X, M], small axes leading.
+
+Not ported yet: the non-degenerate doublet functions (`mee_nd_clover`,
+`mee_inv_nd_clover`, `sw_logdet_nd`, `m_hat_nd_clover`, `q_nd_clover`,
+`mee_inv_nd_blocks`), which come with the ND doublet slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tmlqcd_tpu_torch import su3
+from tmlqcd_tpu_torch.gamma import SIGMA_MUNU, apply_gamma5
+from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, eo_pack, shift_full
+from tmlqcd_tpu_torch.ops.wilson import DiracParams, dslash_packed
+
+__all__ = [
+    "PLANES",
+    "clover_leaves",
+    "field_strength",
+    "sw_blocks",
+    "sw_blocks_eo",
+    "sw_apply",
+    "sw_inv_apply",
+    "sw_logdet",
+    "m_hat_clover",
+    "q_hat_clover",
+    "q_hat_pm_clover",
+    "mee_blocks",
+    "mee_inv_blocks",
+    "blocks_apply",
+]
+
+PLANES = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+# sigma_munu restricted to the two chirality blocks (2x2 constants per plane)
+_SIGMA_UP = np.stack([SIGMA_MUNU[mu, nu][0:2, 0:2] for mu, nu in PLANES])
+_SIGMA_DN = np.stack([SIGMA_MUNU[mu, nu][2:4, 2:4] for mu, nu in PLANES])
+
+# (chirality block, first spin of the block, sign of gamma5 on it)
+_CHIRALITIES = ((0, 0, +1.0), (1, 2, -1.0))
+
+
+def clover_leaves(u: torch.Tensor, mu: int, nu: int, lat: Lattice) -> torch.Tensor:
+    """Q_munu(x): the sum of the four oriented plaquette leaves in the
+    (mu, nu) plane that touch x.  u: [3, 3, 4, T, X, Mf]."""
+    umu, unu = u[:, :, mu], u[:, :, nu]
+
+    def s(f, d, dd):
+        return shift_full(f, d, dd, lat)
+
+    # leaf 1: x -> x+mu -> x+mu+nu -> x+nu -> x
+    l1 = su3.mul(su3.mul(umu, s(unu, mu, +1)), su3.adj(su3.mul(unu, s(umu, nu, +1))))
+    umu_mm = s(umu, mu, -1)  # U_mu(x-mu)
+    unu_mn = s(unu, nu, -1)  # U_nu(x-nu)
+    # leaf 2: U_nu(x) U_mu(x-mu+nu)^+ U_nu(x-mu)^+ U_mu(x-mu)
+    l2 = su3.mul(su3.mul(unu, su3.adj(s(umu_mm, nu, +1))),
+                 su3.mul(su3.adj(s(unu, mu, -1)), umu_mm))
+    # leaf 3: U_mu(x-mu)^+ U_nu(x-mu-nu)^+ U_mu(x-mu-nu) U_nu(x-nu)
+    l3 = su3.mul(su3.mul(su3.adj(umu_mm), su3.adj(s(s(unu, mu, -1), nu, -1))),
+                 su3.mul(s(umu_mm, nu, -1), unu_mn))
+    # leaf 4: U_nu(x-nu)^+ U_mu(x-nu) U_nu(x+mu-nu) U_mu(x)^+
+    l4 = su3.mul(su3.mul(su3.adj(unu_mn), s(umu, nu, -1)),
+                 su3.mul(s(unu_mn, mu, +1), su3.adj(umu)))
+    return l1 + l2 + l3 + l4
+
+
+def _eye(like: torch.Tensor) -> torch.Tensor:
+    """The 3x3 identity broadcasting against `like` [3, 3, *sites]."""
+    return torch.eye(3, dtype=like.dtype, device=like.device).reshape(
+        (3, 3) + (1,) * (like.ndim - 2))
+
+
+def field_strength(u: torch.Tensor, lat: Lattice) -> list:
+    """Hermitian traceless clover field strength G_munu = -i/8 (Q - Q^+),
+    one [3, 3, T, X, Mf] tensor per plane in PLANES order."""
+    gs = []
+    for mu, nu in PLANES:
+        q = clover_leaves(u, mu, nu, lat)
+        ah = q - su3.adj(q)
+        ah = ah - (su3.trace(ah) / 3.0) * _eye(ah)
+        gs.append(torch.complex(ah.imag / 8.0, -ah.real / 8.0))
+    return gs
+
+
+def sw_blocks(u: torch.Tensor, kappa: float, c_sw: float, lat: Lattice) -> torch.Tensor:
+    """The clover term T as two chirality blocks per site:
+
+        sw[b, s, s'] = -kappa c_sw sum_planes sigma_b[plane][s, s'] G_plane
+
+    Returns [2, 2, 2, 3, 3, T, X, Mf] on the full lattice; hermitian,
+    sw[b, s, s']^+ = sw[b, s', s].  Differentiable in u."""
+    gs = field_strength(u, lat)
+    coeff = -kappa * c_sw
+    blocks = []
+    for sig in (_SIGMA_UP, _SIGMA_DN):
+        blk = []
+        for s in range(2):
+            row = []
+            for sp in range(2):
+                acc = None
+                for ip in range(len(PLANES)):
+                    z = complex(sig[ip][s, sp])
+                    if z == 0.0:
+                        continue
+                    term = (coeff * z) * gs[ip]
+                    acc = term if acc is None else acc + term
+                row.append(torch.zeros_like(gs[0]) if acc is None else acc)
+            blk.append(torch.stack(row))
+        blocks.append(torch.stack(blk))
+    return torch.stack(blocks)
+
+
+def sw_blocks_eo(u: torch.Tensor, kappa: float, c_sw: float, lat: Lattice):
+    """(sw_even, sw_odd): the clover blocks packed to the two parities."""
+    return eo_pack(sw_blocks(u, kappa, c_sw, lat), lat)
+
+
+def _block66(sw_b: torch.Tensor, mutld_term: complex):
+    """A = (1 + mutld_term) I + T_b as 2x2 of 3x3 colour blocks (P, Q, R, S)."""
+    diag = (1.0 + mutld_term) * _eye(sw_b[0, 0])
+    return sw_b[0, 0] + diag, sw_b[0, 1], sw_b[1, 0], sw_b[1, 1] + diag
+
+
+def sw_apply(sw: torch.Tensor, psi: torch.Tensor, mutld: float,
+             sign: float = +1.0) -> torch.Tensor:
+    """(1 + T + i sign mutld gamma5) psi for spinors [4, 3, *sites]: spins
+    (0, 1) get +i mutld, spins (2, 3) get -i mutld."""
+    imu = 1j * sign * mutld
+    rows = []
+    for b, s0, pm in _CHIRALITIES:
+        for s in range(2):
+            acc = psi[s0 + s] + (pm * imu) * psi[s0 + s]
+            for sp in range(2):
+                acc = acc + su3.matvec(sw[b, s, sp], psi[s0 + sp])
+            rows.append(acc)
+    return torch.stack(rows)
+
+
+def _inv3(m: torch.Tensor):
+    """Closed-form 3x3 inverse (adjugate / det) on the leading axes; returns
+    (inverse, det)."""
+    a, b, c = m[0, 0], m[0, 1], m[0, 2]
+    d, e, f = m[1, 0], m[1, 1], m[1, 2]
+    g, h, i = m[2, 0], m[2, 1], m[2, 2]
+    co_a = e * i - f * h
+    co_b = -(d * i - f * g)
+    co_c = d * h - e * g
+    det = a * co_a + b * co_b + c * co_c
+    inv_det = 1.0 / det
+    rows = [
+        [co_a, -(b * i - c * h), (b * f - c * e)],
+        [co_b, (a * i - c * g), -(a * f - c * d)],
+        [co_c, -(a * h - b * g), (a * e - b * d)],
+    ]
+    return torch.stack([torch.stack([x * inv_det for x in r]) for r in rows]), det
+
+
+def _schur_inv_apply(p, q, r, s, v0, v1):
+    """Solve [[P, Q], [R, S]] [x0; x1] = [v0; v1] through the Schur
+    complement of P; v0, v1 colour vectors [3, ...].  Returns (x0, x1, det)
+    with det = det(P) det(S - R P^-1 Q)."""
+    pinv, detp = _inv3(p)
+    rpinv = su3.mul(r, pinv)
+    stinv, dets = _inv3(s - su3.mul(rpinv, q))
+    x1 = su3.matvec(stinv, v1 - su3.matvec(rpinv, v0))
+    x0 = su3.matvec(pinv, v0 - su3.matvec(q, x1))
+    return x0, x1, detp * dets
+
+
+def sw_inv_apply(sw: torch.Tensor, psi: torch.Tensor, mutld: float,
+                 sign: float = +1.0) -> torch.Tensor:
+    """(1 + T + i sign mutld gamma5)^-1 psi: the clover M_ee inverse, one
+    2x2-block Schur solve per chirality."""
+    imu = 1j * sign * mutld
+    outs = []
+    for b, s0, pm in _CHIRALITIES:
+        p, q, r, s = _block66(sw[b], pm * imu)
+        x0, x1, _ = _schur_inv_apply(p, q, r, s, psi[s0], psi[s0 + 1])
+        outs.extend([x0, x1])
+    return torch.stack(outs)
+
+
+def sw_logdet(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.Tensor:
+    """sum_sites log |det (1 + T + i sign mutld gamma5)|^2, accumulated in
+    f64: the trlog of the clover even/even block.  |.|^2 because the
+    two-flavour weight is det M_ee(+mu) det M_ee(-mu) = |det M_ee(+mu)|^2."""
+    imu = 1j * sign * mutld
+    total = torch.zeros((), dtype=torch.float64, device=sw.device)
+    for b, _, pm in _CHIRALITIES:
+        p, q, r, s = _block66(sw[b], pm * imu)
+        pinv, detp = _inv3(p)
+        _, dets = _inv3(s - su3.mul(su3.mul(r, pinv), q))
+        total = total + torch.sum(torch.log((detp * dets).abs().double() ** 2))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# even/odd twisted-clover operators on complex fields (the oracle of the
+# split-field operators in ops/wilson_fast.py)
+# ---------------------------------------------------------------------------
+
+
+def m_hat_clover(ueo, sw_e, sw_o, psi_o, params: DiracParams, lat: Lattice, phases,
+                 sign: float = +1.0):
+    """Clover Schur complement on odd sites:
+    Mhat(+-) = M_oo(+-) - kappa^2 H_oe M_ee(+-)^-1 H_eo, with
+    M_pp = 1 + T_pp +- i mutld gamma5 (clover on both parities)."""
+    tmp = dslash_packed(ueo, psi_o, EVEN, lat, phases)
+    tmp = sw_inv_apply(sw_e, tmp, params.mutld, sign)
+    tmp = dslash_packed(ueo, tmp, ODD, lat, phases)
+    return sw_apply(sw_o, psi_o, params.mutld, sign) - (params.kappa * params.kappa) * tmp
+
+
+def q_hat_clover(ueo, sw_e, sw_o, psi_o, params: DiracParams, lat: Lattice, phases,
+                 sign: float = +1.0):
+    """Qsw(+-) = gamma5 Mhat_sw(+-)."""
+    return apply_gamma5(m_hat_clover(ueo, sw_e, sw_o, psi_o, params, lat, phases, sign))
+
+
+def q_hat_pm_clover(ueo, sw_e, sw_o, psi_o, params: DiracParams, lat: Lattice, phases):
+    """Qsw_pm = Qsw(-) Qsw(+): the hermitian positive CG operator."""
+    tmp = q_hat_clover(ueo, sw_e, sw_o, psi_o, params, lat, phases, +1.0)
+    return q_hat_clover(ueo, sw_e, sw_o, tmp, params, lat, phases, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# materialised blocks for the block-matvec epilogues of the hopping kernel
+# ---------------------------------------------------------------------------
+
+
+def mee_blocks(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.Tensor:
+    """M_pp(+-) = 1 + T +- i mutld gamma5 as explicit 6x6 blocks
+    [2 chirality, 2, 2, 3, 3, *sites]."""
+    rows = []
+    for b, _, pm in _CHIRALITIES:
+        p, q, r, s = _block66(sw[b], pm * 1j * sign * mutld)
+        rows.append(torch.stack([torch.stack([p, q]), torch.stack([r, s])]))
+    return torch.stack(rows)
+
+
+def mee_inv_blocks(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.Tensor:
+    """M_pp(+-)^-1 as explicit blocks in the layout of `mee_blocks`, by the
+    2x2-of-3x3 Schur closed form; computed once per gauge field."""
+    rows = []
+    for b, _, pm in _CHIRALITIES:
+        p, q, r, s = _block66(sw[b], pm * 1j * sign * mutld)
+        pinv, _ = _inv3(p)
+        rp = su3.mul(r, pinv)  # R P^-1
+        sti, _ = _inv3(s - su3.mul(rp, q))
+        qi = -su3.mul(su3.mul(pinv, q), sti)
+        ri = -su3.mul(sti, rp)
+        pi = pinv - su3.mul(qi, rp)
+        rows.append(torch.stack([torch.stack([pi, qi]), torch.stack([ri, sti])]))
+    return torch.stack(rows)
+
+
+def blocks_apply(blocks: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """Apply materialised chirality blocks [2, 2, 2, 3, 3, *sites] to a
+    spinor [4, 3, *sites]: out[s0 + s] = sum_s' blocks[b, s, s'] psi[s0 + s']."""
+    outs = []
+    for b, s0, _ in _CHIRALITIES:
+        for s in range(2):
+            outs.append(su3.matvec(blocks[b, s, 0], psi[s0])
+                        + su3.matvec(blocks[b, s, 1], psi[s0 + 1]))
+    return torch.stack(outs)

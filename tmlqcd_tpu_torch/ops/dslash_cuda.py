@@ -10,17 +10,20 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
 * `hopping_split` (K1) replaces `hopping_pallas_split` and the Pallas kernel
   `_dslash_kernel` (dslash_pallas.py:520, built by `_build` :774 and
   `_build_tb` :599): out = H_{p,q} psi on parity-p sites with the
-  twisted-mass epilogue `none`, `mee_inv` or `mhat` fused in, on the 18-real
-  or 12-real gauge copy.  Bound by memory: 1320 flops/site against
+  twisted-mass epilogue `none`, `mee_inv` or `mhat`, or the clover epilogue
+  `clov_inv` or `clov_mhat` (`_apply_epilogue` :409-433 with the per-site
+  2 x (6 x 6) complex block matvec `_blk_matvec` :311), fused in, on the
+  18-real or 12-real gauge copy.  Bound by memory: 1320 flops/site against
   576 B (18-real) or 384 B (12-real) of gauge, 96 B per spinor read or
-  written; `mhat` reads one spinor more.
+  written; `mhat` and `clov_mhat` read one spinor more, the clover epilogues
+  576 B of blocks and 576 flops more.
 * `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
   batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
   `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
   right-hand sides [2,4,3,R,T,X,M] with the gauge read once for all of them.
   The batch axis is an explicit argument (`r_axis`), never inferred from a
-  shape.  Bound by memory: G + R * (192 [+ 96 for mhat]) bytes per site,
-  G = 576 or 384.
+  shape.  Bound by memory: G + R * (192 [+ 96 for mhat, clov_mhat]) bytes
+  per site, G = 576 or 384, plus 576 for the blocks of a clover epilogue.
 * `hopping_ug_vjp` (K2) replaces `hopping_ug_vjp` and `_ug_vjp_kernel`
   (dslash_pallas.py:1489, built by `_build_ug_vjp` :1541): the cotangent of
   Re<g, H psi> with respect to ug[p].  Bound by memory: 96 B of g and 96 B of
@@ -32,6 +35,8 @@ kernel (or raises); a CPU tensor takes the plain version.  There is no
 fallback between the two.  Each wrapper counts its kernel launches in a
 plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
 `hopping_ug_vjp.launches`); each plain version counts its calls (`.calls`).
+`hopping_split.clover_launches` and `hopping_split_rhs.clover_launches` count
+those of the launches that ran a clover epilogue.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/` with
 nvcc into a shared library with a plain C interface, loaded with ctypes;
@@ -53,6 +58,7 @@ import torch
 
 from tmlqcd_tpu_torch.gamma import GAMMA, apply_gamma5, gamma5_split
 from tmlqcd_tpu_torch.lattice import Lattice, hop_packed
+from tmlqcd_tpu_torch.ops.clover import blocks_apply
 from tmlqcd_tpu_torch.ops.wilson import (
     color_apply,
     hop_projector,
@@ -75,6 +81,8 @@ __all__ = [
     "hopping_ug_vjp",
     "hopping_ug_vjp_plain",
     "HoppingDiff",
+    "blk_flatten",
+    "blk_unflatten",
     "kernel_library",
     "reset_counters",
 ]
@@ -136,9 +144,9 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.tm_hopping.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp, vp]
+        lib.tm_hopping.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp, vp]
         lib.tm_hopping.restype = i
-        lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp,
+        lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp,
                                        i, ll, ll, ll, vp]
         lib.tm_hopping_rhs.restype = i
         lib.tm_hopping_ug_vjp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
@@ -213,27 +221,36 @@ def _row2(ug: torch.Tensor, gcomp: tuple) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K1: hopping with fused twisted-mass epilogue
+# K1: hopping with fused twisted-mass or clover epilogue
 # ---------------------------------------------------------------------------
 
-_EPI = {"none": 0, "mee_inv": 1, "mhat": 2}
+_EPI = {"none": 0, "mee_inv": 1, "mhat": 2, "clov_inv": 3, "clov_mhat": 4}
+_NEEDS_PSI_O = ("mhat", "clov_mhat")
+_NEEDS_BLOCKS = ("clov_inv", "clov_mhat")
 
 
-def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None = None):
+def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None = None,
+                  blocks=None):
     """Raise on anything the kernels do not take; `nrhs` set means spinors
-    carry an R axis of that extent before the sites."""
+    carry an R axis of that extent before the sites (the gauge and the clover
+    blocks never do)."""
     site = lat.eo_site_shape
     spinor = (2, 4, 3) + (() if nrhs is None else (nrhs,)) + site
     rows = 2 if gcomp is not None else 3
     if epi[0] not in _EPI:
-        raise ValueError(f"epilogue {epi[0]!r} is not on the ported path (have {sorted(_EPI)})")
+        raise ValueError(f"unknown epilogue {epi[0]!r}: the kernels carry "
+                         f"{', '.join(_EPI)}")
     if gcomp is not None and len(gcomp) != 8:
         raise ValueError("gcomp must hold 8 (re, im) pairs")
     need = [("psi_q", psi_q, spinor), ("ug_p", ug_p, (2, 8, rows, 3) + site)]
-    if epi[0] == "mhat":
+    if epi[0] in _NEEDS_PSI_O:
         if psi_o is None:
-            raise ValueError("the mhat epilogue needs psi_o")
+            raise ValueError(f"the {epi[0]} epilogue needs psi_o")
         need.append(("psi_o", psi_o, spinor))
+    if epi[0] in _NEEDS_BLOCKS:
+        if blocks is None:
+            raise ValueError(f"the {epi[0]} epilogue needs blocks")
+        need.append(("blocks", blocks, (2, 72) + site))
     for name, t, shape in need:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -256,7 +273,15 @@ def _epilogue_args(epi: tuple) -> tuple:
     elif kind == "mhat":
         mutld, sign, k2, g5 = float(epi[1]), float(epi[2]), float(epi[3]), int(bool(epi[4]))
         mt = sign * mutld
+    elif kind == "clov_inv":
+        inv = 1.0  # the kernel's scale factor
+    elif kind == "clov_mhat":
+        k2, g5 = float(epi[1]), int(bool(epi[2]))
     return _EPI[kind], g5, mt, inv, k2
+
+
+def _ptr(t, wanted: bool):
+    return t.data_ptr() if wanted else None
 
 
 def _corr_arg(gcomp):
@@ -269,19 +294,25 @@ def _corr_arg(gcomp):
 
 def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                   epi: tuple = ("none",), psi_o=None,
-                  gcomp: tuple | None = None) -> torch.Tensor:
+                  gcomp: tuple | None = None, blocks=None) -> torch.Tensor:
     """K1: H_{p,q} psi_q on split f32 fields with a fused epilogue.
 
     epi forms (as in the reference):
       ("none",)                       out = H psi
       ("mee_inv", mutld, sign)        out = Mee(sign)^{-1} H psi
       ("mhat", mutld, sign, k2, g5)   out = [g5] (Mee(sign) psi_o - k2 H psi)
+      ("clov_inv",)                   out = B (H psi), B = `blocks`, the
+                                      M_ee^{-1} clover blocks of the even sites
+      ("clov_mhat", k2, g5)           out = [g5] (B psi_o - k2 H psi), B = the
+                                      M_oo clover blocks of the odd sites
     ug_p: [2,8,3,3,T,X,M], or the 12-real [2,8,2,3,T,X,M] with gcomp set;
-    psi_q, psi_o: [2,4,3,T,X,M]."""
+    psi_q, psi_o: [2,4,3,T,X,M]; blocks: [2,72,T,X,M] f32, the two 6 x 6
+    complex blocks per site flattened as k = ((b 2 + s) 2 + s') 9 + 3 c + c'
+    (`blk_flatten`)."""
     epi = tuple(epi)
-    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp)
+    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, blocks=blocks)
     if psi_q.device.type == "cpu":
-        return hopping_split_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp)
+        return hopping_split_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp, blocks)
     if psi_q.device.type != "cuda":
         raise ValueError(f"no kernel for device {psi_q.device}")
     lib = kernel_library()
@@ -292,20 +323,44 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
     with torch.cuda.device(psi_q.device):
         stream = torch.cuda.current_stream(psi_q.device).cuda_stream
         rc = lib.tm_hopping(
-            psi_q.data_ptr(), ug_p.data_ptr(), psi_o.data_ptr() if code == 2 else None,
-            out.data_ptr(), t, x, lat.m, lat.zh, int(p), code, g5,
-            int(gcomp is not None), mt, inv, k2, corr_ptr, stream)
+            psi_q.data_ptr(), ug_p.data_ptr(), _ptr(psi_o, epi[0] in _NEEDS_PSI_O),
+            _ptr(blocks, epi[0] in _NEEDS_BLOCKS), out.data_ptr(), t, x, lat.m, lat.zh, int(p),
+            code, g5, int(gcomp is not None), mt, inv, k2, corr_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"hopping kernel (K1) launch failed: CUDA error {rc}")
     hopping_split.launches += 1
+    hopping_split.clover_launches += epi[0] in _NEEDS_BLOCKS
     return out
 
 
 hopping_split.launches = 0
+hopping_split.clover_launches = 0
+
+
+def blk_flatten(blk2: torch.Tensor) -> torch.Tensor:
+    """Split blocks [2, 2, 2, 2, 3, 3, *sites] -> the kernels' [2, 72, *sites]
+    layout (row-major over chirality, s, s', c, c'), contiguous."""
+    return blk2.reshape((2, 72) + tuple(blk2.shape[6:])).contiguous()
+
+
+def blk_unflatten(blk: torch.Tensor) -> torch.Tensor:
+    """The kernels' [2, 72, *sites] block layout -> [2, 2, 2, 2, 3, 3, *sites]
+    (re/im, chirality, s, s', c, c')."""
+    return blk.reshape((2, 2, 2, 2, 3, 3) + tuple(blk.shape[2:]))
+
+
+def _blocks_apply(blk: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """The flattened split blocks [2, 72, *sites] on a complex spinor
+    [4, 3, (R,) *sites] with `ops/clover.blocks_apply`, the blocks broadcast
+    over an R axis where the spinor has one."""
+    blocks = merge_c(blk_unflatten(blk))  # [2, 2, 2, 3, 3, *sites]
+    if psi.ndim == blocks.ndim - 2:  # [4, 3, R, *sites]: one block for every column
+        blocks = blocks.unsqueeze(5)
+    return blocks_apply(blocks, psi)
 
 
 def _hop_epilogue(ug: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, epi: tuple,
-                  psi_o) -> torch.Tensor:
+                  psi_o, blocks=None) -> torch.Tensor:
     """epilogue(sum_d P_d U_d psi(x + d)) on complex fields, split on the way
     out; ug [8, 3, 3, *sites] broadcasts against psi [4, 3, *sites]."""
     acc = None
@@ -320,9 +375,16 @@ def _hop_epilogue(ug: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, epi
     elif kind == "mee_inv":
         _, mutld, sign = epi
         out = mee_inv_packed(acc, mutld, sign)
-    else:
+    elif kind == "mhat":
         _, mutld, sign, k2, g5 = epi
         out = mee_packed(merge_c(psi_o), mutld, sign) - k2 * acc
+        if g5:
+            out = apply_gamma5(out)
+    elif kind == "clov_inv":
+        out = _blocks_apply(blocks, acc)
+    else:
+        _, k2, g5 = epi
+        out = _blocks_apply(blocks, merge_c(psi_o)) - k2 * acc
         if g5:
             out = apply_gamma5(out)
     return split_c(out)
@@ -330,14 +392,15 @@ def _hop_epilogue(ug: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, epi
 
 def hopping_split_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                         epi: tuple = ("none",), psi_o=None,
-                        gcomp: tuple | None = None) -> torch.Tensor:
+                        gcomp: tuple | None = None, blocks=None) -> torch.Tensor:
     """Plain PyTorch version of K1, written from the ops/wilson.py arithmetic
-    (hop_packed rolls, SU(3) matrix-vector, dense spin projector)."""
+    (hop_packed rolls, SU(3) matrix-vector, dense spin projector) and, for
+    the clover epilogues, the complex block matvec of ops/clover.py."""
     hopping_split_plain.calls += 1
     ug = merge_c(ug_p)
     if gcomp is not None:
         ug = _row2(ug, gcomp)
-    return _hop_epilogue(ug, merge_c(psi_q), p, lat, epi, psi_o)
+    return _hop_epilogue(ug, merge_c(psi_q), p, lat, tuple(epi), psi_o, blocks)
 
 
 hopping_split_plain.calls = 0
@@ -362,18 +425,19 @@ def _check_r_axis(r_axis: int, psi_q: torch.Tensor) -> int:
 
 def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                       epi: tuple = ("none",), psi_o=None, gcomp: tuple | None = None,
-                      r_axis: int = _R_AXIS) -> torch.Tensor:
+                      r_axis: int = _R_AXIS, blocks=None) -> torch.Tensor:
     """K1-R: out[r] = epilogue(H_{p,q} psi_q[r]) for the R right-hand sides
     along `r_axis`, the gauge read once for all of them.
 
     psi_q, psi_o: [2,4,3,R,T,X,M] f32 (`r_axis` = 3, the only position
-    ported); ug_p and epi as for `hopping_split` (the gauge has no R axis;
-    `mhat` needs psi_o with the same R axis)."""
+    ported); ug_p, blocks and epi as for `hopping_split` (the gauge and the
+    clover blocks have no R axis; `mhat` and `clov_mhat` need psi_o with the
+    same R axis)."""
     epi = tuple(epi)
     nrhs = _check_r_axis(r_axis, psi_q)
-    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, nrhs)
+    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, nrhs, blocks)
     if psi_q.device.type == "cpu":
-        return hopping_split_rhs_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp, r_axis)
+        return hopping_split_rhs_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp, r_axis, blocks)
     if psi_q.device.type != "cuda":
         raise ValueError(f"no kernel for device {psi_q.device}")
     lib = kernel_library()
@@ -386,31 +450,33 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
     with torch.cuda.device(psi_q.device):
         stream = torch.cuda.current_stream(psi_q.device).cuda_stream
         rc = lib.tm_hopping_rhs(
-            psi_q.data_ptr(), ug_p.data_ptr(), psi_o.data_ptr() if code == 2 else None,
-            out.data_ptr(), t, x, lat.m, lat.zh, int(p), code, g5,
-            int(gcomp is not None), mt, inv, k2, corr_ptr, nrhs, im_stride, comp_stride,
-            r_stride, stream)
+            psi_q.data_ptr(), ug_p.data_ptr(), _ptr(psi_o, epi[0] in _NEEDS_PSI_O),
+            _ptr(blocks, epi[0] in _NEEDS_BLOCKS), out.data_ptr(), t, x, lat.m, lat.zh, int(p),
+            code, g5, int(gcomp is not None), mt, inv, k2, corr_ptr, nrhs, im_stride,
+            comp_stride, r_stride, stream)
     if rc != 0:
         raise RuntimeError(f"multi-RHS hopping kernel (K1-R) launch failed: CUDA error {rc}")
     hopping_split_rhs.launches += 1
+    hopping_split_rhs.clover_launches += epi[0] in _NEEDS_BLOCKS
     return out
 
 
 hopping_split_rhs.launches = 0
+hopping_split_rhs.clover_launches = 0
 
 
 def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                             epi: tuple = ("none",), psi_o=None, gcomp: tuple | None = None,
-                            r_axis: int = _R_AXIS) -> torch.Tensor:
+                            r_axis: int = _R_AXIS, blocks=None) -> torch.Tensor:
     """Plain PyTorch version of K1-R: the arithmetic of `hopping_split_plain`
-    with the links broadcast over the R axis."""
+    with the links and the clover blocks broadcast over the R axis."""
     hopping_split_rhs_plain.calls += 1
     _check_r_axis(r_axis, psi_q)
     ug = merge_c(ug_p)
     if gcomp is not None:
         ug = _row2(ug, gcomp)
     ug = ug.unsqueeze(3)  # [8, 3, 3, 1, T, X, M]: one link for every column
-    return _hop_epilogue(ug, merge_c(psi_q), p, lat, epi, psi_o)
+    return _hop_epilogue(ug, merge_c(psi_q), p, lat, tuple(epi), psi_o, blocks)
 
 
 hopping_split_rhs_plain.calls = 0
@@ -477,7 +543,9 @@ hopping_ug_vjp_plain.calls = 0
 def reset_counters() -> None:
     """Zero every launch and call counter of this module."""
     hopping_split.launches = 0
+    hopping_split.clover_launches = 0
     hopping_split_rhs.launches = 0
+    hopping_split_rhs.clover_launches = 0
     hopping_ug_vjp.launches = 0
     hopping_split_plain.calls = 0
     hopping_split_rhs_plain.calls = 0

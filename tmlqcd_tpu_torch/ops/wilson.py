@@ -43,11 +43,12 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class DiracParams:
-    """Physics parameters of one Wilson twisted-mass operator."""
+    """Physics parameters of one Wilson twisted-mass or twisted-clover
+    operator."""
 
     kappa: float
     mu: float = 0.0  # twisted mass
-    c_sw: float = 0.0  # clover coefficient (the clover operators are not ported yet)
+    c_sw: float = 0.0  # clover coefficient (read by ops/clover.py and the clover operators)
     theta: tuple[float, float, float, float] = (1.0, 0.0, 0.0, 0.0)
 
     @property

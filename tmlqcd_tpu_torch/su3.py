@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "adj",
     "mul",
+    "matvec",
     "trace",
     "re_trace",
     "ta_project",
@@ -36,6 +37,11 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """3x3 product over the leading axes: out[i, k] = sum_j a[i, j] b[j, k]."""
     return (a[:, 0, None] * b[None, 0] + a[:, 1, None] * b[None, 1]
             + a[:, 2, None] * b[None, 2])
+
+
+def matvec(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """U v for colour vectors v [3, ...]: out[i] = sum_j u[i, j] v[j]."""
+    return u[:, 0] * v[None, 0] + u[:, 1] * v[None, 1] + u[:, 2] * v[None, 2]
 
 
 def trace(m: torch.Tensor) -> torch.Tensor:
