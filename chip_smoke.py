@@ -12,13 +12,18 @@ result lines):
    the hopping kernel K1, the gauge-cotangent kernel K2, and HoppingDiff
    forward and backward, each against its plain PyTorch version on the same
    card tensors; the multi-RHS hopping K1-R (R = 12 and 3) against its plain
-   version and against R single K1 launches.
+   version and against R single K1 launches; K1-R on the flavour-doublet
+   axis (K1-R-D, R = 2, `r_axis` 1) against its plain version and bit for
+   bit against two K1 launches; the doublet force surrogates `q_nd_diff`
+   and `q_nd_clover_diff` forward and backward against the plain path.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
-   sizes beside 12 launches of K1, kernel and plain version, with GF/s at
+   sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
+   of K1, kernel and plain version, with GF/s at
    1320 flops/site, the share of the bandwidth of a device-to-device copy
    measured in the same run, and the bound at the card's published rates.
-4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory and one
-   twisted-clover Hasenbusch trajectory at 8^4, each on the kernel path
+4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory, one
+   twisted-clover Hasenbusch trajectory and one GAUGE + NDRAT trajectory at
+   8^4, each on the kernel path
    (CUDA tensors) and on the plain path (CPU tensors) with the same injected
    draws; |ddH| against its bound.
 5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
@@ -32,14 +37,28 @@ result lines):
    batched solve for the device's busy share.
 7. main path 3: `cli.hmc.main` on a 16^3x32 input derived from
    sample-input/hmc6-nf2-clover-hasenbusch.input (GAUGE + CLOVERTRLOG +
-   CLOVERDET + CLOVERDETRATIO, 3 trajectories, ONLINE on the third, an ILDG
+   CLOVERDET + CLOVERDETRATIO, 2 trajectories, ONLINE on the second, an ILDG
    checkpoint read back), the launch counters read around it; then one
-   profiled trajectory for the device's idle share and the share of the
-   clover block build and of the autograd force.
+   profiled trajectory at integration steps 1/1/1 for the device's idle
+   share.
 8. main path 4: `cli.invert.main` with a CLOVER operator on phase 7's
    checkpoint: 12 columns in one batched CG on K1-R with the clover
    epilogues, every column's true residual against the plain unpreconditioned
    clover operator, one column against `invert_clover_eo`.
+9. main path 5: `cli.hmc.main` on a 16^3x32 input derived from
+   sample-input/hmc3-nf211-clover.input (Nf=2+1+1: GAUGE + CLOVERTRLOG +
+   CLOVERDET + NDRAT with its own beta, kappa, CSW, mu, mubar, epsbar,
+   DegreeOfRational and interval; hmc6's ONLINE block in place of
+   GRADIENTFLOW; 2 trajectories, an ILDG checkpoint read back), with the
+   interval check's line and the launch counters read around it; then one
+   profiled trajectory at steps 1/1/1 for the device's idle share and one
+   whole trajectory with synchronising timers around the NDRAT heatbath,
+   force and acceptance, the multishift solves and the doublet hops.
+10. main path 6: `cli.invert.main` with the DBTMWILSON and DBCLOVER operators
+   of sample-input/invert0-doublet.input at 16^3x32 on phase 9's checkpoint:
+   12 columns each through `invert_doublet_eo` on K1-R-D, every column's true
+   residual of the doublet system against the plain unpreconditioned
+   operator.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -61,6 +80,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = os.path.join(HERE, "sample-input", "hmc2-nf2-tm-hasenbusch.input")
 SAMPLE_CLOVER = os.path.join(HERE, "sample-input", "hmc6-nf2-clover-hasenbusch.input")
+SAMPLE_NF211 = os.path.join(HERE, "sample-input", "hmc3-nf211-clover.input")
+SAMPLE_DOUBLET = os.path.join(HERE, "sample-input", "invert0-doublet.input")
 
 # Relative tolerance of a kernel against its plain version on the same card
 # inputs: both compute in f32 and differ only in summation order and FMA
@@ -84,6 +105,15 @@ DDH_BOUND = 3e-3
 # trajectory (CPU, same draws) against 4.1e-5 on the twisted-mass one, so the
 # same 3e-3 holds; an operator error shifts dH by O(1).
 DDH_BOUND_CLOVER = 3e-3
+# The same for the GAUGE + NDRAT trajectory at 8^4.  The doublet pseudofermion
+# has twice the components (|S| ~ 1e5, |H| ~ 3e5, as large as the twisted-mass
+# trajectory's), its action is a sum of 10 f32 multishift solutions in f64,
+# and the two paths run the same f32 recurrences on operators that differ by
+# summation order only.  The port's plain path and the JAX reference differ
+# by less than 1e-3 on the 4^4 NDRAT trajectory (CPU, same draws, the bound of
+# tests/test_torch_ndrat_traj.py); 3e-3 is the bound of the other two
+# trajectories, and a wrong flavour stride or sign shifts dH by O(1).
+DDH_BOUND_NDRAT = 3e-3
 FLOPS_SITE = 1320
 # the per-site block matvec of a clover epilogue: 2 chiralities x 6 rows x 6
 # complex multiply-adds of 8 flops; its blocks are 2 x 72 floats per site
@@ -217,7 +247,7 @@ def phase_kernels(lat, dev="cuda"):
 
     params, fg18, fg12, psi, psi_o, g = _fields(lat, dev, 11)
     blocks = _random_blocks(lat, dev, 14)
-    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0, "K1-C": 0.0, "K1-RC": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0, "K1-C": 0.0, "K1-RC": 0.0, "K1-R-D": 0.0}
 
     def note(key, epi, err):
         if epi[0].startswith("clov"):
@@ -274,6 +304,28 @@ def phase_kernels(lat, dev="cuda"):
                 _check(vs_k1 <= (0.0 if clov else KERNEL_RTOL * max(1.0, float(ref.abs().max()))),
                        f"K1-R R={nrhs} {vname} {gname} differs from K1 by {vs_k1:.3e}")
         del psis, psis_o, out, ref
+    # K1-R on the flavour-doublet axis (R = 2, r_axis 1, epilogue none):
+    # against its plain version, and each flavour bit for bit against K1 on
+    # that flavour alone (a wrong component or flavour stride still runs and
+    # is wrong in one flavour only; the two flavours hold different fields)
+    gen = torch.Generator(device=dev).manual_seed(102)
+    chi = torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=dev)
+    for gname, fg in (("18-real", fg18), ("12-real", fg12)):
+        for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+            out = dc.hopping_split_rhs(ug, chi, p, lat, gcomp=fg.gcomp, r_axis=1)
+            ref = dc.hopping_split_rhs_plain(ug, chi, p, lat, gcomp=fg.gcomp, r_axis=1)
+            _sync(dev)
+            _check(out.shape == chi.shape and ref.shape == chi.shape, "K1-R-D output shape")
+            for f in range(2):
+                err, rel = _rel_err(out[:, f], ref[:, f])
+                worst["K1-R-D"] = max(worst["K1-R-D"], err)
+                one = dc.hopping_split(ug, chi[:, f].contiguous(), p, lat, gcomp=fg.gcomp)
+                vs_k1 = float((out[:, f] - one).abs().max())
+                _say(f"[check] K1-R-D {gname} p={p} flavour {f}: max|d| {err:.3e} "
+                     f"(rel {rel:.2e}), vs K1 {vs_k1:.3e}")
+                _check(rel <= KERNEL_RTOL, f"K1-R-D {gname} p={p} flavour {f} off by {rel:.3e}")
+                _check(vs_k1 == 0.0, f"K1-R-D {gname} p={p} flavour {f} differs from K1 by "
+                                     f"{vs_k1:.3e}")
     # HoppingDiff (K1 forward, K2 + adjoint K1 backward) against autograd of
     # the plain version
     for p in (0, 1):
@@ -312,6 +364,45 @@ def phase_kernels(lat, dev="cuda"):
         err, rel = _rel_err(x, y)
         _say(f"[check] q_hat_clover_diff {name}: max|d| {err:.3e} (rel {rel:.2e})")
         _check(rel <= KERNEL_RTOL, f"q_hat_clover_diff {name} off by {rel:.3e}")
+    # the doublet force surrogates q_nd_diff and q_nd_clover_diff (HoppingDiff
+    # flavour by flavour, the flavour-mixing diagonals between the hops in
+    # plain tensor arithmetic) forward and backward against autograd of the
+    # same operators built from the plain doublet hop
+    from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+
+    ndp = NDParams(kappa=0.13, mubar=0.12, epsbar=0.15)
+    gd = torch.randn(chi.shape, generator=gen, device=dev)
+
+    def plain_hop(ug, c2, p):
+        return dc.hopping_split_rhs_plain(ug, c2, p, lat, r_axis=1)
+
+    def plain_qnd(ug_e, ug_o, c2):
+        tmp = wf._mee_inv_nd_split(plain_hop(ug_e, c2, 0), ndp.mubar_t, ndp.epsbar_t, +1.0)
+        m = wf._mee_nd_split(c2, ndp.mubar_t, ndp.epsbar_t, +1.0) - k2 * plain_hop(ug_o, tmp, 1)
+        return wf._gamma5_nd(wf._tau1_split(m))
+
+    def plain_qnd_clover(ug_e, ug_o, moo_u, moo_d, ma, mb, me, c2):
+        tmp = wf._mee_inv_nd_apply_split(ma, mb, me, ndp.epsbar_t, plain_hop(ug_e, c2, 0))
+        m = wf._mee_nd_apply_split(moo_u, moo_d, ndp.epsbar_t, c2) - k2 * plain_hop(ug_o, tmp, 1)
+        return wf._gamma5_nd(wf._tau1_split(m))
+
+    blk5 = [dc.blk_unflatten(_random_blocks(lat, dev, s)) for s in (18, 19, 20, 21, 22)]
+    cases = (("q_nd_diff", (), lambda *a: wf.q_nd_diff(*a, ndp, lat), plain_qnd,
+              ("fwd", "d ug_e", "d ug_o", "d chi")),
+             ("q_nd_clover_diff", blk5, lambda *a: wf.q_nd_clover_diff(*a, ndp, lat),
+              plain_qnd_clover, ("fwd", "d ug_e", "d ug_o", "d moo_u", "d moo_d", "d minv_a",
+                                 "d minv_b", "d minv_e", "d chi")))
+    for what, blks, kern_fn, plain_fn, names in cases:
+        grads = []
+        for fn in (kern_fn, plain_fn):
+            ins = [t.clone().requires_grad_(True) for t in (fg18.ug_even, fg18.ug_odd, *blks, chi)]
+            out = fn(*ins)
+            grads.append((out.detach(),) + torch.autograd.grad(out, ins, gd))
+        _sync(dev)
+        for name, x, y in zip(names, *grads):
+            err, rel = _rel_err(x, y)
+            _say(f"[check] {what} {name}: max|d| {err:.3e} (rel {rel:.2e})")
+            _check(rel <= KERNEL_RTOL, f"{what} {name} off by {rel:.3e}")
     return worst
 
 
@@ -459,7 +550,42 @@ def phase_timings(lat16, lat32):
                  f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
                  f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
                  f"{NRHS} x K1 {ms1 * 1e3:9.1f} us ({ms1 / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
-        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks
+        # K1-R-D (flavour doublet, epilogue none) beside 2 launches of K1
+        chi = torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device="cuda")
+        fl = [chi[:, f].contiguous() for f in range(2)]
+        for gname, fg, gbytes in (("18-real", fg18, 576), ("12-real", fg12, 384)):
+            n = 200 if lat is lat16 else 50
+
+            def k1rd():
+                return dc.hopping_split_rhs(fg.ug_odd, chi, 1, lat, gcomp=fg.gcomp, r_axis=1)
+
+            def k1_pair():
+                for c in fl:
+                    dc.hopping_split(fg.ug_odd, c, 1, lat, gcomp=fg.gcomp)
+
+            out = k1rd()
+            for f in range(2):
+                one = dc.hopping_split(fg.ug_odd, fl[f], 1, lat, gcomp=fg.gcomp)
+                _check(bool(torch.equal(out[:, f], one)),
+                       f"K1-R-D {tag} {gname} flavour {f} differs from K1")
+            del out, one
+            ms = _time_ms(k1rd, n)
+            ms1 = _time_ms(k1_pair, n)
+            pms = float("nan")
+            if lat is lat16:
+                pms = _time_ms(lambda: dc.hopping_split_rhs_plain(
+                    fg.ug_odd, chi, 1, lat, gcomp=fg.gcomp, r_axis=1), 20)
+            site_bytes, site_flops = _model(("none",), gbytes, 2)
+            nbytes = site_bytes * sites
+            bound = _bound_ms(nbytes, site_flops * sites)
+            gfs = site_flops * sites / (ms * 1e-3) / 1e9
+            rows[(tag, "K1-R-D", gname)] = (ms, pms, *bound, ms1)
+            _say(f"[time] K1-R-D {tag} R=2 {gname} none        : kernel {ms * 1e3:9.1f} us "
+                 f"({gfs:7.1f} GF/s, {nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth at "
+                 f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
+                 f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
+                 f"2 x K1 {ms1 * 1e3:9.1f} us ({ms1 / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
+        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks, chi, fl
         torch.cuda.empty_cache()
     return rows, bw
 
@@ -469,7 +595,32 @@ def phase_timings(lat16, lat32):
 # ---------------------------------------------------------------------------
 
 
-def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False):
+NDRAT_PARITY_INPUT = """L = 8
+T = 8
+beta = 5.3
+tau = 1.0
+NumberOfTimescales = 2
+BeginMonomial GAUGE
+  Timescale = 0
+  IntegrationSteps = 2
+EndMonomial
+BeginMonomial NDRAT
+  Timescale = 1
+  kappa = 0.13
+  2Kappamubar = 0.1
+  2Kappaepsbar = 0.12
+  DegreeOfRational = 10
+  StildeMin = 0.01
+  StildeMax = 4.7
+  AcceptancePrecision = 1e-20
+  ForcePrecision = 1e-20
+  MaxSolverIterations = 1000
+  IntegrationSteps = 2
+EndMonomial
+"""
+
+
+def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False):
     import torch
 
     from tmlqcd_tpu_torch import rng, su3
@@ -487,6 +638,12 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False):
                 f.read(), dims=dims, steps={"GAUGE": "1", "CLOVERDET": "1", "CLOVERDETRATIO": "2"},
                 precisions=("1e-20", "1e-20"))))
         bound, tag = DDH_BOUND_CLOVER, "clover "
+    elif ndrat:
+        from tmlqcd_tpu_torch.config import build_hmc
+        from tmlqcd_tpu_torch.config_tmlqcd import parse_input
+
+        cfg = build_hmc(parse_input(NDRAT_PARITY_INPUT))
+        bound, tag = DDH_BOUND_NDRAT, "ndrat "
     else:
         cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
                                           steps=(1, 1, 2), acc_tol=1e-10, force_tol=1e-10,
@@ -496,8 +653,13 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False):
     key = rng.Key(2024)
     u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
     p = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
-    etas = [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
-            if hasattr(m, "chrono_init_state") else None for i, m in enumerate(cfg.monomials)]
+    def eta_shape(m):
+        if hasattr(m, "_eta_shape"):  # the rational monomials (a doublet for ND)
+            return m._eta_shape()
+        return (4, 3) + lat.eo_site_shape if hasattr(m, "chrono_init_state") else None
+
+    etas = [None if eta_shape(m) is None else rng.normal_spinor(key.fold(2, i), eta_shape(m), "cpu")
+            for i, m in enumerate(cfg.monomials)]
     uni = rng.uniform(key.fold(3), "cpu")
     res = {}
     for dev in devs:
@@ -516,6 +678,10 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False):
          f"|dplaq| {dplaq:.3e}")
     _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
     _check(ddh <= bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {bound:.0e}")
+    if ndrat:
+        _check(kern.acc_iterations == plain.acc_iterations and 0 < kern.acc_iterations[1] < 1000,
+               f"ndrat multishift iterations kernel {kern.acc_iterations} plain "
+               f"{plain.acc_iterations}")
     return ddh
 
 
@@ -557,9 +723,9 @@ def smoke_input(text: str) -> str:
 
 
 def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
-                       precisions=("1e-16", "1e-14")) -> str:
-    """hmc6-nf2-clover-hasenbusch cut to `dims` (T, LX, LY, LZ) with 3
-    trajectories, NSave = 3, the ONLINE measurement every 3rd trajectory,
+                       precisions=("1e-16", "1e-14"), ntraj: int = 3) -> str:
+    """hmc6-nf2-clover-hasenbusch cut to `dims` (T, LX, LY, LZ) with `ntraj`
+    trajectories, NSave = `ntraj`, the ONLINE measurement on the last of them,
     steps 2/2/5, precisions 1e-16 / 1e-14 and MaxSolverIterations 1000 as
     `smoke_input` sets them.  The physics point stays hmc6's own (beta =
     1.726, kappa = 0.1400645, CSW = 1.74, 2KappaMu = 0.0009 / 0.05): unlike
@@ -569,7 +735,7 @@ def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
     smallest |det| of a chirality block on the checkpoint."""
     steps = steps or {"GAUGE": "2", "CLOVERDET": "2", "CLOVERDETRATIO": "5"}
     sub = {"t": str(dims[0]), "lx": str(dims[1]), "ly": str(dims[2]), "lz": str(dims[3]),
-           "measurements": "3", "nsave": "3", "frequency": "3",
+           "measurements": str(ntraj), "nsave": str(ntraj), "frequency": str(ntraj),
            "acceptanceprecision": precisions[0], "forceprecision": precisions[1],
            "maxsolveriterations": str(MAXITER)}
     out, block = [], None
@@ -589,10 +755,29 @@ def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
     return "\n".join(out) + "\n"
 
 
+def nf211_smoke_input(text: str, online_from: str) -> str:
+    """hmc3-nf211-clover cut to 16^3x32 with 2 trajectories and NSave = 2.
+    Its action stays its own: GAUGE + CLOVERTRLOG + CLOVERDET + NDRAT at
+    beta = 1.726, kappa = 0.1400645, CSW = 1.74, 2KappaMu = 0.0009 / 0.05,
+    2Kappamubar = 0.1315052, 2Kappaepsbar = 0.1351419, DegreeOfRational = 10
+    on [0.01, 4.7].  Cut or replaced: the lattice (24^3x48), the number of
+    trajectories, the integration steps (2/3/6 -> 2/2/3), the precisions and
+    MaxSolverIterations (the other smoke points' 1e-16 / 1e-14 and 1000), and
+    the GRADIENTFLOW block, in whose place stands the ONLINE block of
+    `online_from` (hmc6's text) on the second trajectory."""
+    online = re.search(r"(?ims)^BeginMeasurement\s+ONLINE.*?^EndMeasurement[^\n]*\n", online_from)
+    _check(online is not None, "no ONLINE block to take")
+    text, n = re.subn(r"(?ims)^BeginMeasurement\s+GRADIENTFLOW.*?^EndMeasurement[^\n]*\n",
+                      lambda _: online.group(0), text)
+    _check(n == 1, "hmc3 holds no GRADIENTFLOW block to replace")
+    return clover_smoke_input(text, steps={"GAUGE": "2", "CLOVERDET": "2", "NDRAT": "3"}, ntraj=2)
+
+
 def _read_counts(dc) -> dict:
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
             "K1-C": dc.hopping_split.clover_launches,
             "K1-RC": dc.hopping_split_rhs.clover_launches,
+            "K1-R-D": dc.hopping_split_rhs.doublet_launches,
             "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
             "K2 plain": dc.hopping_ug_vjp_plain.calls}
@@ -603,7 +788,7 @@ def _check_no_plain(counts: dict) -> None:
     _check(not any(plain.values()), f"a plain version served the main path: {counts}")
 
 
-def phase_main_path(workdir: str, clover: bool = False):
+def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
     import numpy as np
 
     from tmlqcd_tpu_torch.cli import hmc as cli
@@ -612,32 +797,58 @@ def phase_main_path(workdir: str, clover: bool = False):
     from tmlqcd_tpu_torch.io.lime import read_lime
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
-    tag = "main-clover" if clover else "main"
-    with open(SAMPLE_CLOVER if clover else SAMPLE) as f:
-        text = clover_smoke_input(f.read()) if clover else smoke_input(f.read())
+    tag = "main-nf211" if nf211 else "main-clover" if clover else "main"
+    with open(SAMPLE_NF211 if nf211 else SAMPLE_CLOVER if clover else SAMPLE) as f:
+        text = f.read()
+    if nf211:
+        with open(SAMPLE_CLOVER) as f:
+            text = nf211_smoke_input(text, f.read())
+    else:
+        text = clover_smoke_input(text, ntraj=2) if clover else smoke_input(text)
     path = os.path.join(workdir, f"{tag}.input")
     with open(path, "w") as f:
         f.write(text)
     cfg = read_input(path)
-    online = ("ONLINE", 3, 0.1400645, 0.0009) if clover else ("ONLINE", 3, 0.13, 0.0026)
-    types = (["GAUGE", "CLOVERTRLOG", "CLOVERDET", "CLOVERDETRATIO"] if clover
+    ntraj = 2 if clover or nf211 else 3
+    online = (("ONLINE", ntraj, 0.1400645, 0.0009) if clover or nf211
+              else ("ONLINE", 3, 0.13, 0.0026))
+    types = (["GAUGE", "CLOVERTRLOG", "CLOVERDET", "NDRAT"] if nf211
+             else ["GAUGE", "CLOVERTRLOG", "CLOVERDET", "CLOVERDETRATIO"] if clover
              else ["GAUGE", "DET", "DETRATIO"])
-    _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == 3
+    csw = [m.csw for m in cfg.monomials[1:]]
+    _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == ntraj
            and [(m.type, m.frequency, m.kappa, m.two_kappa_mu) for m in cfg.meas] == [online]
            and [m.type for m in cfg.monomials] == types
-           and all(m.csw == (1.74 if clover else 0.0) for m in cfg.monomials[1:]),
+           and csw == ([1.74, 1.74, 0.0] if nf211 else [1.74 if clover else 0.0] * len(csw)),
            "smoke input was not derived as intended")
+    if nf211:
+        ndrat = cfg.monomials[3]
+        _check((ndrat.two_kappa_mubar, ndrat.two_kappa_epsbar, ndrat.rat_order, ndrat.stilde_min,
+                ndrat.stilde_max, cfg.beta, ndrat.kappa)
+               == (0.1315052, 0.1351419, 10, 0.01, 4.7, 1.726, 0.1400645),
+               "the NDRAT block of the smoke input is not hmc3's")
     run_dir = os.path.join(workdir, f"run-{tag}")
     dc.reset_counters()
+    log = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
     wall = time.perf_counter() - t0
     counts = _read_counts(dc)
+    sys.stdout.write(log.getvalue())
     _say(f"[{tag}] cli.hmc exit {rc}, {wall:.1f} s wall; launches {counts}")
     _check(rc == 0, f"cli.hmc returned {rc}")
+    if nf211:
+        # the interval check ran before the first trajectory and said what it found
+        m = re.search(r"\[validate\].*ndrat: spec\(Q\^2\) ~ \[(\S+), (\S+)\]", log.getvalue())
+        _check(m is not None, "cli.hmc did not print the interval check of the NDRAT monomial")
+        lmin, lmax = float(m.group(1)), float(m.group(2))
+        _say(f"[{tag}] interval check: spec(Q_nd^2) ~ [{lmin:.3e}, {lmax:.3e}] on the hot start "
+             f"against [0.01, 4.7]: {'inside' if 0.01 <= lmin and lmax <= 4.7 else 'OUTSIDE'}")
+        _check(0.0 < lmin < lmax and math.isfinite(lmax), "the spectral estimates are not ordered")
     with open(os.path.join(run_dir, "output.data")) as f:
         lines = [ln.split() for ln in f if ln.strip() and not ln.startswith("#")]
-    _check(len(lines) == 3, f"output.data has {len(lines)} lines, expected 3")
+    _check(len(lines) == ntraj, f"output.data has {len(lines)} lines, expected {ntraj}")
     secs, acc = [], []
     for cols in lines:
         plaq, dh, acc_iters = float(cols[1]), float(cols[3]), [int(c) for c in cols[7:]]
@@ -650,33 +861,36 @@ def phase_main_path(workdir: str, clover: bool = False):
     _check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
     # only the ONLINE solve (twisted mass, no clover term) runs K1 without a
     # clover epilogue on the clover path, beside the hops of the force
-    _check((counts["K1-C"] > 0) == clover, f"clover epilogue launches: {counts}")
+    _check((counts["K1-C"] > 0) == (clover or nf211), f"clover epilogue launches: {counts}")
+    # every multishift iteration, heatbath Q and y_j of NDRAT is 2 or 4
+    # launches of K1-R on the doublet axis
+    _check((counts["K1-R-D"] > 0) == nf211 and counts["K1-R"] == counts["K1-R-D"],
+           f"doublet launches: {counts}")
     _check_no_plain(counts)
-    # the ONLINE measurement of the third trajectory
-    meas = os.path.join(run_dir, "onlinemeas.000002")
-    _check(os.path.exists(meas), "onlinemeas.000002 was not written")
+    # the ONLINE measurement of the last trajectory
+    meas = os.path.join(run_dir, f"onlinemeas.{ntraj - 1:06d}")
+    _check(os.path.exists(meas), f"{os.path.basename(meas)} was not written")
     with open(meas) as f:
         rows = [ln.split() for ln in f if ln.strip()]
     cpp = [float(r[3]) for r in rows]
     _check(len(rows) == 32 and all(r[:3] == ["1", "1", str(t)] for t, r in enumerate(rows)),
-           f"onlinemeas.000002 has {len(rows)} lines or a wrong column layout")
+           f"{os.path.basename(meas)} has {len(rows)} lines or a wrong column layout")
     _check(all(math.isfinite(c) and c > 0.0 for c in cpp)
            and all(math.isfinite(float(r[4])) for r in rows),
-           "onlinemeas.000002: C_PP must be positive and finite on every timeslice")
-    _say(f"[{tag}] onlinemeas.000002: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
+           f"{os.path.basename(meas)}: C_PP must be positive and finite on every timeslice")
+    _say(f"[{tag}] {os.path.basename(meas)}: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
          f"min C_PP {min(cpp):.6e}")
     # the ILDG checkpoint, read back with its checksum verified
-    conf = os.path.join(run_dir, "conf.000003.lime")
-    _check(os.path.exists(conf), "conf.000003.lime was not written")
+    conf = os.path.join(run_dir, f"conf.{ntraj:06d}.lime")
+    _check(os.path.exists(conf), f"{os.path.basename(conf)} was not written")
     _check("scidac-checksum" in [r.type for r in read_lime(conf)],
-           "conf.000003.lime carries no checksum record")
+           f"{os.path.basename(conf)} carries no checksum record")
     arr, traj, _ = load_checkpoint(conf, cfg.lat)  # raises on a checksum mismatch
-    _check(traj == 3 and arr.shape == (3, 3, 4) + cfg.lat.site_shape
-           and bool(np.isfinite(arr).all()), "conf.000003.lime does not read back")
+    _check(traj == ntraj and arr.shape == (3, 3, 4) + cfg.lat.site_shape
+           and bool(np.isfinite(arr).all()), f"{os.path.basename(conf)} does not read back")
     dev = np.abs(np.einsum("ij...,kj...->ik...", arr, arr.conj()) - np.eye(3).reshape(3, 3, 1, 1, 1, 1))
     _check(float(dev.max()) < 1e-5, f"links read back are not unitary ({dev.max():.2e})")
-    _say(f"[{tag}] s/trajectory {secs} (mean of the last two {sum(secs[1:]) / 2:.3f} s); "
-         f"conf.000003.lime read back, checksum verified")
+    _say(f"[{tag}] s/trajectory {secs}; {os.path.basename(conf)} read back, checksum verified")
     return counts, secs, conf
 
 
@@ -830,18 +1044,19 @@ def phase_invert(workdir: str, conf: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 7 (after the clover run of phase_main_path): where the time goes
+# phases 7 and 9 (after a run of phase_main_path): where the time goes
 # ---------------------------------------------------------------------------
 
 
-def phase_clover_profile(workdir: str, conf: str):
-    """More trajectories from phase 7's checkpoint, outside the CLI.  Two
-    short ones (the same action at integration steps 1/1/1: 17 fine kicks
-    where the smoke point has 161, since a profile of a whole trajectory
-    holds 1.3 million device ops and takes minutes to read): one timed, one
-    under torch.profiler for the device's idle share and the K1 and K2
-    device time.  Then one whole trajectory with synchronising host timers
-    around the clover block build, the solves and the autograd forces."""
+def phase_profile(workdir: str, conf: str, input_name: str, what: str, kernels: dict,
+                  patches=None):
+    """More trajectories from a main path's checkpoint, outside the CLI.  Two
+    short ones (the same action at integration steps 1/1/1, since a profile
+    of a whole trajectory holds over a million device ops and takes minutes
+    to read): one timed, one under torch.profiler for the device's idle share
+    and the device time of `kernels` (label -> substring of the kernel's
+    name).  With `patches` ((object, attribute, label) triples) then one
+    whole trajectory with synchronising host timers around those functions."""
     import dataclasses
 
     import torch
@@ -849,12 +1064,10 @@ def phase_clover_profile(workdir: str, conf: str):
     from tmlqcd_tpu_torch import rng
     from tmlqcd_tpu_torch.config import build_hmc
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
-    from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory, monomials
+    from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
-    from tmlqcd_tpu_torch.ops import clover as cl
-    from tmlqcd_tpu_torch.ops import wilson_fast as wf
 
-    rcfg = read_input(os.path.join(workdir, "main-clover.input"))
+    rcfg = read_input(os.path.join(workdir, input_name))
     cfg = build_hmc(rcfg)
     arr, _, _ = load_checkpoint(conf, cfg.lat)
     u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
@@ -877,9 +1090,10 @@ def phase_clover_profile(workdir: str, conf: str):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         traj(short, 0, u, chrono)
-    _say_profile("clover trajectory at steps 1/1/1", wall, prof,
-                 {"K1": "hopping_kernel", "K2": "ug_vjp_kernel"})
+    _say_profile(f"{what} trajectory at steps 1/1/1", wall, prof, kernels)
     del prof
+    if not patches:
+        return wall
 
     # host timers, each synchronised on entry and exit (so this trajectory is
     # slower than the plain one); inclusive times of the named functions
@@ -897,12 +1111,6 @@ def phase_clover_profile(workdir: str, conf: str):
                 calls[name] = calls.get(name, 0) + 1
         return wrapper
 
-    patches = [(cl, "sw_blocks_eo", "sw_blocks_eo (clover term, forward)"),
-               (wf, "fast_clover_from", "fast_clover_from (M_oo, M_ee^-1 blocks of one mu)"),
-               (wf, "split_gauge_pair", "split_gauge_pair (gauge copy, forward)"),
-               (monomials._CloverState, "force", "autograd.grad + TA of the fermion forces"),
-               (monomials, "_surrogate_force", "CLOVERTRLOG force (its sw_blocks forward included)"),
-               (monomials, "_solve_qsw", "CG solves (chrono guess included)")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
     try:
         for obj, attr, name in patches:
@@ -911,10 +1119,16 @@ def phase_clover_profile(workdir: str, conf: str):
     finally:
         for obj, attr, fn in saved:
             setattr(obj, attr, fn)
-    _say(f"[profile] clover trajectory with synchronising timers {wall_t:.4f} s:")
+    _say(f"[profile] {what} trajectory with synchronising timers {wall_t:.4f} s "
+         f"(dH {st.delta_h:+.4e}, force iterations {st.force_iterations}):")
     for name, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
         _say(f"[profile]   {name}: {sec:.4f} s in {calls[name]} calls ({sec / wall_t:.1%})")
     return wall
+
+
+def _conf_traj(conf: str) -> int:
+    """The trajectory counter in a checkpoint's file name conf.NNNNNN.lime."""
+    return int(os.path.basename(conf).split(".")[1])
 
 
 # ---------------------------------------------------------------------------
@@ -983,7 +1197,7 @@ def phase_invert_clover(workdir: str, conf: str):
            f"K1-R launches {counts['K1-R']} / clover {counts['K1-RC']} for {iters} iterations")
     _check_no_plain(counts)
 
-    prop = os.path.join(out_dir, "propagator.00.000003.lime")
+    prop = os.path.join(out_dir, f"propagator.00.{_conf_traj(conf):06d}.lime")
     cols, prec = read_propagator(prop, lat)  # raises on a checksum mismatch
     _check(len(cols) == NRHS and prec == 32, f"{len(cols)} columns at precision {prec}")
     arr, _, _ = load_checkpoint(conf, lat)
@@ -1037,9 +1251,136 @@ def phase_invert_clover(workdir: str, conf: str):
     return counts, iters, solve_s
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# True relative residual of a doublet propagator column (the source in the
+# upper flavour, the solution a flavour pair) against the plain
+# unpreconditioned doublet operator (1 [+ T] + i mubar g5 tau3 + epsbar tau1) x
+# - kappa H x.  As for RESIDUAL_BOUND: CG stops at 1e-7 of the normal-equation
+# right-hand side, |Q_nd^-1| on the smoke gauge stays of order 10 (the
+# interval check of phase 9 prints the smallest eigenvalue of Q_nd^2 for the
+# heavier doublet of hmc3), f32 fields add ~1e-7 per application.  1e-5
+# leaves 10x; a wrong Schur step or flavour order leaves O(1).
+RESIDUAL_BOUND_DOUBLET = 1e-5
+
+
+def doublet_smoke_input(text: str) -> str:
+    """invert0-doublet's two operators (DBTMWILSON, DBCLOVER; kappa, CSW,
+    2Kappamubar, 2Kappaepsbar as shipped) at 16^3x32 with the other inverter
+    points' SolverPrecision = 1e-14 and MaxSolverIterations = 1000, and
+    single-precision propagator files."""
+    sub = {"l": "16", "t": "32", "solverprecision": "1e-14",
+           "maxsolveriterations": f"{MAXITER}\n  PropagatorPrecision = 32"}
+    out = []
+    for line in text.splitlines():
+        kv = re.match(r"^([A-Za-z0-9_]+)\s*=", line.split("#", 1)[0].strip())
+        if kv and kv.group(1).lower() in sub:
+            line = (line[:len(line) - len(line.lstrip())]
+                    + f"{kv.group(1)} = {sub[kv.group(1).lower()]}")
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def phase_invert_doublet(workdir: str, conf: str):
+    import torch
+
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.propagator import read_propagator
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import ndoublet as nd
+    from tmlqcd_tpu_torch.ops.wilson import boundary_phases, dslash_full
+
+    path = os.path.join(workdir, "invert-doublet.input")
+    with open(SAMPLE_DOUBLET) as f:
+        text = doublet_smoke_input(f.read())
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = read_input(path)
+    lat = cfg.lat
+    _check(lat.dims == (32, 16, 16, 16)
+           and [(o.type, o.kappa, o.csw, o.two_kappa_mubar, o.two_kappa_epsbar, o.precision,
+                 o.max_solver_iterations, o.propagator_precision) for o in cfg.operators]
+           == [("DBTMWILSON", 0.1400645, 0.0, 0.039, 0.0333, 1e-14, MAXITER, 32),
+               ("DBCLOVER", 0.1400645, 1.74, 0.039, 0.0333, 1e-14, MAXITER, 32)],
+           "doublet inverter input was not derived as intended")
+    out_dir = os.path.join(workdir, "prop-doublet")
+    dc.reset_counters()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["-f", path, "-c", conf, "--format", "lime", "-o", out_dir])
+    wall = time.perf_counter() - t0
+    counts = _read_counts(dc)
+    sys.stdout.write(log.getvalue())
+    _check(rc == 0, f"cli.invert (doublet) returned {rc}")
+    solves = [(m.group(1), int(m.group(2)), float(m.group(3))) for m in re.finditer(
+        r"\((DBTMWILSON|DBCLOVER)\) source \(s=\d,c=\d\): (\d+) iters, \|r\|\^2=\S+, (\S+)s",
+        log.getvalue())]
+    _check(len(solves) == 2 * NRHS, f"cli.invert reported {len(solves)} doublet solves, not 24")
+    iters = {}
+    for ty in ("DBTMWILSON", "DBCLOVER"):
+        its = [n for t, n, _ in solves if t == ty]
+        secs = [s for t, _, s in solves if t == ty]
+        iters[ty] = its
+        _say(f"[invert-doublet] {ty}: iterations per column {its}, seconds per column "
+             f"{secs} (sum {sum(secs):.3f} s)")
+        _check(all(0 < n < MAXITER for n in its), f"a {ty} solve ran {its} iterations")
+    # every hop of a solve is one K1-R launch on the doublet axis: 4 per
+    # iteration, 4 for CG's first residual, 3 in the Schur prologue, 1 after
+    expect = sum(4 * n + 8 for _, n, _ in solves)
+    _say(f"[invert-doublet] cli.invert exit {rc}, {wall:.1f} s wall; launches {counts} "
+         f"(expected K1-R-D {expect})")
+    _check(counts["K1-R-D"] == expect and counts["K1-R"] == expect,
+           f"K1-R-D launches {counts['K1-R-D']} != {expect}")
+    _check_no_plain(counts)
+
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    traj = _conf_traj(conf)
+    worst = {}
+    with torch.no_grad():
+        for iop, op in enumerate(cfg.operators):
+            two_k = 2.0 * op.kappa
+            p = nd.NDParams(kappa=op.kappa, mubar=op.two_kappa_mubar / two_k,
+                            epsbar=op.two_kappa_epsbar / two_k, c_sw=op.csw)
+            ph = boundary_phases(p.wilson, lat)
+            sw = cl.sw_blocks(u, p.kappa, p.c_sw, lat) if p.c_sw != 0.0 else None
+            fl = []
+            for f in range(2):
+                cols, prec = read_propagator(  # raises on a checksum mismatch
+                    os.path.join(out_dir, f"propagator.{iop:02d}.fl{f}.{traj:06d}.lime"), lat)
+                _check(len(cols) == NRHS and prec == 32, f"{len(cols)} columns at precision {prec}")
+                fl.append(cols)
+            worst[op.type] = 0.0
+            for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
+                x = torch.stack([torch.as_tensor(fl[f][i], device="cuda").to(torch.complex64)
+                                 for f in range(2)])
+                b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+                diag = (cl.mee_nd_clover(sw, x, p.mubar_t, p.epsbar_t) if sw is not None
+                        else nd.mee_nd(x, p.mubar_t, p.epsbar_t))
+                mx = diag - p.kappa * torch.stack([dslash_full(u, x[f], ph, lat)
+                                                   for f in range(2)])
+                mx[0] -= b  # the source sits in the upper flavour; |b| = 1
+                res = float(torch.linalg.vector_norm(mx))
+                worst[op.type] = max(worst[op.type], res)
+                _check(res <= RESIDUAL_BOUND_DOUBLET,
+                       f"{op.type} column {i}: |M_nd x - b| / |b| = {res:.3e}")
+                _check(float(x[1].abs().max()) > 0.0, f"{op.type} column {i}: empty lower flavour")
+    _say(f"[invert-doublet] true residual |M_nd x - b| / |b| against the unpreconditioned "
+         f"doublet operator over 12 columns: {worst} (bound {RESIDUAL_BOUND_DOUBLET:.0e})")
+    return counts, iters, solves
+
+
 def main() -> int:
-    if not (os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch")) and os.path.exists(SAMPLE)
-            and os.path.exists(SAMPLE_CLOVER)):
+    if not (os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch"))
+            and all(os.path.exists(f) for f in (SAMPLE, SAMPLE_CLOVER, SAMPLE_NF211,
+                                                SAMPLE_DOUBLET))):
         print("chip_smoke: run from a checkout of the repository "
               "(tmlqcd_tpu_torch/ and sample-input/ are missing)", file=sys.stderr)
         return 2
@@ -1068,6 +1409,7 @@ def main() -> int:
         done("3 timings")
         phase_parity()
         phase_parity(clover=True)
+        phase_parity(ndrat=True)
         done("4 parity trajectories")
         with tempfile.TemporaryDirectory() as workdir:
             hmc_counts, _, conf = phase_main_path(workdir)
@@ -1076,17 +1418,40 @@ def main() -> int:
             done("6 main path 2")
             chmc_counts, _, cconf = phase_main_path(workdir, clover=True)
             done("7 main path 3")
-            phase_clover_profile(workdir, cconf)
+            phase_profile(workdir, cconf, "main-clover.input", "clover",
+                          {"K1": "hopping_kernel", "K2": "ug_vjp_kernel"})
             done("7 clover profile")
             cinv_counts, _, _ = phase_invert_clover(workdir, cconf)
             done("8 main path 4")
+            nhmc_counts, _, nconf = phase_main_path(workdir, nf211=True)
+            done("9 main path 5")
+            from tmlqcd_tpu_torch.hmc import monomials, rational_monomials
+            from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+            base = rational_monomials._RationalBase
+            phase_profile(
+                workdir, nconf, "main-nf211.input", "Nf=2+1+1",
+                {"K1": "hopping_kernel", "K1-R-D": "hopping_rhs_kernel", "K2": "ug_vjp_kernel"},
+                patches=[(base, "heatbath", "NDRAT heatbath"),
+                         (base, "force_info", "NDRAT force (solve, y_j, surrogate, autograd)"),
+                         (base, "action_info", "NDRAT acceptance"),
+                         (rational_monomials, "cg_multishift", "multishift solves (in the three above)"),
+                         (wf, "_hop_nd", "doublet hops K1-R-D, each synchronised (in the solves and outside)"),
+                         (rational_monomials._NDOps, "force", "NDRAT autograd.grad + TA"),
+                         (monomials._CloverState, "force", "CLOVERDET autograd.grad + TA"),
+                         (monomials, "_surrogate_force", "CLOVERTRLOG force (its sw_blocks forward included)"),
+                         (monomials, "_solve_qsw", "CLOVERDET CG solves (chrono guess included)")])
+            done("9 Nf=2+1+1 profile")
+            dinv_counts, _, _ = phase_invert_doublet(workdir, nconf)
+            done("10 main path 6")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     src = "tmlqcd_tpu_torch/csrc/hopping.cu"
 
     paths = {"launches_hmc": hmc_counts, "launches_invert": inv_counts,
-             "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts}
+             "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts,
+             "launches_hmc_nf211": nhmc_counts, "launches_invert_doublet": dinv_counts}
 
     def entry(name, replaces, key, row):
         ms, plain_ms, bound_ms, bound_by = row[:4]
@@ -1107,6 +1472,8 @@ def main() -> int:
               rows[("16x16x16x32", "12-real", "clov_mhat+g5")]),
         entry("hopping_split_rhs clov (K1-RC)", "tmlqcd_tpu/ops/dslash_pallas.py:409", "K1-RC",
               rows[("16x16x16x32", "K1-R", "12-real", "clov_mhat+g5")]),
+        entry("hopping_split_rhs doublet (K1-R-D)", "tmlqcd_tpu/ops/dslash_pallas.py:491",
+              "K1-R-D", rows[("16x16x16x32", "K1-R-D", "12-real")]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -314,7 +314,8 @@ def test_q_hat_pm_clover_fast_rhs_matches_single(fields):
     for r in range(R):
         one = wf.q_hat_pm_clover_fast(fc, p7[:, :, :, r].contiguous(), TP, LAT)
         assert torch.equal(out[:, :, :, r], one)
-    with pytest.raises(NotImplementedError, match="r_axis = 1"):
+    # the flavour-doublet axis carries no fused epilogue
+    with pytest.raises(ValueError, match="epilogue 'none' only"):
         wf.q_hat_pm_clover_fast(fc, p7, TP, LAT, r_axis=1)
 
 

@@ -210,8 +210,8 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
         dc.hopping_split_rhs(fg.ug_even, torch.stack([batch, batch], dim=-1)[..., 0], 0, lat)
     with pytest.raises(ValueError):
         dc.hopping_split_rhs(fg.ug_even, batch.cpu(), 0, lat)  # mixed devices
-    with pytest.raises(NotImplementedError):
-        dc.hopping_split_rhs(fg.ug_even, batch, 0, lat, r_axis=1)
+    with pytest.raises(ValueError, match="2 flavours"):
+        dc.hopping_split_rhs(fg.ug_even, batch, 0, lat, r_axis=1)  # a batch is no doublet
     with pytest.raises(ValueError, match="needs blocks"):
         dc.hopping_split(fg.ug_even, psi, 0, lat, epi=("clov_inv",))
     with pytest.raises(ValueError):
@@ -301,3 +301,105 @@ def test_clover_trajectory_kernel_path_matches_plain_path(cuda):
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
+
+
+# ---------------------------------------------------------------------------
+# the flavour doublet: K1-R on r_axis = 1, the doublet inversion, NDRAT
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 4), (8, 8, 8, 8), (6, 4, 6, 10)])
+@pytest.mark.parametrize("compress", [False, True], ids=["18real", "12real"])
+def test_doublet_hopping_kernel_matches_plain_and_two_k1_launches(cuda, dims, compress):
+    """K1-R on the flavour-doublet axis against its plain version and, bit
+    for bit, against K1 on each flavour alone (the two flavours hold
+    different fields, so a wrong flavour or component stride shows)."""
+    lat, u, psi = _setup(dims, cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=compress)
+    chi = torch.stack([psi[0], psi[1]], dim=1).contiguous()
+    for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+        dc.reset_counters()
+        out = dc.hopping_split_rhs(ug, chi, p, lat, gcomp=fg.gcomp, r_axis=1)
+        assert dc.hopping_split_rhs.launches == dc.hopping_split_rhs.doublet_launches == 1
+        assert dc.hopping_split_rhs_plain.calls == 0
+        assert _close(out, dc.hopping_split_rhs_plain(ug, chi, p, lat, gcomp=fg.gcomp, r_axis=1))
+        for f in range(2):
+            one = dc.hopping_split(ug, psi[f], p, lat, gcomp=fg.gcomp)
+            assert torch.equal(out[:, f], one)
+    with pytest.raises(ValueError, match="epilogue 'none' only"):
+        dc.hopping_split_rhs(fg.ug_even, chi, 0, lat, epi=("mee_inv", 0.1, 1.0), gcomp=fg.gcomp,
+                             r_axis=1)
+
+
+@pytest.mark.parametrize("c_sw", [0.0, 1.74])
+def test_doublet_inversion_runs_on_the_doublet_kernel(cuda, c_sw):
+    """invert_doublet_eo on CUDA tensors launches K1-R on the doublet axis for
+    every hop, calls no plain version and agrees with the plain path on the
+    CPU to 2e-5 (f32 CG, tol 1e-7)."""
+    from tmlqcd_tpu_torch.inverter import invert_doublet_eo
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+
+    lat, u, _ = _setup((8, 4, 4, 4), cuda)
+    params = NDParams(kappa=0.13, mubar=0.15, epsbar=0.12, c_sw=c_sw)
+    src = point_source(lat, 1, 2, device=cuda)
+    b = torch.stack([src, torch.zeros_like(src)])
+    dc.reset_counters()
+    out = invert_doublet_eo(u, b, params, lat, tol=1e-7, maxiter=500)
+    # Schur prologue 1, right-hand side 2, r0 = b - A x0 4, 4 per iteration, epilogue 1
+    assert dc.hopping_split_rhs.doublet_launches == 4 * out.iterations + 8
+    assert dc.hopping_split_rhs.launches == dc.hopping_split_rhs.doublet_launches
+    assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+    ref = invert_doublet_eo(u.cpu(), b.cpu(), params, lat, tol=1e-7, maxiter=500)
+    assert out.iterations == ref.iterations
+    assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
+_NDRAT_INPUT = """L = 4
+T = 4
+beta = 5.3
+NumberOfTimescales = 2
+BeginMonomial GAUGE
+  Timescale = 0
+  IntegrationSteps = 1
+EndMonomial
+BeginMonomial NDRAT
+  Timescale = 1
+  kappa = 0.13
+  2Kappamubar = 0.1
+  2Kappaepsbar = 0.12
+  DegreeOfRational = 6
+  StildeMin = 0.01
+  StildeMax = 4.7
+  AcceptancePrecision = 1e-20
+  ForcePrecision = 1e-20
+  IntegrationSteps = 2
+EndMonomial
+"""
+
+
+def test_ndrat_trajectory_kernel_path_matches_plain_path(cuda):
+    """One 4^4 GAUGE + NDRAT trajectory on CUDA tensors (multishift solves on
+    K1-R's doublet axis, forces on K1 + K2) and on CPU tensors (plain
+    versions) with the same draws; bounds as for the trajectories above."""
+    from tmlqcd_tpu_torch import config, config_tmlqcd
+
+    cfg = config.build_hmc(config_tmlqcd.parse_input(_NDRAT_INPUT))
+    lat = cfg.lat
+    key = rng.Key(9)
+    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    mom = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+    etas = [None, rng.normal_spinor(key.fold(2, 1), (2, 4, 3) + lat.eo_site_shape, "cpu")]
+    out = {}
+    dc.reset_counters()
+    for dev in (cuda, torch.device("cpu")):
+        d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
+        _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+        if dev.type == "cuda":
+            assert dc.hopping_split_rhs.doublet_launches > 0 and dc.hopping_ug_vjp.launches > 0
+            assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+            assert dc.hopping_ug_vjp_plain.calls == 0
+    assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
+    assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
+    assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
+    assert out["cuda"].force_iterations == out["cpu"].force_iterations

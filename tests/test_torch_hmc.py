@@ -305,10 +305,10 @@ def test_hmc2_lowers_to_the_reference_monomials():
 
 
 @pytest.mark.parametrize("what, text", [
-    ("NDCLOVERRAT", "BeginMonomial NDCLOVERRAT\n kappa = 0.1\n CSW = 1.0\nEndMonomial\n"),
+    ("NDPOLY", "BeginMonomial NDPOLY\n kappa = 0.1\n CSW = 1.0\nEndMonomial\n"),
     ("NrTProcs", "NrTProcs = 2\n"),
     ("NrYProcs", "NrYProcs = 2\n"),
-    ("NDRAT", "BeginMonomial NDRAT\n kappa = 0.1\nEndMonomial\n"),
+    ("SFGAUGE", "BeginMonomial SFGAUGE\nEndMonomial\n"),
     ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
     ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
 ])

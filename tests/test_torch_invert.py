@@ -133,8 +133,10 @@ def test_hopping_rhs_matches_reference_kernel(fields, gauge, epi):
 
 def test_hopping_rhs_checks_its_arguments(fields):
     fg, p2 = fields["fg12"], fields["p2"]
-    with pytest.raises(NotImplementedError, match="r_axis = 1.*not yet ported"):
+    with pytest.raises(ValueError, match="a flavour doublet has 2 flavours"):
         dc.hopping_split_rhs(fg.ug_even, p2, EVEN, LAT, gcomp=fg.gcomp, r_axis=1)
+    with pytest.raises(ValueError, match="r_axis = 2"):
+        dc.hopping_split_rhs(fg.ug_even, p2, EVEN, LAT, gcomp=fg.gcomp, r_axis=2)
     with pytest.raises(ValueError, match="contiguous"):
         dc.hopping_split_rhs(fg.ug_even, torch.stack([p2, p2], dim=-1)[..., 0], EVEN, LAT,
                              gcomp=fg.gcomp)
@@ -282,8 +284,8 @@ def test_cli_invert_matches_reference_cli(tmp_path, fields, monkeypatch):
 
 
 @pytest.mark.parametrize("what, text", [
-    ("DBTMWILSON", "BeginOperator DBTMWILSON\n kappa = 0.13\nEndOperator\n"),
-    ("DBCLOVER", "BeginOperator DBCLOVER\n kappa = 0.13\nEndOperator\n"),
+    ("NrYProcs", "NrYProcs = 2\nBeginOperator DBTMWILSON\n kappa = 0.13\nEndOperator\n"),
+    ("NrZProcs", "NrZProcs = 2\nBeginOperator DBCLOVER\n kappa = 0.13\nEndOperator\n"),
     ("OVERLAP", "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
     ("NrXProcs", "NrXProcs = 2\nBeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\nEndOperator\n"),
     ("dfl", "BeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\n Solver = dfl\nEndOperator\n"),
@@ -305,7 +307,7 @@ def test_unported_inverter_options_raise(what, text):
 
 
 def test_ported_inverter_options_pass():
-    for op in ("TMWILSON", "WILSON", "CLOVER"):
+    for op in ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER"):
         for solver in ("cg", "fastcg"):
             for csw in ("", " CSW = 1.0\n"):
                 config.check_invert_ported(config_tmlqcd.parse_input(

@@ -1,0 +1,26 @@
+"""Parity of the port's rational monomials NDCLOVERRAT with the JAX reference
+(tmlqcd_tpu), on the CPU: heatbath, action and force.  The cases, their
+inputs and their tolerances are in tests/rat_monomial_cases.py; test_torch_rat_monomials.py runs
+them for NDRAT and RAT, so that the test runner's workers share the reference's
+compile time.
+"""
+
+import pytest
+import torch
+
+from rat_monomial_cases import (  # noqa: F401  (fixtures and tests, collected here)
+    gauge,
+    ported,
+    reference,
+    test_rational_action_matches_reference,
+    test_rational_force_matches_finite_difference_of_the_action,
+    test_rational_force_matches_reference,
+    test_rational_heatbath_matches_reference,
+)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", params=["ndcloverrat"])
+def name(request):
+    return request.param

@@ -10,6 +10,10 @@ numpy arrays in the shared layouts:
     FastGauge float32   ug_even/ug_odd [2, 8, 3|2, 3, T, X, M] + gcomp
     clover    complex64 sw_e/sw_o [2, 2, 2, 3, 3, T, X, M] (chirality blocks)
     FastClover          FastGauge + four float32 [2, 72, T, X, M] block fields
+    doublet   complex64 [2 flavour, 4, 3, T, X, M]
+    FastCloverND        FastGauge + five float32 [2, 2, 2, 2, 3, 3, T, X, M]
+                        block fields + epsbar_t
+    NDParams / RationalApprox: plain dataclasses, rebuilt field by field
     chrono    fields [n, ...field] + count
 
 `numpy_su3` and `numpy_spinor` draw test inputs from a numpy Generator, so
@@ -23,13 +27,16 @@ import torch
 
 from tmlqcd_tpu_torch.inverter import InvertResult
 from tmlqcd_tpu_torch.lattice import Lattice
-from tmlqcd_tpu_torch.ops.wilson_fast import FastClover, FastGauge
+from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+from tmlqcd_tpu_torch.ops.wilson_fast import FastClover, FastCloverND, FastGauge
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory
+from tmlqcd_tpu_torch.solvers.rational import RationalApprox
 
 __all__ = ["gauge_from_numpy", "spinor_from_numpy", "sources_from_numpy",
            "split_from_numpy", "fast_gauge_from_numpy", "clover_blocks_from_numpy",
            "fast_clover_from_numpy", "fast_clover_to_numpy", "chrono_from_numpy",
-           "invert_result_from_numpy", "to_numpy", "numpy_su3", "numpy_spinor"]
+           "invert_result_from_numpy", "to_numpy", "numpy_su3", "numpy_spinor",
+           "doublet_from_numpy", "nd_params_from", "rational_from", "fast_clover_nd_from_numpy"]
 
 
 def _as(arr, dtype: torch.dtype, shape_tail: tuple, device) -> torch.Tensor:
@@ -92,6 +99,34 @@ def fast_clover_to_numpy(fc: FastClover) -> dict:
     return {"ug_even": to_numpy(fc.fg.ug_even), "ug_odd": to_numpy(fc.fg.ug_odd),
             "gcomp": fc.fg.gcomp, "moo_p": to_numpy(fc.moo_p), "moo_m": to_numpy(fc.moo_m),
             "mee_inv_p": to_numpy(fc.mee_inv_p), "mee_inv_m": to_numpy(fc.mee_inv_m)}
+
+
+def doublet_from_numpy(arr, lat: Lattice, device="cpu") -> torch.Tensor:
+    """A packed flavour doublet [2, 4, 3, T, X, M]."""
+    return _as(arr, torch.complex64, (2, 4, 3) + lat.eo_site_shape, device)
+
+
+def nd_params_from(ref) -> NDParams:
+    """The reference's NDParams (any object with its fields) -> the port's."""
+    return NDParams(kappa=float(ref.kappa), mubar=float(ref.mubar), epsbar=float(ref.epsbar),
+                    c_sw=float(ref.c_sw), theta=tuple(float(t) for t in ref.theta))
+
+
+def rational_from(ref) -> RationalApprox:
+    """The reference's RationalApprox (numpy f64 fields) -> the port's."""
+    return RationalApprox(order=int(ref.order), s_min=float(ref.s_min), s_max=float(ref.s_max),
+                          sigma=np.array(ref.sigma, np.float64), rho=np.array(ref.rho, np.float64),
+                          a_roots=np.array(ref.a_roots, np.float64),
+                          rho_lead=float(ref.rho_lead), max_rel_err=float(ref.max_rel_err))
+
+
+def fast_clover_nd_from_numpy(fg: FastGauge, moo_u, moo_d, minv_a, minv_b, minv_e,
+                              epsbar_t: float, lat: Lattice, device="cpu") -> FastCloverND:
+    """The reference's FastCloverND block fields (numpy, split
+    [2, 2, 2, 2, 3, 3, T, X, M]) on a FastGauge of the port."""
+    blk = lambda a: _as(a, torch.float32, (2, 2, 2, 2, 3, 3) + lat.eo_site_shape, device)  # noqa: E731
+    return FastCloverND(fg, blk(moo_u), blk(moo_d), blk(minv_a), blk(minv_b), blk(minv_e),
+                        float(epsbar_t))
 
 
 def chrono_from_numpy(fields, count: int, device="cpu") -> ChronoHistory:

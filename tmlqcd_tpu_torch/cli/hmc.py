@@ -1,7 +1,9 @@
 """HMC driver: the `hmc_tm -f input` equivalent of the port.
 
 Port of `tmlqcd_tpu/cli/hmc.py`: read input -> start configuration
-(hot/cold/continue) -> trajectory loop writing output.data and printing one
+(hot/cold/continue) -> the interval check of the rational monomials
+(`hmc/validate.py`, a warning when spec(Q^2) leaves [StildeMin, StildeMax])
+-> trajectory loop writing output.data and printing one
 line per trajectory, with the force monitor every 10 trajectories at
 DebugLevel >= 2, the configured measurements (ONLINE, PIONNORM) and the
 ReversibilityCheck -> native or ILDG checkpoints every NSave and at the end.
@@ -15,6 +17,7 @@ Without --cpu the run needs a CUDA device and raises if there is none; with
 
 output.data, one line per trajectory:
     traj plaquette rectangle dH exp(-dH) accept seconds <acceptance-solve iterations>
+(one count per monomial; for a rational monomial the multishift iterations).
 """
 
 from __future__ import annotations
@@ -107,6 +110,13 @@ def main(argv=None):
         u = u.expand((3, 3, 4) + lat.site_shape).contiguous()
     else:
         u = hot_start()
+
+    # the rational monomials' intervals against the spectrum on the starting
+    # configuration: a mis-bracketed interval spoils the heatbath's exactness
+    if any(hasattr(m, "s_min") for m in hmc.monomials):
+        from tmlqcd_tpu_torch.hmc.validate import check_rational_intervals
+
+        check_rational_intervals(hmc, u, key=key.fold(10**6))
 
     chrono = chrono_states(hmc, device)
     monitor_every = 10

@@ -12,8 +12,13 @@ Ported: the TMWILSON, WILSON and CLOVER operators with cg / fastcg.  As in
 the reference, a single column of a CLOVER operator goes to
 `invert_clover_eo` and of any other operator to `invert_eo`, which does not
 read CSW; the batched solve takes the clover pipeline whenever CSW != 0.
-DBTMWILSON, DBCLOVER, OVERLAP, the other solvers, UseStoutSmearing and
-UseSourceSmearing raise `NotImplementedError` naming themselves.
+The non-degenerate doublets DBTMWILSON and DBCLOVER (2Kappamubar,
+2Kappaepsbar) go column by column to `invert_doublet_eo`: each spin-colour
+source sits in the upper flavour slot and the solve returns the flavour
+pair, written as one propagator file per flavour
+(`propagator.NN.fl{0,1}.TTTTTT.lime`) or as `propagator_doublet` in the npz.
+OVERLAP, the other solvers, UseStoutSmearing and UseSourceSmearing raise
+`NotImplementedError` naming themselves.
 
 Usage:
     python -m tmlqcd_tpu_torch.cli.invert -f sample.input -c conf.000010.npz \
@@ -62,10 +67,16 @@ def main(argv=None):
     from tmlqcd_tpu_torch import rng
     from tmlqcd_tpu_torch.config import check_invert_ported
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
-    from tmlqcd_tpu_torch.inverter import invert_clover_eo, invert_eo, invert_eo_rhs
+    from tmlqcd_tpu_torch.inverter import (
+        invert_clover_eo,
+        invert_doublet_eo,
+        invert_eo,
+        invert_eo_rhs,
+    )
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
     from tmlqcd_tpu_torch.io.propagator import write_propagator
     from tmlqcd_tpu_torch.meas.sources import point_source, z2_timeslice_source
+    from tmlqcd_tpu_torch.ops.ndoublet import NDParams
     from tmlqcd_tpu_torch.ops.wilson import DiracParams
     from tmlqcd_tpu_torch.utils import to_host
 
@@ -106,6 +117,42 @@ def main(argv=None):
                        for s in range(4) for c in range(3)]
         else:
             sources = [(0, 0, z2_timeslice_source(lat, ts, rng.Key(args.seed), device))]
+
+        if op.type.upper() in ("DBTMWILSON", "DBCLOVER"):
+            two_k = 2.0 * op.kappa if op.kappa else 1.0
+            nd_params = NDParams(kappa=op.kappa, mubar=op.two_kappa_mubar / two_k,
+                                 epsbar=op.two_kappa_epsbar / two_k,
+                                 c_sw=op.csw if op.type.upper() == "DBCLOVER" else 0.0,
+                                 theta=tuple(op.theta))
+            sol2 = np.zeros((len(sources), 2, 4, 3) + lat.site_shape, np.complex64)
+            for i, (s, c, src) in enumerate(sources):
+                sync()
+                t0 = time.perf_counter()
+                res = invert_doublet_eo(u, torch.stack([src, torch.zeros_like(src)]), nd_params,
+                                        lat, tol=tol, maxiter=op.max_solver_iterations)
+                sync()
+                dt = time.perf_counter() - t0
+                sol2[i] = to_host(res.x)
+                print(f"[invert] op {iop} ({op.type}) source (s={s},c={c}): "
+                      f"{res.iterations} iters, |r|^2={float(res.residual_sq):.3e}, {dt:.3f}s",
+                      flush=True)
+            if args.format == "lime":
+                # one file per flavour: the strange / charm propagator pair
+                for fl in range(2):
+                    out = os.path.join(args.output_dir,
+                                       f"propagator.{iop:02d}.fl{fl}.{traj:06d}.lime")
+                    write_propagator(out, [sol2[i, fl] for i in range(len(sources))], lat,
+                                     precision=op.propagator_precision)
+                    print(f"[invert] wrote {out}", flush=True)
+            else:
+                out = os.path.join(args.output_dir, f"propagator.{iop:02d}.{traj:06d}.npz")
+                np.savez_compressed(out, propagator_doublet=sol2,
+                                    spin_color=[(s, c) for s, c, _ in sources], kappa=op.kappa,
+                                    mubar=nd_params.mubar, epsbar=nd_params.epsbar,
+                                    csw=nd_params.c_sw, dims=np.asarray(lat.dims),
+                                    trajectory=traj)
+                print(f"[invert] wrote {out}", flush=True)
+            continue
 
         sol = np.zeros((len(sources), 4, 3) + lat.site_shape, np.complex64)
         if len(sources) > 1:

@@ -3,13 +3,15 @@
 Port of `tmlqcd_tpu/config.py`.  The dataclasses carry the reference's full
 input schema, so every tmLQCD input the reference accepts parses here too.
 `build_hmc` lowers the ported subset — the GAUGE, DET, DETRATIO, CLOVERDET,
-CLOVERDETRATIO and CLOVERTRLOG monomials on one device, with the ONLINE and
-PIONNORM measurements, the
-force monitor, ReversibilityCheck and native or ILDG checkpoints — and
-raises `NotImplementedError`, naming the feature, for everything else: other
-monomial and measurement types and NrTProcs/NrXProcs/NrYProcs/NrZProcs > 1.
-`check_invert_ported` does the same for the inverter's operators, solvers
-and smearing options.  Nothing is skipped silently.
+CLOVERDETRATIO and CLOVERTRLOG monomials and the rational monomials (NDRAT,
+NDCLOVERRAT, RAT, CLOVERRAT and their *COR corrections) on one device, with
+the ONLINE and PIONNORM measurements, the force monitor, ReversibilityCheck
+and native or ILDG checkpoints — and raises `NotImplementedError`, naming the
+feature, for everything else: other monomial types (NDPOLY, SFGAUGE), other
+measurement types (GRADIENTFLOW, ...) and NrTProcs/NrXProcs/NrYProcs/NrZProcs
+> 1.  `check_invert_ported` does the same for the inverter's operators
+(ported: TMWILSON, WILSON, CLOVER, DBTMWILSON, DBCLOVER), solvers and
+smearing options.  Nothing is skipped silently.
 """
 
 from __future__ import annotations
@@ -27,10 +29,15 @@ from tmlqcd_tpu_torch.hmc import (
     HMCConfig,
     IntegratorConfig,
     Level,
+    NDRatCorMonomial,
+    NDRatMonomial,
+    RatCorMonomial,
+    RatMonomial,
 )
 from tmlqcd_tpu_torch.inverter import check_solver
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.meas.runner import PORTED as PORTED_MEASUREMENTS
+from tmlqcd_tpu_torch.ops.ndoublet import NDParams
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
 __all__ = [
@@ -45,7 +52,7 @@ __all__ = [
     "check_invert_ported",
 ]
 
-PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER")
+PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER")
 GAUGE_ACTIONS = {"wilson": 0.0, "tlsym": -1.0 / 12.0, "iwasaki": -0.331, "dbw2": -1.4088}
 
 
@@ -183,16 +190,18 @@ def _not_ported(what: str):
 
 def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
     """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO,
-    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG)."""
+    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, and the rational NDRAT,
+    NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections)."""
     ty = spec.type.upper()
-    det_common = dict(
+    common = dict(
         timescale=spec.timescale,
         acc_tol=float(spec.acceptance_precision) ** 0.5,  # the input stores |r|^2
         force_tol=float(spec.force_precision) ** 0.5,
         maxiter=spec.max_solver_iterations,
-        solver=spec.solver,
-        chrono_n=spec.csg_history,
     )
+    # solver routing and the chrono history belong to the CG-solving det
+    # family (the multishift solves of the rational monomials start from zero)
+    det_common = dict(common, solver=spec.solver, chrono_n=spec.csg_history)
 
     def params(two_kappa_mu, c_sw=0.0):
         return DiracParams(kappa=spec.kappa, mu=_mu(two_kappa_mu, spec.kappa), c_sw=c_sw,
@@ -220,6 +229,17 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
             lat=lat, params=DiracParams(kappa=spec.kappa, mu=_mu(spec.two_kappa_mu, spec.kappa),
                                         c_sw=spec.csw),
             timescale=spec.timescale, name=spec.name or "clovertrlog")
+    rational = dict(order=spec.rat_order, s_min=spec.stilde_min, s_max=spec.stilde_max,
+                    name=spec.name or ty.lower(), **common)
+    if ty in ("NDRAT", "NDCLOVERRAT", "NDRATCOR", "NDCLOVERRATCOR"):
+        cls = NDRatCorMonomial if ty.endswith("COR") else NDRatMonomial
+        return cls(lat=lat, params=NDParams(kappa=spec.kappa,
+                                            mubar=_mu(spec.two_kappa_mubar, spec.kappa),
+                                            epsbar=_mu(spec.two_kappa_epsbar, spec.kappa),
+                                            c_sw=spec.csw, theta=tuple(spec.theta)), **rational)
+    if ty in ("RAT", "CLOVERRAT", "RATCOR", "CLOVERRATCOR"):
+        cls = RatCorMonomial if ty.endswith("COR") else RatMonomial
+        return cls(lat=lat, params=params(0.0, spec.csw), **rational)
     raise _not_ported(f"monomial type {spec.type!r}")
 
 
@@ -244,8 +264,9 @@ def check_ported(cfg: RunConfig) -> None:
 
 def check_invert_ported(cfg: RunConfig) -> None:
     """Raise for every inverter feature this slice of the port does not
-    carry: operators other than TMWILSON / WILSON / CLOVER, solvers other
-    than cg / fastcg, stout and source smearing, domain decomposition."""
+    carry: operators other than TMWILSON / WILSON / CLOVER / DBTMWILSON /
+    DBCLOVER, solvers other than cg / fastcg, stout and source smearing,
+    domain decomposition."""
     _check_one_device(cfg)
     if cfg.use_stout_smearing and cfg.stout_iterations > 0:
         raise _not_ported("UseStoutSmearing")

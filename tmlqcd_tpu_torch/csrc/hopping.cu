@@ -10,6 +10,7 @@
 //
 //   psi  [2 re/im][4 spin][3 colour][V]          V = T * X * M sites of one parity
 //   psi  [2 re/im][4 spin][3 colour][R][V]       K1-R: R right-hand sides
+//   psi  [2 re/im][2 flavour][4 spin][3 colour][V]  K1-R on a flavour doublet
 //   ug   [2 re/im][8 dir][rows][3 col][V]        rows = 3 (18 reals) or 2 (12 reals)
 //   out  like psi (K1, K1-R) or [2][8][3][3][V] (K2)
 //   blk  [2 re/im][72][V]                        clover epilogues: two 6 x 6 complex
@@ -63,8 +64,15 @@
 // a few timeslices innermost (rhs_t_inner), which keeps the t-neighbours of
 // the whole batch in L2.
 // The field is addressed through three element strides (re/im, component,
-// right-hand side), so another position of the R axis is a change of the
-// wrapper only.
+// right-hand side), so the position of the R axis is the wrapper's choice:
+// {12 R V, R V, V} for the batch axis before the sites, and {24 V, V, 12 V}
+// for the flavour doublet of the non-degenerate operator, whose two flavours
+// are the R = 2 right-hand sides (`_dslash_kernel_r` with r_pos = 1 in the
+// Pallas file: one read of the gauge for both flavours, epilogue none, the
+// flavour-mixing diagonal applied outside the kernel).  Its byte model is
+// G + 2 * 192 = 960 B (18-real) or 768 B (12-real) per site, against
+// 2 * (G + 192) for two K1 launches.  With R = 2 a block is 32 sites x 2
+// rows = 64 threads, and each row stages four of the eight directions.
 
 #include <cuda_runtime.h>
 
@@ -123,7 +131,7 @@ struct Geo {
 
 // element strides of a spinor field: re -> im, and component (s, c) ->
 // the next.  K1: {12 V, V}; K1-R with the R axis before the sites:
-// {12 R V, R V}.
+// {12 R V, R V}; K1-R on a flavour doublet: {24 V, V}.
 struct Strides {
   long long im, comp;
 };

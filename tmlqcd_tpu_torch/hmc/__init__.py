@@ -9,6 +9,12 @@ from tmlqcd_tpu_torch.hmc.monomials import (  # noqa: F401
     DetRatioMonomial,
     GaugeMonomial,
 )
+from tmlqcd_tpu_torch.hmc.rational_monomials import (  # noqa: F401
+    NDRatCorMonomial,
+    NDRatMonomial,
+    RatCorMonomial,
+    RatMonomial,
+)
 from tmlqcd_tpu_torch.hmc.trajectory import (  # noqa: F401
     Draws,
     HMCConfig,

@@ -146,6 +146,11 @@ def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None):
             if ch[i] is not None and hasattr(m, "force_chrono"):
                 fi, ch[i], ki = m.force_chrono(u, aux_list[i], ch[i])
                 its[i] += int(ki)
+            elif hasattr(m, "force_info"):
+                # solver-backed forces without chrono (the multishift solves
+                # of the rational monomials start from zero)
+                fi, ki = m.force_info(u, aux_list[i])
+                its[i] += int(ki)
             else:
                 fi = m.force(u, aux_list[i])
             f = c * fi if f is None else f + c * fi

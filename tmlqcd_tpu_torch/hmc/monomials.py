@@ -99,6 +99,13 @@ def _surrogate_force(u: torch.Tensor, surrogate) -> torch.Tensor:
     return ta_force_from_grad(u, torch_grad_to_jax(g))
 
 
+def _force_from_surrogate(u_leaf: torch.Tensor, surrogate: torch.Tensor) -> torch.Tensor:
+    """F = TA(U G^T), G the gradient of the real surrogate with respect to
+    the leaf `u_leaf` it was built on."""
+    (g,) = torch.autograd.grad(surrogate, u_leaf)
+    return ta_force_from_grad(u_leaf.detach(), torch_grad_to_jax(g))
+
+
 def _eta2(key, lat: Lattice, u: torch.Tensor, eta) -> torch.Tensor:
     if eta is None:
         eta = rng.normal_spinor(key, eo_spinor_shape(lat), u.device)
@@ -278,9 +285,7 @@ class _CloverState:
     def force(self, surrogate: torch.Tensor) -> torch.Tensor:
         """F = TA(U G^T), G the gradient of the real surrogate built on this
         state."""
-        (g,) = torch.autograd.grad(surrogate, self.u)
-        u = self.u.detach()
-        return ta_force_from_grad(u, torch_grad_to_jax(g))
+        return _force_from_surrogate(self.u, surrogate)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,7 @@ Schur preconditioning and CG on the normal equations.
 
 Port of `tmlqcd_tpu/inverter.py` (`InvertResult`, `invert_eo` and
 `invert_clover_eo` with `cg` and `fastcg`, `invert_eo_rhs` with and without
-clover).  For the twisted-mass Wilson operator M (2-kappa normalisation),
+clover, `invert_doublet_eo` with and without clover).  For the twisted-mass Wilson operator M (2-kappa normalisation),
 M_eo = -kappa H_eo:
 
     1. bhat = b_o - M_oe M_ee^{-1} b_e
@@ -20,6 +20,13 @@ version for CPU tensors — for `cg` as for `fastcg`, where the reference runs
 its complex jnp operator for `cg`.  The batched solve runs its Schur prologue
 and epilogue on the multi-RHS kernel too.  Sources and solutions are
 full-lattice spinors [4, 3, T, X, Y*Z].
+
+The non-degenerate doublet system M_nd x = b (`invert_doublet_eo`, sources
+and solutions [2 flavour, 4, 3, T, X, Y*Z]) takes the same three steps with
+the flavour-2x2 diagonal of `ops/ndoublet.py` (or its clover form) and the
+hermitian Q_nd = gamma5 tau1 Mhat_nd: Mhat x = bhat <=> Q_nd^2 x = Q_nd
+(gamma5 tau1 bhat).  Every hop of it is one multi-RHS kernel call with
+flavour as the R axis.
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers.cg import cg, cg_rhs
 
-__all__ = ["InvertResult", "invert_eo", "invert_clover_eo", "invert_eo_rhs", "SOLVERS",
-           "check_solver"]
+__all__ = ["InvertResult", "invert_eo", "invert_clover_eo", "invert_eo_rhs",
+           "invert_doublet_eo", "SOLVERS", "check_solver"]
 
 SOLVERS = ("cg", "fastcg")
 _NOT_YET_PORTED = ("mixedcg", "fastmixed", "dflfgmres", "dflgcr", "dfl", "increigcg")
@@ -144,3 +151,34 @@ def invert_eo_rhs(u: torch.Tensor, bs: torch.Tensor, params: DiracParams, lat: L
                           tol, maxiter, 3)
         x = eo_unpack(wf.from_split_rhs(x_e2), wf.from_split_rhs(res.x), lat)
     return InvertResult(x=x.to(bs.dtype), iterations=res.iterations, residual_sq=res.residual_sq)
+
+
+def invert_doublet_eo(u: torch.Tensor, b: torch.Tensor, params, lat: Lattice,
+                      tol: float = 1e-10, maxiter: int = 5000) -> InvertResult:
+    """Solve the non-degenerate doublet system M_nd x = b for a flavour
+    doublet source b [2, 4, 3, T, X, Y*Z] (the DBTMWILSON operator;
+    `params.c_sw != 0` selects the clover doublet, DBCLOVER).  params:
+    `ops.ndoublet.NDParams`.  Split f32 fields on K1-R (doublet axis) for
+    CUDA tensors, the plain version for CPU tensors."""
+    kappa = float(params.kappa)
+    with torch.no_grad():
+        b_e, b_o = eo_pack(b, lat)  # the flavour axis rides along as a batch axis
+        b_e2, b_o2 = wf.to_split(b_e), wf.to_split(b_o)
+        if params.c_sw != 0.0:
+            fc = wf.make_fast_clover_nd(u, params, lat)
+            fg = fc.fg
+            mee_inv = lambda c2: wf._mee_inv_nd_apply_split(  # noqa: E731
+                fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, c2)
+            qnd = lambda c2: wf.q_nd_clover_fast(fc, c2, params, lat)  # noqa: E731
+        else:
+            fg = wf.make_fast_gauge(u, params.wilson, lat)
+            mee_inv = lambda c2: wf._mee_inv_nd_split(  # noqa: E731
+                c2, params.mubar_t, params.epsbar_t, +1.0)
+            qnd = lambda c2: wf.q_nd_fast(fg, c2, params, lat)  # noqa: E731
+
+        bhat = b_o2 + kappa * wf._hop_nd(fg, mee_inv(b_e2), ODD, lat)
+        rhs = qnd(wf._gamma5_nd(wf._tau1_split(bhat)))
+        res = cg(lambda c2: qnd(qnd(c2)), rhs, tol=tol, maxiter=maxiter)
+        x_e2 = mee_inv(b_e2 + kappa * wf._hop_nd(fg, res.x, EVEN, lat))
+        x = eo_unpack(wf.from_split(x_e2), wf.from_split(res.x), lat)
+    return InvertResult(x=x.to(b.dtype), iterations=res.iterations, residual_sq=res.residual_sq)

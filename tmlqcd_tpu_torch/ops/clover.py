@@ -1,7 +1,8 @@
 """Clover (Sheikholeslami-Wohlert) term: field strength, 6x6 spin-block
-algebra, the degenerate twisted-clover even/odd operators, and the trlog.
+algebra, the degenerate and non-degenerate twisted-clover even/odd operators,
+and the trlog.
 
-Port of the degenerate part of `tmlqcd_tpu/ops/clover.py`.  The
+Port of `tmlqcd_tpu/ops/clover.py`.  The
 O(a)-improvement term adds to the Wilson diagonal
 
     T(x) = - kappa c_sw sum_{mu<nu} sigma_munu G_munu(x),
@@ -18,9 +19,10 @@ so the clover-term force is autograd through `sw_blocks` -> `mee_blocks` /
 
 Block storage: sw [2 chirality, 2, 2, 3, 3, T, X, M], small axes leading.
 
-Not ported yet: the non-degenerate doublet functions (`mee_nd_clover`,
-`mee_inv_nd_clover`, `sw_logdet_nd`, `m_hat_nd_clover`, `q_nd_clover`,
-`mee_inv_nd_blocks`), which come with the ND doublet slice.
+Non-degenerate doublet: M_ee^nd = C (x) 1_f + i mubar gamma5 tau3 + epsbar
+tau1 with C = 1 + T.  [T, gamma5] = 0, so all flavour blocks commute and the
+inverse is [[C - i mu g5, -eps], [-eps, C + i mu g5]] / D with
+D = C^2 + mu^2 - eps^2 per chirality.
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ __all__ = [
     "mee_blocks",
     "mee_inv_blocks",
     "blocks_apply",
+    "mee_nd_clover",
+    "mee_inv_nd_clover",
+    "sw_logdet_nd",
+    "m_hat_nd_clover",
+    "q_nd_clover",
+    "mee_inv_nd_blocks",
 ]
 
 PLANES = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
@@ -283,3 +291,123 @@ def blocks_apply(blocks: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
             outs.append(su3.matvec(blocks[b, s, 0], psi[s0])
                         + su3.matvec(blocks[b, s, 1], psi[s0 + 1]))
     return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# non-degenerate (strange/charm) clover doublet
+# ---------------------------------------------------------------------------
+
+
+def _blk_mul(a, b):
+    """Product of two 6x6 matrices in 2x2-of-3x3 block form (P, Q, R, S)."""
+    return (su3.mul(a[0], b[0]) + su3.mul(a[1], b[2]),
+            su3.mul(a[0], b[1]) + su3.mul(a[1], b[3]),
+            su3.mul(a[2], b[0]) + su3.mul(a[3], b[2]),
+            su3.mul(a[2], b[1]) + su3.mul(a[3], b[3]))
+
+
+def _blk_inv(p, q, r, s):
+    """Inverse of a 6x6 in 2x2-of-3x3 block form through the Schur complement."""
+    pinv, _ = _inv3(p)
+    rp = su3.mul(r, pinv)
+    sti, _ = _inv3(s - su3.mul(rp, q))
+    qi = -su3.mul(su3.mul(pinv, q), sti)
+    ri = -su3.mul(sti, rp)
+    return pinv - su3.mul(qi, rp), qi, ri, sti
+
+
+def _d_blocks(sw_b: torch.Tensor, mubar_t: float, epsbar_t: float):
+    """D = C^2 + mubar_t^2 - epsbar_t^2 of one chirality as (P, Q, R, S)."""
+    c = _block66(sw_b, 0.0)
+    d = list(_blk_mul(c, c))
+    shift = (mubar_t * mubar_t - epsbar_t * epsbar_t) * _eye(d[0])
+    d[0] = d[0] + shift
+    d[3] = d[3] + shift
+    return d
+
+
+def mee_nd_clover(sw, chi, mubar_t: float, epsbar_t: float, sign: float = +1.0):
+    """M_ee^nd chi = (C (x) 1_f + i sign mubar gamma5 tau3 + epsbar tau1) chi
+    for doublets chi [2, 4, 3, *sites], C = 1 + T."""
+    up = sw_apply(sw, chi[0], sign * mubar_t, +1.0)
+    dn = sw_apply(sw, chi[1], sign * mubar_t, -1.0)
+    return torch.stack([up + epsbar_t * chi[1], dn + epsbar_t * chi[0]])
+
+
+def mee_inv_nd_clover(sw, chi, mubar_t: float, epsbar_t: float, sign: float = +1.0):
+    """(M_ee^nd)^{-1} chi by the closed form of the module docstring: the
+    numerators (C -+ i mu g5) chi_f - eps chi_f', then one Schur solve with
+    D per chirality and flavour."""
+    imu = 1j * sign * mubar_t
+    outs_u, outs_d = [], []
+    for b, s0, pm in _CHIRALITIES:
+        mt = pm * imu
+        p, q, r, s = _block66(sw[b], 0.0)
+
+        def apply_c(v0, v1):
+            return (su3.matvec(p, v0) + su3.matvec(q, v1), su3.matvec(r, v0) + su3.matvec(s, v1))
+
+        cu = apply_c(chi[0, s0], chi[0, s0 + 1])
+        cd = apply_c(chi[1, s0], chi[1, s0 + 1])
+        nu = [cu[i] - mt * chi[0, s0 + i] - epsbar_t * chi[1, s0 + i] for i in range(2)]
+        nd = [cd[i] + mt * chi[1, s0 + i] - epsbar_t * chi[0, s0 + i] for i in range(2)]
+        d = _d_blocks(sw[b], mubar_t, epsbar_t)
+        xu0, xu1, _ = _schur_inv_apply(*d, nu[0], nu[1])
+        xd0, xd1, _ = _schur_inv_apply(*d, nd[0], nd[1])
+        outs_u.extend([xu0, xu1])
+        outs_d.extend([xd0, xd1])
+    return torch.stack([torch.stack(outs_u), torch.stack(outs_d)])
+
+
+def sw_logdet_nd(sw, mubar_t: float, epsbar_t: float) -> torch.Tensor:
+    """sum_sites log det M_ee^nd = sum_chirality log det(C^2 + mu^2 - eps^2),
+    accumulated in f64: the even/even factor of the nd clover determinant."""
+    total = torch.zeros((), dtype=torch.float64, device=sw.device)
+    for b, _, _ in _CHIRALITIES:
+        p2, q2, r2, s2 = _d_blocks(sw[b], mubar_t, epsbar_t)
+        pinv, detp = _inv3(p2)
+        _, dets = _inv3(s2 - su3.mul(su3.mul(r2, pinv), q2))
+        total = total + torch.sum(torch.log((detp * dets).abs().double()))
+    return total
+
+
+def m_hat_nd_clover(ueo, sw_e, sw_o, chi_o, params, lat: Lattice, phases, sign: float = +1.0):
+    """Clover nd Schur complement on odd sites:
+    Mhat = M_oo^nd - kappa^2 H_oe (M_ee^nd)^{-1} H_eo, H flavour-diagonal;
+    params: `ops.ndoublet.NDParams`."""
+    def hop(chi, p):
+        return torch.stack([dslash_packed(ueo, chi[0], p, lat, phases),
+                            dslash_packed(ueo, chi[1], p, lat, phases)])
+
+    tmp = mee_inv_nd_clover(sw_e, hop(chi_o, EVEN), params.mubar_t, params.epsbar_t, sign)
+    return (mee_nd_clover(sw_o, chi_o, params.mubar_t, params.epsbar_t, sign)
+            - (params.kappa * params.kappa) * hop(tmp, ODD))
+
+
+def q_nd_clover(ueo, sw_e, sw_o, chi_o, params, lat: Lattice, phases):
+    """Q_nd^sw = gamma5 tau1 Mhat_nd^sw — hermitian."""
+    m = m_hat_nd_clover(ueo, sw_e, sw_o, chi_o, params, lat, phases, +1.0)
+    return torch.stack([apply_gamma5(m[1]), apply_gamma5(m[0])])
+
+
+def mee_inv_nd_blocks(sw: torch.Tensor, mubar_t: float, epsbar_t: float, sign: float = +1.0):
+    """The flavour-2x2 inverse of M_ee^nd as three chirality-block fields
+    (A, B, E), each [2 chirality, 2, 2, 3, 3, *sites], computed once per
+    gauge field:
+
+        (M_ee^nd)^{-1} = [[A, -eps E], [-eps E, B]],
+        A = (C - i sign mubar g5) D^{-1},  B = (C + i sign mubar g5) D^{-1},
+        E = D^{-1},  D = C^2 + mubar^2 - eps^2   (per chirality; g5 = +-1)."""
+    outs = []
+    for b, _, pm in _CHIRALITIES:
+        mt = pm * 1j * sign * mubar_t
+        cp = _block66(sw[b], mt)  # C + i mu (this chirality)
+        cm = _block66(sw[b], -mt)  # C - i mu
+        d = list(_blk_mul(cp, cm))  # C^2 + mu^2
+        e2 = (epsbar_t * epsbar_t) * _eye(d[0])
+        d[0] = d[0] - e2
+        d[3] = d[3] - e2
+        e = _blk_inv(*d)
+        pack = lambda t: torch.stack([torch.stack(t[:2]), torch.stack(t[2:])])  # noqa: E731
+        outs.append((pack(_blk_mul(cm, e)), pack(_blk_mul(cp, e)), pack(e)))
+    return tuple(torch.stack([outs[0][i], outs[1][i]]) for i in range(3))

@@ -24,6 +24,14 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   The batch axis is an explicit argument (`r_axis`), never inferred from a
   shape.  Bound by memory: G + R * (192 [+ 96 for mhat, clov_mhat]) bytes
   per site, G = 576 or 384, plus 576 for the blocks of a clover epilogue.
+* `hopping_split_rhs(..., r_axis=1)` (K1-R-D) is the same kernel on the
+  flavour doublet [2(re/im), 2(flavour), 4, 3, T, X, M] of the non-degenerate
+  operator (`_build` with nrhs = 2, r_pos = 1 in the reference): flavour is
+  the R axis, epilogue `none`, the gauge read once for both flavours.  The
+  kernel addresses the field through three element strides; for the doublet
+  they are 24 V (re/im), V (component: the colour axis' stride) and 12 V
+  (flavour), V = T X M.  Bound by memory: G + 2 * 192 = 960 B (18-real) or
+  768 B (12-real) per site, against 2 * (G + 192) for two K1 launches.
 * `hopping_ug_vjp` (K2) replaces `hopping_ug_vjp` and `_ug_vjp_kernel`
   (dslash_pallas.py:1489, built by `_build_ug_vjp` :1541): the cotangent of
   Re<g, H psi> with respect to ug[p].  Bound by memory: 96 B of g and 96 B of
@@ -36,7 +44,8 @@ fallback between the two.  Each wrapper counts its kernel launches in a
 plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
 `hopping_ug_vjp.launches`); each plain version counts its calls (`.calls`).
 `hopping_split.clover_launches` and `hopping_split_rhs.clover_launches` count
-those of the launches that ran a clover epilogue.
+those of the launches that ran a clover epilogue,
+`hopping_split_rhs.doublet_launches` those on the flavour-doublet axis.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/` with
 nvcc into a shared library with a plain C interface, loaded with ctypes;
@@ -230,12 +239,18 @@ _NEEDS_BLOCKS = ("clov_inv", "clov_mhat")
 
 
 def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None = None,
-                  blocks=None):
+                  blocks=None, r_axis: int = 3):
     """Raise on anything the kernels do not take; `nrhs` set means spinors
-    carry an R axis of that extent before the sites (the gauge and the clover
-    blocks never do)."""
+    carry an R axis of that extent at `r_axis`: 3, before the sites, or 1,
+    the flavour axis of a doublet (the gauge and the clover blocks never
+    carry one)."""
     site = lat.eo_site_shape
-    spinor = (2, 4, 3) + (() if nrhs is None else (nrhs,)) + site
+    if nrhs is None:
+        spinor = (2, 4, 3) + site
+    elif r_axis == 1:
+        spinor = (2, nrhs, 4, 3) + site
+    else:
+        spinor = (2, 4, 3, nrhs) + site
     rows = 2 if gcomp is not None else 3
     if epi[0] not in _EPI:
         raise ValueError(f"unknown epilogue {epi[0]!r}: the kernels carry "
@@ -411,15 +426,26 @@ hopping_split_plain.calls = 0
 # ---------------------------------------------------------------------------
 
 _R_AXIS = 3  # the generic batch axis [2, 4, 3, R, T, X, M]
+_DOUBLET_AXIS = 1  # the flavour doublet [2, 2, 4, 3, T, X, M]
 
 
-def _check_r_axis(r_axis: int, psi_q: torch.Tensor) -> int:
-    if r_axis != _R_AXIS:
-        raise NotImplementedError(
-            f"r_axis = {r_axis}: only the generic batch axis {_R_AXIS} ([2,4,3,R,T,X,M]) is "
-            "ported; the flavour-doublet axis 1 is not yet ported to tmlqcd_tpu_torch")
+def _check_r_axis(r_axis: int, psi_q: torch.Tensor, epi: tuple) -> int:
+    """The extent of the R axis; raises for a position or a combination the
+    kernel does not take.  The position is never read off a shape."""
+    if r_axis not in (_R_AXIS, _DOUBLET_AXIS):
+        raise ValueError(f"r_axis = {r_axis}: the multi-RHS kernel takes the batch axis "
+                         f"{_R_AXIS} ([2,4,3,R,T,X,M]) or the flavour-doublet axis "
+                         f"{_DOUBLET_AXIS} ([2,2,4,3,T,X,M])")
     if psi_q.ndim != 7:
-        raise ValueError(f"psi_q has shape {tuple(psi_q.shape)}, expected [2,4,3,R,T,X,M]")
+        raise ValueError(f"psi_q has shape {tuple(psi_q.shape)}, expected 7 axes with R at "
+                         f"{r_axis}")
+    if r_axis == _DOUBLET_AXIS:
+        if epi[0] != "none":
+            raise ValueError(f"the flavour-doublet axis runs the epilogue 'none' only (the "
+                             f"flavour-mixing diagonal is applied outside the kernel), got "
+                             f"{epi[0]!r}")
+        if psi_q.shape[1] != 2:
+            raise ValueError(f"a flavour doublet has 2 flavours, got shape {tuple(psi_q.shape)}")
     return int(psi_q.shape[r_axis])
 
 
@@ -429,13 +455,14 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
     """K1-R: out[r] = epilogue(H_{p,q} psi_q[r]) for the R right-hand sides
     along `r_axis`, the gauge read once for all of them.
 
-    psi_q, psi_o: [2,4,3,R,T,X,M] f32 (`r_axis` = 3, the only position
-    ported); ug_p, blocks and epi as for `hopping_split` (the gauge and the
-    clover blocks have no R axis; `mhat` and `clov_mhat` need psi_o with the
-    same R axis)."""
+    `r_axis` = 3: psi_q, psi_o [2,4,3,R,T,X,M] f32; ug_p, blocks and epi as
+    for `hopping_split` (the gauge and the clover blocks have no R axis;
+    `mhat` and `clov_mhat` need psi_o with the same R axis).
+    `r_axis` = 1 (K1-R-D): psi_q is a flavour doublet [2,2,4,3,T,X,M] f32,
+    epilogue `none` only."""
     epi = tuple(epi)
-    nrhs = _check_r_axis(r_axis, psi_q)
-    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, nrhs, blocks)
+    nrhs = _check_r_axis(r_axis, psi_q, epi)
+    _check_fields(lat, ug_p, psi_q, psi_o, epi, gcomp, nrhs, blocks, r_axis)
     if psi_q.device.type == "cpu":
         return hopping_split_rhs_plain(ug_p, psi_q, p, lat, epi, psi_o, gcomp, r_axis, blocks)
     if psi_q.device.type != "cuda":
@@ -445,8 +472,11 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
     corr, corr_ptr = _corr_arg(gcomp)
     out = torch.empty_like(psi_q)
     t, x, _, _ = lat.dims
-    # element strides of the contiguous [2,4,3,R,T,X,M] field
-    im_stride, comp_stride, r_stride = psi_q.stride(0), psi_q.stride(2), psi_q.stride(r_axis)
+    # element strides of the contiguous field: re/im, component (the colour
+    # axis: spin and colour are adjacent in both layouts) and right-hand side
+    colour_axis = 2 if r_axis == _R_AXIS else 3
+    im_stride, comp_stride, r_stride = (psi_q.stride(0), psi_q.stride(colour_axis),
+                                        psi_q.stride(r_axis))
     with torch.cuda.device(psi_q.device):
         stream = torch.cuda.current_stream(psi_q.device).cuda_stream
         rc = lib.tm_hopping_rhs(
@@ -458,25 +488,34 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
         raise RuntimeError(f"multi-RHS hopping kernel (K1-R) launch failed: CUDA error {rc}")
     hopping_split_rhs.launches += 1
     hopping_split_rhs.clover_launches += epi[0] in _NEEDS_BLOCKS
+    hopping_split_rhs.doublet_launches += r_axis == _DOUBLET_AXIS
     return out
 
 
 hopping_split_rhs.launches = 0
 hopping_split_rhs.clover_launches = 0
+hopping_split_rhs.doublet_launches = 0
 
 
 def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                             epi: tuple = ("none",), psi_o=None, gcomp: tuple | None = None,
                             r_axis: int = _R_AXIS, blocks=None) -> torch.Tensor:
     """Plain PyTorch version of K1-R: the arithmetic of `hopping_split_plain`
-    with the links and the clover blocks broadcast over the R axis."""
+    with the links and the clover blocks broadcast over the R axis.  A
+    flavour doublet (`r_axis` = 1) is viewed with its flavour axis behind
+    the colour axis, where the batch axis sits, and viewed back."""
     hopping_split_rhs_plain.calls += 1
-    _check_r_axis(r_axis, psi_q)
+    epi = tuple(epi)
+    _check_r_axis(r_axis, psi_q, epi)
     ug = merge_c(ug_p)
     if gcomp is not None:
         ug = _row2(ug, gcomp)
     ug = ug.unsqueeze(3)  # [8, 3, 3, 1, T, X, M]: one link for every column
-    return _hop_epilogue(ug, merge_c(psi_q), p, lat, tuple(epi), psi_o, blocks)
+    psi = merge_c(psi_q)
+    if r_axis == _DOUBLET_AXIS:
+        out = _hop_epilogue(ug, torch.movedim(psi, 0, 2), p, lat, epi, psi_o, blocks)
+        return torch.movedim(out, 3, 1).contiguous()
+    return _hop_epilogue(ug, psi, p, lat, epi, psi_o, blocks)
 
 
 hopping_split_rhs_plain.calls = 0
@@ -546,6 +585,7 @@ def reset_counters() -> None:
     hopping_split.clover_launches = 0
     hopping_split_rhs.launches = 0
     hopping_split_rhs.clover_launches = 0
+    hopping_split_rhs.doublet_launches = 0
     hopping_ug_vjp.launches = 0
     hopping_split_plain.calls = 0
     hopping_split_rhs_plain.calls = 0

@@ -11,14 +11,23 @@ force surrogates `q_hat_diff` and `q_hat_clover_diff` run on `HoppingDiff`,
 whose backward is K2 plus the adjoint hop on K1; the clover blocks enter the
 latter as differentiable inputs.
 
-Not ported yet: the sharded (`_shard`) operators, the bf16 `sloppy` gauge
-copy and the non-degenerate doublet operators.
+The non-degenerate doublet operators (`q_nd_fast`, `q_nd_clover_fast`) run
+each hop as ONE multi-RHS call with flavour as the R axis (`_hop_nd`, K1-R on
+`r_axis=1`): the gauge is read once for both flavours.  The flavour-mixing
+diagonals M_ee^{-1} and M_oo are applied outside the kernel, as in the
+reference; for the clover doublet they are materialised flavour-2x2 block
+fields (`FastCloverND`).  The force surrogates `q_nd_diff` and
+`q_nd_clover_diff` run `HoppingDiff` flavour by flavour.
+
+Not ported yet: the sharded (`_shard`) operators and the bf16 `sloppy` gauge
+copy.
 
 Layout: psi [2, 4, 3, T, X, M] f32; gauge as FastGauge (pre-gathered split
 links of both parities, phases folded).  A batch of R right-hand sides is
 [2, 4, 3, R, T, X, M] (`to_split_rhs`); the operators take it with an explicit
 `r_axis=3` and then run the multi-RHS kernel `dslash_cuda.hopping_split_rhs`
-(K1-R), which reads the gauge once for the whole batch.
+(K1-R), which reads the gauge once for the whole batch.  A flavour doublet
+is [2(re/im), 2(flavour), 4, 3, T, X, M] (`to_split` of [2, 4, 3, T, X, M]).
 """
 
 from __future__ import annotations
@@ -59,6 +68,16 @@ __all__ = [
     "q_hat_pm_clover_fast",
     "split_clover_pair",
     "q_hat_clover_diff",
+    "q_nd_fast",
+    "q_nd_sq_fast",
+    "q_nd_diff",
+    "FastCloverND",
+    "make_fast_clover_nd",
+    "fast_clover_nd_from",
+    "q_nd_clover_fast",
+    "q_nd_sq_clover_fast",
+    "split_clover_nd_pair",
+    "q_nd_clover_diff",
 ]
 
 
@@ -265,7 +284,9 @@ def blocks_apply_flat(blk: torch.Tensor, psi2: torch.Tensor,
     blk2 = dc.blk_unflatten(blk)
     if r_axis is not None:
         if r_axis != 3:
-            raise NotImplementedError(f"r_axis = {r_axis}: only the batch axis 3 is ported")
+            raise ValueError(f"r_axis = {r_axis}: blocks_apply_flat takes the batch axis 3 "
+                             "only; the flavour-2x2 blocks of a doublet are applied by "
+                             "_mee_nd_apply_split / _mee_inv_nd_apply_split")
         blk2 = blk2.unsqueeze(6)
     return _blocks_apply_split(blk2, psi2).contiguous()
 
@@ -325,3 +346,196 @@ def q_hat_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_blk2: torch.Te
     tmp = _blocks_apply_split(mee_inv_blk2, tmp)
     tmp = dc.HoppingDiff.apply(ug_o, ug_e, tmp.contiguous(), ODD, lat)
     return gamma5_split(_blocks_apply_split(moo_blk2, psi2_o) - k2 * tmp)
+
+
+# ---------------------------------------------------------------------------
+# non-degenerate doublet: flavour is the R axis of the multi-RHS kernel
+# ---------------------------------------------------------------------------
+
+
+def _tau1_split(chi2: torch.Tensor) -> torch.Tensor:
+    """Flavour swap of a split doublet [2(re/im), 2(flavour), 4, 3, T, X, M]."""
+    return chi2.flip(1)
+
+
+def _gamma5_nd(chi2: torch.Tensor) -> torch.Tensor:
+    """gamma5 on both flavours (the spin axis is axis 2)."""
+    sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=chi2.dtype, device=chi2.device)
+    return chi2 * sign.reshape((1, 1, 4) + (1,) * (chi2.ndim - 3))
+
+
+def _i_mul_nd(chi2: torch.Tensor) -> torch.Tensor:
+    """i chi on a split field."""
+    return torch.stack([-chi2[1], chi2[0]])
+
+
+def _imu_g5_tau3_split(chi2: torch.Tensor, mu: float) -> torch.Tensor:
+    """i mu gamma5 tau3 chi (tau3 = diag(+1, -1) in flavour)."""
+    tau3 = torch.tensor([mu, -mu], dtype=chi2.dtype, device=chi2.device)
+    return tau3.reshape((1, 2) + (1,) * (chi2.ndim - 2)) * _i_mul_nd(_gamma5_nd(chi2))
+
+
+def _mee_nd_split(chi2: torch.Tensor, mubar_t: float, epsbar_t: float,
+                  sign: float) -> torch.Tensor:
+    """(1 + i sign mubar_t gamma5 tau3 + epsbar_t tau1) chi."""
+    return chi2 + _imu_g5_tau3_split(chi2, sign * mubar_t) + epsbar_t * _tau1_split(chi2)
+
+
+def _mee_inv_nd_split(chi2: torch.Tensor, mubar_t: float, epsbar_t: float,
+                      sign: float) -> torch.Tensor:
+    """(1 - i sign mubar_t gamma5 tau3 - epsbar_t tau1) chi
+    / (1 + mubar_t^2 - epsbar_t^2)."""
+    inv = 1.0 / (1.0 + mubar_t * mubar_t - epsbar_t * epsbar_t)
+    return (chi2 - _imu_g5_tau3_split(chi2, sign * mubar_t)
+            - epsbar_t * _tau1_split(chi2)) * inv
+
+
+def _hop_nd(fg: FastGauge, chi2: torch.Tensor, p: int, lat: Lattice) -> torch.Tensor:
+    """Doublet hopping as ONE multi-RHS call with flavour as the R axis
+    (K1-R, `r_axis=1`): the gauge is read once for both flavours."""
+    return hop_fast(fg, chi2.contiguous(), p, lat, r_axis=1)
+
+
+def q_nd_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
+    """Q_nd = gamma5 tau1 Mhat_nd on split doublets [2, 2, 4, 3, T, X, M];
+    params: `ops.ndoublet.NDParams`."""
+    k2 = params.kappa * params.kappa
+    tmp = _hop_nd(fg, chi2, EVEN, lat)
+    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
+    tmp = _hop_nd(fg, tmp, ODD, lat)
+    m = _mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0) - k2 * tmp
+    return _gamma5_nd(_tau1_split(m))
+
+
+def q_nd_sq_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
+    """Q_nd^2: the multishift-CG operator of the NDRAT monomial (four K1-R
+    calls on the doublet axis)."""
+    return q_nd_fast(fg, q_nd_fast(fg, chi2, params, lat), params, lat)
+
+
+def _hop_nd_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, c2: torch.Tensor, p: int,
+                 lat: Lattice) -> torch.Tensor:
+    """The doublet hop on HoppingDiff, flavour by flavour (K1 forward, K2 +
+    adjoint K1 backward)."""
+    ug_p, ug_q = (ug_e, ug_o) if p == EVEN else (ug_o, ug_e)
+    return torch.stack([dc.HoppingDiff.apply(ug_p, ug_q, c2[:, f].contiguous(), p, lat)
+                        for f in range(2)], dim=1)
+
+
+def q_nd_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, chi2: torch.Tensor, params,
+              lat: Lattice) -> torch.Tensor:
+    """Q_nd on split doublets with HoppingDiff hops — differentiable with
+    respect to (ug_e, ug_o), for the NDRAT force surrogate."""
+    k2 = params.kappa * params.kappa
+    tmp = _hop_nd_diff(ug_e, ug_o, chi2, EVEN, lat)
+    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
+    tmp = _hop_nd_diff(ug_e, ug_o, tmp, ODD, lat)
+    m = _mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0) - k2 * tmp
+    return _gamma5_nd(_tau1_split(m))
+
+
+# ---------------------------------------------------------------------------
+# clover non-degenerate doublet: materialised flavour-2x2 blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FastCloverND:
+    """Pre-gathered gauge plus materialised ND clover blocks (split f32,
+    [2, 2, 2, 2, 3, 3, T, X, M]): moo_u / moo_d = the flavour-diagonal
+    M_oo(+-mubar) blocks of the odd sites; (minv_a, minv_b, minv_e) = the
+    flavour-2x2 M_ee^{-1} = [[A, -eps E], [-eps E, B]] of the even sites.
+    Built once per gauge field."""
+
+    fg: FastGauge
+    moo_u: torch.Tensor
+    moo_d: torch.Tensor
+    minv_a: torch.Tensor
+    minv_b: torch.Tensor
+    minv_e: torch.Tensor
+    epsbar_t: float
+
+
+def _nd_clover_block_tuple(sw_e: torch.Tensor, sw_o: torch.Tensor, params) -> tuple:
+    """(moo_u, moo_d, minv_a, minv_b, minv_e) split-f32 ND clover blocks from
+    the packed clover term — the one function shared by the solve operator
+    and the force surrogate, so the sign of eps and the block order cannot
+    drift apart between the two.  Differentiable in (sw_e, sw_o)."""
+    a, b, e = cl.mee_inv_nd_blocks(sw_e, params.mubar_t, params.epsbar_t, +1.0)
+    return (_split_blocks(cl.mee_blocks(sw_o, params.mubar_t, +1.0)),
+            _split_blocks(cl.mee_blocks(sw_o, params.mubar_t, -1.0)),
+            _split_blocks(a), _split_blocks(b), _split_blocks(e))
+
+
+def fast_clover_nd_from(fg: FastGauge, sw_e: torch.Tensor, sw_o: torch.Tensor,
+                        params) -> FastCloverND:
+    """FastCloverND from a gauge copy and the packed clover term that were
+    built already (detached)."""
+    with torch.no_grad():
+        blocks = _nd_clover_block_tuple(sw_e.detach(), sw_o.detach(), params)
+    return FastCloverND(fg, *blocks, epsbar_t=params.epsbar_t)
+
+
+def make_fast_clover_nd(u: torch.Tensor, params, lat: Lattice) -> FastCloverND:
+    """Full gauge -> FastCloverND, once per gauge update; params:
+    `ops.ndoublet.NDParams` with c_sw != 0."""
+    with torch.no_grad():
+        sw_e, sw_o = cl.sw_blocks_eo(u, params.kappa, params.c_sw, lat)
+    return fast_clover_nd_from(make_fast_gauge(u, params.wilson, lat), sw_e, sw_o, params)
+
+
+def _mee_nd_apply_split(moo_u, moo_d, eps: float, chi2: torch.Tensor) -> torch.Tensor:
+    """Flavour-2x2 M_oo = [[moo_u, eps], [eps, moo_d]] on raw split blocks."""
+    up = _blocks_apply_split(moo_u, chi2[:, 0]) + eps * chi2[:, 1]
+    dn = _blocks_apply_split(moo_d, chi2[:, 1]) + eps * chi2[:, 0]
+    return torch.stack([up, dn], dim=1)
+
+
+def _mee_inv_nd_apply_split(minv_a, minv_b, minv_e, eps: float,
+                            chi2: torch.Tensor) -> torch.Tensor:
+    """Flavour-2x2 M_ee^{-1} = [[A, -eps E], [-eps E, B]] on raw split blocks."""
+    up = _blocks_apply_split(minv_a, chi2[:, 0]) - eps * _blocks_apply_split(minv_e, chi2[:, 1])
+    dn = _blocks_apply_split(minv_b, chi2[:, 1]) - eps * _blocks_apply_split(minv_e, chi2[:, 0])
+    return torch.stack([up, dn], dim=1)
+
+
+def q_nd_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
+    """Q_nd^sw = gamma5 tau1 Mhat_nd^sw on split doublets: the hops on K1-R
+    (doublet axis), the clover blocks as materialised block matvecs."""
+    k2 = params.kappa * params.kappa
+    tmp = _hop_nd(fc.fg, chi2, EVEN, lat)
+    tmp = _mee_inv_nd_apply_split(fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, tmp)
+    tmp = _hop_nd(fc.fg, tmp, ODD, lat)
+    m = _mee_nd_apply_split(fc.moo_u, fc.moo_d, fc.epsbar_t, chi2) - k2 * tmp
+    return _gamma5_nd(_tau1_split(m))
+
+
+def q_nd_sq_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params,
+                        lat: Lattice) -> torch.Tensor:
+    return q_nd_clover_fast(fc, q_nd_clover_fast(fc, chi2, params, lat), params, lat)
+
+
+def split_clover_nd_pair(u: torch.Tensor, params, lat: Lattice) -> tuple:
+    """Differentiable (ug_e, ug_o, moo_u, moo_d, minv_a, minv_b, minv_e)
+    split tensors as functions of the full gauge field — the non-degenerate
+    analogue of `split_clover_pair`, for the NDCLOVERRAT force surrogate."""
+    ug_e, ug_o = split_gauge_pair(u, params.wilson, lat)
+    sw_e, sw_o = cl.sw_blocks_eo(u, params.kappa, params.c_sw, lat)
+    return (ug_e, ug_o) + _nd_clover_block_tuple(sw_e, sw_o, params)
+
+
+def q_nd_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_u: torch.Tensor,
+                     moo_d: torch.Tensor, minv_a: torch.Tensor, minv_b: torch.Tensor,
+                     minv_e: torch.Tensor, chi2: torch.Tensor, params,
+                     lat: Lattice) -> torch.Tensor:
+    """Q_nd^sw on split doublets, differentiable with respect to the gauge
+    copies (HoppingDiff: K1 forward, K2 + adjoint K1 backward) and the
+    materialised clover blocks (autograd through sw_blocks / mee_blocks /
+    mee_inv_nd_blocks)."""
+    k2 = params.kappa * params.kappa
+    eps = params.epsbar_t
+    tmp = _hop_nd_diff(ug_e, ug_o, chi2, EVEN, lat)
+    tmp = _mee_inv_nd_apply_split(minv_a, minv_b, minv_e, eps, tmp)
+    tmp = _hop_nd_diff(ug_e, ug_o, tmp, ODD, lat)
+    m = _mee_nd_apply_split(moo_u, moo_d, eps, chi2) - k2 * tmp
+    return _gamma5_nd(_tau1_split(m))
