@@ -15,17 +15,21 @@ result lines):
    version and against R single K1 launches; K1-R on the flavour-doublet
    axis (K1-R-D, R = 2, `r_axis` 1) against its plain version and bit for
    bit against two K1 launches; the doublet force surrogates `q_nd_diff`
-   and `q_nd_clover_diff` forward and backward against the plain path.
+   and `q_nd_clover_diff` forward and backward against the plain path; K1
+   on the bf16 gauge copy (K1-B) in every epilogue, both copies and both
+   parities, and the copy bit-equal to the bf16 cast of the f32 copy.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
    sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
-   of K1, kernel and plain version, with GF/s at
+   of K1, K1-B beside f32 K1 (mhat + g5 and clov_mhat + g5), kernel and
+   plain version, with GF/s at
    1320 flops/site, the share of the bandwidth of a device-to-device copy
    measured in the same run, and the bound at the card's published rates.
 4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory, one
    twisted-clover Hasenbusch trajectory and one GAUGE + NDRAT trajectory at
    8^4, each on the kernel path
    (CUDA tensors) and on the plain path (CPU tensors) with the same injected
-   draws; |ddH| against its bound.
+   draws; |ddH| against its bound; then the twisted-mass and the clover
+   trajectory again with Solver = mixedcg (the low operator on K1-B).
 5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
    from sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories, the ONLINE
    measurement on the third, an ILDG checkpoint read back), with the kernel
@@ -37,7 +41,7 @@ result lines):
    batched solve for the device's busy share.
 7. main path 3: `cli.hmc.main` on a 16^3x32 input derived from
    sample-input/hmc6-nf2-clover-hasenbusch.input (GAUGE + CLOVERTRLOG +
-   CLOVERDET + CLOVERDETRATIO, 2 trajectories, ONLINE on the second, an ILDG
+   CLOVERDET + CLOVERDETRATIO, 1 trajectory with the ONLINE measurement, an ILDG
    checkpoint read back), the launch counters read around it; then one
    profiled trajectory at integration steps 1/1/1 for the device's idle
    share.
@@ -49,7 +53,7 @@ result lines):
    sample-input/hmc3-nf211-clover.input (Nf=2+1+1: GAUGE + CLOVERTRLOG +
    CLOVERDET + NDRAT with its own beta, kappa, CSW, mu, mubar, epsbar,
    DegreeOfRational and interval; hmc6's ONLINE block in place of
-   GRADIENTFLOW; 2 trajectories, an ILDG checkpoint read back), with the
+   GRADIENTFLOW; 1 trajectory, an ILDG checkpoint read back), with the
    interval check's line and the launch counters read around it; then one
    profiled trajectory at steps 1/1/1 for the device's idle share and one
    whole trajectory with synchronising timers around the NDRAT heatbath,
@@ -59,6 +63,16 @@ result lines):
    12 columns each through `invert_doublet_eo` on K1-R-D, every column's true
    residual of the doublet system against the plain unpreconditioned
    operator.
+11. main path 7: `cli.invert.main` on phase 5's checkpoint with one TMWILSON
+   operator per solver (fastmixed, mixedcg, dflfgmres, dflgcr, increigcg; 12
+   columns each), every column's true residual, iterations (outer / inner
+   for the mixed solvers), the MG setup time and seconds per propagator
+   beside phase 6's batched CG; then a CLOVER operator with mixedcg on phase
+   7's checkpoint.
+12. main path 8: `cli.hmc.main` on phase 5's point with Solver = mixedcg in
+   DET and DETRATIO (2 trajectories, the low operator on K1-B), s/trajectory
+   beside phase 5's and outer / inner iterations per solve; then one Qsw_pm
+   solve with rgmixedcg against CG on phase 7's gauge (K1-C on bf16).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -195,12 +209,15 @@ def _fields(lat, dev, seed):
     u = su3.random_su3(rng.generator(rng.Key(seed), dev), (4,) + lat.site_shape)
     fg18 = wf.make_fast_gauge(u, params, lat, compress=False)
     fg12 = wf.make_fast_gauge(u, params, lat)
+    # the bf16 copies, built from the gauge field on their own
+    sloppy = {"18-real": wf.make_fast_gauge(u, params, lat, compress=False, sloppy=True),
+              "12-real": wf.make_fast_gauge(u, params, lat, sloppy=True)}
     gen = rng.generator(rng.Key(seed, (1,)), dev)
     shape = (2, 4, 3) + lat.eo_site_shape
     psi = torch.randn(shape, generator=gen, device=dev)
     psi_o = torch.randn(shape, generator=gen, device=dev)
     g = torch.randn(shape, generator=gen, device=dev)
-    return params, fg18, fg12, psi, psi_o, g
+    return params, fg18, fg12, psi, psi_o, g, sloppy
 
 
 def _random_blocks(lat, dev, seed):
@@ -242,12 +259,12 @@ def phase_kernels(lat, dev="cuda"):
     import torch
 
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
-
     from tmlqcd_tpu_torch.ops import wilson_fast as wf
 
-    params, fg18, fg12, psi, psi_o, g = _fields(lat, dev, 11)
+    params, fg18, fg12, psi, psi_o, g, sloppy = _fields(lat, dev, 11)
     blocks = _random_blocks(lat, dev, 14)
-    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0, "K1-C": 0.0, "K1-RC": 0.0, "K1-R-D": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K1-R": 0.0, "K1-C": 0.0, "K1-RC": 0.0, "K1-R-D": 0.0,
+             "K1-B": 0.0}
 
     def note(key, epi, err):
         if epi[0].startswith("clov"):
@@ -265,6 +282,28 @@ def phase_kernels(lat, dev="cuda"):
                 note("K1", epi, err)
                 _say(f"[check] K1 {vname:12s} {gname} p={p}: max|d| {err:.3e} (rel {rel:.2e})")
                 _check(rel <= KERNEL_RTOL, f"K1 {vname} {gname} p={p} off by {rel:.3e}")
+    # K1 on the bf16 gauge copy (K1-B): the copy built from the gauge field
+    # is the f32 copy rounded to bf16 bit for bit; the kernel against its
+    # plain version (which upcasts the same bits) in every epilogue
+    for gname, fg in (("18-real", fg18), ("12-real", fg12)):
+        fgb = sloppy[gname]
+        for mine, f32 in ((fgb.ug_even, fg.ug_even), (fgb.ug_odd, fg.ug_odd)):
+            _check(mine.dtype == torch.bfloat16 and torch.equal(
+                mine.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16)),
+                f"the {gname} bf16 copy is not the bf16 cast of the f32 copy")
+        _say(f"[check] K1-B {gname}: the bf16 copy equals the f32 copy cast to bf16, bit for bit")
+        for p, ug in ((0, fgb.ug_even), (1, fgb.ug_odd)):
+            for vname, epi in _variants(params):
+                kw = dict(epi=epi, gcomp=fgb.gcomp, **_epi_kw(epi, psi_o, blocks))
+                n0 = dc.hopping_split.bf16_launches
+                out = dc.hopping_split(ug, psi, p, lat, **kw)
+                ref = dc.hopping_split_plain(ug, psi, p, lat, **kw)
+                _sync(dev)
+                _check(dc.hopping_split.bf16_launches == n0 + 1, "K1-B launch not counted")
+                err, rel = _rel_err(out, ref)
+                worst["K1-B"] = max(worst["K1-B"], err)
+                _say(f"[check] K1-B {vname:12s} {gname} p={p}: max|d| {err:.3e} (rel {rel:.2e})")
+                _check(rel <= KERNEL_RTOL, f"K1-B {vname} {gname} p={p} off by {rel:.3e}")
     for p, ug in ((0, fg18.ug_even), (1, fg18.ug_odd)):
         out = dc.hopping_ug_vjp(g, psi, p, lat)
         ref = dc.hopping_ug_vjp_plain(g, psi, p, lat)
@@ -466,7 +505,7 @@ def phase_timings(lat16, lat32):
     rows = {}
     for lat in (lat16, lat32):
         tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
-        params, fg18, fg12, psi, psi_o, g = _fields(lat, "cuda", 12)
+        params, fg18, fg12, psi, psi_o, g, sloppy = _fields(lat, "cuda", 12)
         blocks = _random_blocks(lat, "cuda", 17)
         sites = lat.volume // 2
         k2 = params.kappa ** 2
@@ -491,6 +530,28 @@ def phase_timings(lat16, lat32):
                      f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
                      f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
                      f"plain {pms * 1e3:10.1f} us ({pms / ms:5.1f}x)")
+        # K1-B: the same kernel on the bf16 copies (half the gauge bytes)
+        # beside the f32 K1 of the same epilogue, timed in turns
+        for gname, gbytes in (("18-real", 288), ("12-real", 192)):
+            fgb = sloppy[gname]
+            for vname, epi in (("mhat+g5", ("mhat", params.mutld, 1.0, k2, True)),
+                               ("clov_mhat+g5", ("clov_mhat", k2, True))):
+                kw = dict(epi=epi, gcomp=fgb.gcomp, **_epi_kw(epi, psi_o, blocks))
+                n = 200 if lat is lat16 else 50
+                ms = _time_ms(lambda: dc.hopping_split(fgb.ug_odd, psi, 1, lat, **kw), n)
+                pms = _time_ms(lambda: dc.hopping_split_plain(fgb.ug_odd, psi, 1, lat, **kw),
+                               max(n // 10, 5))
+                site_bytes, site_flops = _model(epi, gbytes)
+                nbytes = site_bytes * sites
+                bound = _bound_ms(nbytes, site_flops * sites)
+                f32_ms = rows[(tag, gname, vname)][0]
+                rows[(tag, "K1-B", gname, vname)] = (ms, pms, *bound, f32_ms)
+                _say(f"[time] K1-B {tag} {gname} {vname:12s}: kernel {ms * 1e3:9.1f} us "
+                     f"({site_flops * sites / (ms * 1e-3) / 1e9:7.1f} GF/s, "
+                     f"{nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth at "
+                     f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
+                     f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  f32 K1 {f32_ms * 1e3:9.1f} "
+                     f"us ({f32_ms / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
         if lat is lat16:
             ms = _time_ms(lambda: dc.hopping_ug_vjp(g, psi, 0, lat), 200)
             pms = _time_ms(lambda: dc.hopping_ug_vjp_plain(g, psi, 0, lat), 20)
@@ -585,7 +646,7 @@ def phase_timings(lat16, lat32):
                  f"{nbytes / sites:.0f} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]}, "
                  f"{nbytes / bw * 1e6:.1f} us at copy bandwidth)  "
                  f"2 x K1 {ms1 * 1e3:9.1f} us ({ms1 / ms:4.2f}x)  plain {pms * 1e3:10.1f} us")
-        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks, chi, fl
+        del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks, chi, fl, sloppy
         torch.cuda.empty_cache()
     return rows, bw
 
@@ -620,7 +681,31 @@ EndMonomial
 """
 
 
-def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False):
+# The stopping tolerance of the parity trajectories with a mixed solver:
+# |r| <= 1e-7 |b| (precision 1e-14) for twisted mass and 3e-7 for clover,
+# just above where the true residual of f32 fields floors; below it the
+# defect correction runs to its 50 outer steps on every solve (measured on an
+# H100 at 8^4: the clover trajectory at 1e-7 took 600 inner iterations per
+# acceptance solve, and its plain path on the CPU six minutes).
+MIXED_TOL = 1e-7
+MIXED_TOL_CLOVER = 3e-7
+
+
+def _with_solver(cfg, solver: str):
+    """`cfg` with `Solver = solver` on every monomial that solves."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, monomials=tuple(
+        dataclasses.replace(m, solver=solver) if hasattr(m, "solver") else m
+        for m in cfg.monomials))
+
+
+def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False,
+                 solver=None):
+    """One trajectory on the kernel path and on the plain path with the same
+    draws.  `solver` (mixedcg): the fermion monomials solve with it, at
+    MIXED_TOL (MIXED_TOL_CLOVER), and the kernel path runs the trajectory
+    with CG at the same tolerance as well, for |dH(solver) - dH(cg)|."""
     import torch
 
     from tmlqcd_tpu_torch import rng, su3
@@ -633,10 +718,11 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
         from tmlqcd_tpu_torch.config import build_hmc
         from tmlqcd_tpu_torch.config_tmlqcd import parse_input
 
+        prec = "1e-20" if solver is None else f"{MIXED_TOL_CLOVER ** 2:.0e}"
         with open(SAMPLE_CLOVER) as f:
             cfg = build_hmc(parse_input(clover_smoke_input(
                 f.read(), dims=dims, steps={"GAUGE": "1", "CLOVERDET": "1", "CLOVERDETRATIO": "2"},
-                precisions=("1e-20", "1e-20"))))
+                precisions=(prec, prec))))
         bound, tag = DDH_BOUND_CLOVER, "clover "
     elif ndrat:
         from tmlqcd_tpu_torch.config import build_hmc
@@ -645,11 +731,16 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
         cfg = build_hmc(parse_input(NDRAT_PARITY_INPUT))
         bound, tag = DDH_BOUND_NDRAT, "ndrat "
     else:
+        tol = 1e-10 if solver is None else MIXED_TOL
         cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
-                                          steps=(1, 1, 2), acc_tol=1e-10, force_tol=1e-10,
+                                          steps=(1, 1, 2), acc_tol=tol, force_tol=tol,
                                           maxiter=1000)
         bound, tag = DDH_BOUND, ""
     _check(cfg.lat.dims == lat.dims, "parity input was not derived as intended")
+    runs = [(dev, cfg) for dev in devs]
+    if solver is not None:
+        tag += f"{solver} "
+        runs = [(dev, _with_solver(cfg, solver)) for dev in devs] + [("cg", cfg)]
     key = rng.Key(2024)
     u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
     p = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
@@ -662,15 +753,17 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
             for i, m in enumerate(cfg.monomials)]
     uni = rng.uniform(key.fold(3), "cpu")
     res = {}
-    for dev in devs:
+    for name, c in runs:
+        dev = devs[0] if name == "cg" else name
         d = Draws(p.to(dev), [e if e is None else e.to(dev) for e in etas], uni)
         t0 = time.perf_counter()
         with torch.no_grad():
-            _, st = hmc_trajectory(cfg, u.to(dev), key, draws=d)
-        res[dev] = st
-        _say(f"[parity] {tag}{lat.dims} trajectory on {dev}: dH {st.delta_h:+.9e} plaq {st.plaquette:.12f} "
-             f"acc_iters {st.acc_iterations} force_iters {st.force_iterations} "
-             f"({time.perf_counter() - t0:.1f} s)")
+            _, st = hmc_trajectory(c, u.to(dev), key, draws=d)
+        res[name] = st
+        _say(f"[parity] {tag if name != 'cg' else ''}{lat.dims} trajectory on {dev}"
+             f"{' with CG' if name == 'cg' else ''}: dH {st.delta_h:+.9e} plaq "
+             f"{st.plaquette:.12f} acc_iters {st.acc_iterations} force_iters "
+             f"{st.force_iterations} ({time.perf_counter() - t0:.1f} s)")
     kern, plain = res[devs[0]], res[devs[1]]
     ddh = abs(kern.delta_h - plain.delta_h)
     dplaq = abs(kern.plaquette - plain.plaquette)
@@ -678,6 +771,10 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
          f"|dplaq| {dplaq:.3e}")
     _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
     _check(ddh <= bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {bound:.0e}")
+    if solver is not None:
+        tol = MIXED_TOL_CLOVER if clover else MIXED_TOL
+        _say(f"[parity] {tag}|dH({solver}) - dH(cg)| on the kernel path at tol {tol:.0e}: "
+             f"{abs(kern.delta_h - res['cg'].delta_h):.3e}")
     if ndrat:
         _check(kern.acc_iterations == plain.acc_iterations and 0 < kern.acc_iterations[1] < 1000,
                f"ndrat multishift iterations kernel {kern.acc_iterations} plain "
@@ -756,7 +853,7 @@ def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
 
 
 def nf211_smoke_input(text: str, online_from: str) -> str:
-    """hmc3-nf211-clover cut to 16^3x32 with 2 trajectories and NSave = 2.
+    """hmc3-nf211-clover cut to 16^3x32 with 1 trajectory and NSave = 1.
     Its action stays its own: GAUGE + CLOVERTRLOG + CLOVERDET + NDRAT at
     beta = 1.726, kappa = 0.1400645, CSW = 1.74, 2KappaMu = 0.0009 / 0.05,
     2Kappamubar = 0.1315052, 2Kappaepsbar = 0.1351419, DegreeOfRational = 10
@@ -764,13 +861,13 @@ def nf211_smoke_input(text: str, online_from: str) -> str:
     trajectories, the integration steps (2/3/6 -> 2/2/3), the precisions and
     MaxSolverIterations (the other smoke points' 1e-16 / 1e-14 and 1000), and
     the GRADIENTFLOW block, in whose place stands the ONLINE block of
-    `online_from` (hmc6's text) on the second trajectory."""
+    `online_from` (hmc6's text) on the trajectory."""
     online = re.search(r"(?ims)^BeginMeasurement\s+ONLINE.*?^EndMeasurement[^\n]*\n", online_from)
     _check(online is not None, "no ONLINE block to take")
     text, n = re.subn(r"(?ims)^BeginMeasurement\s+GRADIENTFLOW.*?^EndMeasurement[^\n]*\n",
                       lambda _: online.group(0), text)
     _check(n == 1, "hmc3 holds no GRADIENTFLOW block to replace")
-    return clover_smoke_input(text, steps={"GAUGE": "2", "CLOVERDET": "2", "NDRAT": "3"}, ntraj=2)
+    return clover_smoke_input(text, steps={"GAUGE": "2", "CLOVERDET": "2", "NDRAT": "3"}, ntraj=1)
 
 
 def _read_counts(dc) -> dict:
@@ -778,6 +875,7 @@ def _read_counts(dc) -> dict:
             "K1-C": dc.hopping_split.clover_launches,
             "K1-RC": dc.hopping_split_rhs.clover_launches,
             "K1-R-D": dc.hopping_split_rhs.doublet_launches,
+            "K1-B": dc.hopping_split.bf16_launches,
             "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
             "K2 plain": dc.hopping_ug_vjp_plain.calls}
@@ -804,12 +902,12 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
         with open(SAMPLE_CLOVER) as f:
             text = nf211_smoke_input(text, f.read())
     else:
-        text = clover_smoke_input(text, ntraj=2) if clover else smoke_input(text)
+        text = clover_smoke_input(text, ntraj=1) if clover else smoke_input(text)
     path = os.path.join(workdir, f"{tag}.input")
     with open(path, "w") as f:
         f.write(text)
     cfg = read_input(path)
-    ntraj = 2 if clover or nf211 else 3
+    ntraj = 1 if clover or nf211 else 3
     online = (("ONLINE", ntraj, 0.1400645, 0.0009) if clover or nf211
               else ("ONLINE", 3, 0.13, 0.0026))
     types = (["GAUGE", "CLOVERTRLOG", "CLOVERDET", "NDRAT"] if nf211
@@ -1001,7 +1099,7 @@ def phase_invert(workdir: str, conf: str):
     x = [torch.as_tensor(c, device="cuda").to(torch.complex64) for c in cols]
     worst, cpp = 0.0, 0.0
     for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
-        b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+        b = point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
         res = float(torch.linalg.vector_norm(d_full(u, x[i], params, lat) - b))  # |b| = 1
         worst = max(worst, res)
         _check(res <= RESIDUAL_BOUND, f"column {i}: |M x - b| / |b| = {res:.3e}")
@@ -1014,7 +1112,7 @@ def phase_invert(workdir: str, conf: str):
          f"{float(cpp[lat.dims[0] // 2]):.6e}, min {float(cpp.min()):.6e}")
     tol = float(op.precision) ** 0.5
     for i in (0, 7):
-        b = point_source(lat, i // 3, i % 3, (0, 0, 0, 0), "cuda")
+        b = point_source(lat, i // 3, i % 3, (0, 0, 0, 0), device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one = invert_eo(u, b, params, lat, tol=tol, maxiter=op.max_solver_iterations)
@@ -1027,7 +1125,7 @@ def phase_invert(workdir: str, conf: str):
         _check(diff <= BATCH_VS_SINGLE * scale, f"column {i}: batch and single differ by {diff:.3e}")
 
     # where the batched solve's time goes: one profiled solve
-    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
                       for s in range(4) for c in range(3)])
     invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)  # warm
     torch.cuda.synchronize()
@@ -1035,7 +1133,9 @@ def phase_invert(workdir: str, conf: str):
     invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # device activity only: the idle share reads device intervals, and the
+    # host ops of a trajectory would add ~10^6 events to sort through
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         invert_eo_rhs(u, bs, params, lat, tol=tol, maxiter=op.max_solver_iterations)
         torch.cuda.synchronize()
@@ -1087,7 +1187,9 @@ def phase_profile(workdir: str, conf: str, input_name: str, what: str, kernels: 
 
     _, _, st, wall = traj(short, 0, u, chrono)
     _check(math.isfinite(st.delta_h), "profile trajectory: dH is not finite")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # device activity only: the idle share reads device intervals, and the
+    # host ops of a trajectory would add ~10^6 events to sort through
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         traj(short, 0, u, chrono)
     _say_profile(f"{what} trajectory at steps 1/1/1", wall, prof, kernels)
@@ -1216,7 +1318,7 @@ def phase_invert_clover(workdir: str, conf: str):
         worst = 0.0
         x = [torch.as_tensor(c, device="cuda").to(torch.complex64) for c in cols]
         for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
-            b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+            b = point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
             mx = cl.sw_apply(sw, x[i], params.mutld, +1.0) - params.kappa * dslash_full(
                 u, x[i], ph, lat)
             res = float(torch.linalg.vector_norm(mx - b))  # |b| = 1
@@ -1225,7 +1327,7 @@ def phase_invert_clover(workdir: str, conf: str):
     _say(f"[invert-clover] true residual |M x - b| / |b| against the unpreconditioned clover "
          f"operator over the 12 columns: max {worst:.3e} (bound {RESIDUAL_BOUND_CLOVER:.0e})")
     tol = float(op.precision) ** 0.5
-    b = point_source(lat, 7 // 3, 7 % 3, (0, 0, 0, 0), "cuda")
+    b = point_source(lat, 7 // 3, 7 % 3, (0, 0, 0, 0), device="cuda")
     n0 = dc.hopping_split.clover_launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1240,7 +1342,7 @@ def phase_invert_clover(workdir: str, conf: str):
     _check(dc.hopping_split.clover_launches - n0 == 4 * one.iterations + 7,
            "invert_clover_eo did not run K1 with the clover epilogues as counted")
     _check_no_plain(_read_counts(dc))
-    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+    bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
                       for s in range(4) for c in range(3)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1361,7 +1463,7 @@ def phase_invert_doublet(workdir: str, conf: str):
             for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
                 x = torch.stack([torch.as_tensor(fl[f][i], device="cuda").to(torch.complex64)
                                  for f in range(2)])
-                b = point_source(lat, s, c, (0, 0, 0, 0), "cuda")
+                b = point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
                 diag = (cl.mee_nd_clover(sw, x, p.mubar_t, p.epsbar_t) if sw is not None
                         else nd.mee_nd(x, p.mubar_t, p.epsbar_t))
                 mx = diag - p.kappa * torch.stack([dslash_full(u, x[f], ph, lat)
@@ -1375,6 +1477,286 @@ def phase_invert_doublet(workdir: str, conf: str):
     _say(f"[invert-doublet] true residual |M_nd x - b| / |b| against the unpreconditioned "
          f"doublet operator over 12 columns: {worst} (bound {RESIDUAL_BOUND_DOUBLET:.0e})")
     return counts, iters, solves
+
+
+# ---------------------------------------------------------------------------
+# phase 11: main path 7, the inverter's other solvers
+# ---------------------------------------------------------------------------
+
+SOLVER_OPS = ("fastmixed", "mixedcg", "dflfgmres", "dflgcr", "increigcg")
+INVERT_SOLVERS_INPUT = "L = 16\nT = 32\n" + "".join(f"""BeginOperator TMWILSON
+  kappa = 0.13
+  2KappaMu = 0.0026
+  Solver = {solver}
+  SolverPrecision = 1e-14
+  MaxSolverIterations = 1000
+  PropagatorPrecision = 32
+EndOperator
+""" for solver in SOLVER_OPS)
+INVERT_CLOVER_MIXED_INPUT = INVERT_CLOVER_INPUT.replace("Solver = cg", "Solver = mixedcg")
+
+
+class _MixedRecorder:
+    """Wraps a mixed_cg function and keeps (outer, inner) of each call."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *a, **k):
+        res = self.fn(*a, **k)
+        self.calls.append((int(res.outer_iterations), int(res.inner_iterations)))
+        return res
+
+
+def _run_cli(module, argv, patches=()):
+    """module.main(argv) with its stdout captured and the counters zeroed
+    just before; (rc, log, counts, wall).  `patches`: (object, attribute,
+    value) set for the run and restored after."""
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, value in patches:
+        setattr(obj, attr, value)
+    log = io.StringIO()
+    try:
+        dc.reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = module.main(argv)
+        wall = time.perf_counter() - t0
+        counts = _read_counts(dc)
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+    sys.stdout.write(log.getvalue())
+    return rc, log.getvalue(), counts, wall
+
+
+def phase_invert_solvers(workdir: str, conf: str, cconf: str, batched_s: float):
+    """`cli.invert` on phase 5's checkpoint with one TMWILSON operator per
+    solver (12 point-source columns each), then a CLOVER operator with
+    mixedcg on phase 7's checkpoint; every column's true residual."""
+    import torch
+
+    from tmlqcd_tpu_torch import inverter
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.propagator import read_propagator
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, boundary_phases, d_full, dslash_full
+
+    path = os.path.join(workdir, "invert-solvers.input")
+    with open(path, "w") as f:
+        f.write(INVERT_SOLVERS_INPUT)
+    cfg = read_input(path)
+    lat = cfg.lat
+    out_dir = os.path.join(workdir, "prop-solvers")
+    rec = _MixedRecorder(inverter.mixed_cg)
+    rc, log, counts, wall = _run_cli(cli, ["-f", path, "-c", conf, "--format", "lime", "-o",
+                                          out_dir], [(inverter, "mixed_cg", rec)])
+    _check(rc == 0, f"cli.invert (solvers) returned {rc}")
+    _say(f"[invert-solvers] cli.invert exit {rc}, {wall:.1f} s wall; launches {counts}")
+    _check(counts["K1-B"] > 0 and counts["K1"] > 0 and counts["K1-R"] > 0,
+           f"a kernel of the solvers' path was not launched: {counts}")
+    _check_no_plain(counts)
+    setups = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"op (\d+): MG setup built in (\S+)s", log)}
+    cols = {}
+    for m in re.finditer(r"op (\d+) \(TMWILSON\) source \(s=\d,c=\d\): (\d+) iters, "
+                         r"\|r\|\^2=\S+, (\S+)s", log):
+        cols.setdefault(int(m.group(1)), []).append((int(m.group(2)), float(m.group(3))))
+    m = re.search(r"op (\d+) \(TMWILSON\) 12 sources incr-eigcg: iters \[([^\]]*)\], "
+                  r"max\|r\|\^2=\S+, (\S+)s", log)
+    _check(m is not None, "cli.invert did not report the incremental eigCG solve")
+    eig_iters = [int(n) for n in m.group(2).split(",")]
+    summary = {}
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    traj = _conf_traj(conf)
+    with torch.no_grad():
+        for iop, (op, solver) in enumerate(zip(cfg.operators, SOLVER_OPS)):
+            if solver == "increigcg":
+                iters, secs = eig_iters, float(m.group(3))
+            else:
+                _check(len(cols.get(iop, [])) == NRHS, f"{solver}: {len(cols.get(iop, []))} "
+                                                       f"columns reported, not {NRHS}")
+                iters, secs = [n for n, _ in cols[iop]], sum(t for _, t in cols[iop])
+            _check(all(0 < n for n in iters), f"{solver}: iterations {iters}")
+            props, prec = read_propagator(
+                os.path.join(out_dir, f"propagator.{iop:02d}.{traj:06d}.lime"), lat)
+            _check(len(props) == NRHS and prec == 32, f"{solver}: {len(props)} columns")
+            params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa))
+            worst = 0.0
+            for i, (sp, c) in enumerate((sp, c) for sp in range(4) for c in range(3)):
+                x = torch.as_tensor(props[i], device="cuda").to(torch.complex64)
+                b = point_source(lat, sp, c, (0, 0, 0, 0), device="cuda")
+                res = float(torch.linalg.vector_norm(d_full(u, x, params, lat) - b))  # |b| = 1
+                worst = max(worst, res)
+                _check(res <= RESIDUAL_BOUND, f"{solver} column {i}: |M x - b| / |b| = {res:.3e}")
+            summary[solver] = (iters, secs + setups.get(iop, 0.0), worst)
+            _say(f"[invert-solvers] {solver}: iterations per column {iters}"
+                 f"{' (FGMRES/GCR cycles of 5)' if solver.startswith('dfl') else ''}, "
+                 f"{secs:.3f} s for 12 columns"
+                 f"{f' + MG setup {setups[iop]:.3f} s' if iop in setups else ''} "
+                 f"(batched CG, phase 6: {batched_s} s); true residual max {worst:.3e}")
+    per = [f"outer {o} inner {n}" for o, n in rec.calls]
+    _say(f"[invert-solvers] mixed CG solves (fastmixed, then mixedcg), per column: {per}")
+    _check(len(rec.calls) == 2 * NRHS, f"{len(rec.calls)} mixed CG solves recorded")
+
+    # the CLOVER operator with mixedcg on phase 7's clover checkpoint
+    cpath = os.path.join(workdir, "invert-clover-mixed.input")
+    with open(cpath, "w") as f:
+        f.write(INVERT_CLOVER_MIXED_INPUT)
+    ccfg = read_input(cpath)
+    op = ccfg.operators[0]
+    cdir = os.path.join(workdir, "prop-clover-mixed")
+    rec = _MixedRecorder(inverter.mixed_cg)
+    rc, log, ccounts, cwall = _run_cli(cli, ["-f", cpath, "-c", cconf, "--format", "lime", "-o",
+                                             cdir], [(inverter, "mixed_cg", rec)])
+    _check(rc == 0, f"cli.invert (CLOVER mixedcg) returned {rc}")
+    _check(ccounts["K1-C"] > 0, f"no clover epilogue launch: {ccounts}")
+    _check_no_plain(ccounts)
+    csecs = [float(t) for t in re.findall(r"\(CLOVER\) source \(s=\d,c=\d\): \d+ iters, "
+                                          r"\|r\|\^2=\S+, (\S+)s", log)]
+    _check(len(csecs) == NRHS, f"CLOVER mixedcg: {len(csecs)} columns reported")
+    arr, _, _ = load_checkpoint(cconf, lat)
+    uc = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    props, _ = read_propagator(os.path.join(cdir, f"propagator.00.{_conf_traj(cconf):06d}.lime"),
+                               lat)
+    params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa), c_sw=op.csw)
+    worst = 0.0
+    with torch.no_grad():
+        sw = cl.sw_blocks(uc, params.kappa, params.c_sw, lat)
+        ph = boundary_phases(params, lat)
+        for i, (sp, c) in enumerate((sp, c) for sp in range(4) for c in range(3)):
+            x = torch.as_tensor(props[i], device="cuda").to(torch.complex64)
+            b = point_source(lat, sp, c, (0, 0, 0, 0), device="cuda")
+            mx = cl.sw_apply(sw, x, params.mutld, +1.0) - params.kappa * dslash_full(uc, x, ph, lat)
+            res = float(torch.linalg.vector_norm(mx - b))
+            worst = max(worst, res)
+            _check(res <= RESIDUAL_BOUND_CLOVER, f"CLOVER mixedcg column {i}: residual {res:.3e}")
+    _say(f"[invert-solvers] CLOVER mixedcg: {sum(csecs):.3f} s for 12 columns, outer/inner per "
+         f"column {rec.calls}, true residual max {worst:.3e}; launches {ccounts}")
+    summary["clover mixedcg"] = ([n for _, n in rec.calls], sum(csecs), worst)
+    total = {k: counts[k] + ccounts[k] for k in counts}
+    return total, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 12: main path 8, HMC with a mixed solver
+# ---------------------------------------------------------------------------
+
+
+# The tolerance of the timed Qsw_pm solves: above the f32 floor of the true
+# residual (~1e-7 relative), under which the reliable updates of rgmixedcg
+# replace the residual until maxiter.
+RG_TOL = 1e-6
+
+
+def mixed_smoke_input(text: str, solver: str = "mixedcg", ntraj: int = 2) -> str:
+    """Phase 5's input (`smoke_input` of hmc2) with `Solver = solver` in the
+    DET and DETRATIO blocks, `ntraj` trajectories and NSave = `ntraj`; the
+    ONLINE block stays every 3rd trajectory, so it does not run."""
+    out, block = [], None
+    for line in smoke_input(text).splitlines():
+        s = line.split("#", 1)[0].strip()
+        m = re.match(r"(?i)^BeginMonomial\s+(\S+)", s)
+        if m:
+            block = m.group(1).upper()
+        kv = re.match(r"^([A-Za-z0-9_]+)\s*=", s)
+        key = kv.group(1).lower() if kv else None
+        if key in ("measurements", "nsave"):
+            line = f"{kv.group(1)} = {ntraj}"
+        out.append(line)
+        if key == "maxsolveriterations" and block in ("DET", "DETRATIO"):
+            out.append(f"  Solver = {solver}")
+    return "\n".join(out) + "\n"
+
+
+def phase_mixed_hmc(workdir: str, secs_cg: list, cconf: str):
+    """`cli.hmc` on phase 5's point with Solver = mixedcg in DET and
+    DETRATIO (2 trajectories); then one timed Qsw_pm solve with rgmixedcg
+    against CG on phase 7's clover gauge."""
+    import torch
+
+    from tmlqcd_tpu_torch import rng
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.hmc import monomials
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams
+    from tmlqcd_tpu_torch.solvers import mixed_cg as mixed_mod
+
+    with open(SAMPLE) as f:
+        text = mixed_smoke_input(f.read())
+    path = os.path.join(workdir, "main-mixed.input")
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = read_input(path)
+    _check(cfg.measurements == 2 and [(m.type, m.solver) for m in cfg.monomials]
+           == [("GAUGE", "auto"), ("DET", "mixedcg"), ("DETRATIO", "mixedcg")]
+           and [(m.acceptance_precision, m.force_precision) for m in cfg.monomials[1:]]
+           == [(1e-16, 1e-14)] * 2, "mixed smoke input was not derived as intended")
+    run_dir = os.path.join(workdir, "run-main-mixed")
+    rec = _MixedRecorder(mixed_mod.mixed_cg)
+    rc, log, counts, wall = _run_cli(cli, ["-f", path, "-o", run_dir],
+                                     [(mixed_mod, "mixed_cg", rec)])
+    _say(f"[main-mixed] cli.hmc exit {rc}, {wall:.1f} s wall; launches {counts}")
+    _check(rc == 0, f"cli.hmc (mixedcg) returned {rc}")
+    with open(os.path.join(run_dir, "output.data")) as f:
+        lines = [ln.split() for ln in f if ln.strip() and not ln.startswith("#")]
+    _check(len(lines) == 2, f"output.data has {len(lines)} lines, expected 2")
+    secs = []
+    for cols in lines:
+        plaq, dh = float(cols[1]), float(cols[3])
+        _check(math.isfinite(dh), f"non-finite dH in {cols}")
+        _check(0.0 < plaq < 1.0, f"plaquette {plaq} outside (0, 1)")
+        secs.append(float(cols[6]))
+    _check(counts["K1-B"] > 0 and counts["K1"] > counts["K1-B"] and counts["K2"] > 0,
+           f"a kernel of the mixed HMC path was not launched: {counts}")
+    _check_no_plain(counts)
+    outer = [o for o, _ in rec.calls]
+    _say(f"[main-mixed] s/trajectory {secs} (CG, phase 5: {secs_cg}); {len(rec.calls)} mixed "
+         f"CG solves, outer/inner per solve {rec.calls}; at max_outer (50): "
+         f"{sum(o >= 50 for o in outer)}")
+
+    # one Qsw_pm solve with rgmixedcg on phase 7's clover gauge: K1 with the
+    # clover epilogues on the bf16 copy at 16^3x32
+    ccfg = read_input(os.path.join(workdir, "main-clover.input"))
+    lat = ccfg.lat
+    m = ccfg.monomials[3]  # CLOVERDETRATIO: the light operator
+    params = DiracParams(kappa=m.kappa, mu=m.two_kappa_mu / (2 * m.kappa), c_sw=m.csw)
+    arr, _, _ = load_checkpoint(cconf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    gen = rng.generator(rng.Key(77), "cuda")
+    b2 = torch.randn((2, 4, 3) + lat.eo_site_shape, generator=gen, device="cuda")
+    tol = RG_TOL
+    fc = wf.make_fast_clover(u, params, lat)
+    res = {}
+    for solver in ("cg", "rgmixedcg", "rgmixedcg", "cg"):
+        n0 = (dc.hopping_split.bf16_launches, dc.hopping_split.clover_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = monomials._solve_qsw(fc, b2, params, lat, tol, MAXITER, solver)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nb = dc.hopping_split.bf16_launches - n0[0]
+        nc = dc.hopping_split.clover_launches - n0[1]
+        r = wf.q_hat_pm_clover_fast(fc, out.x, params, lat) - b2
+        rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b2))
+        res.setdefault(solver, []).append((dt, out.iterations, rel, nb, nc))
+        _say(f"[main-mixed] Qsw_pm solve {solver} on the clover gauge: {out.iterations} "
+             f"iterations, {dt:.4f} s, |Q x - b| / |b| {rel:.3e} (tol {tol:.0e}); "
+             f"K1 launches bf16 {nb}, clover {nc}")
+        _check(rel <= 10 * tol and out.iterations < MAXITER, f"{solver} solve off: {rel:.3e}")
+    _check(all(nb > 0 and nc >= nb for _, _, _, nb, nc in res["rgmixedcg"]),
+           "the rgmixedcg solve did not run K1 with the clover epilogues on the bf16 copy")
+    _check_no_plain(_read_counts(dc))
+    return counts, secs, rec.calls, res
 
 
 def main() -> int:
@@ -1410,11 +1792,13 @@ def main() -> int:
         phase_parity()
         phase_parity(clover=True)
         phase_parity(ndrat=True)
+        phase_parity(solver="mixedcg")
+        phase_parity(clover=True, solver="mixedcg")
         done("4 parity trajectories")
         with tempfile.TemporaryDirectory() as workdir:
-            hmc_counts, _, conf = phase_main_path(workdir)
+            hmc_counts, hmc_secs, conf = phase_main_path(workdir)
             done("5 main path 1")
-            inv_counts, _, _ = phase_invert(workdir, conf)
+            inv_counts, _, inv_solve_s = phase_invert(workdir, conf)
             done("6 main path 2")
             chmc_counts, _, cconf = phase_main_path(workdir, clover=True)
             done("7 main path 3")
@@ -1444,6 +1828,10 @@ def main() -> int:
             done("9 Nf=2+1+1 profile")
             dinv_counts, _, _ = phase_invert_doublet(workdir, nconf)
             done("10 main path 6")
+            sinv_counts, _ = phase_invert_solvers(workdir, conf, cconf, inv_solve_s)
+            done("11 main path 7")
+            mhmc_counts, _, _, _ = phase_mixed_hmc(workdir, hmc_secs, cconf)
+            done("12 main path 8")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1451,7 +1839,8 @@ def main() -> int:
 
     paths = {"launches_hmc": hmc_counts, "launches_invert": inv_counts,
              "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts,
-             "launches_hmc_nf211": nhmc_counts, "launches_invert_doublet": dinv_counts}
+             "launches_hmc_nf211": nhmc_counts, "launches_invert_doublet": dinv_counts,
+             "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts}
 
     def entry(name, replaces, key, row):
         ms, plain_ms, bound_ms, bound_by = row[:4]
@@ -1474,6 +1863,8 @@ def main() -> int:
               rows[("16x16x16x32", "K1-R", "12-real", "clov_mhat+g5")]),
         entry("hopping_split_rhs doublet (K1-R-D)", "tmlqcd_tpu/ops/dslash_pallas.py:491",
               "K1-R-D", rows[("16x16x16x32", "K1-R-D", "12-real")]),
+        entry("hopping_split bf16 gauge (K1-B)", "tmlqcd_tpu/ops/dslash_pallas.py:186", "K1-B",
+              rows[("16x16x16x32", "K1-B", "12-real", "mhat+g5")]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -403,3 +403,83 @@ def test_ndrat_trajectory_kernel_path_matches_plain_path(cuda):
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
     assert out["cuda"].force_iterations == out["cpu"].force_iterations
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 4), (8, 8, 8, 8), (6, 4, 6, 10)])
+@pytest.mark.parametrize("compress", [False, True], ids=["18real", "12real"])
+def test_bf16_gauge_hopping_kernel_matches_plain(cuda, dims, compress):
+    """K1 on the bf16 gauge copy (K1-B) against its plain version, which
+    upcasts the same bits, in every epilogue; the copy is the bf16 cast of
+    the f32 copy."""
+    lat, u, (psi, psi_o, _) = _setup(dims, cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=compress, sloppy=True)
+    f32 = wf.make_fast_gauge(u, PARAMS, lat, compress=compress)
+    assert torch.equal(fg.ug_odd.view(torch.int16),
+                       f32.ug_odd.to(torch.bfloat16).view(torch.int16))
+    blocks = _blocks(lat, cuda)
+    for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+        for epi in EPIS:
+            kw = dict(epi=epi, gcomp=fg.gcomp, **_extras(epi, psi_o, blocks))
+            n = dc.hopping_split.bf16_launches
+            out = dc.hopping_split(ug, psi, p, lat, **kw)
+            assert dc.hopping_split.bf16_launches == n + 1
+            assert _close(out, dc.hopping_split_plain(ug, psi, p, lat, **kw)), (p, epi)
+    batch = torch.stack([psi, psi_o], dim=3).contiguous()
+    with pytest.raises(TypeError, match="hopping_split_rhs"):
+        dc.hopping_split_rhs(fg.ug_odd, batch, 1, lat, gcomp=fg.gcomp)
+
+
+@pytest.mark.parametrize("solver", ["fastmixed", "dflfgmres"])
+def test_mixed_and_deflated_inversions_run_on_the_kernels(cuda, solver):
+    """invert_eo with fastmixed (inner solves on K1-B) and with dflfgmres
+    (setup on K1-R) at 8^4 on CUDA tensors: no plain version is called, the
+    true residual |M x - b| / |b| <= 1e-5 (tol 1e-7 on f32 fields), and the
+    solution agrees with the CPU plain path to 2e-5."""
+    from tmlqcd_tpu_torch.inverter import invert_eo
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops.wilson import d_full
+
+    lat, u, _ = _setup((8, 8, 8, 8), cuda)
+    b = point_source(lat, 1, 2, device=cuda)
+    dc.reset_counters()
+    out = invert_eo(u, b, PARAMS, lat, tol=1e-7, maxiter=500, solver=solver)
+    assert dc.hopping_split_plain.calls == 0 and dc.hopping_split_rhs_plain.calls == 0
+    if solver == "fastmixed":
+        assert dc.hopping_split.bf16_launches > 0
+    else:
+        assert dc.hopping_split_rhs.launches > 0
+    res = torch.linalg.vector_norm(d_full(u, out.x, PARAMS, lat) - b) / torch.linalg.vector_norm(b)
+    assert float(res) < 1e-5
+    ref = invert_eo(u.cpu(), b.cpu(), PARAMS, lat, tol=1e-7, maxiter=500,
+                    solver="cg" if solver == "dflfgmres" else solver)
+    assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
+def test_mixedcg_trajectory_kernel_path_matches_plain_path(cuda):
+    """One 8^4 Hasenbusch trajectory with Solver = mixedcg (the low operator
+    on K1-B) on CUDA tensors and on CPU tensors with the same draws, at tol
+    1e-7 (the f32 floor of the defect correction's true residual):
+    |ddH| <= 3e-3, the bound of chip_smoke.py's parity trajectories."""
+    import dataclasses
+
+    lat = Lattice((8, 8, 8, 8))
+    cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
+                                      steps=(1, 1, 2), acc_tol=1e-7, force_tol=1e-7)
+    cfg = dataclasses.replace(cfg, monomials=tuple(
+        dataclasses.replace(m, solver="mixedcg") if hasattr(m, "solver") else m
+        for m in cfg.monomials))
+    key = rng.Key(8)
+    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    mom = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+    etas = [None] + [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
+                     for i in (1, 2)]
+    out = {}
+    dc.reset_counters()
+    for dev in (cuda, torch.device("cpu")):
+        d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
+        with torch.no_grad():
+            _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+        if dev.type == "cuda":
+            assert dc.hopping_split.bf16_launches > 0 and dc.hopping_split_plain.calls == 0
+    assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 3e-3
+    assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6

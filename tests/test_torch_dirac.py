@@ -41,6 +41,16 @@ from tmlqcd_tpu_torch.ops import wilson_fast as wf
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's programs here take far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 ATOL = 1e-5
 DIMS = [(4, 4, 4, 4), (8, 4, 4, 4)]  # 4^4 and 4^3 x 8 (M = 8)
 KAPPA, MU = 0.15, 0.03

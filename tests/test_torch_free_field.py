@@ -88,7 +88,7 @@ def free_propagator_columns():
     u = _unit_gauge(torch.complex64)
     cols = []
     for s0 in range(4):
-        res = invert_eo(u, point_source(LAT, s0, 0), PARAMS, LAT, tol=1e-7, maxiter=2000)
+        res = invert_eo(u, point_source(LAT, s0, 0, device="cpu"), PARAMS, LAT, tol=1e-7, maxiter=2000)
         assert res.iterations < 2000
         cols.append(res.x)
     return cols

@@ -32,6 +32,9 @@ _INVERTER_PATH = ("cli.invert", "inverter", "io.lime", "io.ildg", "io.propagator
 # the modules that the non-degenerate doublet and the rational monomials added
 _DOUBLET_PATH = ("ops.ndoublet", "solvers.multishift", "solvers.rational", "solvers.eigen",
                  "hmc.validate", "hmc.rational_monomials")
+# the modules of the remaining solvers
+_SOLVERS_PATH = ("solvers.mixed_cg", "solvers.krylov", "solvers.bicgstab", "solvers.cgs",
+                 "solvers.deflation", "solvers.eigcg", "solvers.dispatch")
 
 
 def test_port_imports_no_jax():
@@ -41,9 +44,9 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, bad, names = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 37  # every slice module was imported
+    assert int(count) >= 43  # every slice module was imported
     assert bad == "[]", bad
-    for name in _INVERTER_PATH + _DOUBLET_PATH:
+    for name in _INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH:
         assert f"tmlqcd_tpu_torch.{name}" in names.split()
 
 
@@ -56,7 +59,7 @@ def test_port_sources_name_no_jax_import():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "tmlqcd_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 38
+    assert len(paths) >= 44
     for path in paths:
         with open(path) as f:
             assert not pat.search(f.read()), path

@@ -37,6 +37,16 @@ from tmlqcd_tpu_torch.ops import wilson as w
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's programs here take far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 DIMS = (4, 4, 4, 4)
 JL, LAT = JLattice(DIMS), Lattice(DIMS)
 TP = w.DiracParams(kappa=0.13, mu=0.1)
@@ -56,7 +66,7 @@ def gauge():
 
 def test_point_source_matches_reference():
     for spin, col, site in ((0, 0, (0, 0, 0, 0)), (3, 2, (1, 2, 3, 1))):
-        out = sources.point_source(LAT, spin, col, site)
+        out = sources.point_source(LAT, spin, col, site, device="cpu")
         np.testing.assert_array_equal(bridge.to_numpy(out),
                                       np.asarray(jsources.point_source(JL, spin, col, site)))
         assert out.dtype == torch.complex64 and float(out.abs().sum()) == 1.0
@@ -64,20 +74,21 @@ def test_point_source_matches_reference():
 
 def test_stochastic_sources_draw_from_their_key():
     key = rng.Key(9).fold(3)
-    z2 = sources.z2_timeslice_source(LAT, 2, key)
+    z2 = sources.z2_timeslice_source(LAT, 2, key, device="cpu")
     assert tuple(z2.shape) == (4, 3) + LAT.site_shape
     on = z2[:, :, 2]
     np.testing.assert_allclose(bridge.to_numpy(on.real.abs()), np.sqrt(0.5), rtol=1e-6)
     np.testing.assert_allclose(bridge.to_numpy(on.imag.abs()), np.sqrt(0.5), rtol=1e-6)
     assert float(z2.abs().sum()) == pytest.approx(float(on.abs().sum()))  # zero elsewhere
     assert abs(float(on.real.mean())) < 0.2  # 192 signs: 3 sigma is 0.15
-    assert torch.equal(z2, sources.z2_timeslice_source(LAT, 2, key))  # a pure function of the key
-    assert not torch.equal(z2, sources.z2_timeslice_source(LAT, 2, key.fold(1)))
-    diluted = sources.z2_timeslice_source(LAT, 2, key, spin_dilute=1)
+    # a pure function of the key
+    assert torch.equal(z2, sources.z2_timeslice_source(LAT, 2, key, device="cpu"))
+    assert not torch.equal(z2, sources.z2_timeslice_source(LAT, 2, key.fold(1), device="cpu"))
+    diluted = sources.z2_timeslice_source(LAT, 2, key, device="cpu", spin_dilute=1)
     assert torch.equal(diluted[1], z2[1]) and float(diluted[[0, 2, 3]].abs().sum()) == 0.0
-    vol = sources.volume_source(LAT, key)
+    vol = sources.volume_source(LAT, key, device="cpu")
     np.testing.assert_allclose(bridge.to_numpy(vol.abs()), 1.0, rtol=1e-6)
-    gau = sources.gaussian_timeslice_source(LAT, 1, key)
+    gau = sources.gaussian_timeslice_source(LAT, 1, key, device="cpu")
     assert float(gau[:, :, [0, 2, 3]].abs().sum()) == 0.0
     assert 0.7 < float((gau[:, :, 1].abs() ** 2).mean()) < 1.3  # <|eta|^2> = 1 over 768 draws
     assert 0 <= rng.randint(key, 0, 4) < 4 and rng.randint(key, 0, 4) == rng.randint(key, 0, 4)

@@ -44,6 +44,16 @@ from tmlqcd_tpu_torch.ops.gauge_action import torch_grad_to_jax
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's programs here take far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 DIMS = (4, 4, 4, 4)
 JL, LAT = JLattice(DIMS), Lattice(DIMS)
 ND = dict(kappa=0.13, mubar=0.35, epsbar=0.4)

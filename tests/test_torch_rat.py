@@ -50,6 +50,16 @@ from tmlqcd_tpu_torch.solvers.multishift import cg_multishift
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's programs here take far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 DIMS = (4, 4, 4, 4)
 JL, LAT = JLattice(DIMS), Lattice(DIMS)
 SAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -119,7 +129,9 @@ def doublet_system(gauge):
     jp, tp = jnd.NDParams(**ND), nd.NDParams(**ND)
     b = bridge.numpy_spinor(np.random.default_rng(71), (2, 4, 3) + JL.eo_site_shape)
     jueo, jph = j_pack(jnp.asarray(u), JL), jw.boundary_phases(jp.wilson, JL)
-    jmv = lambda x: jnd.q_nd_sq(jueo, x, jp, JL, jph)  # noqa: E731
+    # compiled once: the reference's solvers trace their operator at every
+    # call site, which a jitted function serves from its trace cache
+    jmv = jax.jit(lambda x: jnd.q_nd_sq(jueo, x, jp, JL, jph))
     fg = wf.make_fast_gauge(ut, tp.wilson, LAT)
     mv = lambda x2: wf.q_nd_sq_fast(fg, x2, tp, LAT)  # noqa: E731
     return dict(b=b, jmv=jmv, mv=mv, b2=wf.to_split(bridge.doublet_from_numpy(b, LAT)))
@@ -162,15 +174,15 @@ def test_spectral_bounds_match_reference(doublet_system):
     v0 = torch.as_tensor(np.array(jrng.normal_spinor(key, shape, jnp.complex64)))
     ref_max = float(jax.jit(lambda k: jeigen.lambda_max(jmv, shape, k, iters=20))(key))
     ref_min = float(jax.jit(lambda k: jeigen.lambda_min(jmv, shape, k, iters=1))(key))
-    out_max = eigen.lambda_max(mv, shape, rng.Key(0), iters=20, split=True, v0=v0)
-    out_min = eigen.lambda_min(mv, shape, rng.Key(0), iters=1, split=True, v0=v0)
+    out_max = eigen.lambda_max(mv, shape, rng.Key(0), device="cpu", iters=20, split=True, v0=v0)
+    out_min = eigen.lambda_min(mv, shape, rng.Key(0), device="cpu", iters=1, split=True, v0=v0)
     assert abs(out_max - ref_max) < 1e-4 * ref_max and abs(out_min - ref_min) < 1e-4 * ref_min
-    lmin, lmax = eigen.spectral_bounds(mv, shape, rng.Key(72), safety=1.0, split=True)
+    lmin, lmax = eigen.spectral_bounds(mv, shape, rng.Key(72), device="cpu", safety=1.0, split=True)
     assert 0.0 < lmin <= out_min * (1 + 1e-6) and out_max <= lmax * (1 + 1e-6)
     b2 = doublet_system["b2"]
     rq = float(wf.dot_re_f64_split(b2, mv(b2)) / wf.dot_re_f64_split(b2, b2))
     assert lmin < rq < lmax < 1.1 * out_max
-    padded = eigen.spectral_bounds(mv, shape, rng.Key(72), safety=1.3, split=True)
+    padded = eigen.spectral_bounds(mv, shape, rng.Key(72), device="cpu", safety=1.3, split=True)
     assert padded == (lmin / 1.3, lmax * 1.3)
 
 

@@ -5,6 +5,7 @@ them for NDRAT and RAT, so that the test runner's workers share the reference's
 compile time.
 """
 
+import jax
 import pytest
 import torch
 
@@ -19,6 +20,15 @@ from rat_monomial_cases import (  # noqa: F401  (fixtures and tests, collected h
 )
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's programs here take far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
 
 
 @pytest.fixture(scope="module", params=["ndcloverrat"])

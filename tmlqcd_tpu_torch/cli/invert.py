@@ -5,20 +5,26 @@ configuration (`-c`, or `GaugeConfigInputFile.<InitialStoreCounter:04d>`) ->
 for every BeginOperator block: prepare the sources, invert, write the
 propagator.  A point source gives 12 spin-colour columns; with several
 columns and `Solver = cg` (or `fastcg`) they run as ONE batched solve
-(`invert_eo_rhs`) on the multi-RHS hopping kernel, otherwise column by column
-(`invert_eo`).  The solver tolerance is sqrt(SolverPrecision).
+(`invert_eo_rhs`) on the multi-RHS hopping kernel.  With `Solver =
+increigcg` (not CLOVER) the columns run in sequence through
+`invert_eo_increigcg`, each deflated by the low modes the earlier ones
+harvested.  Otherwise they run column by column (`invert_eo`); for
+`dflfgmres`, `dflgcr` and `dfl` (not CLOVER) the 2-level deflation setup is
+built once per operator and gauge and reused by every column.  The solver
+tolerance is sqrt(SolverPrecision).
 
-Ported: the TMWILSON, WILSON and CLOVER operators with cg / fastcg.  As in
-the reference, a single column of a CLOVER operator goes to
-`invert_clover_eo` and of any other operator to `invert_eo`, which does not
-read CSW; the batched solve takes the clover pipeline whenever CSW != 0.
+Ported: the TMWILSON, WILSON and CLOVER operators with every solver the
+inverter carries (`inverter.SOLVERS`).  As in the reference, a single column
+of a CLOVER operator goes to `invert_clover_eo` and of any other operator to
+`invert_eo`, which does not read CSW; the batched solve takes the clover
+pipeline whenever CSW != 0.
 The non-degenerate doublets DBTMWILSON and DBCLOVER (2Kappamubar,
 2Kappaepsbar) go column by column to `invert_doublet_eo`: each spin-colour
 source sits in the upper flavour slot and the solve returns the flavour
 pair, written as one propagator file per flavour
 (`propagator.NN.fl{0,1}.TTTTTT.lime`) or as `propagator_doublet` in the npz.
-OVERLAP, the other solvers, UseStoutSmearing and UseSourceSmearing raise
-`NotImplementedError` naming themselves.
+OVERLAP, UseStoutSmearing and UseSourceSmearing raise `NotImplementedError`
+naming themselves.
 
 Usage:
     python -m tmlqcd_tpu_torch.cli.invert -f sample.input -c conf.000010.npz \
@@ -71,7 +77,9 @@ def main(argv=None):
         invert_clover_eo,
         invert_doublet_eo,
         invert_eo,
+        invert_eo_increigcg,
         invert_eo_rhs,
+        make_deflation_setup,
     )
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
     from tmlqcd_tpu_torch.io.propagator import write_propagator
@@ -106,19 +114,31 @@ def main(argv=None):
     for iop, op in enumerate(cfg.operators):
         mu = op.two_kappa_mu / (2 * op.kappa) if op.kappa else 0.0
         params = DiracParams(kappa=op.kappa, mu=mu, c_sw=op.csw, theta=tuple(op.theta))
-        inv = invert_clover_eo if op.type.upper() == "CLOVER" else invert_eo
+        is_clover = op.type.upper() == "CLOVER"
+        is_doublet = op.type.upper() in ("DBTMWILSON", "DBCLOVER")
+        inv = invert_clover_eo if is_clover else invert_eo
         tol = float(op.precision) ** 0.5
+        solver = op.solver.lower()
+        inv_kw = {"solver": solver}
+        if solver in ("dflfgmres", "dflgcr", "dfl") and not (is_clover or is_doublet):
+            # the MG setup: once per gauge and operator, reused by every column
+            sync()
+            t0 = time.perf_counter()
+            inv_kw["deflation_setup"] = make_deflation_setup(u, params, lat)
+            sync()
+            print(f"[invert] op {iop}: MG setup built in {time.perf_counter() - t0:.3f}s",
+                  flush=True)
 
         # CLI flags override the input file's SourceType / SourceTimeslice
         src_kind = args.source or ("z2" if cfg.source_type.startswith("timeslice") else "point")
         ts = args.timeslice if args.timeslice is not None else cfg.source_timeslice
         if src_kind == "point":
-            sources = [(s, c, point_source(lat, s, c, (ts, 0, 0, 0), device))
+            sources = [(s, c, point_source(lat, s, c, (ts, 0, 0, 0), device=device))
                        for s in range(4) for c in range(3)]
         else:
-            sources = [(0, 0, z2_timeslice_source(lat, ts, rng.Key(args.seed), device))]
+            sources = [(0, 0, z2_timeslice_source(lat, ts, rng.Key(args.seed), device=device))]
 
-        if op.type.upper() in ("DBTMWILSON", "DBCLOVER"):
+        if is_doublet:
             two_k = 2.0 * op.kappa if op.kappa else 1.0
             nd_params = NDParams(kappa=op.kappa, mubar=op.two_kappa_mubar / two_k,
                                  epsbar=op.two_kappa_epsbar / two_k,
@@ -155,7 +175,21 @@ def main(argv=None):
             continue
 
         sol = np.zeros((len(sources), 4, 3) + lat.site_shape, np.complex64)
-        if len(sources) > 1:
+        if solver == "increigcg" and not is_clover:
+            # sequential columns, each deflated by the low modes the earlier
+            # ones harvested
+            sync()
+            t0 = time.perf_counter()
+            results = invert_eo_increigcg(u, [src for _, _, src in sources], params, lat,
+                                          tol=tol, maxiter=op.max_solver_iterations)
+            sync()
+            dt = time.perf_counter() - t0
+            for i, res in enumerate(results):
+                sol[i] = to_host(res.x)
+            print(f"[invert] op {iop} ({op.type}) {len(sources)} sources incr-eigcg: iters "
+                  f"{[r.iterations for r in results]}, max|r|^2="
+                  f"{max(float(r.residual_sq) for r in results):.3e}, {dt:.3f}s", flush=True)
+        elif len(sources) > 1 and solver in ("cg", "fastcg"):
             # all spin-colour columns as ONE batched solve on the multi-RHS
             # kernel: the gauge is read once for the whole batch
             sync()
@@ -173,7 +207,7 @@ def main(argv=None):
                 sync()
                 t0 = time.perf_counter()
                 res = inv(u, src, params, lat, tol=tol, maxiter=op.max_solver_iterations,
-                          solver=op.solver)
+                          **inv_kw)
                 sync()
                 dt = time.perf_counter() - t0
                 sol[i] = to_host(res.x)

@@ -10,8 +10,9 @@ and native or ILDG checkpoints — and raises `NotImplementedError`, naming the
 feature, for everything else: other monomial types (NDPOLY, SFGAUGE), other
 measurement types (GRADIENTFLOW, ...) and NrTProcs/NrXProcs/NrYProcs/NrZProcs
 > 1.  `check_invert_ported` does the same for the inverter's operators
-(ported: TMWILSON, WILSON, CLOVER, DBTMWILSON, DBCLOVER), solvers and
-smearing options.  Nothing is skipped silently.
+(ported: TMWILSON, WILSON, CLOVER, DBTMWILSON, DBCLOVER) and smearing
+options, and rejects a solver name the inverter does not know.  Nothing is
+skipped silently.
 """
 
 from __future__ import annotations
@@ -265,8 +266,8 @@ def check_ported(cfg: RunConfig) -> None:
 def check_invert_ported(cfg: RunConfig) -> None:
     """Raise for every inverter feature this slice of the port does not
     carry: operators other than TMWILSON / WILSON / CLOVER / DBTMWILSON /
-    DBCLOVER, solvers other than cg / fastcg, stout and source smearing,
-    domain decomposition."""
+    DBCLOVER, stout and source smearing, domain decomposition; and for a
+    solver name outside `inverter.SOLVERS` (ValueError)."""
     _check_one_device(cfg)
     if cfg.use_stout_smearing and cfg.stout_iterations > 0:
         raise _not_ported("UseStoutSmearing")

@@ -40,6 +40,15 @@
 // (1 + T +- i mu gamma5 is only normal): all 72 complex entries are read.
 // They add 576 B per site to the bytes below and 576 flops to the 1320.
 //
+// The bf16 gauge (K1-B; `_load_g` and the upcast in `_stencil_accum` of the
+// Pallas file, reached from `make_fast_gauge(sloppy=True)`): K1 reads the
+// links as __nv_bfloat16, 2 bytes an element, and upcasts them in registers
+// (__bfloat162float).  Everything after the load stays f32: the 12-real
+// row-2 reconstruction (from the rounded rows 0 and 1), the accumulation and
+// every epilogue.  Only K1 has bf16 instances: K1-R and K2 read f32 links.
+// It moves 288 B (18-real) or 192 B (12-real) of gauge per site instead of
+// 576 or 384.
+//
 // Bound: memory.  1320 flops per site against 576 B (18-real) or 384 B
 // (12-real) of gauge, 96 B per spinor read (8 neighbour reads of which the
 // caches absorb most) and 96 B written; the mhat epilogue reads one more
@@ -74,7 +83,10 @@
 // 2 * (G + 192) for two K1 launches.  With R = 2 a block is 32 sites x 2
 // rows = 64 threads, and each row stages four of the eight directions.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -159,10 +171,17 @@ __device__ __forceinline__ void neighbours(const Geo& g, int site, int nb[8]) {
   nb[7] = tx * g.M + mzb;
 }
 
+// one gauge element, upcast to f32 in registers
+__device__ __forceinline__ float gload(const float* __restrict__ p) { return __ldg(p); }
+__device__ __forceinline__ float gload(const __nv_bfloat16* __restrict__ p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // the 3 x 3 link of direction D at `site` into (gr, gi); the 12-real copy
-// stores rows 0 and 1 and row 2 is rebuilt
-template <int D, bool COMP>
-__device__ __forceinline__ void load_link(const float* __restrict__ ug, long long V, int site,
+// stores rows 0 and 1 and row 2 is rebuilt.  G: the gauge element type
+// (float, or __nv_bfloat16 for the sloppy copy)
+template <int D, bool COMP, typename G>
+__device__ __forceinline__ void load_link(const G* __restrict__ ug, long long V, int site,
                                           const Corr& corr, float (&gr)[3][3],
                                           float (&gi)[3][3]) {
   constexpr int R = COMP ? 2 : 3;
@@ -170,8 +189,8 @@ __device__ __forceinline__ void load_link(const float* __restrict__ ug, long lon
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      gr[i][j] = __ldg(ug + (((0 * 8 + D) * R + i) * 3 + j) * V + site);
-      gi[i][j] = __ldg(ug + (((1 * 8 + D) * R + i) * 3 + j) * V + site);
+      gr[i][j] = gload(ug + (((0 * 8 + D) * R + i) * 3 + j) * V + site);
+      gi[i][j] = gload(ug + (((1 * 8 + D) * R + i) * 3 + j) * V + site);
     }
   if (COMP) {
     // row2 = corr * conj(row0 x row1)  (corr restores the folded phase)
@@ -241,21 +260,21 @@ __device__ __forceinline__ void hop_dir(const float* __restrict__ psi, const Str
   }
 }
 
-template <int D, bool COMP>
+template <int D, bool COMP, typename G>
 __device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
-                                          const float* __restrict__ ug, long long V,
+                                          const G* __restrict__ ug, long long V,
                                           const Strides& st, int nsite, int site,
                                           const Corr& corr,
                                           float (&ar)[4][3], float (&ai)[4][3]) {
   float gr[3][3], gi[3][3];
-  load_link<D, COMP>(ug, V, site, corr, gr, gi);
+  load_link<D, COMP, G>(ug, V, site, corr, gr, gi);
   hop_dir<D>(psi, st, nsite, gr, gi, ar, ai);
 }
 
 // all 8 directions of one site of one field into (ar, ai)
-template <bool COMP>
+template <bool COMP, typename G>
 __device__ __forceinline__ void accum_site(const float* __restrict__ psi,
-                                           const float* __restrict__ ug, const Geo& geo,
+                                           const G* __restrict__ ug, const Geo& geo,
                                            long long V, const Strides& st, int site,
                                            const Corr& corr, float (&ar)[4][3],
                                            float (&ai)[4][3]) {
@@ -265,14 +284,14 @@ __device__ __forceinline__ void accum_site(const float* __restrict__ psi,
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) { ar[s][c] = 0.f; ai[s][c] = 0.f; }
-  accum_dir<0, COMP>(psi, ug, V, st, nb[0], site, corr, ar, ai);
-  accum_dir<1, COMP>(psi, ug, V, st, nb[1], site, corr, ar, ai);
-  accum_dir<2, COMP>(psi, ug, V, st, nb[2], site, corr, ar, ai);
-  accum_dir<3, COMP>(psi, ug, V, st, nb[3], site, corr, ar, ai);
-  accum_dir<4, COMP>(psi, ug, V, st, nb[4], site, corr, ar, ai);
-  accum_dir<5, COMP>(psi, ug, V, st, nb[5], site, corr, ar, ai);
-  accum_dir<6, COMP>(psi, ug, V, st, nb[6], site, corr, ar, ai);
-  accum_dir<7, COMP>(psi, ug, V, st, nb[7], site, corr, ar, ai);
+  accum_dir<0, COMP, G>(psi, ug, V, st, nb[0], site, corr, ar, ai);
+  accum_dir<1, COMP, G>(psi, ug, V, st, nb[1], site, corr, ar, ai);
+  accum_dir<2, COMP, G>(psi, ug, V, st, nb[2], site, corr, ar, ai);
+  accum_dir<3, COMP, G>(psi, ug, V, st, nb[3], site, corr, ar, ai);
+  accum_dir<4, COMP, G>(psi, ug, V, st, nb[4], site, corr, ar, ai);
+  accum_dir<5, COMP, G>(psi, ug, V, st, nb[5], site, corr, ar, ai);
+  accum_dir<6, COMP, G>(psi, ug, V, st, nb[6], site, corr, ar, ai);
+  accum_dir<7, COMP, G>(psi, ug, V, st, nb[7], site, corr, ar, ai);
 }
 
 // EPI: 0 none (out = H psi), 1 mee_inv (out = Mee^-1 H psi),
@@ -372,9 +391,9 @@ __device__ __forceinline__ void store_clover(const float (&ar)[4][3], const floa
   }
 }
 
-template <int EPI, bool G5, bool COMP>
+template <int EPI, bool G5, bool COMP, typename G>
 __global__ void __launch_bounds__(128)
-hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
+hopping_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
                const float* __restrict__ psi_o, const float* __restrict__ blocks,
                float* __restrict__ out, Geo geo, float mt, float inv, float k2, Corr corr) {
   const long long V = (long long)geo.T * geo.X * geo.M;
@@ -382,7 +401,7 @@ hopping_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
   if (site >= V) return;
   const Strides st{12 * V, V};
   float ar[4][3], ai[4][3];
-  accum_site<COMP>(psi, ug, geo, V, st, site, corr, ar, ai);
+  accum_site<COMP, G>(psi, ug, geo, V, st, site, corr, ar, ai);
   if constexpr (EPI >= 3)
     store_clover<EPI, G5, true>(ar, ai, psi_o, out, st, site, inv, k2, blocks, V, site);
   else
@@ -418,7 +437,7 @@ template <int D, bool COMP>
 __device__ __forceinline__ void stage_link(const float* __restrict__ ug, long long V, int site,
                                            const Corr& corr, float* __restrict__ sl, int lane) {
   float gr[3][3], gi[3][3];
-  load_link<D, COMP>(ug, V, site, corr, gr, gi);
+  load_link<D, COMP, float>(ug, V, site, corr, gr, gi);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -593,7 +612,7 @@ constexpr int kBlock = 128;
 // one launch of K1 (R == 0) or K1-R (R > 0)
 struct Args {
   const float* psi;
-  const float* ug;
+  const void* ug;  // float, or __nv_bfloat16 (K1 only)
   const float* psi_o;
   const float* blocks;
   float* out;
@@ -606,52 +625,61 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int EPI, bool G5, bool COMP>
+// G: the gauge element type.  The bf16 gauge has K1 instances only
+// (run_hopping refuses it with R > 0), so K1-R is built for float alone.
+template <int EPI, bool G5, bool COMP, typename G>
 void launch(const Args& a) {
   const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
   if (a.R == 0) {
     const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);
-    hopping_kernel<EPI, G5, COMP><<<blocks, kBlock, 0, a.stream>>>(
-        a.psi, a.ug, a.psi_o, a.blocks, a.out, a.geo, a.mt, a.inv, a.k2, a.corr);
-  } else {
+    hopping_kernel<EPI, G5, COMP, G><<<blocks, kBlock, 0, a.stream>>>(
+        a.psi, static_cast<const G*>(a.ug), a.psi_o, a.blocks, a.out, a.geo, a.mt, a.inv,
+        a.k2, a.corr);
+  } else if constexpr (std::is_same<G, float>::value) {
     const int cols = a.R < kRhsCols ? a.R : kRhsCols;
     const dim3 block(kRhsSites, cols);
     const dim3 grid((unsigned)((V + kRhsSites - 1) / kRhsSites),
                     (unsigned)((a.R + cols - 1) / cols));
     const int tin = rhs_t_inner(a.geo, a.R);
     hopping_rhs_kernel<EPI, G5, COMP><<<grid, block, 0, a.stream>>>(
-        a.psi, a.ug, a.psi_o, a.blocks, a.out, a.geo, a.R, a.st, a.rstride, tin, a.mt,
-        a.inv, a.k2, a.corr);
+        a.psi, static_cast<const float*>(a.ug), a.psi_o, a.blocks, a.out, a.geo, a.R, a.st,
+        a.rstride, tin, a.mt, a.inv, a.k2, a.corr);
   }
 }
 
-template <bool COMP>
+template <bool COMP, typename G>
 void dispatch_epi(int epi, int g5, const Args& a) {
-  if (epi == 0) launch<0, false, COMP>(a);
-  else if (epi == 1) launch<1, false, COMP>(a);
-  else if (epi == 2 && g5) launch<2, true, COMP>(a);
-  else if (epi == 2) launch<2, false, COMP>(a);
-  else if (epi == 3) launch<3, false, COMP>(a);
-  else if (g5) launch<4, true, COMP>(a);
-  else launch<4, false, COMP>(a);
+  if (epi == 0) launch<0, false, COMP, G>(a);
+  else if (epi == 1) launch<1, false, COMP, G>(a);
+  else if (epi == 2 && g5) launch<2, true, COMP, G>(a);
+  else if (epi == 2) launch<2, false, COMP, G>(a);
+  else if (epi == 3) launch<3, false, COMP, G>(a);
+  else if (g5) launch<4, true, COMP, G>(a);
+  else launch<4, false, COMP, G>(a);
 }
 
 bool bad_geometry(int T, int X, int M, int zh, int p) {
   return T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1);
 }
 
-// validates the shared arguments, fills corr and launches; R == 0 is K1
-int run_hopping(Args a, int epi, int g5, int comp, const float* corr16) {
+// validates the shared arguments, fills corr and launches; R == 0 is K1,
+// gbf16 != 0 a bf16 gauge (K1 only)
+int run_hopping(Args a, int epi, int g5, int comp, int gbf16, const float* corr16) {
   const bool needs_psi_o = epi == 2 || epi == 4;
   if (epi < 0 || epi > 4 || (needs_psi_o && a.psi_o == nullptr) ||
-      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr))
+      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr) || (gbf16 && a.R != 0))
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < 8; ++d) {
     a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
     a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
   }
-  if (comp) dispatch_epi<true>(epi, g5, a);
-  else dispatch_epi<false>(epi, g5, a);
+  if (gbf16) {
+    if (comp) dispatch_epi<true, __nv_bfloat16>(epi, g5, a);
+    else dispatch_epi<false, __nv_bfloat16>(epi, g5, a);
+  } else {
+    if (comp) dispatch_epi<true, float>(epi, g5, a);
+    else dispatch_epi<false, float>(epi, g5, a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -661,17 +689,18 @@ extern "C" {
 
 // K1.  epi: 0 none, 1 mee_inv, 2 mhat, 3 clov_inv, 4 clov_mhat (3 and 4
 // read `blocks`, 2 and 4 read `psi_o`; for 3 `inv` is the scale factor).
-// corr16: 8 (re, im) pairs on the host, read only when comp != 0.  Returns
-// cudaGetLastError() after the launch (0 = success); an invalid argument
-// returns cudaErrorInvalidValue.
-int tm_hopping(const float* psi, const float* ug, const float* psi_o, const float* blocks,
+// corr16: 8 (re, im) pairs on the host, read only when comp != 0.
+// gbf16 != 0: `ug` holds __nv_bfloat16 elements (the sloppy copy, K1-B),
+// else float.  Returns cudaGetLastError() after the launch (0 = success);
+// an invalid argument returns cudaErrorInvalidValue.
+int tm_hopping(const float* psi, const void* ug, const float* psi_o, const float* blocks,
                float* out, int T, int X, int M, int zh, int p, int epi, int g5, int comp,
-               float mt, float inv, float k2, const float* corr16, void* stream) {
+               int gbf16, float mt, float inv, float k2, const float* corr16, void* stream) {
   if (bad_geometry(T, X, M, zh, p)) return (int)cudaErrorInvalidValue;
   const long long V = (long long)T * X * M;
   const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, 0,
                Strides{12 * V, V}, 0, (cudaStream_t)stream};
-  return run_hopping(a, epi, g5, comp, corr16);
+  return run_hopping(a, epi, g5, comp, gbf16, corr16);
 }
 
 // K1-R: R right-hand sides on one read of the gauge.  psi, psi_o and out
@@ -688,7 +717,7 @@ int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, const 
     return (int)cudaErrorInvalidValue;
   const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
                Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream};
-  return run_hopping(a, epi, g5, comp, corr16);
+  return run_hopping(a, epi, g5, comp, 0, corr16);
 }
 
 // K2.  Returns cudaGetLastError() after the launch.

@@ -23,6 +23,13 @@ carries the chain rule through the gauge copy.  PyTorch's gradient with
 respect to the complex gauge is the conjugate of the reference's convention,
 hence `torch_grad_to_jax` before `ta_force_from_grad`.
 
+Mixed solvers (`Solver = mixedcg | rgmixedcg`): the low operator is the
+same Qhat_pm or Qsw_pm on the bf16 copy of the gauge (`wf.sloppy_gauge`,
+K1 on a bf16 gauge: K1-B), the high one on the f32 copy, and the chrono
+guess is the outer solve's start.  The reference keeps complex64 for both
+levels off the TPU; the port runs the bf16 copy on the CPU too (the plain
+hop on the bf16-rounded links).
+
 Clover monomials: the same routing with the clover epilogues of K1
 (`wf.q_hat_clover_fast`) for every Dirac application and
 `wf.q_hat_clover_diff` for every force surrogate, where the reference runs
@@ -72,23 +79,40 @@ class SolveOut(NamedTuple):
     hist: ChronoHistory | None
 
 
+_MIXED = ("mixedcg", "rgmixedcg")
+
+
 def _resolve_solver(solver: str) -> str:
     """'auto' -> plain CG, as in the reference."""
     return "cg" if solver == "auto" else solver.lower()
 
 
-def _solve_qpm(fg: wf.FastGauge, b2: torch.Tensor, params: DiracParams, lat: Lattice,
-               tol: float, maxiter: int, solver: str = "auto",
-               hist: ChronoHistory | None = None) -> SolveOut:
-    """Solve Qhat_pm x = b (split fields) through the dispatch seam, seeded
-    by the chronological guess of `hist` and pushing the solution into it."""
-    mv = lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat)  # noqa: E731
+def _seam_solve(mv, mv_lo, b2, solver, tol, maxiter, hist) -> SolveOut:
+    """One solve of the hermitian operator `mv` through the dispatch seam,
+    seeded by the chronological guess of `hist` and pushing the solution into
+    it; `mv_lo()` builds the low operator of the mixed solvers."""
+    name = _resolve_solver(solver)
     kw = {}
     if hist is not None:
         kw["x0"] = chrono_guess(hist, mv, b2)
-    x2, iters, _ = dispatch.solve_degenerate(mv, b2, solver=_resolve_solver(solver),
-                                             tol=tol, maxiter=maxiter, **kw)
+    if name in _MIXED:
+        kw["matvec_lo"] = mv_lo()
+    x2, iters, _ = dispatch.solve_degenerate(mv, b2, solver=name, tol=tol, maxiter=maxiter, **kw)
     return SolveOut(x2, int(iters), chrono_push(hist, x2) if hist is not None else None)
+
+
+def _solve_qpm(fg: wf.FastGauge, b2: torch.Tensor, params: DiracParams, lat: Lattice,
+               tol: float, maxiter: int, solver: str = "auto",
+               hist: ChronoHistory | None = None) -> SolveOut:
+    """Solve Qhat_pm x = b (split fields) through the dispatch seam; the
+    mixed solvers' low operator runs on the bf16 copy of `fg`."""
+
+    def mv_lo():
+        fg16 = wf.sloppy_gauge(fg)
+        return lambda x2: wf.q_hat_pm_fast(fg16, x2, params, lat)
+
+    return _seam_solve(lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat), mv_lo, b2, solver,
+                       tol, maxiter, hist)
 
 
 def _surrogate_force(u: torch.Tensor, surrogate) -> torch.Tensor:
@@ -250,15 +274,16 @@ class DetRatioMonomial:
 def _solve_qsw(fc: wf.FastClover, b2: torch.Tensor, params: DiracParams, lat: Lattice,
                tol: float, maxiter: int, solver: str = "auto",
                hist: ChronoHistory | None = None) -> SolveOut:
-    """Solve Qsw_pm x = b (split fields) through the dispatch seam, seeded by
-    the chronological guess of `hist` and pushing the solution into it."""
-    mv = lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat)  # noqa: E731
-    kw = {}
-    if hist is not None:
-        kw["x0"] = chrono_guess(hist, mv, b2)
-    x2, iters, _ = dispatch.solve_degenerate(mv, b2, solver=_resolve_solver(solver),
-                                             tol=tol, maxiter=maxiter, **kw)
-    return SolveOut(x2, int(iters), chrono_push(hist, x2) if hist is not None else None)
+    """Solve Qsw_pm x = b (split fields) through the dispatch seam; the
+    mixed solvers' low operator runs on the bf16 copy of the gauge of `fc`
+    (the clover blocks stay f32)."""
+
+    def mv_lo():
+        fc16 = wf.sloppy_clover(fc)
+        return lambda x2: wf.q_hat_pm_clover_fast(fc16, x2, params, lat)
+
+    return _seam_solve(lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat), mv_lo, b2,
+                       solver, tol, maxiter, hist)
 
 
 class _CloverState:

@@ -45,7 +45,7 @@ def check_rational_intervals(hmc_cfg, u: torch.Tensor, key: rng.Key | None = Non
             continue
         with torch.no_grad():
             mv, shape = m.q2_operator(u)
-            lmin, lmax = spectral_bounds(mv, shape, key.fold(i), u.device, safety=1.0,
+            lmin, lmax = spectral_bounds(mv, shape, key.fold(i), device=u.device, safety=1.0,
                                          split=True)
         ok = (m.s_min <= lmin) and (lmax <= m.s_max)
         out.append(IntervalCheck(m.name, m.s_min, m.s_max, lmin, lmax, ok))

@@ -53,7 +53,8 @@ def online_measurement(u: torch.Tensor, params: DiracParams, lat: Lattice, key: 
     draws this way."""
     if t0 is None:
         t0 = rng.randint(key.fold(0), 0, lat.dims[0])
-    src = source if source is not None else z2_timeslice_source(lat, t0, key.fold(1), u.device)
+    src = (source if source is not None
+           else z2_timeslice_source(lat, t0, key.fold(1), device=u.device))
     res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter)
     norm = 1.0 / (lat.volume / lat.dims[0])
     return pion_correlator(res.x, lat, t0) * norm, pa_correlator(res.x, lat, t0) * norm, t0
@@ -64,7 +65,7 @@ def pion_norm(u: torch.Tensor, params: DiracParams, lat: Lattice, key: rng.Key,
               source: torch.Tensor | None = None) -> torch.Tensor:
     """Per-timeslice pion norm from a volume Z2 source (the PIONNORM
     measurement): one solve, normalised by the spatial volume.  C(t) [T] f64."""
-    src = source if source is not None else volume_source(lat, key, u.device)
+    src = source if source is not None else volume_source(lat, key, device=u.device)
     res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter)
     return pion_correlator(res.x, lat, 0) / (lat.volume / lat.dims[0])
 

@@ -17,6 +17,12 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   576 B (18-real) or 384 B (12-real) of gauge, 96 B per spinor read or
   written; `mhat` and `clov_mhat` read one spinor more, the clover epilogues
   576 B of blocks and 576 flops more.
+* `hopping_split` on a bf16 gauge (K1-B) replaces the bf16 gauge of the same
+  kernel (`_load_g` :186-195 and the upcast in `_stencil_accum` :263-265,
+  reached from `make_fast_gauge(sloppy=True)`): the links are read as bf16
+  and upcast in registers, everything after the load is f32.  Bound by
+  memory: 288 B (18-real) or 192 B (12-real) of gauge per site instead of
+  576 / 384.  Only K1 takes a bf16 gauge; K1-R and K2 raise for one.
 * `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
   batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
   `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
@@ -44,7 +50,8 @@ fallback between the two.  Each wrapper counts its kernel launches in a
 plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
 `hopping_ug_vjp.launches`); each plain version counts its calls (`.calls`).
 `hopping_split.clover_launches` and `hopping_split_rhs.clover_launches` count
-those of the launches that ran a clover epilogue,
+those of the launches that ran a clover epilogue, `hopping_split.bf16_launches`
+those on a bf16 gauge,
 `hopping_split_rhs.doublet_launches` those on the flavour-doublet axis.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/` with
@@ -153,7 +160,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.tm_hopping.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp, vp]
+        lib.tm_hopping.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, f, vp,
+                                   vp]
         lib.tm_hopping.restype = i
         lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp,
                                        i, ll, ll, ll, vp]
@@ -243,7 +251,7 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
     """Raise on anything the kernels do not take; `nrhs` set means spinors
     carry an R axis of that extent at `r_axis`: 3, before the sites, or 1,
     the flavour axis of a doublet (the gauge and the clover blocks never
-    carry one)."""
+    carry one).  The gauge may be bf16 for K1 (`nrhs` None) only."""
     site = lat.eo_site_shape
     if nrhs is None:
         spinor = (2, 4, 3) + site
@@ -266,9 +274,14 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
         if blocks is None:
             raise ValueError(f"the {epi[0]} epilogue needs blocks")
         need.append(("blocks", blocks, (2, 72) + site))
+    if ug_p.dtype == torch.bfloat16 and nrhs is not None:
+        raise TypeError("hopping_split_rhs takes a float32 gauge only: the multi-RHS kernel "
+                        "(K1-R) has no bf16-gauge form")
     for name, t, shape in need:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        ok = (torch.float32, torch.bfloat16) if name == "ug_p" and nrhs is None else (torch.float32,)
+        if t.dtype not in ok:
+            names = " or ".join(str(d).removeprefix("torch.") for d in ok)
+            raise TypeError(f"{name} must be {names}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -320,8 +333,9 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
                                       M_ee^{-1} clover blocks of the even sites
       ("clov_mhat", k2, g5)           out = [g5] (B psi_o - k2 H psi), B = the
                                       M_oo clover blocks of the odd sites
-    ug_p: [2,8,3,3,T,X,M], or the 12-real [2,8,2,3,T,X,M] with gcomp set;
-    psi_q, psi_o: [2,4,3,T,X,M]; blocks: [2,72,T,X,M] f32, the two 6 x 6
+    ug_p: [2,8,3,3,T,X,M], or the 12-real [2,8,2,3,T,X,M] with gcomp set,
+    float32 or bfloat16 (the sloppy copy, K1-B: upcast to f32 on loading);
+    psi_q, psi_o: [2,4,3,T,X,M] f32; blocks: [2,72,T,X,M] f32, the two 6 x 6
     complex blocks per site flattened as k = ((b 2 + s) 2 + s') 9 + 3 c + c'
     (`blk_flatten`)."""
     epi = tuple(epi)
@@ -333,6 +347,7 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
     lib = kernel_library()
     code, g5, mt, inv, k2 = _epilogue_args(epi)
     corr, corr_ptr = _corr_arg(gcomp)
+    bf16 = ug_p.dtype == torch.bfloat16
     out = torch.empty_like(psi_q)
     t, x, _, _ = lat.dims
     with torch.cuda.device(psi_q.device):
@@ -340,16 +355,18 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
         rc = lib.tm_hopping(
             psi_q.data_ptr(), ug_p.data_ptr(), _ptr(psi_o, epi[0] in _NEEDS_PSI_O),
             _ptr(blocks, epi[0] in _NEEDS_BLOCKS), out.data_ptr(), t, x, lat.m, lat.zh, int(p),
-            code, g5, int(gcomp is not None), mt, inv, k2, corr_ptr, stream)
+            code, g5, int(gcomp is not None), int(bf16), mt, inv, k2, corr_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"hopping kernel (K1) launch failed: CUDA error {rc}")
     hopping_split.launches += 1
     hopping_split.clover_launches += epi[0] in _NEEDS_BLOCKS
+    hopping_split.bf16_launches += bf16
     return out
 
 
 hopping_split.launches = 0
 hopping_split.clover_launches = 0
+hopping_split.bf16_launches = 0
 
 
 def blk_flatten(blk2: torch.Tensor) -> torch.Tensor:
@@ -410,9 +427,11 @@ def hopping_split_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: La
                         gcomp: tuple | None = None, blocks=None) -> torch.Tensor:
     """Plain PyTorch version of K1, written from the ops/wilson.py arithmetic
     (hop_packed rolls, SU(3) matrix-vector, dense spin projector) and, for
-    the clover epilogues, the complex block matvec of ops/clover.py."""
+    the clover epilogues, the complex block matvec of ops/clover.py.  A bf16
+    gauge is upcast first, so row 2 of the 12-real copy is rebuilt from the
+    rounded rows 0 and 1, as the kernel does."""
     hopping_split_plain.calls += 1
-    ug = merge_c(ug_p)
+    ug = merge_c(ug_p.float())
     if gcomp is not None:
         ug = _row2(ug, gcomp)
     return _hop_epilogue(ug, merge_c(psi_q), p, lat, tuple(epi), psi_o, blocks)
@@ -583,6 +602,7 @@ def reset_counters() -> None:
     """Zero every launch and call counter of this module."""
     hopping_split.launches = 0
     hopping_split.clover_launches = 0
+    hopping_split.bf16_launches = 0
     hopping_split_rhs.launches = 0
     hopping_split_rhs.clover_launches = 0
     hopping_split_rhs.doublet_launches = 0

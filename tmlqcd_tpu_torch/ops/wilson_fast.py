@@ -19,8 +19,14 @@ reference; for the clover doublet they are materialised flavour-2x2 block
 fields (`FastCloverND`).  The force surrogates `q_nd_diff` and
 `q_nd_clover_diff` run `HoppingDiff` flavour by flavour.
 
-Not ported yet: the sharded (`_shard`) operators and the bf16 `sloppy` gauge
-copy.
+The sloppy gauge copy (`make_fast_gauge(sloppy=True)`, `sloppy_gauge`,
+`make_fast_clover(sloppy=True)`) holds the links in bf16: the f32 copy cast
+to bf16 (round to nearest even) before row 2 is dropped, as in the
+reference.  Every operator above runs on it unchanged; K1 reads it as bf16
+and computes in f32 (K1-B).  The clover blocks stay f32.  The mixed-precision
+solvers use it for their low operator.
+
+Not ported yet: the sharded (`_shard`) operators.
 
 Layout: psi [2, 4, 3, T, X, M] f32; gauge as FastGauge (pre-gathered split
 links of both parities, phases folded).  A batch of R right-hand sides is
@@ -45,6 +51,8 @@ from tmlqcd_tpu_torch.ops.wilson import DiracParams, boundary_phases
 __all__ = [
     "FastGauge",
     "make_fast_gauge",
+    "sloppy_gauge",
+    "sloppy_clover",
     "to_split",
     "from_split",
     "to_split_rhs",
@@ -83,9 +91,10 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class FastGauge:
-    """Pre-gathered split gauge: ug[p] f32 [2, 8, 3, 3, T, X, M] for each
-    output parity p, or the 12-real copy [2, 8, 2, 3, T, X, M] when gcomp
-    (row-2 constants from `dslash_cuda.gauge_corr`) is set."""
+    """Pre-gathered split gauge: ug[p] f32 (or bf16, the sloppy copy)
+    [2, 8, 3, 3, T, X, M] for each output parity p, or the 12-real copy
+    [2, 8, 2, 3, T, X, M] when gcomp (row-2 constants from
+    `dslash_cuda.gauge_corr`) is set."""
 
     ug_even: torch.Tensor
     ug_odd: torch.Tensor
@@ -93,18 +102,29 @@ class FastGauge:
 
 
 def make_fast_gauge(u: torch.Tensor, params: DiracParams, lat: Lattice,
-                    compress: bool = True) -> FastGauge:
+                    compress: bool = True, sloppy: bool = False) -> FastGauge:
     """Full gauge [3,3,4,T,X,Mf] complex -> FastGauge, once per gauge update.
     compress=True (the default, as on the reference's production path) keeps
-    only the first two link rows: 384 instead of 576 B/site of gauge."""
+    only the first two link rows: 384 instead of 576 B/site of gauge.
+    sloppy=True stores the links in bf16 (192 or 288 B/site), the f32 copy
+    rounded to nearest even before row 2 is dropped."""
     ph = boundary_phases(params, lat)
     with torch.no_grad():
         ug = dc.gauge_copy(pack_gauge_eo(u, lat), lat, ph)
         ug_e = dc.split_c(ug[EVEN]).to(torch.float32)
         ug_o = dc.split_c(ug[ODD]).to(torch.float32)
     if compress:
-        return FastGauge(dc.compress_ug(ug_e), dc.compress_ug(ug_o), dc.gauge_corr(ph))
-    return FastGauge(ug_e.contiguous(), ug_o.contiguous())
+        fg = FastGauge(dc.compress_ug(ug_e), dc.compress_ug(ug_o), dc.gauge_corr(ph))
+    else:
+        fg = FastGauge(ug_e.contiguous(), ug_o.contiguous())
+    return sloppy_gauge(fg) if sloppy else fg
+
+
+def sloppy_gauge(fg: FastGauge) -> FastGauge:
+    """The bf16 copy of an f32 FastGauge, bit for bit the one
+    `make_fast_gauge(..., sloppy=True)` builds from the same gauge (dropping
+    row 2 and rounding commute)."""
+    return FastGauge(fg.ug_even.to(torch.bfloat16), fg.ug_odd.to(torch.bfloat16), fg.gcomp)
 
 
 def to_split(psi: torch.Tensor) -> torch.Tensor:
@@ -229,12 +249,21 @@ def _split_blocks(x: torch.Tensor) -> torch.Tensor:
     return dc.split_c(x).to(torch.float32)
 
 
-def make_fast_clover(u: torch.Tensor, params: DiracParams, lat: Lattice) -> FastClover:
+def make_fast_clover(u: torch.Tensor, params: DiracParams, lat: Lattice,
+                     sloppy: bool = False) -> FastClover:
     """Full gauge -> FastClover, once per gauge update.  kappa and c_sw fix
-    the clover term, mutld the four block fields."""
+    the clover term, mutld the four block fields.  sloppy=True: the gauge
+    copy in bf16, the blocks f32."""
     with torch.no_grad():
         sw_e, sw_o = cl.sw_blocks_eo(u, params.kappa, params.c_sw, lat)
-    return fast_clover_from(make_fast_gauge(u, params, lat), sw_e, sw_o, params.mutld)
+    return fast_clover_from(make_fast_gauge(u, params, lat, sloppy=sloppy), sw_e, sw_o,
+                            params.mutld)
+
+
+def sloppy_clover(fc: FastClover) -> FastClover:
+    """`fc` on the bf16 copy of its gauge (`sloppy_gauge`); the blocks are
+    shared and stay f32."""
+    return dataclasses.replace(fc, fg=sloppy_gauge(fc.fg))
 
 
 def fast_clover_from(fg: FastGauge, sw_e: torch.Tensor, sw_o: torch.Tensor,

@@ -11,7 +11,8 @@ Both return f64 Rayleigh quotients as Python floats; callers should widen
 the interval by a safety factor.  The start vectors are complex gaussian
 fields of `shape` drawn from `key`, or `v0` where the caller supplies one
 (complex, of `shape`); with `split=True` they are handed to `matvec` in the
-split f32 layout [2, *shape], which is what the kernel operators take.
+split f32 layout [2, *shape], which is what the kernel operators take.  The
+device of the draws is a required keyword.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def _rayleigh(matvec: Callable, v: torch.Tensor) -> float:
     return float(_dot_re(v, matvec(v)) / _norm_sq(v))
 
 
-def lambda_max(matvec: Callable, shape: tuple, key: rng.Key, device="cpu", iters: int = 50,
+def lambda_max(matvec: Callable, shape: tuple, key: rng.Key, *, device, iters: int = 50,
                split: bool = False, v0=None) -> float:
     """Largest eigenvalue of hermitian positive A by power iteration."""
     v = _start(key, shape, device, split, v0)
@@ -48,7 +49,7 @@ def lambda_max(matvec: Callable, shape: tuple, key: rng.Key, device="cpu", iters
     return _rayleigh(matvec, v)
 
 
-def lambda_min(matvec: Callable, shape: tuple, key: rng.Key, device="cpu", iters: int = 10,
+def lambda_min(matvec: Callable, shape: tuple, key: rng.Key, *, device, iters: int = 10,
                cg_tol: float = 1e-6, cg_maxiter: int = 2000, split: bool = False,
                v0=None) -> float:
     """Smallest eigenvalue by inverse power iteration (CG solves)."""
@@ -58,10 +59,10 @@ def lambda_min(matvec: Callable, shape: tuple, key: rng.Key, device="cpu", iters
     return _rayleigh(matvec, v)
 
 
-def spectral_bounds(matvec: Callable, shape: tuple, key: rng.Key, device="cpu",
+def spectral_bounds(matvec: Callable, shape: tuple, key: rng.Key, *, device,
                     safety: float = 1.3, split: bool = False) -> tuple[float, float]:
     """(s_min, s_max) bracketing spec(A), padded by `safety` on both ends —
     feed to `solvers.rational.rational_invsqrt`."""
-    lmax = lambda_max(matvec, shape, key.fold(0), device, split=split)
-    lmin = lambda_min(matvec, shape, key.fold(1), device, split=split)
+    lmax = lambda_max(matvec, shape, key.fold(0), device=device, split=split)
+    lmin = lambda_min(matvec, shape, key.fold(1), device=device, split=split)
     return lmin / safety, lmax * safety
