@@ -17,19 +17,30 @@ result lines):
    bit against two K1 launches; the doublet force surrogates `q_nd_diff`
    and `q_nd_clover_diff` forward and backward against the plain path; K1
    on the bf16 gauge copy (K1-B) in every epilogue, both copies and both
-   parities, and the copy bit-equal to the bf16 cast of the f32 copy.
+   parities, and the copy bit-equal to the bf16 cast of the f32 copy.  The
+   slab kernels of the domain decomposition (K3, K3-I, K4 on meshes (4,2),
+   (2,1), (2,2); K1-T on 4 and 2 t slabs) against their plain version on the
+   same halos, R = 0, 12 and the doublet; the assembled sharded hop against
+   K1 / K1-R / K1-R-D / K1-B / K1-RB on the whole lattice in every
+   (halfspinor, overlap) pair, 18- and 12-real, f32 and bf16; K1-R on the
+   bf16 copy (K1-RB) against its plain version and 12 launches of K1-B.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
    sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
    of K1, K1-B beside f32 K1 (mhat + g5 and clov_mhat + g5), kernel and
    plain version, with GF/s at
    1320 flops/site, the share of the bandwidth of a device-to-device copy
    measured in the same run, and the bound at the card's published rates.
+   One sharded hop on the (4,2) mesh in pieces (y exchange, t pack, K3-I,
+   K4; K3 without the overlap) beside K1, K1-T on 4 t slabs, and K1-RB at
+   R = 12 beside f32 K1-R, at both sizes.
 4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory, one
    twisted-clover Hasenbusch trajectory and one GAUGE + NDRAT trajectory at
    8^4, each on the kernel path
    (CUDA tensors) and on the plain path (CPU tensors) with the same injected
    draws; |ddH| against its bound; then the twisted-mass and the clover
-   trajectory again with Solver = mixedcg (the low operator on K1-B).
+   trajectory again with Solver = mixedcg (the low operator on K1-B); then
+   the twisted-mass, clover and NDRAT trajectories again with every solve on
+   the slab kernels of a (2,2) mesh, |dH(mesh) - dH(no mesh)| printed.
 5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
    from sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories, the ONLINE
    measurement on the third, an ILDG checkpoint read back), with the kernel
@@ -73,6 +84,16 @@ result lines):
    DET and DETRATIO (2 trajectories, the low operator on K1-B), s/trajectory
    beside phase 5's and outer / inner iterations per solve; then one Qsw_pm
    solve with rgmixedcg against CG on phase 7's gauge (K1-C on bf16).
+13. main path 9: `cli.hmc.main` on sample-input/hmc5-multichip.input as
+   shipped (4^3x8 on 4 x 2 slabs of one card, 4 trajectories, K4 alone, the
+   checkpoint read back), then the same action at 16^3x32 on 4 x 2 slabs (2
+   trajectories: K3-I and K4 launched, no K1 or K1-R inside the solves)
+   beside the same input without a mesh, then batched inversions of 12
+   point columns on its checkpoint: under the mesh (multi-RHS K3-I / K4),
+   without overlap (K3) and on t slabs alone (K1-T), each column's true
+   residual and the unsharded batched CG beside them.  Path 9's launches
+   are those of the runs through a mesh; K1-RB has no caller on a main path
+   (the reference has none) and is held to its plain version in phase 2.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -81,6 +102,7 @@ line is the JSON result object.  No JAX is imported.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -96,6 +118,7 @@ SAMPLE = os.path.join(HERE, "sample-input", "hmc2-nf2-tm-hasenbusch.input")
 SAMPLE_CLOVER = os.path.join(HERE, "sample-input", "hmc6-nf2-clover-hasenbusch.input")
 SAMPLE_NF211 = os.path.join(HERE, "sample-input", "hmc3-nf211-clover.input")
 SAMPLE_DOUBLET = os.path.join(HERE, "sample-input", "invert0-doublet.input")
+SAMPLE_MESH = os.path.join(HERE, "sample-input", "hmc5-multichip.input")
 
 # Relative tolerance of a kernel against its plain version on the same card
 # inputs: both compute in f32 and differ only in summation order and FMA
@@ -150,6 +173,17 @@ RESIDUAL_BOUND = 1e-5
 # arithmetic, f64 reductions in another order, both stopped at 1e-7: they
 # differ by ~1e-6 of max|x| at most.  1e-5 leaves 10x.
 BATCH_VS_SINGLE = 1e-5
+
+
+# The assembled sharded hop (K3-I + K4, K3, K1-T) against K1 (K1-R, K1-R-D,
+# K1-B, K1-RB) on the whole lattice: the slab kernels run K1's per-site sum
+# (hopping_common.cuh) on the same neighbour values, and the half-spinor
+# halos give W^+ psi back exactly, so bit equality is expected; should a
+# compiler contract the FMAs of the two kernels differently, they would
+# differ by a few ulp.  1e-6 of max|K1| bounds that; a wrong halo is O(1).
+SHARD_RTOL = 1e-6
+# the (t, y) slab meshes of phase 2: T_loc = 8, 16, 16 at T = 32
+SHARD_MESHES = ((4, 2), (2, 1), (2, 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -445,6 +479,132 @@ def phase_kernels(lat, dev="cuda"):
     return worst
 
 
+def _whole_hop(dc, fg, x, p, lat, r_axis):
+    """K1 / K1-R / K1-R-D (on a bf16 gauge K1-B / K1-RB) on the whole lattice."""
+    ug = fg.ug_even if p == 0 else fg.ug_odd
+    if r_axis is None:
+        return dc.hopping_split(ug, x, p, lat, gcomp=fg.gcomp)
+    return dc.hopping_split_rhs(ug, x, p, lat, gcomp=fg.gcomp, r_axis=r_axis)
+
+
+def phase_shard_kernels(lat, dev="cuda"):
+    """The slab kernels K3, K3-I, K4 and K1-T against their plain version on
+    the same card tensors, variant by variant; the assembled sharded hop
+    against K1 (K1-R, K1-R-D, K1-B, K1-RB) on the whole lattice, on meshes
+    (4,2), (2,1), (2,2), every (halfspinor, overlap) pair, R = 0, 12 and the
+    doublet, 18- and 12-real links in f32 and bf16; K1-RB against its plain
+    version and against R launches of K1-B."""
+    import itertools
+
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    params, fg18, fg12, psi, psi_o, _, sloppy = _fields(lat, dev, 31)
+    gauges = {"18-real": fg18, "12-real": fg12, "18-real bf16": sloppy["18-real"],
+              "12-real bf16": sloppy["12-real"]}
+    gen = torch.Generator(device=dev).manual_seed(32)
+    inputs = {None: psi,
+              3: torch.randn((2, 4, 3, NRHS) + lat.eo_site_shape, generator=gen, device=dev),
+              1: torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=dev)}
+    worst = {"K3": 0.0, "K3-I": 0.0, "K4": 0.0, "K1-T": 0.0, "K1-RB": 0.0}
+    n_hops = n_exact = 0
+    shard_err = 0.0
+    for shape in SHARD_MESHES:
+        mesh = parallel.Mesh(*shape, device=dev)
+        # each variant against its plain version, on the halos of the exchange
+        for (gname, fg), (r_axis, x) in itertools.product(
+                (("12-real", fg12), ("18-real bf16", sloppy["18-real"])), inputs.items()):
+            mh = dc._y_halos(x, lat, mesh, True, r_axis)
+            cases = (("K3", "ext", dc._t_halos(x, lat, mesh, True, r_axis, ext=True), {}),
+                     ("K3-I", "int", x, {}),
+                     ("K4", "bnd", x, {"th": dc._t_halos(x, lat, mesh, True, r_axis)}))
+            for name, variant, src, extra in cases:
+                if variant == "int" and mesh.local(lat).dims[0] < 4:
+                    continue
+                if mh is None and variant == "ext":  # one y slab: the y hops wrap
+                    name = "K1-T"
+                outs = []
+                for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain):
+                    out = torch.zeros_like(x)
+                    fn(fg.ug_odd, src, 1, lat, mesh, variant, out, mh=mh, gcomp=fg.gcomp,
+                       r_axis=r_axis, **extra)
+                    outs.append(out)
+                _sync(dev)
+                err, rel = _rel_err(*outs)
+                worst[name] = max(worst[name], err)
+                _check(rel <= KERNEL_RTOL, f"{name} mesh {shape} {gname} R axis {r_axis} off its "
+                                           f"plain version by {rel:.3e}")
+                _check(float(outs[0].abs().max()) > 0.0, f"{name} wrote nothing")
+        _say(f"[check] slab kernels on mesh {shape}: max|d| vs plain K3 {worst['K3']:.3e}, "
+             f"K3-I {worst['K3-I']:.3e}, K4 {worst['K4']:.3e}, K1-T {worst['K1-T']:.3e}")
+        # the assembled sharded hop against K1 on the whole lattice
+        for (hs, ov), (gname, fg), (r_axis, x), p in itertools.product(
+                itertools.product((True, False), (True, False)), gauges.items(),
+                inputs.items(), (0, 1)):
+            ug = fg.ug_even if p == 0 else fg.ug_odd
+            out = dc.hopping_shard(ug, x, p, lat, dataclasses.replace(
+                mesh, halfspinor=hs, overlap=ov), fg.gcomp, r_axis)
+            whole = _whole_hop(dc, fg, x, p, lat, r_axis)
+            _sync(dev)
+            err = float((out - whole).abs().max())
+            scale = float(whole.abs().max())
+            shard_err = max(shard_err, err / scale)
+            n_hops += 1
+            n_exact += err == 0.0
+            _check(err <= SHARD_RTOL * scale, f"sharded hop mesh {shape} hs={hs} ov={ov} {gname} "
+                                              f"R axis {r_axis} p={p} differs from K1 by {err:.3e}")
+    _say(f"[check] sharded hop (K3-I + K4, or K3) vs K1 / K1-R / K1-R-D / K1-B / K1-RB on the "
+         f"whole lattice: {n_hops} hops on meshes {SHARD_MESHES}, {n_exact} bit for bit, "
+         f"max rel {shard_err:.3e} (bound {SHARD_RTOL:.0e})")
+    # K1-T: t slabs with concatenated halos, the y hops wrapping in the slab
+    for t_shards, (gname, fg), hs in itertools.product((4, 2), gauges.items(), (True, False)):
+        mesh = parallel.Mesh(t_shards, 1, device=dev, halfspinor=hs)
+        for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+            out = dc.hopping_tshard(ug, psi, p, lat, mesh, fg.gcomp)
+            whole = _whole_hop(dc, fg, psi, p, lat, None)
+            ref = dc.hopping_slab_split_plain(ug, dc._t_halos(psi, lat, mesh, hs, ext=True), p,
+                                              lat, mesh, "ext", torch.zeros_like(psi),
+                                              gcomp=fg.gcomp)
+            _sync(dev)
+            err, rel = _rel_err(out, ref)
+            worst["K1-T"] = max(worst["K1-T"], err)
+            _check(rel <= KERNEL_RTOL, f"K1-T {t_shards} slabs {gname} p={p} off by {rel:.3e}")
+            d = float((out - whole).abs().max())
+            _check(d <= SHARD_RTOL * float(whole.abs().max()),
+                   f"K1-T {t_shards} slabs {gname} p={p} differs from K1 by {d:.3e}")
+    _say(f"[check] K1-T (t slabs 4 and 2, every gauge, both halo forms) vs plain max|d| "
+         f"{worst['K1-T']:.3e}, vs K1 within {SHARD_RTOL:.0e}")
+    # K1-RB: K1-R on the bf16 copies, against its plain version and R
+    # launches of K1-B (bit for bit with the epilogue none)
+    k2 = params.kappa ** 2
+    psis, psis_o = inputs[3], torch.randn_like(inputs[3])
+    for gname in ("18-real", "12-real"):
+        fgb = sloppy[gname]
+        for vname, epi in (("none", ("none",)), ("mhat+g5", ("mhat", params.mutld, 1.0, k2, True))):
+            kw = dict(epi=epi, gcomp=fgb.gcomp, **_epi_kw(epi, psis_o, None))
+            n0 = dc.hopping_split_rhs.bf16_launches
+            out = dc.hopping_split_rhs(fgb.ug_odd, psis, 1, lat, **kw)
+            _check(dc.hopping_split_rhs.bf16_launches == n0 + 1, "K1-RB launch not counted")
+            ref = dc.hopping_split_rhs_plain(fgb.ug_odd, psis, 1, lat, **kw)
+            _sync(dev)
+            err, rel = _rel_err(out, ref)
+            worst["K1-RB"] = max(worst["K1-RB"], err)
+            vs_k1b = 0.0
+            for r in range(NRHS):
+                one = dc.hopping_split(fgb.ug_odd, psis[:, :, :, r].contiguous(), 1, lat, epi=epi,
+                                       gcomp=fgb.gcomp,
+                                       **_epi_kw(epi, psis_o[:, :, :, r].contiguous(), None))
+                vs_k1b = max(vs_k1b, float((out[:, :, :, r] - one).abs().max()))
+            _say(f"[check] K1-RB R={NRHS} {vname:8s} {gname}: max|d| {err:.3e} (rel {rel:.2e}), "
+                 f"vs {NRHS} x K1-B {vs_k1b:.3e}")
+            _check(rel <= KERNEL_RTOL, f"K1-RB {vname} {gname} off by {rel:.3e}")
+            _check(vs_k1b <= (0.0 if epi[0] == "none" else KERNEL_RTOL * float(ref.abs().max())),
+                   f"K1-RB {vname} {gname} differs from K1-B by {vs_k1b:.3e}")
+    return worst, n_exact, n_hops
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -651,6 +811,128 @@ def phase_timings(lat16, lat32):
     return rows, bw
 
 
+def _slab_model(lat, mesh, variant: str, gbytes: int, nrhs: int = 1,
+                yhalo: bool = True) -> tuple[int, int]:
+    """(bytes, flops) of one slab-kernel launch over all slabs: each input
+    read once (the psi rows the variant's stencil reaches, its halo buffers,
+    the links of its sites) and each output written once; 96 B per spinor
+    site and column, 1320 flops per site and column.  K1-T (`yhalo` False)
+    reads no y halo."""
+    tl, xx, _, _ = mesh.local(lat).dims
+    tsh, msh, zh = mesh.t, mesh.y, lat.zh
+    row = xx * lat.m  # sites of one timeslice of the whole lattice
+    yrow = xx * msh * zh  # y-halo sites of one timeslice (both sides: x 2)
+    if variant == "int":
+        sites, psi_rows, halo = tsh * (tl - 2) * row, tsh * tl, 2 * tsh * (tl - 2) * yrow
+    elif variant == "bnd":
+        sites, psi_rows, halo = 2 * tsh * row, tsh * min(4, tl), 2 * tsh * row + 4 * tsh * yrow
+    else:  # "ext": K3 and K1-T
+        sites, psi_rows, halo = tsh * tl * row, tsh * (tl + 2), 2 * tsh * tl * yrow * yhalo
+    nbytes = sites * gbytes + nrhs * 96 * (psi_rows * row + halo + sites)
+    return nbytes, nrhs * FLOPS_SITE * sites
+
+
+def phase_shard_timings(lat16, lat32, bw: float):
+    """One sharded hop on the (4, 2) mesh in pieces (the y exchange, the t
+    pack, K3-I, K4, the whole hop with the overlap, K3 without it) beside K1
+    on the whole lattice, at 16^3x32 and 32^3x64, 12-real links; K1-T on 4 t
+    slabs; K1-RB at R = 12 beside f32 K1-R."""
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    rows = {}
+    mesh = parallel.Mesh(4, 2, device="cuda")
+    for lat in (lat16, lat32):
+        tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
+        params, fg18, fg12, psi, psi_o, _, sloppy = _fields(lat, "cuda", 33)
+        n = 200 if lat is lat16 else 50
+        ug, gc = fg12.ug_odd, fg12.gcomp
+        mh = dc._y_halos(psi, lat, mesh)
+        th, ext = dc._t_halos(psi, lat, mesh), dc._t_halos(psi, lat, mesh, ext=True)
+        out = torch.empty_like(psi)
+        k1 = _time_ms(lambda: dc.hopping_split(ug, psi, 1, lat, gcomp=gc), n)
+        y_ms = _time_ms(lambda: dc._y_halos(psi, lat, mesh), n)
+        t_ms = _time_ms(lambda: dc._t_halos(psi, lat, mesh), n)
+        timed = {
+            "K3-I": ("int", lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "int", out, mh=mh,
+                                                          gcomp=gc)),
+            "K4": ("bnd", lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "bnd", out, th=th,
+                                                        mh=mh, gcomp=gc)),
+            "K3": ("ext", lambda: dc.hopping_slab_split(ug, ext, 1, lat, mesh, "ext", out, mh=mh,
+                                                        gcomp=gc)),
+        }
+        parts = {}
+        for name, (variant, fn) in timed.items():
+            ms = _time_ms(fn, n)
+            plain = dc.hopping_slab_split_plain
+            pms = _time_ms(lambda: plain(ug, ext if variant == "ext" else psi, 1, lat, mesh,
+                                         variant, out, th=th if variant == "bnd" else None, mh=mh,
+                                         gcomp=gc), max(n // 10, 5))
+            nbytes, flops = _slab_model(lat, mesh, variant, 384)
+            bound = _bound_ms(nbytes, flops)
+            parts[name] = ms
+            rows[(tag, name)] = (ms, pms, *bound)
+            _say(f"[time] {name:4s} {tag} mesh (4,2) 12-real: kernel {ms * 1e3:8.1f} us "
+                 f"({nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth at {nbytes / 1e6:.2f} MB, "
+                 f"bound {bound[0] * 1e3:.1f} us by {bound[1]}, {nbytes / bw * 1e6:.1f} us at copy "
+                 f"bandwidth)  plain {pms * 1e3:9.1f} us")
+        whole = _time_ms(lambda: dc.hopping_shard(ug, psi, 1, lat, mesh, gcomp=gc), n)
+        flat_mesh = dataclasses.replace(mesh, overlap=False)
+        flat = _time_ms(lambda: dc.hopping_shard(ug, psi, 1, lat, flat_mesh, gcomp=gc), n)
+        rows[(tag, "hop")] = (whole, flat, k1)
+        _say(f"[time] sharded hop {tag} mesh (4,2): y exchange {y_ms * 1e3:.1f} us, t pack "
+             f"{t_ms * 1e3:.1f} us, K3-I {parts['K3-I'] * 1e3:.1f} us, K4 {parts['K4'] * 1e3:.1f} "
+             f"us, assembly 0 (both write the whole output); whole hop {whole * 1e3:.1f} us "
+             f"(overlap), {flat * 1e3:.1f} us (K3, no overlap); K1 on the whole lattice "
+             f"{k1 * 1e3:.1f} us ({whole / k1:.2f}x)")
+        # K1-T on 4 t slabs
+        tmesh = parallel.Mesh(4, 1, device="cuda")
+        text = dc._t_halos(psi, lat, tmesh, ext=True)
+        ms = _time_ms(lambda: dc.hopping_slab_split(ug, text, 1, lat, tmesh, "ext", out,
+                                                    gcomp=gc), n)
+        pms = _time_ms(lambda: dc.hopping_slab_split_plain(ug, text, 1, lat, tmesh, "ext", out,
+                                                           gcomp=gc), max(n // 10, 5))
+        nbytes, flops = _slab_model(lat, tmesh, "ext", 384, yhalo=False)
+        bound = _bound_ms(nbytes, flops)
+        rows[(tag, "K1-T")] = (ms, pms, *bound)
+        _say(f"[time] K1-T {tag} 4 t slabs 12-real: kernel {ms * 1e3:8.1f} us "
+             f"({nbytes / (ms * 1e-3) / bw:6.1%} of copy bandwidth, bound {bound[0] * 1e3:.1f} us "
+             f"by {bound[1]})  plain {pms * 1e3:9.1f} us  K1 {k1 * 1e3:.1f} us")
+        # K1-RB at R = 12 beside f32 K1-R, in turns
+        gen = torch.Generator(device="cuda").manual_seed(34)
+        psis = torch.randn((2, 4, 3, NRHS) + lat.eo_site_shape, generator=gen, device="cuda")
+        psis_o = torch.randn_like(psis)
+        k2 = params.kappa ** 2
+        epi = ("mhat", params.mutld, 1.0, k2, True)
+        fgb = sloppy["12-real"]
+        kw = dict(epi=epi, psi_o=psis_o)
+        f32_1 = _time_ms(lambda: dc.hopping_split_rhs(fg12.ug_odd, psis, 1, lat, gcomp=gc, **kw),
+                         max(n // 2, 10))
+        ms = _time_ms(lambda: dc.hopping_split_rhs(fgb.ug_odd, psis, 1, lat, gcomp=gc, **kw),
+                      max(n // 2, 10))
+        ms2 = _time_ms(lambda: dc.hopping_split_rhs(fgb.ug_odd, psis, 1, lat, gcomp=gc, **kw),
+                       max(n // 2, 10))
+        f32_2 = _time_ms(lambda: dc.hopping_split_rhs(fg12.ug_odd, psis, 1, lat, gcomp=gc, **kw),
+                         max(n // 2, 10))
+        pms = float("nan")
+        if lat is lat16:
+            pms = _time_ms(lambda: dc.hopping_split_rhs_plain(fgb.ug_odd, psis, 1, lat, gcomp=gc,
+                                                              **kw), 5)
+        site_bytes, site_flops = _model(epi, 192, NRHS)
+        sites = lat.volume // 2
+        bound = _bound_ms(site_bytes * sites, site_flops * sites)
+        rows[(tag, "K1-RB")] = (min(ms, ms2), pms, *bound, min(f32_1, f32_2))
+        _say(f"[time] K1-RB {tag} R={NRHS} 12-real mhat+g5: kernel {ms * 1e3:.1f}, "
+             f"{ms2 * 1e3:.1f} us ({site_bytes * sites / (min(ms, ms2) * 1e-3) / bw:6.1%} of copy "
+             f"bandwidth at {site_bytes} B/site, bound {bound[0] * 1e3:.1f} us by {bound[1]})  "
+             f"f32 K1-R {f32_1 * 1e3:.1f}, {f32_2 * 1e3:.1f} us  plain {pms * 1e3:.1f} us")
+        del params, fg18, fg12, psi, psi_o, sloppy, mh, th, ext, out, psis, psis_o, text
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
@@ -700,13 +982,26 @@ def _with_solver(cfg, solver: str):
         for m in cfg.monomials))
 
 
+def _with_mesh(cfg, mesh):
+    """`cfg` with every solving monomial (and the config) on `mesh`."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, mesh=mesh, monomials=tuple(
+        dataclasses.replace(m, mesh=mesh) if hasattr(m, "mesh") else m for m in cfg.monomials))
+
+
 def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False,
-                 solver=None):
+                 solver=None, mesh_shape=None, dh_whole=None):
     """One trajectory on the kernel path and on the plain path with the same
-    draws.  `solver` (mixedcg): the fermion monomials solve with it, at
-    MIXED_TOL (MIXED_TOL_CLOVER), and the kernel path runs the trajectory
-    with CG at the same tolerance as well, for |dH(solver) - dH(cg)|."""
+    draws; returns (|ddH|, dH of the kernel path).  `solver` (mixedcg): the
+    fermion monomials solve with it, at MIXED_TOL (MIXED_TOL_CLOVER), and the
+    kernel path runs the trajectory with CG at the same tolerance as well,
+    for |dH(solver) - dH(cg)|.  `mesh_shape`: every solve on the slab
+    kernels of that (t, y) mesh; `dh_whole`, the kernel path's dH without a
+    mesh, is printed beside it."""
     import torch
+
+    from tmlqcd_tpu_torch import parallel
 
     from tmlqcd_tpu_torch import rng, su3
     from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory
@@ -737,6 +1032,9 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
                                           maxiter=1000)
         bound, tag = DDH_BOUND, ""
     _check(cfg.lat.dims == lat.dims, "parity input was not derived as intended")
+    if mesh_shape is not None:
+        cfg = _with_mesh(cfg, parallel.Mesh(*mesh_shape, device=devs[0]))
+        tag += f"mesh {mesh_shape} "
     runs = [(dev, cfg) for dev in devs]
     if solver is not None:
         tag += f"{solver} "
@@ -779,7 +1077,10 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
         _check(kern.acc_iterations == plain.acc_iterations and 0 < kern.acc_iterations[1] < 1000,
                f"ndrat multishift iterations kernel {kern.acc_iterations} plain "
                f"{plain.acc_iterations}")
-    return ddh
+    if dh_whole is not None:
+        _say(f"[parity] {tag}|dH(mesh) - dH(no mesh)| on the kernel path: "
+             f"{abs(kern.delta_h - dh_whole):.3e}")
+    return ddh, kern.delta_h
 
 
 # ---------------------------------------------------------------------------
@@ -871,14 +1172,19 @@ def nf211_smoke_input(text: str, online_from: str) -> str:
 
 
 def _read_counts(dc) -> dict:
+    slab = dc.hopping_slab_split.launches
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
             "K1-C": dc.hopping_split.clover_launches,
             "K1-RC": dc.hopping_split_rhs.clover_launches,
             "K1-R-D": dc.hopping_split_rhs.doublet_launches,
             "K1-B": dc.hopping_split.bf16_launches,
+            "K1-RB": dc.hopping_split_rhs.bf16_launches,
+            "K3": slab["K3"], "K3-I": slab["K3-I"], "K4": slab["K4"], "K1-T": slab["K1-T"],
+            "slab R>0": dc.hopping_slab_split.rhs_launches,
             "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
-            "K2 plain": dc.hopping_ug_vjp_plain.calls}
+            "K2 plain": dc.hopping_ug_vjp_plain.calls,
+            "slab plain": dc.hopping_slab_split_plain.calls}
 
 
 def _check_no_plain(counts: dict) -> None:
@@ -1759,6 +2065,172 @@ def phase_mixed_hmc(workdir: str, secs_cg: list, cconf: str):
     return counts, secs, rec.calls, res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: main path 9, the domain-decomposed HMC on a slab mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_smoke_input(text: str, **keys) -> str:
+    """sample-input/hmc5-multichip.input with the global keys given (L, T,
+    Measurements, NSave, NrTProcs, NrYProcs) replaced; the action stays."""
+    out = []
+    for line in text.splitlines():
+        kv = re.match(r"^([A-Za-z0-9_]+)\s*=", line.split("#", 1)[0].strip())
+        if kv and kv.group(1) in keys:
+            line = f"{kv.group(1)} = {keys[kv.group(1)]}"
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+class _SolveRecorder:
+    """Wraps dispatch.solve_degenerate: the whole-lattice hopping launches
+    (K1, K1-R) made inside the solves, summed."""
+
+    def __init__(self, fn, dc):
+        self.fn, self.dc, self.k1, self.k1r, self.calls = fn, dc, 0, 0, 0
+
+    def __call__(self, *a, **k):
+        n0 = (self.dc.hopping_split.launches, self.dc.hopping_split_rhs.launches)
+        res = self.fn(*a, **k)
+        self.k1 += self.dc.hopping_split.launches - n0[0]
+        self.k1r += self.dc.hopping_split_rhs.launches - n0[1]
+        self.calls += 1
+        return res
+
+
+def _output_rows(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "output.data")) as f:
+        return [ln.split() for ln in f if ln.strip() and not ln.startswith("#")]
+
+
+def phase_mesh_hmc(workdir: str):
+    """`cli.hmc` on hmc5-multichip as shipped (4^3x8 on 4 x 2 slabs, K4
+    alone), then at 16^3x32 on 4 x 2 slabs (K3-I and K4) for 2 trajectories
+    beside the same input without a mesh, then one batched inversion of 12
+    point columns on its checkpoint under the mesh against the unsharded one."""
+    import numpy as np
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.inverter import invert_eo_rhs
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, d_full
+    from tmlqcd_tpu_torch.solvers import dispatch
+
+    # 1. hmc5 as shipped
+    run_dir = os.path.join(workdir, "run-mesh-hmc5")
+    rc, log, counts, wall = _run_cli(cli, ["-f", SAMPLE_MESH, "-o", run_dir])
+    _say(f"[main-mesh] cli.hmc hmc5-multichip as shipped exit {rc}, {wall:.1f} s wall; "
+         f"launches {counts}")
+    _check(rc == 0, f"cli.hmc (hmc5) returned {rc}")
+    _check("[hmc] device mesh {'t': 4, 'm': 2} over 1 devices (t x y slabs: 2 x 2, 8 slabs per "
+           "device)" in log, "cli.hmc did not print the mesh line of hmc5")
+    rows = _output_rows(run_dir)
+    _check(len(rows) == 4, f"output.data has {len(rows)} lines, expected 4")
+    for cols in rows:
+        _check(0.0 < float(cols[1]) < 1.0 and math.isfinite(float(cols[3])),
+               f"hmc5 trajectory off: {cols}")
+    arr, traj, _ = load_checkpoint(os.path.join(run_dir, "conf.000004.npz"))
+    _check(traj == 4 and bool(np.isfinite(arr).all()), "conf.000004.npz does not read back")
+    _check(counts["K4"] > 0 and counts["K3-I"] == 0, f"hmc5 slab launches: {counts}")
+    _check_no_plain(counts)
+    total = dict(counts)  # every run of path 9, summed
+    _say(f"[main-mesh] hmc5: plaquettes {[float(c[1]) for c in rows]}, s/trajectory "
+         f"{[float(c[6]) for c in rows]}; conf.000004.npz read back")
+
+    # 2. the same action at 16^3x32: on 4 x 2 slabs, then without a mesh
+    with open(SAMPLE_MESH) as f:
+        text = f.read()
+    secs, res_counts = {}, {}
+    for procs in ((4, 2), (1, 1)):
+        tag = f"{procs[0]}x{procs[1]}"
+        path = os.path.join(workdir, f"mesh-{tag}.input")
+        with open(path, "w") as f:
+            f.write(mesh_smoke_input(text, L=16, T=32, Measurements=2, NSave=2,
+                                     NrTProcs=procs[0], NrYProcs=procs[1]))
+        cfg = read_input(path)
+        _check(cfg.lat.dims == (32, 16, 16, 16) and cfg.measurements == 2
+               and cfg.nr_procs[0] == procs[0] and cfg.nr_procs[2] == procs[1]
+               and [m.type for m in cfg.monomials] == ["GAUGE", "DET"],
+               "the 16^3x32 mesh input was not derived as intended")
+        rec = _SolveRecorder(dispatch.solve_degenerate, dc)
+        run = os.path.join(workdir, f"run-mesh-{tag}")
+        rc, log, counts, wall = _run_cli(cli, ["-f", path, "-o", run],
+                                         [(dispatch, "solve_degenerate", rec)])
+        _check(rc == 0, f"cli.hmc (16^3x32, {tag}) returned {rc}")
+        rows = _output_rows(run)
+        _check(len(rows) == 2 and all(0.0 < float(c[1]) < 1.0 and math.isfinite(float(c[3]))
+                                      and int(c[8]) < 500 for c in rows),
+               f"16^3x32 {tag} trajectories off: {rows}")
+        secs[tag] = [float(c[6]) for c in rows]
+        res_counts[tag] = counts
+        _say(f"[main-mesh] 16^3x32 mesh {tag}: {wall:.1f} s wall, s/trajectory {secs[tag]}, "
+             f"acceptance iterations {[int(c[8]) for c in rows]}; {rec.calls} solves, inside "
+             f"them K1 {rec.k1}, K1-R {rec.k1r}; launches {counts}")
+        _check_no_plain(counts)
+        if procs == (4, 2):
+            _check(counts["K3-I"] > 0 and counts["K4"] > 0 and rec.k1 == 0 and rec.k1r == 0,
+                   f"the solves on the mesh did not run on K3-I / K4 alone: {counts}, inside "
+                   f"the solves K1 {rec.k1} K1-R {rec.k1r}")
+            conf = os.path.join(run, "conf.000002.npz")
+    _say(f"[main-mesh] s/trajectory at 16^3x32: 4 x 2 slabs {secs['4x2']}, no mesh "
+         f"{secs['1x1']} ({min(secs['4x2']) / min(secs['1x1']):.2f}x)")
+
+    # 3. 12 point columns under the mesh (the multi-RHS slab kernels): the
+    # default mesh (K3-I / K4), without overlap (K3), and on t slabs alone
+    # without overlap (K1-T), each beside the batched CG on the whole lattice
+    cfg = read_input(os.path.join(workdir, "mesh-4x2.input"))
+    lat, det = cfg.lat, cfg.monomials[1]
+    params = DiracParams(kappa=det.kappa, mu=det.two_kappa_mu / (2 * det.kappa))
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    bs = torch.stack([point_source(lat, sp, c, (0, 0, 0, 0), device="cuda")
+                      for sp in range(4) for c in range(3)])
+    runs = (("whole", None, ()),
+            ("mesh (4,2)", parallel.Mesh(4, 2, device="cuda"), ("K3-I", "K4")),
+            ("mesh (4,2) no overlap", parallel.Mesh(4, 2, device="cuda", overlap=False),
+             ("K3",)),
+            ("t slabs (4,1) no overlap", parallel.Mesh(4, 1, device="cuda", overlap=False),
+             ("K1-T",)))
+    # path 9's launches: the runs through a mesh, not their baselines
+    for key, value in res_counts["4x2"].items():
+        total[key] += value
+    ref = None
+    for name, mesh, kernels in runs + runs[1:2]:
+        dc.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = invert_eo_rhs(u, bs, params, lat, tol=1e-7, maxiter=MAXITER, mesh=mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cm = _read_counts(dc)
+        if mesh is not None:
+            for key, value in cm.items():
+                total[key] += value
+        _check_no_plain(cm)
+        worst = max(float(torch.linalg.vector_norm(d_full(u, res.x[i], params, lat) - bs[i]))
+                    for i in range(NRHS))  # |b| = 1
+        _check(worst <= RESIDUAL_BOUND, f"{name}: a column's |M x - b| / |b| is {worst:.3e}")
+        if ref is None:
+            ref = res
+        diff = float((res.x - ref.x).abs().max())
+        scale = float(ref.x.abs().max())
+        _check(diff <= BATCH_VS_SINGLE * scale, f"{name}: the solution differs by {diff:.3e}")
+        _check(res.iterations == ref.iterations < MAXITER,
+               f"{name}: {res.iterations} iterations, whole lattice {ref.iterations}")
+        _check(all(cm[k] > 0 for k in kernels) and (mesh is None or cm["K1-R"] == 4),
+               f"{name}: launches {cm}")
+        _say(f"[main-mesh] invert_eo_rhs 12 columns, {name}: {res.iterations} "
+             f"iterations, {dt:.3f} s, true residual max {worst:.3e}, max|x - x_whole| "
+             f"{diff:.3e} (max|x| {scale:.3e}); launches " +
+             ", ".join(f"{k} {v}" for k, v in cm.items() if v))
+    return total, secs
+
+
 def main() -> int:
     if not (os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch"))
             and all(os.path.exists(f) for f in (SAMPLE, SAMPLE_CLOVER, SAMPLE_NF211,
@@ -1786,14 +2258,21 @@ def main() -> int:
         done("1 card and build")
         lat16 = Lattice((32, 16, 16, 16))
         worst = phase_kernels(lat16)
+        slab_worst, _, _ = phase_shard_kernels(lat16)
+        worst.update(slab_worst)
         done("2 kernel checks")
-        rows, _ = phase_timings(lat16, Lattice((64, 32, 32, 32)))
+        lat32 = Lattice((64, 32, 32, 32))
+        rows, bw = phase_timings(lat16, lat32)
+        rows.update(phase_shard_timings(lat16, lat32, bw))
         done("3 timings")
-        phase_parity()
-        phase_parity(clover=True)
-        phase_parity(ndrat=True)
+        _, dh_tm = phase_parity()
+        _, dh_clover = phase_parity(clover=True)
+        _, dh_ndrat = phase_parity(ndrat=True)
         phase_parity(solver="mixedcg")
         phase_parity(clover=True, solver="mixedcg")
+        phase_parity(mesh_shape=(2, 2), dh_whole=dh_tm)
+        phase_parity(clover=True, mesh_shape=(2, 2), dh_whole=dh_clover)
+        phase_parity(ndrat=True, mesh_shape=(2, 2), dh_whole=dh_ndrat)
         done("4 parity trajectories")
         with tempfile.TemporaryDirectory() as workdir:
             hmc_counts, hmc_secs, conf = phase_main_path(workdir)
@@ -1832,20 +2311,24 @@ def main() -> int:
             done("11 main path 7")
             mhmc_counts, _, _, _ = phase_mixed_hmc(workdir, hmc_secs, cconf)
             done("12 main path 8")
+            mesh_counts, _ = phase_mesh_hmc(workdir)
+            done("13 main path 9")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     src = "tmlqcd_tpu_torch/csrc/hopping.cu"
+    slab_src = "tmlqcd_tpu_torch/csrc/hopping_slab.cu"
 
     paths = {"launches_hmc": hmc_counts, "launches_invert": inv_counts,
              "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts,
              "launches_hmc_nf211": nhmc_counts, "launches_invert_doublet": dinv_counts,
-             "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts}
+             "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts,
+             "launches_hmc_mesh": mesh_counts}
 
-    def entry(name, replaces, key, row):
+    def entry(name, replaces, key, row, source=src):
         ms, plain_ms, bound_ms, bound_by = row[:4]
         per_path = {k: c[key] for k, c in paths.items()}
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(per_path.values()), **per_path,
                 "max_abs_err": worst[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
@@ -1865,6 +2348,16 @@ def main() -> int:
               "K1-R-D", rows[("16x16x16x32", "K1-R-D", "12-real")]),
         entry("hopping_split bf16 gauge (K1-B)", "tmlqcd_tpu/ops/dslash_pallas.py:186", "K1-B",
               rows[("16x16x16x32", "K1-B", "12-real", "mhat+g5")]),
+        entry("hopping_split_rhs bf16 gauge (K1-RB)", "tmlqcd_tpu/ops/dslash_pallas.py:491",
+              "K1-RB", rows[("16x16x16x32", "K1-RB")]),
+        entry("hopping_slab_split ext (K3)", "tmlqcd_tpu/ops/dslash_pallas.py:1228", "K3",
+              rows[("16x16x16x32", "K3")], slab_src),
+        entry("hopping_slab_split int (K3-I)", "tmlqcd_tpu/ops/dslash_pallas.py:1267", "K3-I",
+              rows[("16x16x16x32", "K3-I")], slab_src),
+        entry("hopping_slab_split bnd (K4)", "tmlqcd_tpu/ops/dslash_pallas.py:1307", "K4",
+              rows[("16x16x16x32", "K4")], slab_src),
+        entry("hopping_tshard (K1-T)", "tmlqcd_tpu/ops/dslash_pallas.py:997", "K1-T",
+              rows[("16x16x16x32", "K1-T")], slab_src),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,9 @@ epilogues for K1 and K1-R, the split-field operators on them
 
 Inputs come from seeded numpy generators through `bridge` and go to both
 packages as numpy arrays.  The port runs its plain path (CPU tensors).  The
-reference runs its jnp operators, except in the two epilogue cases that hold
-the plain versions against its Pallas kernel in interpret mode.
+reference runs its jnp operators.  The two epilogue cases that hold the
+plain versions against its Pallas kernel in interpret mode, and the clover
+force surrogate, are in tests/test_torch_clover_kernel.py.
 
 Tolerances, each derived where it is used:
 * complex128 inputs: 1e-12 on entries of O(1): the same closed forms in f64,
@@ -24,12 +25,9 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from tmlqcd_tpu.lattice import EVEN as J_EVEN
-from tmlqcd_tpu.lattice import ODD as J_ODD
 from tmlqcd_tpu.lattice import Lattice as JLattice
 from tmlqcd_tpu.lattice import pack_gauge_eo as j_pack
 from tmlqcd_tpu.ops import clover as jcl
-from tmlqcd_tpu.ops import dslash_pallas as jdp
 from tmlqcd_tpu.ops import wilson as jw
 from tmlqcd_tpu.ops import wilson_fast as jwf
 from tmlqcd_tpu_torch import bridge
@@ -171,46 +169,6 @@ def test_clover_operator_at_csw_zero_is_twisted_mass(fields):
     assert _maxdiff(fast, ref) < 2e-6
 
 
-# ---------------------------------------------------------------------------
-# the plain clov_inv / clov_mhat epilogues of K1 and K1-R
-# ---------------------------------------------------------------------------
-
-
-def _split_np(t):
-    return jnp.asarray(bridge.to_numpy(t))
-
-
-@pytest.mark.parametrize("case", ["clov_inv 12-real", "clov_mhat+g5 18-real"])
-def test_clover_epilogues_match_reference_kernel(fields, case):
-    """The reference's Pallas kernel in interpret mode, with the reference's
-    own block fields carried over by `bridge`: clov_inv on the even sites
-    (M_ee^-1 blocks, 12-real gauge) and clov_mhat with gamma5 on the odd
-    sites (M_oo blocks, 18-real gauge).  1e-5 on outputs of O(10): f32 on
-    both sides, another summation order (measured 2.4e-6)."""
-    compress = case.endswith("12-real")
-    jfc = fields["jfc"]
-    jfg = jwf.make_fast_gauge(jnp.asarray(fields["u"]), JP, JL, compress=compress)
-    fg = bridge.fast_gauge_from_numpy(np.asarray(jfg.ug_even), np.asarray(jfg.ug_odd), jfg.gcomp)
-    fc = bridge.fast_clover_from_numpy(fg, *(np.asarray(getattr(jfc, n)) for n in
-                                             ("moo_p", "moo_m", "mee_inv_p", "mee_inv_m")), LAT)
-    p2 = wf.to_split(fields["pt"])
-    if case.startswith("clov_inv"):
-        ref = jdp.hopping_pallas_split(jfg.ug_even, _split_np(p2), J_EVEN, JL, interpret=True,
-                                       epi=("clov_inv",), blocks=jfc.mee_inv_p, gcomp=jfg.gcomp)
-        out = dc.hopping_split(fg.ug_even, p2, EVEN, LAT, epi=("clov_inv",),
-                               blocks=fc.mee_inv_p, gcomp=fg.gcomp)
-    else:
-        po2 = wf.to_split(bridge.spinor_from_numpy(fields["psis"][0], LAT))
-        epi = ("clov_mhat", K2, True)
-        ref = jdp.hopping_pallas_split(jfg.ug_odd, _split_np(p2), J_ODD, JL, interpret=True,
-                                       epi=epi, blocks=jfc.moo_m, psi_o=_split_np(po2),
-                                       gcomp=jfg.gcomp)
-        out = dc.hopping_split(fg.ug_odd, p2, ODD, LAT, epi=epi, blocks=fc.moo_m, psi_o=po2,
-                               gcomp=fg.gcomp)
-    assert float(np.max(np.abs(np.asarray(ref)))) > 1.0
-    assert _maxdiff(out, ref) < 1e-5
-
-
 @pytest.mark.parametrize("sign", [+1.0, -1.0])
 def test_fused_clover_schur_complement_matches_reference_operator(fields, sign):
     """Both epilogues in sequence, M_oo psi - k^2 H_oe M_ee^-1 H_eo psi with
@@ -327,35 +285,6 @@ def test_q_hat_pm_clover_fast_rhs_matches_single(fields):
     # the flavour-doublet axis carries no fused epilogue
     with pytest.raises(ValueError, match="epilogue 'none' only"):
         wf.q_hat_pm_clover_fast(fc, p7, TP, LAT, r_axis=1)
-
-
-def test_q_hat_clover_diff_matches_fused_operator_and_reference_gradient(fields):
-    """Forward: the differentiable operator equals the fused one.  Backward:
-    the gradient of Re<y, Qsw_+(U) x> with respect to U (hops through
-    HoppingDiff, blocks through autograd of sw_blocks) against jax.grad of
-    the reference's complex operator.  1e-5 on gradients of O(1): f32
-    operators on both sides, f64 sums (measured 3.6e-7)."""
-    from tmlqcd_tpu_torch.ops.gauge_action import torch_grad_to_jax
-
-    x2 = wf.to_split(fields["pt"])
-    y = bridge.spinor_from_numpy(fields["psis"][1], LAT)
-    y2 = wf.to_split(y)
-    uu = fields["ut"].clone().requires_grad_(True)
-    parts = wf.split_clover_pair(uu, TP, LAT, +1.0)
-    assert [tuple(p.shape[:2]) for p in parts] == [(2, 8), (2, 8), (2, 2), (2, 2)]
-    qx = wf.q_hat_clover_diff(*parts, x2, TP, LAT)
-    assert _maxdiff(qx.detach(), wf.q_hat_clover_fast(fields["fc"], x2, TP, LAT, +1.0)) < 2e-6
-    (g,) = torch.autograd.grad(wf.dot_re_f64_split(y2, qx), uu)
-
-    def j_s(u):
-        sw_e, sw_o = jcl.sw_blocks_eo(u, JP.kappa, JP.c_sw, JL)
-        q = jcl.q_hat_clover(j_pack(u, JL), sw_e, sw_o, jnp.asarray(fields["psi"]), JP, JL,
-                             jw.boundary_phases(JP, JL), +1.0)
-        return jnp.sum(jnp.real(jnp.conj(jnp.asarray(fields["psis"][1])) * q).astype(jnp.float64))
-
-    ref = jax.jit(jax.grad(j_s))(jnp.asarray(fields["u"]))
-    assert float(np.max(np.abs(np.asarray(ref)))) > 0.1
-    assert _maxdiff(torch_grad_to_jax(g), ref) < 1e-5
 
 
 def test_eo_pack_of_blocks_round_trips(fields):

@@ -35,6 +35,16 @@ from tmlqcd_tpu_torch.lattice import Lattice
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _quick_reference_compiles():
+    """XLA's backend optimisations off while this module runs: the
+    reference's clover trajectory takes far longer to compile than to run."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 DIMS = (4, 4, 4, 4)
 JL, LAT = JLattice(DIMS), Lattice(DIMS)
 SAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

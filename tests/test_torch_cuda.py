@@ -12,6 +12,7 @@ and differ by summation order and FMA contraction, ~1e-7 of the output
 scale; RTOL = 1e-5 of max|plain| (an indexing or sign error is O(1)).
 """
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
@@ -424,9 +425,16 @@ def test_bf16_gauge_hopping_kernel_matches_plain(cuda, dims, compress):
             out = dc.hopping_split(ug, psi, p, lat, **kw)
             assert dc.hopping_split.bf16_launches == n + 1
             assert _close(out, dc.hopping_split_plain(ug, psi, p, lat, **kw)), (p, epi)
+    # K1-RB: K1-R on the bf16 copy, its plain version and column by column
+    # K1-B (bit for bit with the epilogue none)
     batch = torch.stack([psi, psi_o], dim=3).contiguous()
-    with pytest.raises(TypeError, match="hopping_split_rhs"):
-        dc.hopping_split_rhs(fg.ug_odd, batch, 1, lat, gcomp=fg.gcomp)
+    n = dc.hopping_split_rhs.bf16_launches
+    out = dc.hopping_split_rhs(fg.ug_odd, batch, 1, lat, gcomp=fg.gcomp)
+    assert dc.hopping_split_rhs.bf16_launches == n + 1
+    assert _close(out, dc.hopping_split_rhs_plain(fg.ug_odd, batch, 1, lat, gcomp=fg.gcomp))
+    for r in range(2):
+        assert torch.equal(out[:, :, :, r], dc.hopping_split(
+            fg.ug_odd, batch[:, :, :, r].contiguous(), 1, lat, gcomp=fg.gcomp))
 
 
 @pytest.mark.parametrize("solver", ["fastmixed", "dflfgmres"])
@@ -483,3 +491,141 @@ def test_mixedcg_trajectory_kernel_path_matches_plain_path(cuda):
             assert dc.hopping_split.bf16_launches > 0 and dc.hopping_split_plain.calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 3e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the slab kernels (K3, K3-I, K4, K1-T) and the sharded hop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 2), (2, 1)])
+@pytest.mark.parametrize("gauge", ["12real", "18real-bf16"])
+def test_slab_kernels_match_plain_and_k1(cuda, shape, gauge):
+    """Each slab kernel against its plain version on the same halos, and the
+    assembled sharded hop against K1 / K1-R / K1-R-D on the whole lattice at
+    16 x 8^3 (T_loc = 4 or 8: K3-I and K4; without overlap K3, or K1-T on
+    t slabs alone), one spinor, R = 5 and the doublet, every (halfspinor,
+    overlap) pair.  The slab kernels run K1's
+    per-site sum on the same neighbour values: 1e-6 of max|K1| (bit equality
+    expected)."""
+    from tmlqcd_tpu_torch import parallel
+
+    lat, u, (psi, _, _) = _setup((16, 8, 8, 8), cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=gauge == "12real",
+                            sloppy=gauge.endswith("bf16"))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    inputs = {None: psi,
+              3: torch.randn((2, 4, 3, 5) + lat.eo_site_shape, generator=gen, device=cuda),
+              1: torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=cuda)}
+    mesh = parallel.Mesh(*shape, device=cuda)
+    for r_axis, x in inputs.items():
+        mh = dc._y_halos(x, lat, mesh, True, r_axis)
+        for variant, src, extra in (("ext", dc._t_halos(x, lat, mesh, True, r_axis, ext=True), {}),
+                                    ("int", x, {}),
+                                    ("bnd", x, {"th": dc._t_halos(x, lat, mesh, True, r_axis)})):
+            outs = [fn(fg.ug_even, src, 0, lat, mesh, variant, torch.zeros_like(x), mh=mh,
+                       gcomp=fg.gcomp, r_axis=r_axis, **extra)
+                    for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain)]
+            assert _close(*outs), (variant, r_axis)
+        for hs in (True, False):
+            for ov in (True, False):
+                for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+                    n = dict(dc.hopping_slab_split.launches)
+                    out = dc.hopping_shard(ug, x, p, lat, dataclasses.replace(
+                        mesh, halfspinor=hs, overlap=ov), fg.gcomp, r_axis)
+                    if r_axis is None:
+                        whole = dc.hopping_split(ug, x, p, lat, gcomp=fg.gcomp)
+                    else:
+                        whole = dc.hopping_split_rhs(ug, x, p, lat, gcomp=fg.gcomp,
+                                                     r_axis=r_axis)
+                    err = float((out - whole).abs().max())
+                    assert err <= 1e-6 * float(whole.abs().max()), (hs, ov, r_axis, p, err)
+                    ran = {k: v - n[k] for k, v in dc.hopping_slab_split.launches.items()}
+                    # without overlap K3, or K1-T on t slabs alone
+                    assert ran == ({"K3": 0, "K3-I": 1, "K4": 1, "K1-T": 0} if ov
+                                   else {"K3": int(shape[1] > 1), "K3-I": 0, "K4": 0,
+                                         "K1-T": int(shape[1] == 1)})
+
+
+def test_tshard_kernel_matches_plain_and_k1(cuda):
+    """K1-T (t slabs with concatenated halos, the y hops wrapping inside the
+    slab) against its plain version and K1."""
+    from tmlqcd_tpu_torch import parallel
+
+    lat, u, (psi, _, _) = _setup((16, 8, 8, 8), cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat)
+    for t_shards in (2, 4, 8):
+        mesh = parallel.Mesh(t_shards, 1, device=cuda)
+        n = dc.hopping_slab_split.launches["K1-T"]
+        out = dc.hopping_tshard(fg.ug_odd, psi, 1, lat, mesh, fg.gcomp)
+        assert dc.hopping_slab_split.launches["K1-T"] == n + 1
+        ref = dc.hopping_slab_split_plain(fg.ug_odd, dc._t_halos(psi, lat, mesh, ext=True), 1,
+                                          lat, mesh, "ext", torch.zeros_like(psi), gcomp=fg.gcomp)
+        assert _close(out, ref)
+        whole = dc.hopping_split(fg.ug_odd, psi, 1, lat, gcomp=fg.gcomp)
+        assert float((out - whole).abs().max()) <= 1e-6 * float(whole.abs().max())
+
+
+def test_sharded_trajectory_kernel_path_matches_plain_path(cuda):
+    """One 8^4 twisted-mass Hasenbusch trajectory with every solve on the
+    slab kernels of a (2, 2) mesh (T_loc = 4: K3-I and K4), on CUDA tensors
+    and on CPU tensors (the plain versions) with the same draws; |ddH| <=
+    3e-3 as for the unsharded 8^4 trajectory of chip_smoke.py (f32 rounding
+    of |H| ~ 2.4e5 in two summation orders); the same iteration counts."""
+    import dataclasses
+
+    from tmlqcd_tpu_torch import parallel
+
+    lat = Lattice((8, 8, 8, 8))
+    cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
+                                      steps=(1, 1, 2), acc_tol=1e-10, force_tol=1e-10)
+    mesh = parallel.Mesh(2, 2, device=cuda)
+    cfg = dataclasses.replace(cfg, mesh=mesh, monomials=tuple(
+        dataclasses.replace(m, mesh=mesh) if hasattr(m, "mesh") else m for m in cfg.monomials))
+    key = rng.Key(17)
+    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    mom = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+    etas = [None] + [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
+                     for i in (1, 2)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        dc.reset_counters()
+        d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
+        _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+        if dev.type == "cuda":
+            assert dc.hopping_slab_split.launches["K3-I"] > 0
+            assert dc.hopping_slab_split.launches["K4"] > 0
+            assert dc.hopping_slab_split_plain.calls == 0
+    assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 3e-3
+    assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
+
+
+@pytest.mark.parametrize("mesh_shape,overlap", [((2, 2), True), ((2, 1), False)],
+                         ids=["2x2", "2x1-K1T"])
+def test_batched_inversion_runs_the_multirhs_slabs(cuda, mesh_shape, overlap):
+    """invert_eo_rhs under a mesh at 8^4 on CUDA tensors: the batched CG on
+    the multi-RHS slab kernels (K3-I / K4, or K1-T on t slabs without the
+    overlap); no plain version is called; the true residual |M x - b| / |b|
+    <= 1e-5 (tol 1e-7) and the solution within 2e-5 of the CPU plain path's."""
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.inverter import invert_eo_rhs
+    from tmlqcd_tpu_torch.ops.wilson import d_full
+
+    lat, u, _ = _setup((8, 8, 8, 8), cuda)
+    g = np.random.default_rng(12)
+    bs = bridge.sources_from_numpy(bridge.numpy_spinor(g, (4, 4, 3) + lat.site_shape), lat)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = parallel.Mesh(*mesh_shape, device=dev, overlap=overlap)
+        dc.reset_counters()
+        out[dev.type] = invert_eo_rhs(u.to(dev), bs.to(dev), PARAMS, lat, tol=1e-7, maxiter=500,
+                                      mesh=mesh)
+        if dev.type == "cuda":
+            assert dc.hopping_split_plain.calls == dc.hopping_split_rhs_plain.calls == 0
+            assert dc.hopping_slab_split_plain.calls == 0
+            assert dc.hopping_slab_split.rhs_launches > 0
+    x = out["cuda"].x
+    for r in range(4):
+        res = torch.linalg.vector_norm(d_full(u, x[r], PARAMS, lat) - bs[r].to(cuda))
+        assert float(res / torch.linalg.vector_norm(bs[r])) <= 1e-5
+    assert float((x.cpu() - out["cpu"].x).abs().max()) <= 2e-5

@@ -1,6 +1,7 @@
-"""The deflation preconditioner and the inverter's new solvers against the
-JAX reference (tmlqcd_tpu) on the CPU, and `cli.invert --cpu` with each
-solver.
+"""The deflation preconditioner and the deflated solvers against the JAX
+reference (tmlqcd_tpu) on the CPU, and `cli.invert --cpu` with each solver.
+The mixed solvers, increigcg and the clover inverter's solver names are in
+tests/test_torch_invert_solvers.py.
 
 The reference's subspace draws are injected into the port's setup (`v0`),
 so both build their little operator from the same start; the reference runs
@@ -38,17 +39,11 @@ from tmlqcd_tpu.lattice import pack_gauge_eo as j_pack
 from tmlqcd_tpu.ops import wilson as jw
 from tmlqcd_tpu.solvers.cg import cg as j_cg
 from tmlqcd_tpu_torch import bridge, config, config_tmlqcd, rng
-from tmlqcd_tpu_torch.inverter import (
-    invert_clover_eo,
-    invert_eo,
-    invert_eo_increigcg,
-    make_deflation_setup,
-)
+from tmlqcd_tpu_torch.inverter import invert_eo, make_deflation_setup
 from tmlqcd_tpu_torch.io import checkpoint
 from tmlqcd_tpu_torch.lattice import Lattice, eo_pack
 from tmlqcd_tpu_torch.meas.sources import z2_timeslice_source
 from tmlqcd_tpu_torch.ops import clover as cl
-from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 from tmlqcd_tpu_torch.ops import wilson as w
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.solvers.deflation import setup_deflation, vcycle
@@ -113,7 +108,7 @@ def system():
         return bhat, j_cg(qpm, rhs, tol=TOL, maxiter=500)
 
     bhat, ref_cg = odd_systems(jnp.asarray(src))
-    return dict(ut=ut, src=src, b=bridge.sources_from_numpy(src, LAT), jmh=jmh, js=js,
+    return dict(u=u, ut=ut, src=src, b=bridge.sources_from_numpy(src, LAT), jmh=jmh, js=js,
                 bhat=bhat, ts=make_deflation_setup(ut, TP, LAT, n_vectors=4, v0=v0),
                 ref_cg=ref_cg)
 
@@ -176,54 +171,6 @@ def test_dflgcr_invert_eo_matches_reference_cg(system):
     assert _true_residual(system["ut"], out.x, system["b"]) < 1e-5
     own = invert_eo(system["ut"], system["b"], TP, LAT, tol=TOL, maxiter=500, solver="dflgcr")
     assert _maxdiff(_odd(own.x), ref.x) < 1e-5
-
-
-@pytest.mark.parametrize("solver", ["fastmixed", "mixedcg"])
-def test_mixed_invert_eo_matches_reference_cg(system, solver):
-    """mixedcg (both levels f32) and fastmixed (inner solves on the bf16
-    copy) against the reference's CG solution."""
-    dc.reset_counters()
-    out = invert_eo(system["ut"], system["b"], TP, LAT, tol=TOL, maxiter=500, solver=solver)
-    ref = system["ref_cg"]
-    assert out.iterations >= int(ref.iterations) > 5
-    assert _maxdiff(_odd(out.x), ref.x) < 1e-5
-    assert _true_residual(system["ut"], out.x, system["b"]) < 1e-5
-    # the CPU path ran the plain hop, on bf16 links for fastmixed's inner solves
-    assert dc.hopping_split.launches == 0 and dc.hopping_split_plain.calls > 4 * out.iterations
-
-
-def test_increigcg_matches_reference_cg(system):
-    """Three columns in sequence: the first is plain CG (the reference's
-    count), later ones start from the accumulated basis."""
-    src2 = np.roll(system["src"], 1, axis=2)
-    src3 = bridge.numpy_spinor(np.random.default_rng(42), (4, 3) + JL.site_shape)
-    bs = [system["b"]] + [bridge.sources_from_numpy(s, LAT) for s in (src2, src3)]
-    outs = invert_eo_increigcg(system["ut"], bs, TP, LAT, tol=TOL, maxiter=500, nev=2, m=8,
-                               max_vectors=8)
-    ref = system["ref_cg"]
-    assert outs[0].iterations == int(ref.iterations)
-    assert _maxdiff(_odd(outs[0].x), ref.x) < 1e-5
-    for out, b in zip(outs, bs):
-        assert _true_residual(system["ut"], out.x, b) < 1e-5
-    assert outs[2].iterations < int(ref.iterations) + 10
-
-
-def test_clover_solver_names(system):
-    """invert_clover_eo carries cg, fastcg and mixedcg; any other carried
-    name runs CG (the reference's else), and says so."""
-    params = w.DiracParams(kappa=0.13, mu=0.04, c_sw=1.2)
-    ut, b = system["ut"], system["b"]
-    cg_ = invert_clover_eo(ut, b, params, LAT, tol=TOL, maxiter=500)
-    mixed = invert_clover_eo(ut, b, params, LAT, tol=TOL, maxiter=500, solver="mixedcg")
-    assert _maxdiff(mixed.x, cg_.x) < 1e-5 and mixed.iterations >= cg_.iterations
-    sw = cl.sw_blocks(ut, params.kappa, params.c_sw, LAT)
-    res = (cl.sw_apply(sw, mixed.x, params.mutld, +1.0)
-           - params.kappa * w.dslash_full(ut, mixed.x, w.boundary_phases(params, LAT), LAT))
-    assert float(torch.linalg.vector_norm(res - b) / torch.linalg.vector_norm(b)) < 1e-5
-    other = invert_clover_eo(ut, b, params, LAT, tol=TOL, maxiter=500, solver="dflgcr")
-    assert torch.equal(other.x, cg_.x) and other.iterations == cg_.iterations
-    with pytest.raises(ValueError, match="unknown solver"):
-        invert_clover_eo(ut, b, params, LAT, solver="nope")
 
 
 _CLI_INPUT = """L = 4

@@ -2,14 +2,13 @@
 versions with the JAX reference (tmlqcd_tpu), on the CPU.
 
 The same inputs, drawn from a seeded numpy generator (`bridge.numpy_su3`,
-`bridge.numpy_spinor`), go through the JAX function and its port.  The
-hopping (epilogue none, 18-real), the gauge-cotangent kernel and the
-differentiable hopping are checked against the reference's Pallas kernels in
-interpret mode (one `hopping_diff` VJP, as the reference's own tests run the
-kernels on the CPU); every (epilogue x 18/12-real) variant on the main path
-is checked against the reference's jnp composition (dslash_packed + mee_*),
-which for the 12-real copy also checks the row-2 reconstruction against the
-full links.
+`bridge.numpy_spinor`), go through the JAX function and its port.  Every
+(epilogue x 18/12-real) variant on the main path is checked against the
+reference's jnp composition (dslash_packed + mee_*), which for the 12-real
+copy also checks the row-2 reconstruction against the full links.  The
+hopping (epilogue none, 18-real), the gauge-cotangent
+kernel and the differentiable hopping against the reference's Pallas
+kernels in interpret mode are in tests/test_torch_dirac_kernel.py.
 
 Tolerance: ATOL = 1e-5 absolute on unit-normal inputs.  Both sides compute
 in f32 (complex64); an output component sums ~50 products of O(1) numbers in
@@ -93,9 +92,10 @@ def test_gamma_matrices_match_reference():
 
 
 def test_cuda_source_w_table_matches_gamma():
-    """The CUDA kernel hard-codes the half-spinor maps W (1 -/+ gamma_mu =
-    W W^+) as integer codes; they must equal the maps derived from GAMMA."""
-    with open(dc._CSRC + "/hopping.cu") as f:
+    """The CUDA kernels hard-code the half-spinor maps W (1 -/+ gamma_mu =
+    W W^+) as integer codes (in the header every kernel source includes);
+    they must equal the maps derived from GAMMA."""
+    with open(dc._CSRC + "/hopping_common.cuh") as f:
         rows = re.findall(r"W-TABLE d=(\d) 2:(\d),(\d) 3:(\d),(\d)", f.read())
     assert len(rows) == 8
     value = {0: 0, 1: 1, 2: -1, 3: 1j, 4: -1j}
@@ -216,50 +216,6 @@ def test_hopping_plain_matches_jnp_composition(fields, variant, compress):
         out = dc.hopping_split(ug, psi2, p, lat, epi=epi,
                                psi_o=psi_o2 if epi[0] == "mhat" else None, gcomp=fg.gcomp)
         assert _maxdiff(wf.from_split(out), _jnp_reference(fields, p, epi)) < ATOL
-
-
-# ---------------------------------------------------------------------------
-# K2 and HoppingDiff against the reference's hopping_diff VJP (interpret)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def hopping_vjp():
-    """One reference VJP of hopping_diff at 4^4, parity 0: its forward is the
-    Pallas K1 (none, 18-real), its ug cotangent is the Pallas K2."""
-    jl, lat = JLattice((4, 4, 4, 4)), Lattice((4, 4, 4, 4))
-    u = _gauge(9, jl)
-    fg = jwf.make_fast_gauge(u, jw.DiracParams(kappa=KAPPA, mu=MU), jl, compress=False)
-    psi2 = jwf.to_split(_spinor(10, (4, 3) + jl.eo_site_shape))
-    g2 = jwf.to_split(_spinor(11, (4, 3) + jl.eo_site_shape))
-    out, vjp = jax.vjp(lambda a, b: jdp.hopping_diff(a, fg.ug_odd, b, 0, jl, True),
-                       fg.ug_even, psi2)
-    dug, dpsi = vjp(g2)
-    arrays = dict(ug_e=fg.ug_even, ug_o=fg.ug_odd, psi2=psi2, g2=g2, out=out, dug=dug, dpsi=dpsi)
-    return lat, {k: np.array(v) for k, v in arrays.items()}
-
-
-def test_hopping_plain_none_18real_matches_pallas_kernel(hopping_vjp):
-    lat, a = hopping_vjp
-    out = dc.hopping_split(torch.as_tensor(a["ug_e"]), torch.as_tensor(a["psi2"]), 0, lat)
-    assert _maxdiff(out, a["out"]) < ATOL
-
-
-def test_ug_vjp_plain_matches_pallas_kernel(hopping_vjp):
-    lat, a = hopping_vjp
-    out = dc.hopping_ug_vjp(torch.as_tensor(a["g2"]), torch.as_tensor(a["psi2"]), 0, lat)
-    assert _maxdiff(out, a["dug"]) < ATOL
-
-
-def test_hopping_diff_gradients_match_reference_vjp(hopping_vjp):
-    lat, a = hopping_vjp
-    ug_e = torch.tensor(a["ug_e"], requires_grad=True)
-    psi2 = torch.tensor(a["psi2"], requires_grad=True)
-    out = dc.HoppingDiff.apply(ug_e, torch.as_tensor(a["ug_o"]), psi2, 0, lat)
-    dug, dpsi = torch.autograd.grad(out, (ug_e, psi2), torch.as_tensor(a["g2"]))
-    assert _maxdiff(out.detach(), a["out"]) < ATOL
-    assert _maxdiff(dug, a["dug"]) < ATOL
-    assert _maxdiff(dpsi, a["dpsi"]) < ATOL
 
 
 # ---------------------------------------------------------------------------

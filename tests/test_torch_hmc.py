@@ -1,21 +1,17 @@
-"""Parity of the PyTorch port's solvers, forces, trajectory, input reader,
-checkpoints and CLI with the JAX reference (tmlqcd_tpu), on the CPU.
+"""Parity of the PyTorch port's solvers, gauge force, input reader,
+checkpoints and CLI with the JAX reference (tmlqcd_tpu), on the CPU; the
+det-family forces and the trajectory are in tests/test_torch_hmc_traj.py.
 
-Inputs are drawn from seeded numpy generators (or, for the trajectory, are
-the reference's own draws re-derived from its key) and handed to both
-packages as numpy arrays.  The port runs its plain path (CPU tensors); the
+Inputs are drawn from seeded numpy generators and handed to both packages
+as numpy arrays.  The port runs its plain path (CPU tensors); the
 reference runs its jnp path, as it does on the CPU.
 
 Tolerances, each stated where it is used:
 * CG: same iteration count (both stop at |r|^2 <= tol^2 |b|^2 with f64
   norms on f32 fields); solutions agree to 2e-6 (f32 rounding of O(1)
   entries over ~30 iterations).
-* forces: 1e-5 absolute on forces of O(1..10) — f32 operators, f64 sums;
-  measured 6e-7 .. 2e-6.
-* trajectory (4^4, steps (1,1,2), tol 1e-10): |ddH| <= 1e-3 and
-  |dplaq| <= 1e-5.  Both run the same f32 trajectory with the same draws
-  and differ by summation order only: measured |ddH| 4.1e-5 and |dplaq|
-  9e-9, with |H| ~ 1.5e4.
+* gauge force: 1e-5 absolute on forces of O(1..10) — f32 operators, f64
+  sums.
 """
 
 import dataclasses
@@ -29,23 +25,17 @@ import torch
 
 from tmlqcd_tpu import config as jconfig
 from tmlqcd_tpu import config_tmlqcd as jconfig_tmlqcd
-from tmlqcd_tpu import rng as jrng
-from tmlqcd_tpu import su3 as jsu3
-from tmlqcd_tpu.hmc import hmc_trajectory as j_hmc_trajectory
 from tmlqcd_tpu.hmc import integrators as jint
-from tmlqcd_tpu.hmc import monomials as jmono
 from tmlqcd_tpu.io import checkpoint as jckpt
 from tmlqcd_tpu.lattice import Lattice as JLattice
 from tmlqcd_tpu.lattice import pack_gauge_eo as j_pack
-from tmlqcd_tpu.models.suites import nf2_twisted_mass_hasenbusch as j_suite
 from tmlqcd_tpu.ops import wilson as jw
 from tmlqcd_tpu.solvers import chrono as jchrono
 from tmlqcd_tpu.solvers.cg import cg as j_cg
-from tmlqcd_tpu_torch import bridge, config, config_tmlqcd, rng
-from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory, integrators, monomials
+from tmlqcd_tpu_torch import bridge, config, config_tmlqcd
+from tmlqcd_tpu_torch.hmc import integrators
 from tmlqcd_tpu_torch.io import checkpoint
 from tmlqcd_tpu_torch.lattice import Lattice
-from tmlqcd_tpu_torch.models.suites import nf2_twisted_mass_hasenbusch
 from tmlqcd_tpu_torch.ops import gauge_action as ga
 from tmlqcd_tpu_torch.ops import wilson as w
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
@@ -75,7 +65,6 @@ JL, LAT = JLattice(DIMS), Lattice(DIMS)
 SAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "sample-input")
 LIGHT = dict(kappa=0.15, mu=0.03)
-HEAVY = dict(kappa=0.15, mu=0.3)
 
 
 def _maxdiff(a, b) -> float:
@@ -173,52 +162,6 @@ def test_expand_schedule_matches_reference():
             np.testing.assert_array_equal(a, b)
 
 
-# ---------------------------------------------------------------------------
-# forces on the same (U, phi); tolerance 1e-5 absolute (see module docstring)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def reference_forces(gauge, pseudofermion):
-    """The reference's DET heatbath field and DET / DETRATIO forces on the
-    jnp path, in one compiled program."""
-    u, _ = gauge
-    jp = jw.DiracParams(**LIGHT)
-    det = jmono.DetMonomial(lat=JL, params=jp, acc_tol=1e-9, force_tol=1e-9)
-    ratio = jmono.DetRatioMonomial(lat=JL, params1=jp, params2=jw.DiracParams(**HEAVY),
-                                   acc_tol=1e-9, force_tol=1e-9)
-
-    def forces(u, eta):
-        phi = jw.q_hat(j_pack(u, JL), eta, jp, JL, jw.boundary_phases(jp, JL), -1.0)
-        return phi, det.force(u, phi), ratio.force(u, eta)
-
-    return tuple(np.asarray(x) for x in jax.jit(forces)(u, pseudofermion))
-
-
-def test_det_heatbath_and_force_match_reference(gauge, pseudofermion, reference_forces):
-    u, ut = gauge
-    ref_phi, ref, _ = reference_forces
-    tm = monomials.DetMonomial(lat=LAT, params=w.DiracParams(**LIGHT), acc_tol=1e-9,
-                               force_tol=1e-9)
-    phi2, s0 = tm.heatbath(ut, None, bridge.spinor_from_numpy(pseudofermion, LAT))
-    assert _maxdiff(wf.from_split(phi2), ref_phi) < 1e-5
-    assert abs(float(s0) - float(np.sum(np.abs(pseudofermion.astype(np.complex128)) ** 2))) < 1e-9
-    out = tm.force(ut, wf.to_split(bridge.spinor_from_numpy(ref_phi, LAT)))
-    assert float(np.max(np.abs(ref))) > 0.1
-    assert _maxdiff(out, ref) < 1e-5
-
-
-def test_detratio_force_matches_reference(gauge, pseudofermion, reference_forces):
-    u, ut = gauge
-    ref = reference_forces[2]
-    tm = monomials.DetRatioMonomial(lat=LAT, params1=w.DiracParams(**LIGHT),
-                                    params2=w.DiracParams(**HEAVY), acc_tol=1e-9,
-                                    force_tol=1e-9)
-    out = tm.force(ut, wf.to_split(bridge.spinor_from_numpy(pseudofermion, LAT)))
-    assert float(np.max(np.abs(ref))) > 0.01
-    assert _maxdiff(out, ref) < 1e-5
-
-
 @pytest.mark.parametrize("c1", [0.0, -1.0 / 12.0], ids=["wilson", "tlsym"])
 def test_gauge_force_and_action_match_reference(gauge, c1):
     u, ut = gauge
@@ -229,56 +172,6 @@ def test_gauge_force_and_action_match_reference(gauge, c1):
     assert abs(float(ga.gauge_action(ut, 5.3, LAT, c1)) - float(s_ref)) < 1e-9 * abs(float(s_ref))
     assert abs(float(ga.plaquette(ut, LAT)) - float(plaq_ref)) < 1e-7
     assert abs(float(ga.rectangle(ut, LAT)) - float(rect_ref)) < 1e-7
-
-
-# ---------------------------------------------------------------------------
-# one full trajectory with the reference's draws injected
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def trajectory_pair():
-    kw = dict(beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1, tau=1.0, steps=(1, 1, 2),
-              acc_tol=1e-10, force_tol=1e-10, maxiter=1000)
-    u = bridge.numpy_su3(np.random.default_rng(23), (4,) + JL.site_shape)
-    cfg = j_suite(JL, **kw)
-
-    def reference(u, key):
-        u_ref, st_ref = j_hmc_trajectory(cfg, u, key)
-        # the reference's draws, re-derived from its key (hmc/trajectory.py:96-126)
-        k_mom, k_pf, k_acc = jax.random.split(key, 3)
-        mom = jsu3.random_momenta(k_mom, u.shape[2:], jnp.complex64)
-        etas = [jrng.normal_spinor(jrng.fold(k_pf, 1000 + i), (4, 3) + JL.eo_site_shape)
-                for i in (1, 2)]
-        return u_ref, st_ref, mom, etas, jrng.uniform(k_acc)
-
-    u_ref, st_ref, mom, etas, uni = jax.jit(reference)(u, jax.random.key(3))
-    draws = Draws(bridge.gauge_from_numpy(np.asarray(mom), LAT),
-                  [None] + [bridge.spinor_from_numpy(np.asarray(e), LAT) for e in etas],
-                  float(uni))
-    u_out, st = hmc_trajectory(nf2_twisted_mass_hasenbusch(LAT, **kw),
-                               bridge.gauge_from_numpy(u, LAT), rng.Key(0), draws=draws)
-    return st_ref, st, np.asarray(u_ref), u_out
-
-
-def test_trajectory_delta_h_matches_reference(trajectory_pair):
-    st_ref, st, _, _ = trajectory_pair
-    assert abs(st.h_old - float(st_ref.h_old)) < 1e-3
-    assert abs(st.delta_h - float(st_ref.delta_h)) < 1e-3
-
-
-def test_trajectory_plaquette_and_gauge_match_reference(trajectory_pair):
-    st_ref, st, u_ref, u_out = trajectory_pair
-    assert st.accepted == bool(st_ref.accepted)
-    assert abs(st.plaquette - float(st_ref.plaquette)) < 1e-5
-    assert _maxdiff(u_out, u_ref) < 1e-4
-
-
-def test_trajectory_iteration_counts_match_reference(trajectory_pair):
-    st_ref, st, _, _ = trajectory_pair
-    assert st.acc_iterations == [int(i) for i in st_ref.acc_iterations]
-    assert st.force_iterations == [int(i) for i in st_ref.force_iterations]
-    assert st.force_iterations[1] > 0 and st.force_iterations[2] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +212,8 @@ def test_hmc2_lowers_to_the_reference_monomials():
 
 @pytest.mark.parametrize("what, text", [
     ("NDPOLY", "BeginMonomial NDPOLY\n kappa = 0.1\n CSW = 1.0\nEndMonomial\n"),
-    ("NrTProcs", "NrTProcs = 2\n"),
-    ("NrYProcs", "NrYProcs = 2\n"),
+    ("ORIENTEDPLAQUETTES", "BeginMeasurement ORIENTEDPLAQUETTES\n Frequency = 1\nEndMeasurement\n"),
+    ("SFCOUPLING", "BeginMeasurement SFCOUPLING\n Frequency = 1\nEndMeasurement\n"),
     ("SFGAUGE", "BeginMonomial SFGAUGE\nEndMonomial\n"),
     ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
     ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
@@ -329,6 +222,25 @@ def test_unported_features_raise(what, text):
     cfg = config_tmlqcd.parse_input(text)
     with pytest.raises(NotImplementedError, match=f"(?i){what}.*not yet ported"):
         config.build_hmc(cfg)
+
+
+@pytest.mark.parametrize("procs", ["NrXProcs = 2\n", "NrZProcs = 2\n",
+                                   "NrTProcs = 2\nNrXProcs = 2\n"])
+def test_unported_decompositions_raise_reference_error(procs, tmp_path):
+    """NrTProcs / NrYProcs build the slab mesh (tests/test_torch_shard_hmc.py);
+    NrXProcs / NrZProcs > 1 raise the reference's ValueError where
+    `cli.hmc` builds the mesh (`mesh_from_procs`), in both packages."""
+    from tmlqcd_tpu import parallel as jparallel
+    from tmlqcd_tpu_torch.cli import hmc as cli_hmc
+
+    text = "L = 4\nT = 4\n" + procs
+    jcfg = jconfig_tmlqcd.parse_input(text)
+    with pytest.raises(ValueError, match="unsupported: this framework decomposes"):
+        jparallel.mesh_from_procs(jcfg.nr_procs, jcfg.lat)
+    path = tmp_path / "procs.input"
+    path.write_text(text)
+    with pytest.raises(ValueError, match="unsupported: this framework decomposes"):
+        cli_hmc.main(["-f", str(path), "-o", str(tmp_path / "run"), "--cpu"])
 
 
 def test_checkpoints_cross_read(tmp_path, gauge):

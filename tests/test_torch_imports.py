@@ -35,6 +35,8 @@ _DOUBLET_PATH = ("ops.ndoublet", "solvers.multishift", "solvers.rational", "solv
 # the modules of the remaining solvers
 _SOLVERS_PATH = ("solvers.mixed_cg", "solvers.krylov", "solvers.bicgstab", "solvers.cgs",
                  "solvers.deflation", "solvers.eigcg", "solvers.dispatch")
+# the domain decomposition
+_MESH_PATH = ("parallel", "ops.dslash_cuda", "ops.wilson_fast", "cli.hmc")
 
 
 def test_port_imports_no_jax():
@@ -44,9 +46,9 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, bad, names = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 43  # every slice module was imported
+    assert int(count) >= 44  # every slice module was imported
     assert bad == "[]", bad
-    for name in _INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH:
+    for name in _INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH + _MESH_PATH:
         assert f"tmlqcd_tpu_torch.{name}" in names.split()
 
 
@@ -59,7 +61,7 @@ def test_port_sources_name_no_jax_import():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "tmlqcd_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 44
+    assert len(paths) >= 45
     for path in paths:
         with open(path) as f:
             assert not pat.search(f.read()), path

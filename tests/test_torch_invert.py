@@ -4,9 +4,8 @@ even/odd Schur inversions and the `cli.invert` driver.
 
 Inputs come from seeded numpy generators through `bridge` and go to both
 packages as numpy arrays.  The port runs its plain path (CPU tensors).  The
-reference runs its jnp operators, except where the test is about its
-multi-RHS Pallas kernel, which it runs in interpret mode as its own tests do
-(two K1-R cases).
+reference runs its jnp operators; K1-R against the reference's multi-RHS
+Pallas kernel in interpret mode is in tests/test_torch_invert_kernel.py.
 
 Tolerances, each derived where it is used:
 * K1-R: 1e-5 absolute on unit-normal inputs, outputs of O(10): both sides
@@ -25,10 +24,8 @@ import torch
 import jax
 import jax.numpy as jnp
 from tmlqcd_tpu.inverter import invert_eo as j_invert_eo
-from tmlqcd_tpu.lattice import EVEN as J_EVEN
 from tmlqcd_tpu.lattice import Lattice as JLattice
 from tmlqcd_tpu.lattice import pack_gauge_eo as j_pack
-from tmlqcd_tpu.ops import dslash_pallas as jdp
 from tmlqcd_tpu.ops import wilson as jw
 from tmlqcd_tpu.ops import wilson_fast as jwf
 from tmlqcd_tpu.solvers.cg import cg_rhs as j_cg_rhs
@@ -112,23 +109,6 @@ def test_hopping_rhs_plain_equals_per_column_plain(fields, gauge, epi):
                                psi_o=None if po is None else po[:, :, :, r].contiguous(),
                                gcomp=fg.gcomp)
         assert torch.equal(out[:, :, :, r], one)
-
-
-@pytest.mark.parametrize("gauge, epi", [("fg18", "none"), ("fg12", "mhat+g5")])
-def test_hopping_rhs_matches_reference_kernel(fields, gauge, epi):
-    """The reference's multi-RHS Pallas kernel in interpret mode: the 18-real
-    gauge without epilogue, and the 12-real gauge with the fused mhat + gamma5
-    epilogue that the batched solve runs."""
-    fg, e = fields[gauge], EPILOGUES[epi]
-    jfg = jwf.make_fast_gauge(jnp.asarray(fields["u"]), JP, JL, compress=gauge == "fg12")
-    p2, po2 = (jnp.asarray(bridge.to_numpy(fields[k])) for k in ("p2", "po2"))
-    mhat = e[0] == "mhat"
-    ref = jdp.hopping_pallas_split(jfg.ug_even, p2, J_EVEN, JL, interpret=True, epi=e,
-                                   psi_o=po2 if mhat else None, gcomp=jfg.gcomp)
-    out = dc.hopping_split_rhs(fg.ug_even, fields["p2"], EVEN, LAT, epi=e,
-                               psi_o=fields["po2"] if mhat else None, gcomp=fg.gcomp, r_axis=3)
-    assert float(np.max(np.abs(np.asarray(ref)))) > 1.0
-    assert _maxdiff(out, ref) < 1e-5
 
 
 def test_hopping_rhs_checks_its_arguments(fields):

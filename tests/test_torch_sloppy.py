@@ -164,12 +164,17 @@ def test_sloppy_qhat_and_qsw_match_reference_fast_operators(fields, reference_sl
 
 
 def test_bf16_gauge_wrapper_contract(fields):
-    """K1 takes a bf16 gauge; K1-R and K2 do not, and say so."""
+    """K1 and K1-R take a bf16 gauge (K1-B, K1-RB); the spinors must be f32
+    and the gauge f32 or bf16, and the wrappers say so."""
     ft = wf.make_fast_gauge(fields["ut"], fields["tp"], LAT, sloppy=True)
     psi2 = fields["psi2"]
-    batch = torch.stack([psi2, psi2], dim=3).contiguous()
-    with pytest.raises(TypeError, match="hopping_split_rhs"):
-        dc.hopping_split_rhs(ft.ug_even, batch, EVEN, LAT, gcomp=ft.gcomp)
+    batch = torch.stack([psi2, 2 * psi2], dim=3).contiguous()
+    out = dc.hopping_split_rhs(ft.ug_even, batch, EVEN, LAT, gcomp=ft.gcomp)
+    for r in range(2):
+        assert torch.equal(out[:, :, :, r], dc.hopping_split(
+            ft.ug_even, batch[:, :, :, r].contiguous(), EVEN, LAT, gcomp=ft.gcomp))
+    with pytest.raises(TypeError, match="float32"):
+        dc.hopping_split_rhs(ft.ug_even, batch.to(torch.bfloat16), EVEN, LAT, gcomp=ft.gcomp)
     with pytest.raises(TypeError, match="float32"):
         dc.hopping_split(ft.ug_even, psi2.to(torch.bfloat16), EVEN, LAT, gcomp=ft.gcomp)
     with pytest.raises(TypeError):

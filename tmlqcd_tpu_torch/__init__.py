@@ -1,10 +1,10 @@
 """tmlqcd_tpu_torch — the PyTorch / CUDA port of the tmlqcd_tpu lattice-QCD engine.
 
 The package mirrors the module names of the JAX package `tmlqcd_tpu`, which
-stays beside it as the reference.  Plain tensor code is PyTorch; the two
-stencil kernels of the Nf=2 twisted-mass HMC main path (the even/odd hopping
-with its fused twisted-mass epilogues, and the gauge-cotangent force kernel)
-are hand-written CUDA C++ for Hopper (`csrc/hopping.cu`, bound in
+stays beside it as the reference.  Plain tensor code is PyTorch; the stencil
+kernels (the even/odd hopping with its fused epilogues, its multi-RHS form,
+the gauge-cotangent force kernel and the slab kernels of the domain
+decomposition) are hand-written CUDA C++ for Hopper (`csrc/`, bound in
 `ops/dslash_cuda.py`).
 
 Device rule: the device of the tensors decides.  A CUDA tensor reaches the

@@ -1,6 +1,9 @@
 """HMC driver: the `hmc_tm -f input` equivalent of the port.
 
-Port of `tmlqcd_tpu/cli/hmc.py`: read input -> start configuration
+Port of `tmlqcd_tpu/cli/hmc.py`: read input -> the (t, y) slab mesh of
+NrTProcs x NrYProcs (`parallel.mesh_from_procs`, else `parallel.auto_mesh`,
+which gives none on one device; all slabs on the run's one device, every
+solve on the slab kernels) -> start configuration
 (hot/cold/continue) -> the interval check of the rational monomials
 (`hmc/validate.py`, a warning when spec(Q^2) leaves [StildeMin, StildeMax])
 -> trajectory loop writing output.data and printing one
@@ -66,7 +69,7 @@ def main(argv=None):
             raise RuntimeError("no CUDA device: run on a GPU, or pass --cpu for the plain path")
         device = torch.device("cuda", torch.cuda.current_device())
 
-    from tmlqcd_tpu_torch import rng, su3
+    from tmlqcd_tpu_torch import parallel, rng, su3
     from tmlqcd_tpu_torch.config import build_hmc
     from tmlqcd_tpu_torch.config_tmlqcd import read_input
     from tmlqcd_tpu_torch.hmc import chrono_states, hmc_trajectory, reversibility_check
@@ -84,9 +87,19 @@ def main(argv=None):
     if args.checkpoint_format is not None:
         cfg = dataclasses.replace(cfg, checkpoint_format=args.checkpoint_format)
     run_dir = args.output_dir or cfg.output_dir
-    hmc = build_hmc(cfg)
-    os.makedirs(run_dir, exist_ok=True)
     lat = cfg.lat
+    # domain decomposition (reference: tmlqcd_mpi_init's Cartesian grid from
+    # NrTProcs/NrYProcs): explicit hints win, else a mesh over all devices;
+    # the mesh reaches every solve through the monomials
+    mesh = parallel.mesh_from_procs(cfg.nr_procs, lat, device)
+    if mesh is None:
+        mesh = parallel.auto_mesh(lat, [device])
+    hmc = build_hmc(cfg, mesh=mesh)
+    if mesh is not None:
+        loc = mesh.local(lat)
+        print(f"[hmc] device mesh {mesh.shape} over 1 devices (t x y slabs: "
+              f"{loc.dims[0]} x {loc.dims[2]}, {mesh.n_slabs} slabs per device)", flush=True)
+    os.makedirs(run_dir, exist_ok=True)
     key = rng.Key(cfg.seed)
 
     def hot_start():
@@ -101,6 +114,9 @@ def main(argv=None):
         if info is None:
             print(f"[hmc] no checkpoint in {run_dir}, falling back to hot start")
             u = hot_start()
+        elif mesh is not None:
+            u, start_traj, _ = parallel.load_gauge_sharded(info.path, mesh, lat)
+            print(f"[hmc] resumed (sharded) at trajectory {start_traj} from {info.path}")
         else:
             arr, start_traj, _ = load_checkpoint(info.path, lat)
             u = torch.as_tensor(arr, device=device).to(torch.complex64)

@@ -6,13 +6,18 @@ input schema, so every tmLQCD input the reference accepts parses here too.
 CLOVERDETRATIO and CLOVERTRLOG monomials and the rational monomials (NDRAT,
 NDCLOVERRAT, RAT, CLOVERRAT and their *COR corrections) on one device, with
 the ONLINE and PIONNORM measurements, the force monitor, ReversibilityCheck
-and native or ILDG checkpoints — and raises `NotImplementedError`, naming the
-feature, for everything else: other monomial types (NDPOLY, SFGAUGE), other
-measurement types (GRADIENTFLOW, ...) and NrTProcs/NrXProcs/NrYProcs/NrZProcs
-> 1.  `check_invert_ported` does the same for the inverter's operators
-(ported: TMWILSON, WILSON, CLOVER, DBTMWILSON, DBCLOVER) and smearing
-options, and rejects a solver name the inverter does not know.  Nothing is
-skipped silently.
+and native or ILDG checkpoints, and the (t, y) domain decomposition of
+NrTProcs x NrYProcs (a slab mesh on one device, which `cli.hmc` builds with
+`parallel.mesh_from_procs` and `build_hmc` carries by `HMCConfig.mesh` into
+every solving monomial) — and raises `NotImplementedError`, naming the
+feature, for everything else: other monomial types (NDPOLY, SFGAUGE) and
+other measurement types (GRADIENTFLOW, ...).  NrXProcs / NrZProcs > 1 and a
+lattice that does not split into even slabs raise the reference's
+`ValueError` where the mesh is built.  `check_invert_ported` does the
+same for the inverter's operators (ported: TMWILSON, WILSON, CLOVER,
+DBTMWILSON, DBCLOVER) and smearing options, rejects a solver name the
+inverter does not know, and raises for any Nr*Procs > 1: the reference's
+`cli/invert.py` builds no mesh.  Nothing is skipped silently.
 """
 
 from __future__ import annotations
@@ -189,16 +194,18 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to tmlqcd_tpu_torch")
 
 
-def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
+def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mesh=None):
     """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO,
     CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, and the rational NDRAT,
-    NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections)."""
+    NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections); `mesh` goes
+    to every monomial that solves."""
     ty = spec.type.upper()
     common = dict(
         timescale=spec.timescale,
         acc_tol=float(spec.acceptance_precision) ** 0.5,  # the input stores |r|^2
         force_tol=float(spec.force_precision) ** 0.5,
         maxiter=spec.max_solver_iterations,
+        mesh=mesh,
     )
     # solver routing and the chrono history belong to the CG-solving det
     # family (the multishift solves of the rational monomials start from zero)
@@ -245,10 +252,11 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float):
 
 
 def _check_one_device(cfg: RunConfig) -> None:
+    """The inverter's check: the reference's cli/invert.py builds no mesh."""
     names = ("NrTProcs", "NrXProcs", "NrYProcs", "NrZProcs")
     for name, n in zip(names, cfg.nr_procs):
         if n > 1:
-            raise _not_ported(f"domain decomposition ({name} = {n})")
+            raise _not_ported(f"domain decomposition in the inverter ({name} = {n})")
 
 
 def check_ported(cfg: RunConfig) -> None:
@@ -256,7 +264,6 @@ def check_ported(cfg: RunConfig) -> None:
     for m in cfg.meas:
         if m.type.upper() not in PORTED_MEASUREMENTS:
             raise _not_ported(f"measurement type {m.type!r}")
-    _check_one_device(cfg)
     if cfg.checkpoint_format not in ("native", "ildg"):
         raise ValueError(f"unknown checkpoint format {cfg.checkpoint_format!r}")
     if cfg.gauge_action.lower() not in GAUGE_ACTIONS:
@@ -279,16 +286,18 @@ def check_invert_ported(cfg: RunConfig) -> None:
         check_solver(op.solver)
 
 
-def build_hmc(cfg: RunConfig) -> HMCConfig:
-    """RunConfig -> executable HMCConfig (raises for what is not ported)."""
+def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
+    """RunConfig -> executable HMCConfig (raises for what is not ported).
+    `mesh` (a `parallel.Mesh`, or None for none) is carried to every solving
+    monomial; `cli.hmc` builds it from NrTProcs x NrYProcs."""
     check_ported(cfg)
     lat = cfg.lat
     c1 = GAUGE_ACTIONS[cfg.gauge_action.lower()]
     specs = cfg.monomials or (MonomialSpec(type="GAUGE"),)
-    monomials = tuple(build_monomial(s, lat, cfg.beta, c1) for s in specs)
+    monomials = tuple(build_monomial(s, lat, cfg.beta, c1, mesh) for s in specs)
     integ = IntegratorConfig(tau=cfg.integrator.tau, levels=cfg.integrator.levels())
     for m in monomials:
         if m.timescale >= len(integ.levels):
             raise ValueError(f"monomial {m.name} timescale {m.timescale} >= "
                              f"{len(integ.levels)} levels")
-    return HMCConfig(lat=lat, monomials=monomials, integrator=integ)
+    return HMCConfig(lat=lat, monomials=monomials, integrator=integ, mesh=mesh)

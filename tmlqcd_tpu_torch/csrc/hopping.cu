@@ -21,6 +21,10 @@
 // with direction d = 2 mu + fb (fb = 0 forward, 1 backward), the boundary
 // phases already folded into the gauge copy.
 //
+// The stencil's building blocks (the maps W, the link load, the step of one
+// direction) live in hopping_common.cuh, shared with the slab kernels of
+// hopping_slab.cu.
+//
 // Design: one thread per output site, the thread index running along the
 // minor M axis, so every component load and store of a warp is one
 // contiguous 128-byte line.  A thread loops over the 8 directions: it
@@ -45,9 +49,10 @@
 // links as __nv_bfloat16, 2 bytes an element, and upcasts them in registers
 // (__bfloat162float).  Everything after the load stays f32: the 12-real
 // row-2 reconstruction (from the rounded rows 0 and 1), the accumulation and
-// every epilogue.  Only K1 has bf16 instances: K1-R and K2 read f32 links.
-// It moves 288 B (18-real) or 192 B (12-real) of gauge per site instead of
-// 576 or 384.
+// every epilogue.  K1-R has the same bf16 instances (K1-RB, the bf16
+// instances of `_dslash_kernel_r`): the block stages the upcast links once
+// for its columns; K2 reads f32 links.  It moves 288 B (18-real) or 192 B
+// (12-real) of gauge per site instead of 576 or 384.
 //
 // Bound: memory.  1320 flops per site against 576 B (18-real) or 384 B
 // (12-real) of gauge, 96 B per spinor read (8 neighbour reads of which the
@@ -83,216 +88,9 @@
 // 2 * (G + 192) for two K1 launches.  With R = 2 a block is 32 sites x 2
 // rows = 64 threads, and each row stages four of the eight directions.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <type_traits>
+#include "hopping_common.cuh"
 
 namespace {
-
-// W[d][s][a] codes: 0 -> 0, 1 -> +1, 2 -> -1, 3 -> +i, 4 -> -i.  Rows s = 0, 1
-// are the identity for every direction; rows s = 2, 3 follow (lower block,
-// codes listed as [s=2: a=0, a=1], [s=3: a=0, a=1]):
-// W-TABLE d=0 2:1,0 3:0,1
-// W-TABLE d=1 2:2,0 3:0,2
-// W-TABLE d=2 2:0,4 3:4,0
-// W-TABLE d=3 2:0,3 3:3,0
-// W-TABLE d=4 2:0,2 3:1,0
-// W-TABLE d=5 2:0,1 3:2,0
-// W-TABLE d=6 2:4,0 3:0,3
-// W-TABLE d=7 2:3,0 3:0,4
-// packed 3 bits per entry, entry index (s - 2) * 2 + a
-__host__ __device__ constexpr int pack4(int a, int b, int c, int d) {
-  return a | (b << 3) | (c << 6) | (d << 9);
-}
-
-__host__ __device__ constexpr int wrow(int d) {
-  return d == 0 ? pack4(1, 0, 0, 1)
-       : d == 1 ? pack4(2, 0, 0, 2)
-       : d == 2 ? pack4(0, 4, 4, 0)
-       : d == 3 ? pack4(0, 3, 3, 0)
-       : d == 4 ? pack4(0, 2, 1, 0)
-       : d == 5 ? pack4(0, 1, 2, 0)
-       : d == 6 ? pack4(4, 0, 0, 3)
-       :          pack4(3, 0, 0, 4);
-}
-
-__host__ __device__ constexpr int wcode(int d, int s, int a) {
-  return s < 2 ? (s == a ? 1 : 0) : ((wrow(d) >> (3 * ((s - 2) * 2 + a))) & 7);
-}
-
-// code of the complex conjugate (swaps +i and -i)
-__host__ __device__ constexpr int wconj(int c) { return c == 3 ? 4 : (c == 4 ? 3 : c); }
-
-// acc += code * v for a constant code (all branches fold once unrolled)
-__device__ __forceinline__ void cadd(int code, float vr, float vi, float& ar, float& ai) {
-  if (code == 1) { ar += vr; ai += vi; }
-  else if (code == 2) { ar -= vr; ai -= vi; }
-  else if (code == 3) { ar -= vi; ai += vr; }
-  else if (code == 4) { ar += vi; ai -= vr; }
-}
-
-struct Corr {
-  float re[8];
-  float im[8];
-};
-
-struct Geo {
-  int T, X, M, zh, p;
-};
-
-// element strides of a spinor field: re -> im, and component (s, c) ->
-// the next.  K1: {12 V, V}; K1-R with the R axis before the sites:
-// {12 R V, R V}; K1-R on a flavour doublet: {24 V, V}.
-struct Strides {
-  long long im, comp;
-};
-
-// flat neighbour site of direction d for the parity-p site (t, x, m)
-__device__ __forceinline__ void neighbours(const Geo& g, int site, int nb[8]) {
-  const int m = site % g.M;
-  const int tx = site / g.M;
-  const int x = tx % g.X;
-  const int t = tx / g.X;
-  const int y = m / g.zh;
-  const int k = m - y * g.zh;
-  const bool s1 = ((t + x + y + g.p) & 1) == 1;
-  nb[0] = (((t + 1) % g.T) * g.X + x) * g.M + m;
-  nb[1] = (((t + g.T - 1) % g.T) * g.X + x) * g.M + m;
-  nb[2] = (t * g.X + (x + 1) % g.X) * g.M + m;
-  nb[3] = (t * g.X + (x + g.X - 1) % g.X) * g.M + m;
-  nb[4] = tx * g.M + (m + g.zh) % g.M;
-  nb[5] = tx * g.M + (m + g.M - g.zh) % g.M;
-  // z-hop: forward moves to k+1 only on slot-1 sites, backward to k-1 only
-  // on slot-0 sites, both wrapping inside the y-block
-  const int mzf = s1 ? (k == g.zh - 1 ? m - (g.zh - 1) : m + 1) : m;
-  const int mzb = s1 ? m : (k == 0 ? m + (g.zh - 1) : m - 1);
-  nb[6] = tx * g.M + mzf;
-  nb[7] = tx * g.M + mzb;
-}
-
-// one gauge element, upcast to f32 in registers
-__device__ __forceinline__ float gload(const float* __restrict__ p) { return __ldg(p); }
-__device__ __forceinline__ float gload(const __nv_bfloat16* __restrict__ p) {
-  return __bfloat162float(__ldg(p));
-}
-
-// the 3 x 3 link of direction D at `site` into (gr, gi); the 12-real copy
-// stores rows 0 and 1 and row 2 is rebuilt.  G: the gauge element type
-// (float, or __nv_bfloat16 for the sloppy copy)
-template <int D, bool COMP, typename G>
-__device__ __forceinline__ void load_link(const G* __restrict__ ug, long long V, int site,
-                                          const Corr& corr, float (&gr)[3][3],
-                                          float (&gi)[3][3]) {
-  constexpr int R = COMP ? 2 : 3;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      gr[i][j] = gload(ug + (((0 * 8 + D) * R + i) * 3 + j) * V + site);
-      gi[i][j] = gload(ug + (((1 * 8 + D) * R + i) * 3 + j) * V + site);
-    }
-  if (COMP) {
-    // row2 = corr * conj(row0 x row1)  (corr restores the folded phase)
-    const float cr = corr.re[D], ci = corr.im[D];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
-      const float tr = gr[0][j1] * gr[1][j2] - gi[0][j1] * gi[1][j2]
-                     - gr[0][j2] * gr[1][j1] + gi[0][j2] * gi[1][j1];
-      const float ti = gr[0][j1] * gi[1][j2] + gi[0][j1] * gr[1][j2]
-                     - gr[0][j2] * gi[1][j1] - gi[0][j2] * gr[1][j1];
-      gr[2][j] = cr * tr + ci * ti;
-      gi[2][j] = ci * tr - cr * ti;
-    }
-  }
-}
-
-// acc += W_D U (W_D^+ psi(nsite)) for the link (gr, gi) of direction D
-template <int D>
-__device__ __forceinline__ void hop_dir(const float* __restrict__ psi, const Strides& st,
-                                        int nsite, const float (&gr)[3][3],
-                                        const float (&gi)[3][3], float (&ar)[4][3],
-                                        float (&ai)[4][3]) {
-  float nr[4][3], ni[4][3];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      nr[s][c] = __ldg(psi + (s * 3 + c) * st.comp + nsite);
-      ni[s][c] = __ldg(psi + st.im + (s * 3 + c) * st.comp + nsite);
-    }
-  // h[a][c] = sum_s conj(W[s][a]) nbr[s][c]
-  float hr[2][3], hi[2][3];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      hr[a][c] = nr[a][c];
-      hi[a][c] = ni[a][c];
-#pragma unroll
-      for (int s = 2; s < 4; ++s) cadd(wconj(wcode(D, s, a)), nr[s][c], ni[s][c], hr[a][c], hi[a][c]);
-    }
-  // uh[a][i] = sum_j U[i][j] h[a][j]
-  float ur[2][3], ui[2][3];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float sr = 0.f, si = 0.f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        sr += gr[i][j] * hr[a][j] - gi[i][j] * hi[a][j];
-        si += gr[i][j] * hi[a][j] + gi[i][j] * hr[a][j];
-      }
-      ur[a][i] = sr;
-      ui[a][i] = si;
-    }
-  // out[s][c] += sum_a W[s][a] uh[a][c]
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    ar[0][c] += ur[0][c]; ai[0][c] += ui[0][c];
-    ar[1][c] += ur[1][c]; ai[1][c] += ui[1][c];
-#pragma unroll
-    for (int s = 2; s < 4; ++s)
-#pragma unroll
-      for (int a = 0; a < 2; ++a) cadd(wcode(D, s, a), ur[a][c], ui[a][c], ar[s][c], ai[s][c]);
-  }
-}
-
-template <int D, bool COMP, typename G>
-__device__ __forceinline__ void accum_dir(const float* __restrict__ psi,
-                                          const G* __restrict__ ug, long long V,
-                                          const Strides& st, int nsite, int site,
-                                          const Corr& corr,
-                                          float (&ar)[4][3], float (&ai)[4][3]) {
-  float gr[3][3], gi[3][3];
-  load_link<D, COMP, G>(ug, V, site, corr, gr, gi);
-  hop_dir<D>(psi, st, nsite, gr, gi, ar, ai);
-}
-
-// all 8 directions of one site of one field into (ar, ai)
-template <bool COMP, typename G>
-__device__ __forceinline__ void accum_site(const float* __restrict__ psi,
-                                           const G* __restrict__ ug, const Geo& geo,
-                                           long long V, const Strides& st, int site,
-                                           const Corr& corr, float (&ar)[4][3],
-                                           float (&ai)[4][3]) {
-  int nb[8];
-  neighbours(geo, site, nb);
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) { ar[s][c] = 0.f; ai[s][c] = 0.f; }
-  accum_dir<0, COMP, G>(psi, ug, V, st, nb[0], site, corr, ar, ai);
-  accum_dir<1, COMP, G>(psi, ug, V, st, nb[1], site, corr, ar, ai);
-  accum_dir<2, COMP, G>(psi, ug, V, st, nb[2], site, corr, ar, ai);
-  accum_dir<3, COMP, G>(psi, ug, V, st, nb[3], site, corr, ar, ai);
-  accum_dir<4, COMP, G>(psi, ug, V, st, nb[4], site, corr, ar, ai);
-  accum_dir<5, COMP, G>(psi, ug, V, st, nb[5], site, corr, ar, ai);
-  accum_dir<6, COMP, G>(psi, ug, V, st, nb[6], site, corr, ar, ai);
-  accum_dir<7, COMP, G>(psi, ug, V, st, nb[7], site, corr, ar, ai);
-}
 
 // EPI: 0 none (out = H psi), 1 mee_inv (out = Mee^-1 H psi),
 //      2 mhat (out = [g5] (Mee psi_o - k2 H psi)); 3 and 4 are the clover
@@ -411,7 +209,6 @@ hopping_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
 // K1-R: block (kRhsSites sites, up to kRhsCols right-hand sides); the
 // thread of (site, r) runs K1's arithmetic on column r, whose fields start
 // r * rstride elements into psi, psi_o and out.
-constexpr int kRhsSites = 32;
 constexpr int kRhsCols = 12;
 constexpr int kRhsTin = 8;
 
@@ -431,41 +228,9 @@ inline int rhs_t_inner(const Geo& g, int R) {
   return (tiles && (long long)R * g.X * g.M * 96 >= kRhsSlabBytes) ? kRhsTin : 1;
 }
 
-// the link of direction D of the block's site `lane` into shared memory,
-// sl[D][re 3x3 | im 3x3][lane]
-template <int D, bool COMP>
-__device__ __forceinline__ void stage_link(const float* __restrict__ ug, long long V, int site,
-                                           const Corr& corr, float* __restrict__ sl, int lane) {
-  float gr[3][3], gi[3][3];
-  load_link<D, COMP, float>(ug, V, site, corr, gr, gi);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      sl[(D * 18 + i * 3 + j) * kRhsSites + lane] = gr[i][j];
-      sl[(D * 18 + 9 + i * 3 + j) * kRhsSites + lane] = gi[i][j];
-    }
-}
-
-// hop_dir on the staged link of direction D
-template <int D>
-__device__ __forceinline__ void hop_staged(const float* __restrict__ psi, const Strides& st,
-                                           int nsite, const float* __restrict__ sl, int lane,
-                                           float (&ar)[4][3], float (&ai)[4][3]) {
-  float gr[3][3], gi[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      gr[i][j] = sl[(D * 18 + i * 3 + j) * kRhsSites + lane];
-      gi[i][j] = sl[(D * 18 + 9 + i * 3 + j) * kRhsSites + lane];
-    }
-  hop_dir<D>(psi, st, nsite, gr, gi, ar, ai);
-}
-
-template <int EPI, bool G5, bool COMP>
+template <int EPI, bool G5, bool COMP, typename G>
 __global__ void __launch_bounds__(kRhsSites * kRhsCols)
-hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
+hopping_rhs_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
                    const float* __restrict__ psi_o, const float* __restrict__ blocks,
                    float* __restrict__ out, Geo geo, int R, Strides st, long long rstride,
                    int tin, float mt, float inv, float k2, Corr corr) {
@@ -489,20 +254,8 @@ hopping_rhs_kernel(const float* __restrict__ psi, const float* __restrict__ ug,
   }
   const int lane = threadIdx.x;
   // the rows of the block share out the 8 directions: each link of the
-  // block's sites is read (and its row 2 rebuilt) once for all columns
-  if (site < V)
-    for (int d = threadIdx.y; d < 8; d += blockDim.y) {
-      switch (d) {
-        case 0: stage_link<0, COMP>(ug, V, site, corr, sl, lane); break;
-        case 1: stage_link<1, COMP>(ug, V, site, corr, sl, lane); break;
-        case 2: stage_link<2, COMP>(ug, V, site, corr, sl, lane); break;
-        case 3: stage_link<3, COMP>(ug, V, site, corr, sl, lane); break;
-        case 4: stage_link<4, COMP>(ug, V, site, corr, sl, lane); break;
-        case 5: stage_link<5, COMP>(ug, V, site, corr, sl, lane); break;
-        case 6: stage_link<6, COMP>(ug, V, site, corr, sl, lane); break;
-        default: stage_link<7, COMP>(ug, V, site, corr, sl, lane); break;
-      }
-    }
+  // block's sites is read (upcast, and its row 2 rebuilt) once for all columns
+  if (site < V) stage_links<COMP, G>(ug, V, site, corr, sl, lane);
   // left to L1, each of the R columns of a site would fetch the same 576 B
   // of blocks; the rows share out the 144 floats and stage them once
   if (EPI >= 3 && site < V)
@@ -625,8 +378,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// G: the gauge element type.  The bf16 gauge has K1 instances only
-// (run_hopping refuses it with R > 0), so K1-R is built for float alone.
+// G: the gauge element type (float, or __nv_bfloat16 for K1-B and K1-RB).
 template <int EPI, bool G5, bool COMP, typename G>
 void launch(const Args& a) {
   const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
@@ -635,14 +387,14 @@ void launch(const Args& a) {
     hopping_kernel<EPI, G5, COMP, G><<<blocks, kBlock, 0, a.stream>>>(
         a.psi, static_cast<const G*>(a.ug), a.psi_o, a.blocks, a.out, a.geo, a.mt, a.inv,
         a.k2, a.corr);
-  } else if constexpr (std::is_same<G, float>::value) {
+  } else {
     const int cols = a.R < kRhsCols ? a.R : kRhsCols;
     const dim3 block(kRhsSites, cols);
     const dim3 grid((unsigned)((V + kRhsSites - 1) / kRhsSites),
                     (unsigned)((a.R + cols - 1) / cols));
     const int tin = rhs_t_inner(a.geo, a.R);
-    hopping_rhs_kernel<EPI, G5, COMP><<<grid, block, 0, a.stream>>>(
-        a.psi, static_cast<const float*>(a.ug), a.psi_o, a.blocks, a.out, a.geo, a.R, a.st,
+    hopping_rhs_kernel<EPI, G5, COMP, G><<<grid, block, 0, a.stream>>>(
+        a.psi, static_cast<const G*>(a.ug), a.psi_o, a.blocks, a.out, a.geo, a.R, a.st,
         a.rstride, tin, a.mt, a.inv, a.k2, a.corr);
   }
 }
@@ -663,11 +415,11 @@ bool bad_geometry(int T, int X, int M, int zh, int p) {
 }
 
 // validates the shared arguments, fills corr and launches; R == 0 is K1,
-// gbf16 != 0 a bf16 gauge (K1 only)
+// gbf16 != 0 a bf16 gauge (K1-B, or K1-RB with R > 0)
 int run_hopping(Args a, int epi, int g5, int comp, int gbf16, const float* corr16) {
   const bool needs_psi_o = epi == 2 || epi == 4;
   if (epi < 0 || epi > 4 || (needs_psi_o && a.psi_o == nullptr) ||
-      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr) || (gbf16 && a.R != 0))
+      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr))
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < 8; ++d) {
     a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
@@ -706,10 +458,10 @@ int tm_hopping(const float* psi, const void* ug, const float* psi_o, const float
 // K1-R: R right-hand sides on one read of the gauge.  psi, psi_o and out
 // are addressed as base + r * r_stride + im_stride * (0|1) + (3 s + c) *
 // comp_stride + site (element strides); `blocks` has no R axis; the other
-// arguments are K1's.
-int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, const float* blocks,
+// arguments are K1's (gbf16 != 0: a bf16 gauge, K1-RB).
+int tm_hopping_rhs(const float* psi, const void* ug, const float* psi_o, const float* blocks,
                    float* out, int T, int X, int M, int zh, int p, int epi, int g5, int comp,
-                   float mt, float inv, float k2, const float* corr16, int R,
+                   int gbf16, float mt, float inv, float k2, const float* corr16, int R,
                    long long im_stride, long long comp_stride, long long r_stride,
                    void* stream) {
   if (bad_geometry(T, X, M, zh, p) || R <= 0 || im_stride <= 0 || comp_stride <= 0 ||
@@ -717,7 +469,7 @@ int tm_hopping_rhs(const float* psi, const float* ug, const float* psi_o, const 
     return (int)cudaErrorInvalidValue;
   const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
                Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream};
-  return run_hopping(a, epi, g5, comp, 0, corr16);
+  return run_hopping(a, epi, g5, comp, gbf16, corr16);
 }
 
 // K2.  Returns cudaGetLastError() after the launch.

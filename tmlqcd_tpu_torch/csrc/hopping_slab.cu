@@ -1,0 +1,291 @@
+// The domain-decomposed hopping kernels for NVIDIA Hopper (sm_90a): H_{p,q}
+// psi on (t, y) slabs of the lattice whose halos arrive in separate
+// buffers, bound to Python through a plain C interface.
+//
+// They replace the sharded Pallas kernels of tmlqcd_tpu/ops/dslash_pallas.py:
+//   K3   `_build_shard_ext` / `_shard_kernel` (t_off 0) / `_shard_kernel_r`:
+//        every t of a slab, its t halos concatenated to it (psi_ext);
+//   K3-I `_build_shard_int` / `_shard_kernel` (t_off 1): the interior
+//        t = 1 .. T_loc-2, which needs no t halo (it runs while the t halos
+//        are packed);
+//   K4   `_build_shard_bnd` / `_shard_bnd_kernel` / `_shard_bnd_kernel_r`: the
+//        surface t = 0 and T_loc-1, one t neighbour from the received halo
+//        slice, the other from the adjacent slab row;
+//   K1-T `_build_ext` / `_dslash_kernel` on a t-slab with t halos
+//        concatenated and the y hops wrapping inside the slab (the 1D
+//        t-sharded `hopping_pallas_tshard`).
+// One kernel serves all four; the variant picks which rows of the slabs run
+// and where their t neighbours come from.  Epilogue none, f32 accumulation,
+// 18- or 12-real links, f32 or bf16 links (upcast on loading), one spinor
+// (R = 0), a batch of R right-hand sides or a flavour doublet (the R axis
+// addressed by a stride, as K1-R does).
+//
+// Layouts (element strides; every field is [2 re/im][spin][colour][R?][sites]
+// or the doublet [2][2 flavour][spin][colour][sites], sites = rows x X x M'):
+//   psi   the whole field [.., T, X, M]; for K3 / K1-T the extended field
+//         [.., tsh (T_loc + 2), X, M]: slab row i holds [halo_lo | T_loc rows
+//         of slab i | halo_hi];
+//   th    K4's t halos [.., 2 tsh, X, M]: row i the halo below slab row i
+//         (the last row of slab row i-1), row tsh + i the one above it;
+//   mh    the y halos [.., 2 T, X, msh zh]: row t the y-row below the slab
+//         (the last y-row of slab column j-1) at column j zh, row T + t the
+//         one above; null when msh == 1 and the y hops wrap inside the slab
+//         (K1-T; the reference's own-slab halos carry the same values);
+//   ug    the gauge copy of the whole lattice [2][8][rows][3][T X M];
+//   out   the whole field [.., T, X, M], written at the variant's rows.
+// Slab (i, j) holds t in [i T_loc, (i+1) T_loc) and m in [j m_loc, (j+1)
+// m_loc); T_loc and Y_loc = m_loc / zh are even, so the slot (t+x+y+p) of a
+// site is the same in slab and global coordinates.
+//
+// Design: all slabs in one launch per variant (the slab index follows from
+// the site's t and m; with 8 slabs at 16^3 x 32 one launch per slab would
+// make launch overhead the whole cost of a hop), one thread per output site
+// and column, the thread index running along m as in K1, so a warp's loads
+// and stores stay 128-byte lines.  Each thread builds its eight neighbour
+// reads (field, strides, index) and runs K1's per-site sum (`accum_src` /
+// `accum_staged` of hopping_common.cuh, K1's order of directions and of
+// operations), so the assembled sharded hop equals K1 on the whole lattice
+// bit for bit wherever the halos hold the neighbours' values; the
+// half-spinor halos (0.5 W s after W^+ psi) give back W^+ psi exactly.  With
+// R > 0 a block (32 sites x up to 12 columns) stages the links of its sites
+// in shared memory once, as K1-R does.
+//
+// Bound: memory, as K1: per output site G bytes of gauge (576 / 384 f32, 288
+// / 192 bf16) plus, per column, 96 B written and 96 B of psi read once, plus
+// the halo buffers (96 B per halo site).  1320 flops per site and column.
+
+#include "hopping_common.cuh"
+
+namespace {
+
+enum { kExt = 0, kInt = 1, kBnd = 2 };
+
+// element strides of one field: re -> im, component (s, c) -> the next, and
+// right-hand side r -> r + 1
+struct Fld {
+  const float* p;
+  long long im, comp, r;
+};
+
+struct SlabGeo {
+  int T, X, M, zh, p;
+  int tsh, msh, tl, ml;  // slab counts along t and y, T_loc, m_loc
+  int var, nrows;        // variant and the number of output rows it runs
+};
+
+struct SlabArgs {
+  Fld psi, th, mh;
+  float* out;
+  long long out_im, out_comp, out_r;
+  SlabGeo g;
+  Corr corr;
+  int R;
+};
+
+// row n of the variant -> (slab row i, local t)
+__device__ __forceinline__ void slab_row(const SlabGeo& g, int row, int& i, int& tl) {
+  if (g.var == kInt) {
+    i = row / (g.tl - 2);
+    tl = 1 + row % (g.tl - 2);
+  } else if (g.var == kBnd) {
+    i = row >> 1;
+    tl = (row & 1) * (g.tl - 1);
+  } else {
+    i = row / g.tl;
+    tl = row % g.tl;
+  }
+}
+
+__device__ __forceinline__ Nb nb_at(const Fld& f, int r, long long idx) {
+  return Nb{f.p + r * f.r, Strides{f.im, f.comp}, idx};
+}
+
+// the eight neighbour reads of the output site (t = i T_loc + tl, x, m), column r
+__device__ __forceinline__ void slab_neighbours(const SlabArgs& a, int i, int tl, int x, int m,
+                                                int r, Nb (&nb)[8]) {
+  const SlabGeo& g = a.g;
+  const int t = i * g.tl + tl;
+  const int j = m / g.ml;
+  const int ml = m - j * g.ml;
+  const int yl = ml / g.zh;
+  const int k = ml - yl * g.zh;
+  const int yloc = g.ml / g.zh;
+  const bool s1 = ((tl + x + yl + g.p) & 1) == 1;
+  const long long XM = (long long)g.X * g.M;
+  // the row of the output site in `psi`, and its t neighbours
+  const int crow = g.var == kExt ? i * (g.tl + 2) + tl + 1 : t;
+  const long long c = crow * XM + (long long)x * g.M;  // element index of (crow, x, 0)
+  if (g.var == kExt) {
+    nb[0] = nb_at(a.psi, r, c + XM + m);
+    nb[1] = nb_at(a.psi, r, c - XM + m);
+  } else {
+    nb[0] = tl < g.tl - 1 ? nb_at(a.psi, r, c + XM + m)
+                          : nb_at(a.th, r, ((long long)(g.tsh + i) * g.X + x) * g.M + m);
+    nb[1] = tl > 0 ? nb_at(a.psi, r, c - XM + m)
+                   : nb_at(a.th, r, ((long long)i * g.X + x) * g.M + m);
+  }
+  const long long crow0 = crow * XM;
+  nb[2] = nb_at(a.psi, r, crow0 + (long long)((x + 1) % g.X) * g.M + m);
+  nb[3] = nb_at(a.psi, r, crow0 + (long long)((x + g.X - 1) % g.X) * g.M + m);
+  // y hops: inside the slab, else the y halo (or the wrap inside the slab)
+  const int mw = g.msh * g.zh;
+  if (yl < yloc - 1) {
+    nb[4] = nb_at(a.psi, r, c + m + g.zh);
+  } else if (a.mh.p != nullptr) {
+    nb[4] = nb_at(a.mh, r, ((long long)(g.T + t) * g.X + x) * mw + j * g.zh + k);
+  } else {
+    nb[4] = nb_at(a.psi, r, c + m - (yloc - 1) * g.zh);
+  }
+  if (yl > 0) {
+    nb[5] = nb_at(a.psi, r, c + m - g.zh);
+  } else if (a.mh.p != nullptr) {
+    nb[5] = nb_at(a.mh, r, ((long long)t * g.X + x) * mw + j * g.zh + k);
+  } else {
+    nb[5] = nb_at(a.psi, r, c + m + (yloc - 1) * g.zh);
+  }
+  // z hops stay inside the y-row (K1's slot logic)
+  const int mzf = s1 ? (k == g.zh - 1 ? m - (g.zh - 1) : m + 1) : m;
+  const int mzb = s1 ? m : (k == 0 ? m + (g.zh - 1) : m - 1);
+  nb[6] = nb_at(a.psi, r, c + mzf);
+  nb[7] = nb_at(a.psi, r, c + mzb);
+}
+
+__device__ __forceinline__ void slab_store(const SlabArgs& a, int r, long long site,
+                                           const float (&ar)[4][3], const float (&ai)[4][3]) {
+  float* o = a.out + r * a.out_r;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const long long e = (s * 3 + c) * a.out_comp + site;
+      o[e] = ar[s][c];
+      o[a.out_im + e] = ai[s][c];
+    }
+}
+
+// n: flat index over (variant row, x, m) -> the output site; false past the end
+__device__ __forceinline__ bool slab_site(const SlabGeo& g, long long n, int& i, int& tl, int& x,
+                                          int& m, long long& site) {
+  const long long XM = (long long)g.X * g.M;
+  const int row = (int)(n / XM);
+  if (row >= g.nrows) return false;
+  const long long rem = n - row * XM;
+  x = (int)(rem / g.M);
+  m = (int)(rem - (long long)x * g.M);
+  slab_row(g, row, i, tl);
+  site = ((long long)(i * g.tl + tl) * g.X + x) * g.M + m;
+  return true;
+}
+
+// R == 0: one thread per output site, links read directly (as K1)
+template <bool COMP, typename G>
+__global__ void __launch_bounds__(128)
+slab_kernel(SlabArgs a, const G* __restrict__ ug) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int i, tl, x, m;
+  long long site;
+  if (!slab_site(a.g, n, i, tl, x, m, site)) return;
+  const long long V = (long long)a.g.T * a.g.X * a.g.M;
+  Nb nb[8];
+  slab_neighbours(a, i, tl, x, m, 0, nb);
+  float ar[4][3], ai[4][3];
+  accum_src<COMP, G>(nb, ug, V, site, a.corr, ar, ai);
+  slab_store(a, 0, site, ar, ai);
+}
+
+constexpr int kSlabCols = 12;
+
+// R > 0: block (kRhsSites sites, up to kSlabCols columns), the links of the
+// block's sites staged in shared memory once (as K1-R)
+template <bool COMP, typename G>
+__global__ void __launch_bounds__(kRhsSites * kSlabCols)
+slab_rhs_kernel(SlabArgs a, const G* __restrict__ ug) {
+  __shared__ float sl[8 * 18 * kRhsSites];
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x;
+  int i, tl, x, m;
+  long long site;
+  const bool live = slab_site(a.g, n, i, tl, x, m, site);
+  const long long V = (long long)a.g.T * a.g.X * a.g.M;
+  if (live) stage_links<COMP, G>(ug, V, site, a.corr, sl, lane);
+  __syncthreads();
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (!live || r >= a.R) return;
+  Nb nb[8];
+  slab_neighbours(a, i, tl, x, m, r, nb);
+  float ar[4][3], ai[4][3];
+  accum_staged(nb, sl, lane, ar, ai);
+  slab_store(a, r, site, ar, ai);
+}
+
+template <bool COMP, typename G>
+void launch_slab(const SlabArgs& a, const void* ug, cudaStream_t stream) {
+  const long long n = (long long)a.g.nrows * a.g.X * a.g.M;
+  const G* u = static_cast<const G*>(ug);
+  if (a.R == 0) {
+    slab_kernel<COMP, G><<<(unsigned)((n + 127) / 128), 128, 0, stream>>>(a, u);
+  } else {
+    const int cols = a.R < kSlabCols ? a.R : kSlabCols;
+    const dim3 block(kRhsSites, cols);
+    const dim3 grid((unsigned)((n + kRhsSites - 1) / kRhsSites),
+                    (unsigned)((a.R + cols - 1) / cols));
+    slab_rhs_kernel<COMP, G><<<grid, block, 0, stream>>>(a, u);
+  }
+}
+
+bool bad_fld(const Fld& f, int R) {
+  return f.p == nullptr || f.im <= 0 || f.comp <= 0 || (R > 0 && f.r <= 0);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One slab-kernel launch over all slabs.  variant: 0 K3 / K1-T (psi the
+// extended field, every row), 1 K3-I (psi the whole field, rows 1 .. T_loc-2
+// of every slab row), 2 K4 (psi the whole field, rows 0 and T_loc-1, t
+// halos from th).  mh null: the y hops wrap inside the slab (msh must be
+// 1).  Field strides as in `Fld` (r strides read only when R > 0).  comp:
+// the 12-real copy with corr16 (8 (re, im) pairs on the host); gbf16: a
+// bf16 gauge.  Returns cudaGetLastError() after the launch (0 = success);
+// an invalid argument returns cudaErrorInvalidValue.
+int tm_hopping_slab(const float* psi, long long psi_im, long long psi_comp, long long psi_r,
+                    const float* th, long long th_im, long long th_comp, long long th_r,
+                    const float* mh, long long mh_im, long long mh_comp, long long mh_r,
+                    const void* ug, float* out, long long out_im, long long out_comp,
+                    long long out_r, int T, int X, int M, int zh, int p, int tsh, int msh,
+                    int variant, int comp, int gbf16, const float* corr16, int R,
+                    void* stream) {
+  if (T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1) ||
+      tsh <= 0 || msh <= 0 || T % tsh != 0 || M % msh != 0 || variant < 0 || variant > 2 ||
+      R < 0 || ug == nullptr || out == nullptr || (comp && corr16 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int tl = T / tsh, ml = M / msh;
+  if (tl % 2 != 0 || ml % zh != 0 || (ml / zh) % 2 != 0 || (variant == kInt && tl < 4))
+    return (int)cudaErrorInvalidValue;
+  const Fld fpsi{psi, psi_im, psi_comp, psi_r};
+  const Fld fth{th, th_im, th_comp, th_r};
+  const Fld fmh{mh, mh_im, mh_comp, mh_r};
+  if (bad_fld(fpsi, R) || (variant == kBnd && bad_fld(fth, R)) ||
+      (mh == nullptr ? msh != 1 : bad_fld(fmh, R)) || out_im <= 0 || out_comp <= 0 ||
+      (R > 0 && out_r <= 0))
+    return (int)cudaErrorInvalidValue;
+  const int nrows = variant == kExt ? T : variant == kInt ? tsh * (tl - 2) : 2 * tsh;
+  SlabArgs a{fpsi, fth, fmh, out, out_im, out_comp, out_r,
+             SlabGeo{T, X, M, zh, p, tsh, msh, tl, ml, variant, nrows}, Corr{}, R};
+  for (int d = 0; d < 8; ++d) {
+    a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
+    a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gbf16) {
+    if (comp) launch_slab<true, __nv_bfloat16>(a, ug, s);
+    else launch_slab<false, __nv_bfloat16>(a, ug, s);
+  } else {
+    if (comp) launch_slab<true, float>(a, ug, s);
+    else launch_slab<false, float>(a, ug, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

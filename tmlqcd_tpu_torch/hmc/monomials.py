@@ -38,6 +38,16 @@ operator.  The clover-term part of a force is autograd through
 `ops/clover.sw_blocks` -> `mee_blocks` / `mee_inv_blocks` / `sw_logdet`.
 Each call builds the gauge copy and the clover term once (`_CloverState`)
 and shares them between its operators; nothing is cached across calls.
+
+Domain decomposition: a monomial built with `mesh` (a `parallel.Mesh`, from
+NrTProcs x NrYProcs) runs every CG solve — acceptance, force, heatbath, and
+the mixed solvers' low operator on the bf16 copy — on the sharded operators
+(`wf.q_hat_pm_fast_shard`, `wf.q_hat_pm_clover_fast_shard`: the slab
+kernels K3-I and K4), as the reference routes its solves under an active
+mesh.  The heatbath's Qhat, the y = Qhat_+ x of a force and the force
+surrogates stay on the whole-lattice kernels (K1, and K1 / K2 through
+`HoppingDiff`): the reference takes jnp autodiff for the surrogates under a
+mesh, a GSPMD choice; on one device the fields stay whole.
 """
 
 from __future__ import annotations
@@ -103,16 +113,13 @@ def _seam_solve(mv, mv_lo, b2, solver, tol, maxiter, hist) -> SolveOut:
 
 def _solve_qpm(fg: wf.FastGauge, b2: torch.Tensor, params: DiracParams, lat: Lattice,
                tol: float, maxiter: int, solver: str = "auto",
-               hist: ChronoHistory | None = None) -> SolveOut:
+               hist: ChronoHistory | None = None, mesh=None) -> SolveOut:
     """Solve Qhat_pm x = b (split fields) through the dispatch seam; the
-    mixed solvers' low operator runs on the bf16 copy of `fg`."""
-
-    def mv_lo():
-        fg16 = wf.sloppy_gauge(fg)
-        return lambda x2: wf.q_hat_pm_fast(fg16, x2, params, lat)
-
-    return _seam_solve(lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat), mv_lo, b2, solver,
-                       tol, maxiter, hist)
+    mixed solvers' low operator runs on the bf16 copy of `fg`.  With `mesh`
+    both operators are the sharded ones."""
+    return _seam_solve(wf.q_hat_pm_operator(fg, params, lat, mesh),
+                       lambda: wf.q_hat_pm_operator(wf.sloppy_gauge(fg), params, lat, mesh), b2,
+                       solver, tol, maxiter, hist)
 
 
 def _surrogate_force(u: torch.Tensor, surrogate) -> torch.Tensor:
@@ -170,6 +177,7 @@ class DetMonomial:
     solver: str = "auto"
     chrono_n: int = 3
     name: str = "det"
+    mesh: object = None  # parallel.Mesh: the solves on the slab kernels
 
     def heatbath(self, u, key, eta=None):
         eta2 = _eta2(key, self.lat, u, eta)
@@ -184,13 +192,13 @@ class DetMonomial:
     def action_info(self, u, phi2, hist=None):
         fg = wf.make_fast_gauge(u, self.params, self.lat)
         res = _solve_qpm(fg, phi2, self.params, self.lat, self.acc_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         return wf.dot_re_f64_split(phi2, res.x), res.iterations
 
     def force_chrono(self, u, phi2, hist):
         fg = wf.make_fast_gauge(u, self.params, self.lat)
         res = _solve_qpm(fg, phi2, self.params, self.lat, self.force_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         x2 = res.x
         y2 = wf.q_hat_fast(fg, x2, self.params, self.lat, +1.0)
 
@@ -222,6 +230,7 @@ class DetRatioMonomial:
     solver: str = "auto"
     chrono_n: int = 3
     name: str = "detratio"
+    mesh: object = None  # parallel.Mesh: the solves on the slab kernels
 
     def heatbath(self, u, key, eta=None):
         # phi = Qhat_pm(2)^{-1} Qhat_-(2) b with b = Qhat_-(1) eta
@@ -230,7 +239,7 @@ class DetRatioMonomial:
         b = wf.q_hat_fast(fg, eta2, self.params1, self.lat, -1.0)
         b2 = wf.q_hat_fast(fg, b, self.params2, self.lat, -1.0)
         phi2 = _solve_qpm(fg, b2, self.params2, self.lat, self.acc_tol, self.maxiter,
-                          self.solver).x
+                          self.solver, mesh=self.mesh).x
         return phi2, wf.dot_re_f64_split(eta2, eta2)
 
     def chrono_init_state(self, device):
@@ -242,14 +251,14 @@ class DetRatioMonomial:
         fg = wf.make_fast_gauge(u, self.params1, self.lat)
         psi2 = wf.q_hat_fast(fg, phi2, self.params2, self.lat, +1.0)
         res = _solve_qpm(fg, psi2, self.params1, self.lat, self.acc_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         return wf.dot_re_f64_split(psi2, res.x), res.iterations
 
     def force_chrono(self, u, phi2, hist):
         fg = wf.make_fast_gauge(u, self.params1, self.lat)
         psi2 = wf.q_hat_fast(fg, phi2, self.params2, self.lat, +1.0)
         res = _solve_qpm(fg, psi2, self.params1, self.lat, self.force_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         x2 = res.x
         y2 = wf.q_hat_fast(fg, x2, self.params1, self.lat, +1.0)
 
@@ -273,17 +282,14 @@ class DetRatioMonomial:
 
 def _solve_qsw(fc: wf.FastClover, b2: torch.Tensor, params: DiracParams, lat: Lattice,
                tol: float, maxiter: int, solver: str = "auto",
-               hist: ChronoHistory | None = None) -> SolveOut:
+               hist: ChronoHistory | None = None, mesh=None) -> SolveOut:
     """Solve Qsw_pm x = b (split fields) through the dispatch seam; the
     mixed solvers' low operator runs on the bf16 copy of the gauge of `fc`
-    (the clover blocks stay f32)."""
-
-    def mv_lo():
-        fc16 = wf.sloppy_clover(fc)
-        return lambda x2: wf.q_hat_pm_clover_fast(fc16, x2, params, lat)
-
-    return _seam_solve(lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat), mv_lo, b2,
-                       solver, tol, maxiter, hist)
+    (the clover blocks stay f32).  With `mesh` both operators are the
+    sharded ones."""
+    return _seam_solve(wf.q_hat_pm_clover_operator(fc, params, lat, mesh),
+                       lambda: wf.q_hat_pm_clover_operator(wf.sloppy_clover(fc), params, lat, mesh),
+                       b2, solver, tol, maxiter, hist)
 
 
 class _CloverState:
@@ -328,6 +334,7 @@ class CloverDetMonomial:
     solver: str = "auto"
     chrono_n: int = 3
     name: str = "cloverdet"
+    mesh: object = None  # parallel.Mesh: the solves on the slab kernels
 
     def heatbath(self, u, key, eta=None):
         eta2 = _eta2(key, self.lat, u, eta)
@@ -343,14 +350,14 @@ class CloverDetMonomial:
     def action_info(self, u, phi2, hist=None):
         fc = wf.make_fast_clover(u, self.params, self.lat)
         res = _solve_qsw(fc, phi2, self.params, self.lat, self.acc_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         return wf.dot_re_f64_split(phi2, res.x), res.iterations
 
     def force_chrono(self, u, phi2, hist):
         st = _CloverState(u, self.params, self.lat, grad=True)
         fc = st.fast(self.params)
         res = _solve_qsw(fc, phi2, self.params, self.lat, self.force_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         x2 = res.x
         y2 = wf.q_hat_clover_fast(fc, x2, self.params, self.lat, +1.0)
         with torch.enable_grad():
@@ -406,6 +413,7 @@ class CloverDetRatioMonomial:
     solver: str = "auto"
     chrono_n: int = 3
     name: str = "cloverdetratio"
+    mesh: object = None  # parallel.Mesh: the solves on the slab kernels
 
     def __post_init__(self):
         if (self.params1.kappa, self.params1.c_sw) != (self.params2.kappa, self.params2.c_sw):
@@ -419,7 +427,8 @@ class CloverDetRatioMonomial:
         fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
         b = wf.q_hat_clover_fast(fc1, eta2, self.params1, self.lat, -1.0)
         b2 = wf.q_hat_clover_fast(fc2, b, self.params2, self.lat, -1.0)
-        phi2 = _solve_qsw(fc2, b2, self.params2, self.lat, self.acc_tol, self.maxiter, "cg").x
+        phi2 = _solve_qsw(fc2, b2, self.params2, self.lat, self.acc_tol, self.maxiter, "cg",
+                          mesh=self.mesh).x
         return phi2, wf.dot_re_f64_split(eta2, eta2)
 
     def chrono_init_state(self, device):
@@ -432,7 +441,7 @@ class CloverDetRatioMonomial:
         fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
         psi2 = wf.q_hat_clover_fast(fc2, phi2, self.params2, self.lat, +1.0)
         res = _solve_qsw(fc1, psi2, self.params1, self.lat, self.acc_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         return wf.dot_re_f64_split(psi2, res.x), res.iterations
 
     def force_chrono(self, u, phi2, hist):
@@ -440,7 +449,7 @@ class CloverDetRatioMonomial:
         fc1, fc2 = st.fast(self.params1), st.fast(self.params2)
         psi2 = wf.q_hat_clover_fast(fc2, phi2, self.params2, self.lat, +1.0)
         res = _solve_qsw(fc1, psi2, self.params1, self.lat, self.force_tol, self.maxiter,
-                         self.solver, hist)
+                         self.solver, hist, self.mesh)
         x2 = res.x
         y2 = wf.q_hat_clover_fast(fc1, x2, self.params1, self.lat, +1.0)
         with torch.enable_grad():

@@ -29,7 +29,13 @@ and the adjoint K1 backward); the clover-term part is autograd through
 `ops/clover`.  The reference runs its complex jnp operator for the heatbath's
 Q and, off the TPU, everywhere; the results differ by f32 rounding.  Each
 call builds the gauge copy (and the clover blocks) once (`_NDOps`,
-`_RatOps`); nothing is cached across calls.  PyTorch's gradient with respect
+`_RatOps`); nothing is cached across calls.  Under a mesh (the monomial's
+`mesh`, a `parallel.Mesh`) the multishift operator A runs on the sharded
+operators (`q_nd_sq_fast_shard`, `q_nd_sq_clover_fast_shard`: the doublet on
+the multi-RHS slab kernels with flavour as the R axis; `q_hat_pm_fast_shard`,
+`q_hat_pm_clover_fast_shard` for RAT), as the reference routes its
+multishift solves (reference :103-118, :301-316); Q, the y_j and the
+surrogates stay on the whole-lattice kernels.  PyTorch's gradient with respect
 to the complex gauge is the conjugate of the reference's convention, hence
 `torch_grad_to_jax` before `ta_force_from_grad` (`_force_from_surrogate`).
 """
@@ -64,8 +70,9 @@ class _NDOps:
     blocks built once, differentiable (for a force) or not.  `q` and `a` run
     the kernel operator, `q_diff` the HoppingDiff surrogate."""
 
-    def __init__(self, u: torch.Tensor, params: nd.NDParams, lat: Lattice, grad: bool):
-        self.params, self.lat = params, lat
+    def __init__(self, u: torch.Tensor, params: nd.NDParams, lat: Lattice, grad: bool,
+                 mesh=None):
+        self.params, self.lat, self.mesh = params, lat, mesh
         self.clover = params.c_sw != 0.0
         with torch.enable_grad() if grad else torch.no_grad():
             self.u = u.detach().requires_grad_(True) if grad else u
@@ -85,6 +92,11 @@ class _NDOps:
         return wf.q_nd_fast(self.fast, x2, self.params, self.lat)
 
     def a(self, x2: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            if self.clover:
+                return wf.q_nd_sq_clover_fast_shard(self.fast, x2, self.params, self.lat,
+                                                    self.mesh)
+            return wf.q_nd_sq_fast_shard(self.fast, x2, self.params, self.lat, self.mesh)
         return self.q(self.q(x2))
 
     def q_diff(self, x2: torch.Tensor) -> torch.Tensor:
@@ -101,8 +113,8 @@ class _RatOps:
     """Qhat(+) = gamma5 Mhat at mu = 0 (with or without clover) at one U, as
     `_NDOps`: `q` is Qhat_+, `a` is Qhat_pm = Qhat_- Qhat_+."""
 
-    def __init__(self, u: torch.Tensor, params, lat: Lattice, grad: bool):
-        self.params, self.lat = params, lat
+    def __init__(self, u: torch.Tensor, params, lat: Lattice, grad: bool, mesh=None):
+        self.params, self.lat, self.mesh = params, lat, mesh
         self.clover = params.c_sw != 0.0
         if self.clover:
             self.st = _CloverState(u, params, lat, grad)
@@ -120,9 +132,8 @@ class _RatOps:
         return wf.q_hat_fast(self.fast, x2, self.params, self.lat, +1.0)
 
     def a(self, x2: torch.Tensor) -> torch.Tensor:
-        if self.clover:
-            return wf.q_hat_pm_clover_fast(self.fast, x2, self.params, self.lat)
-        return wf.q_hat_pm_fast(self.fast, x2, self.params, self.lat)
+        op = wf.q_hat_pm_clover_operator if self.clover else wf.q_hat_pm_operator
+        return op(self.fast, self.params, self.lat, self.mesh)(x2)
 
     def q_diff(self, x2: torch.Tensor) -> torch.Tensor:
         if self.clover:
@@ -221,12 +232,13 @@ class NDRatMonomial(_RationalBase):
     force_tol: float = 1e-8
     maxiter: int = 2000
     name: str = "ndrat"
+    mesh: object = None  # parallel.Mesh: the multishift operator on the slab kernels
 
     def _eta_shape(self) -> tuple:
         return _nd_spinor_shape(self.lat)
 
     def _ops(self, u, grad: bool) -> _NDOps:
-        return _NDOps(u, self.params, self.lat, grad)
+        return _NDOps(u, self.params, self.lat, grad, self.mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +263,7 @@ class RatMonomial(_RationalBase):
     force_tol: float = 1e-8
     maxiter: int = 2000
     name: str = "rat"
+    mesh: object = None  # parallel.Mesh: the multishift operator on the slab kernels
 
     def __post_init__(self):
         if getattr(self.params, "mu", 0.0) != 0.0:
@@ -262,7 +275,7 @@ class RatMonomial(_RationalBase):
         return eo_spinor_shape(self.lat)
 
     def _ops(self, u, grad: bool) -> _RatOps:
-        return _RatOps(u, self.params, self.lat, grad)
+        return _RatOps(u, self.params, self.lat, grad, self.mesh)
 
 
 # ---------------------------------------------------------------------------

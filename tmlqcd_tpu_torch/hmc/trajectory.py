@@ -25,11 +25,14 @@ __all__ = ["HMCConfig", "Draws", "TrajectoryStats", "hmc_trajectory", "chrono_st
 
 @dataclasses.dataclass(frozen=True)
 class HMCConfig:
-    """Lattice + action (monomial tuple) + integrator."""
+    """Lattice + action (monomial tuple) + integrator, and the (t, y) slab
+    mesh (`parallel.Mesh`) that the solving monomials were built with, or
+    None."""
 
     lat: object
     monomials: tuple
     integrator: IntegratorConfig
+    mesh: object = None
 
 
 class Draws(NamedTuple):

@@ -29,6 +29,15 @@ increigcg) has no branch there: as in the reference, the solve is CG, and the
 inverter prints so.  `invert_eo_increigcg` is the sequence-of-sources solve
 with incremental eigCG deflation.
 
+Domain decomposition (`mesh=`, a `parallel.Mesh`): the CG-family solves of
+`invert_eo` (cg, fastcg, mixedcg, fastmixed and the latter's bf16 low
+operator), of `invert_clover_eo` (cg, fastcg, mixedcg) and the batched CG of
+`invert_eo_rhs` (its R axis on the multi-RHS slab kernels) run on the
+sharded operators, as the reference routes them under an active mesh
+(reference inverter.py:131-145, :196-218, :319-323); the Schur prologue and
+epilogue, the deflated solvers and increigcg stay on the whole-lattice
+kernels.
+
 Routing: every Dirac application runs on split f32 fields through
 `ops/wilson_fast` — the hand-written kernel for CUDA tensors, its plain
 version for CPU tensors — for `cg` as for `fastcg`, where the reference runs
@@ -117,7 +126,7 @@ def make_deflation_setup(u: torch.Tensor, params: DiracParams, lat: Lattice,
                                n_vectors=n_vectors, blocks=blocks, v0=v0, **kw)
 
 
-def _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u):
+def _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u, mesh=None):
     """Step 2 of `invert_eo` for one source: the reference's branches."""
     if solver in _DEFLATED:
         # flexible Krylov on the unsquared Mhat, short cycles: the V-cycle
@@ -134,12 +143,11 @@ def _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u):
                   max_restarts=max(maxiter // restart, 1))
         return _Solved(res.x, res.iterations, res.residual_sq)
     rhs = wf.q_hat_fast(fg, gamma5_split(bhat), params, lat, -1.0)
-    mv = lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat)  # noqa: E731
+    mv = wf.q_hat_pm_operator(fg, params, lat, mesh)
     if solver in ("mixedcg", "fastmixed"):
         mv_lo = None
         if solver == "fastmixed":
-            fg16 = wf.sloppy_gauge(fg)
-            mv_lo = lambda x2: wf.q_hat_pm_fast(fg16, x2, params, lat)  # noqa: E731
+            mv_lo = wf.q_hat_pm_operator(wf.sloppy_gauge(fg), params, lat, mesh)
         res = mixed_cg(mv, rhs, matvec_lo=mv_lo, tol=tol, max_inner=maxiter)
         return _Solved(res.x, res.inner_iterations, res.residual_sq)
     if solver not in ("cg", "fastcg"):
@@ -149,7 +157,7 @@ def _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u):
 
 
 def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg",
-                 deflation_setup=None):
+                 deflation_setup=None, mesh=None):
     """Steps 1-3 on split even/odd sources; r_axis None (one source, any
     solver) or 3 (a batch, batched CG)."""
     fg = wf.make_fast_gauge(u, params, lat)
@@ -159,11 +167,11 @@ def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg",
     bhat = b_o2 + kappa * wf.hop_fast(fg, wf.mee_inv_split(b_e2, mutld, +1.0), ODD, lat,
                                       r_axis=r_axis)
     if r_axis is None:
-        res = _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u)
+        res = _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u, mesh)
     else:
         rhs = wf.q_hat_fast(fg, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
-        mv = lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat, r_axis=r_axis)  # noqa: E731
-        res = cg_rhs(mv, rhs, rhs_axis=r_axis, tol=tol, maxiter=maxiter)
+        res = cg_rhs(wf.q_hat_pm_operator(fg, params, lat, mesh, r_axis), rhs,
+                     rhs_axis=r_axis, tol=tol, maxiter=maxiter)
     # x_e = Mee^{-1} (b_e + kappa H_eo x_o): the diagonal is linear, so it is
     # applied to b_e on its own and fused into the hop's epilogue for x_o
     x_e = wf.mee_inv_split(b_e2, mutld, +1.0) + kappa * wf.hop_fast(
@@ -171,7 +179,8 @@ def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg",
     return x_e, res
 
 
-def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg"):
+def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg",
+                        mesh=None):
     """Steps 1-3 with the clover diagonal.  M_ee^{-1} b_e has no hop in front
     of it, so it is the plain block matvec; the hop of the epilogue and the
     Qsw_- of the prologue carry their blocks in the clover epilogues.
@@ -184,7 +193,7 @@ def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver
     # bhat = b_o + kappa H_oe Mee^{-1} b_e
     bhat = b_o2 + kappa * wf.hop_fast(fc.fg, minv_be, ODD, lat, r_axis=r_axis)
     rhs = wf.q_hat_clover_fast(fc, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
-    mv = lambda x2: wf.q_hat_pm_clover_fast(fc, x2, params, lat, r_axis=r_axis)  # noqa: E731
+    mv = wf.q_hat_pm_clover_operator(fc, params, lat, mesh, r_axis)
     if r_axis is None and solver == "mixedcg":
         mres = mixed_cg(mv, rhs, tol=tol, max_inner=maxiter)
         res = _Solved(mres.x, mres.inner_iterations, mres.residual_sq)
@@ -203,24 +212,26 @@ def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver
 
 def invert_eo(u: torch.Tensor, b: torch.Tensor, params: DiracParams, lat: Lattice,
               tol: float = 1e-10, maxiter: int = 5000, solver: str = "cg",
-              deflation_setup=None) -> InvertResult:
+              deflation_setup=None, mesh=None) -> InvertResult:
     """Solve M(params) x = b (full lattice) for the twisted-mass Wilson
     operator; `params.c_sw` is not read (`invert_clover_eo` is the clover
     solve).  solver: see the module docstring; the deflated solvers take
     `deflation_setup` (built here when None).  For the mixed solvers
     `iterations` counts the inner iterations, for the deflated ones the
-    restart cycles, as in the reference."""
+    restart cycles, as in the reference.  `mesh`: the CG-family solve on the
+    sharded operator."""
     return _invert_one(_schur_solve, u, b, params, lat, tol, maxiter, solver,
-                       deflation_setup=deflation_setup)
+                       deflation_setup=deflation_setup, mesh=mesh)
 
 
 def invert_clover_eo(u: torch.Tensor, b: torch.Tensor, params: DiracParams, lat: Lattice,
-                     tol: float = 1e-10, maxiter: int = 5000, solver: str = "cg") -> InvertResult:
+                     tol: float = 1e-10, maxiter: int = 5000, solver: str = "cg",
+                     mesh=None) -> InvertResult:
     """Twisted-clover inversion: the Schur pipeline of `invert_eo` with the
     clover M_ee / M_oo blocks, split f32 fields on K1 with the clover
     epilogues.  solver: 'cg' | 'fastcg' | 'mixedcg'; any other carried name
-    runs CG."""
-    return _invert_one(_schur_solve_clover, u, b, params, lat, tol, maxiter, solver)
+    runs CG.  `mesh`: the solve on the sharded operator."""
+    return _invert_one(_schur_solve_clover, u, b, params, lat, tol, maxiter, solver, mesh=mesh)
 
 
 def _invert_one(schur, u, b, params, lat, tol, maxiter, solver, **kw) -> InvertResult:
@@ -267,7 +278,7 @@ def invert_eo_increigcg(u: torch.Tensor, bs: list, params: DiracParams, lat: Lat
 
 
 def invert_eo_rhs(u: torch.Tensor, bs: torch.Tensor, params: DiracParams, lat: Lattice,
-                  tol: float = 1e-10, maxiter: int = 5000) -> InvertResult:
+                  tol: float = 1e-10, maxiter: int = 5000, mesh=None) -> InvertResult:
     """Batched propagator inversion: solve M x_r = b_r for all R sources at
     once — the Schur pipeline of `invert_eo` with the odd solve as ONE
     batched CG (`cg_rhs`) on the multi-RHS operator, which reads the gauge
@@ -275,12 +286,13 @@ def invert_eo_rhs(u: torch.Tensor, bs: torch.Tensor, params: DiracParams, lat: L
 
     bs: [R, 4, 3, T, X, Mf] complex; `params.c_sw != 0` selects the clover
     pipeline.  Returns x [R, 4, 3, T, X, Mf]; `residual_sq` is per side [R],
-    `iterations` the maximum over sides."""
+    `iterations` the maximum over sides.  `mesh`: the batched CG on the
+    multi-RHS slab kernels."""
     schur = _schur_solve_clover if params.c_sw != 0.0 else _schur_solve
     with torch.no_grad():
         b_e, b_o = eo_pack(bs, lat)
         x_e2, res = schur(u, wf.to_split_rhs(b_e), wf.to_split_rhs(b_o), params, lat,
-                          tol, maxiter, 3)
+                          tol, maxiter, 3, mesh=mesh)
         x = eo_unpack(wf.from_split_rhs(x_e2), wf.from_split_rhs(res.x), lat)
     return InvertResult(x=x.to(bs.dtype), iterations=res.iterations, residual_sq=res.residual_sq)
 

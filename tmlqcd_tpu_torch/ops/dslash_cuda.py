@@ -1,6 +1,8 @@
-"""The even/odd hopping kernel (K1), its multi-right-hand-side form (K1-R)
-and the gauge-cotangent kernel (K2) on Hopper, each beside its plain PyTorch
-version, plus the differentiable hopping built from K1 and K2.
+"""The even/odd hopping kernel (K1), its multi-right-hand-side form (K1-R),
+the gauge-cotangent kernel (K2) and the slab kernels of the domain
+decomposition (K3, K3-I, K4, K1-T) on Hopper, each beside its plain PyTorch
+version, plus the differentiable hopping built from K1 and K2 and the halo
+exchange of the sharded hop.
 
 Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
 
@@ -22,7 +24,8 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   reached from `make_fast_gauge(sloppy=True)`): the links are read as bf16
   and upcast in registers, everything after the load is f32.  Bound by
   memory: 288 B (18-real) or 192 B (12-real) of gauge per site instead of
-  576 / 384.  Only K1 takes a bf16 gauge; K1-R and K2 raise for one.
+  576 / 384.  K1-R takes a bf16 gauge too (K1-RB, the bf16 instances of
+  `_dslash_kernel_r`); K2 reads no gauge.
 * `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
   batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
   `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
@@ -43,6 +46,25 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   Re<g, H psi> with respect to ug[p].  Bound by memory: 96 B of g and 96 B of
   psi per site read, 576 B per site written.
 * `HoppingDiff` replaces the custom VJP `hopping_diff` (:1608-1641).
+* `hopping_slab_split` (`csrc/hopping_slab.cu`) replaces the sharded Pallas
+  kernels: K3 `_build_shard_ext` :1228 (`_shard_kernel` :1153 with the t
+  halos concatenated; `_shard_kernel_r` for R > 0 or the doublet), K3-I
+  `_build_shard_int` :1267 (the interior rows, no t halo), K4
+  `_build_shard_bnd` :1307 (`_shard_bnd_kernel` :1173: the two surface rows
+  of each slab) and K1-T `_build_ext` :997 (t slabs only, the y hops
+  wrapping inside the slab).  One launch per variant covers every slab of a
+  `parallel.Mesh` on one device; the output is the whole field, written at
+  the variant's rows, so no assembly follows.  Epilogue none, f32 or bf16
+  links, one spinor, R columns or the doublet.  Bound by memory as K1: the
+  links of the variant's sites, psi's rows once, the halo buffers and the
+  output.
+* `hopping_shard` replaces `hopping_pallas_shard` (:1345-1480): the y and t
+  halo exchanges (half-spinor projection W^+ with the (1 -/+ gamma_2) and
+  (1 -/+ gamma_0) maps, the send as a device-local copy, the rebuild
+  0.5 W s) around K3-I (on a side stream) and K4, or K3 without overlap;
+  `hopping_tshard` replaces `hopping_pallas_tshard` (:1065) on K1-T.  Both
+  equal K1 on the whole lattice: the slab kernels run K1's per-site sum on
+  the same neighbour values.
 
 Routing: the device of the tensors decides.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor takes the plain version.  There is no
@@ -52,16 +74,21 @@ plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
 `hopping_split.clover_launches` and `hopping_split_rhs.clover_launches` count
 those of the launches that ran a clover epilogue, `hopping_split.bf16_launches`
 those on a bf16 gauge,
-`hopping_split_rhs.doublet_launches` those on the flavour-doublet axis.
+`hopping_split_rhs.doublet_launches` those on the flavour-doublet axis,
+`hopping_split_rhs.bf16_launches` those on a bf16 gauge (K1-RB);
+`hopping_slab_split.launches` counts the slab kernels by name (K3, K3-I,
+K4, K1-T), `.bf16_launches` and `.rhs_launches` those on a bf16 gauge and
+with an R axis.
 
-The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/` with
-nvcc into a shared library with a plain C interface, loaded with ctypes;
-see `_lib`.
+The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/`, one
+nvcc process per source, into a shared library with a plain C interface,
+loaded with ctypes; see `kernel_library`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -114,9 +141,12 @@ W = np.stack([
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-_SOURCES = ("hopping.cu",)
+# each source is one nvcc process, all started together; the objects are
+# linked into one library
+_SOURCES = ("hopping.cu", "hopping_slab.cu")
+_HEADERS = ("hopping_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-               "-shared", "-Xcompiler", "-fPIC")
+               "-Xcompiler", "-fPIC")
 _lib_handle = None
 _lib_lock = threading.Lock()
 
@@ -127,6 +157,38 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found (on PATH or /usr/local/cuda/bin): the CUDA "
                            "kernels of tmlqcd_tpu_torch are built from source at first use")
     return path
+
+
+def _build(so: str, verbose: bool) -> None:
+    """Compile every source in its own nvcc process, all at once, and link
+    the objects into `so` (moved into place atomically)."""
+    os.makedirs(_BUILD, exist_ok=True)
+    tmpdir = tempfile.mkdtemp(dir=_BUILD)
+    try:
+        procs = []
+        for name in _SOURCES:
+            obj = os.path.join(tmpdir, name + ".o")
+            cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                   "-o", obj, os.path.join(_CSRC, name)]
+            procs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, _, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(f"[nvcc {name}]\n{err}", flush=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-shared", "-o", tmp,
+                              *(obj for _, obj, _ in procs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def kernel_library(verbose: bool = False) -> ctypes.CDLL:
@@ -141,33 +203,25 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         if _lib_handle is not None:
             return _lib_handle
         h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        for name in _SOURCES:
+        for name in _SOURCES + _HEADERS:
             with open(os.path.join(_CSRC, name), "rb") as f:
                 h.update(f.read())
         so = os.path.join(_BUILD, f"libtmlqcd_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
-            os.makedirs(_BUILD, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-            os.close(fd)
-            cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", tmp, *(os.path.join(_CSRC, n) for n in _SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            if verbose:
-                print(res.stderr, flush=True)
-            os.replace(tmp, so)
+            _build(so, verbose)
         lib = ctypes.CDLL(so)
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.tm_hopping.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, f, vp,
                                    vp]
         lib.tm_hopping.restype = i
-        lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, f, vp,
-                                       i, ll, ll, ll, vp]
+        lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, f,
+                                       vp, i, ll, ll, ll, vp]
         lib.tm_hopping_rhs.restype = i
         lib.tm_hopping_ug_vjp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         lib.tm_hopping_ug_vjp.restype = i
+        lib.tm_hopping_slab.argtypes = ([vp, ll, ll, ll] * 3 + [vp, vp, ll, ll, ll]
+                                        + [i] * 10 + [vp, i, vp])
+        lib.tm_hopping_slab.restype = i
         _lib_handle = lib
         return lib
 
@@ -251,7 +305,7 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
     """Raise on anything the kernels do not take; `nrhs` set means spinors
     carry an R axis of that extent at `r_axis`: 3, before the sites, or 1,
     the flavour axis of a doublet (the gauge and the clover blocks never
-    carry one).  The gauge may be bf16 for K1 (`nrhs` None) only."""
+    carry one).  The gauge may be f32 or bf16."""
     site = lat.eo_site_shape
     if nrhs is None:
         spinor = (2, 4, 3) + site
@@ -274,11 +328,14 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
         if blocks is None:
             raise ValueError(f"the {epi[0]} epilogue needs blocks")
         need.append(("blocks", blocks, (2, 72) + site))
-    if ug_p.dtype == torch.bfloat16 and nrhs is not None:
-        raise TypeError("hopping_split_rhs takes a float32 gauge only: the multi-RHS kernel "
-                        "(K1-R) has no bf16-gauge form")
+    _check_tensors(need, psi_q.device)
+
+
+def _check_tensors(need, device) -> None:
+    """(name, tensor, shape) triples: f32 (the gauge `ug_p`: f32 or bf16),
+    that shape, contiguous, on `device`."""
     for name, t, shape in need:
-        ok = (torch.float32, torch.bfloat16) if name == "ug_p" and nrhs is None else (torch.float32,)
+        ok = (torch.float32, torch.bfloat16) if name == "ug_p" else (torch.float32,)
         if t.dtype not in ok:
             names = " or ".join(str(d).removeprefix("torch.") for d in ok)
             raise TypeError(f"{name} must be {names}, got {t.dtype}")
@@ -286,8 +343,8 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != psi_q.device:
-            raise ValueError(f"{name} is on {t.device}, psi_q on {psi_q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, psi on {device}")
 
 
 def _epilogue_args(epi: tuple) -> tuple:
@@ -474,8 +531,8 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
     """K1-R: out[r] = epilogue(H_{p,q} psi_q[r]) for the R right-hand sides
     along `r_axis`, the gauge read once for all of them.
 
-    `r_axis` = 3: psi_q, psi_o [2,4,3,R,T,X,M] f32; ug_p, blocks and epi as
-    for `hopping_split` (the gauge and the clover blocks have no R axis;
+    `r_axis` = 3: psi_q, psi_o [2,4,3,R,T,X,M] f32; ug_p (f32, or bf16: K1-RB),
+    blocks and epi as for `hopping_split` (the gauge and the clover blocks have no R axis;
     `mhat` and `clov_mhat` need psi_o with the same R axis).
     `r_axis` = 1 (K1-R-D): psi_q is a flavour doublet [2,2,4,3,T,X,M] f32,
     epilogue `none` only."""
@@ -489,6 +546,7 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
     lib = kernel_library()
     code, g5, mt, inv, k2 = _epilogue_args(epi)
     corr, corr_ptr = _corr_arg(gcomp)
+    bf16 = ug_p.dtype == torch.bfloat16
     out = torch.empty_like(psi_q)
     t, x, _, _ = lat.dims
     # element strides of the contiguous field: re/im, component (the colour
@@ -501,19 +559,21 @@ def hopping_split_rhs(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Latt
         rc = lib.tm_hopping_rhs(
             psi_q.data_ptr(), ug_p.data_ptr(), _ptr(psi_o, epi[0] in _NEEDS_PSI_O),
             _ptr(blocks, epi[0] in _NEEDS_BLOCKS), out.data_ptr(), t, x, lat.m, lat.zh, int(p),
-            code, g5, int(gcomp is not None), mt, inv, k2, corr_ptr, nrhs, im_stride,
+            code, g5, int(gcomp is not None), int(bf16), mt, inv, k2, corr_ptr, nrhs, im_stride,
             comp_stride, r_stride, stream)
     if rc != 0:
         raise RuntimeError(f"multi-RHS hopping kernel (K1-R) launch failed: CUDA error {rc}")
     hopping_split_rhs.launches += 1
     hopping_split_rhs.clover_launches += epi[0] in _NEEDS_BLOCKS
     hopping_split_rhs.doublet_launches += r_axis == _DOUBLET_AXIS
+    hopping_split_rhs.bf16_launches += bf16
     return out
 
 
 hopping_split_rhs.launches = 0
 hopping_split_rhs.clover_launches = 0
 hopping_split_rhs.doublet_launches = 0
+hopping_split_rhs.bf16_launches = 0
 
 
 def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
@@ -526,7 +586,7 @@ def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat
     hopping_split_rhs_plain.calls += 1
     epi = tuple(epi)
     _check_r_axis(r_axis, psi_q, epi)
-    ug = merge_c(ug_p)
+    ug = merge_c(ug_p.float())
     if gcomp is not None:
         ug = _row2(ug, gcomp)
     ug = ug.unsqueeze(3)  # [8, 3, 3, 1, T, X, M]: one link for every column
@@ -538,6 +598,379 @@ def hopping_split_rhs_plain(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat
 
 
 hopping_split_rhs_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 / K3-I / K4 / K1-T: the slab kernels, and the halo exchange around them
+# ---------------------------------------------------------------------------
+
+_SLAB_VARIANTS = {"ext": 0, "int": 1, "bnd": 2}
+
+
+def _spinor_prefix(r_axis: int | None, nrhs: int | None) -> tuple:
+    """The axes of a field before its sites: [2,4,3], [2,4,3,R] or [2,2,4,3]."""
+    if r_axis is None:
+        return (2, 4, 3)
+    if r_axis == _DOUBLET_AXIS:
+        return (2, 2, 4, 3)
+    return (2, 4, 3, nrhs)
+
+
+def _field_strides(t: torch.Tensor, r_axis: int | None) -> tuple:
+    """(re/im, component, right-hand side) element strides of a field."""
+    colour = 3 if r_axis == _DOUBLET_AXIS else 2
+    return t.stride(0), t.stride(colour), (t.stride(r_axis) if r_axis is not None else 0)
+
+
+def hopping_slab_split(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, mesh,
+                       variant: str, out: torch.Tensor, th=None, mh=None,
+                       gcomp: tuple | None = None, r_axis: int | None = None) -> torch.Tensor:
+    """One slab kernel over every slab of `mesh` (`parallel.Mesh`): H_{p,q}
+    psi at the rows of `variant`, written into `out` (the whole field,
+    [.., T, X, M]), which is returned.
+
+      "ext"  K3 (K1-T when `mh` is None): every row; psi is the extended
+             field [.., tsh (T_loc + 2), X, M], slab row i holding [halo_lo |
+             its T_loc rows | halo_hi];
+      "int"  K3-I: rows 1 .. T_loc-2 of every slab (T_loc >= 4), psi the
+             whole field [.., T, X, M]; no t halo is read;
+      "bnd"  K4: rows 0 and T_loc-1, psi the whole field, the t halos `th`
+             [.., 2 tsh, X, M] (row i below slab row i, row tsh + i above it).
+    `mh` [.., 2 T, X, msh zh]: the y halos, row t the y-row below
+    the slab at columns [j zh, (j+1) zh), row T + t the one above; None
+    (one y slab only) lets the y hops wrap inside the slab.
+    Fields [2,4,3,..] f32, or with an R axis at `r_axis` (3: a batch, 1: a
+    flavour doublet); ug_p [2,8,3|2,3,T,X,M] f32 or bf16 (gcomp as for K1)."""
+    if variant not in _SLAB_VARIANTS:
+        raise ValueError(f"unknown slab variant {variant!r}: have {', '.join(_SLAB_VARIANTS)}")
+    loc = mesh.local(lat)
+    t_loc = loc.dims[0]
+    t, x, _, _ = lat.dims
+    nrhs = None if r_axis is None else _check_r_axis(r_axis, psi, ("none",))
+    pre = _spinor_prefix(r_axis, nrhs)
+    if gcomp is not None and len(gcomp) != 8:
+        raise ValueError("gcomp must hold 8 (re, im) pairs")
+    rows = mesh.t * (t_loc + 2) if variant == "ext" else t
+    need = [("psi", psi, pre + (rows, x, lat.m)),
+            ("ug_p", ug_p, (2, 8, 2 if gcomp is not None else 3, 3) + lat.eo_site_shape),
+            ("out", out, pre + lat.eo_site_shape)]
+    if variant == "int" and t_loc < 4:
+        raise ValueError(f"the interior kernel (K3-I) needs T_loc >= 4, have {t_loc}")
+    if variant == "bnd":
+        if th is None:
+            raise ValueError("the boundary kernel (K4) needs the t halos `th`")
+        need.append(("th", th, pre + (2 * mesh.t, x, lat.m)))
+    if mh is None:
+        if mesh.y > 1:
+            raise ValueError(f"a mesh of {mesh.y} y slabs needs the y halos `mh`")
+    else:
+        need.append(("mh", mh, pre + (2 * t, x, mesh.y * lat.zh)))
+    _check_tensors(need, psi.device)
+    if psi.device.type == "cpu":
+        return hopping_slab_split_plain(ug_p, psi, p, lat, mesh, variant, out, th, mh, gcomp,
+                                        r_axis)
+    if psi.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi.device}")
+    lib = kernel_library()
+    corr, corr_ptr = _corr_arg(gcomp)
+    bf16 = ug_p.dtype == torch.bfloat16
+
+    def fld(f):
+        return (None, 0, 0, 0) if f is None else (f.data_ptr(),) + _field_strides(f, r_axis)
+
+    with torch.cuda.device(psi.device):
+        stream = torch.cuda.current_stream(psi.device).cuda_stream
+        rc = lib.tm_hopping_slab(
+            *fld(psi), *fld(th if variant == "bnd" else None), *fld(mh), ug_p.data_ptr(),
+            out.data_ptr(), *_field_strides(out, r_axis), t, x, lat.m, lat.zh, int(p), mesh.t,
+            mesh.y, _SLAB_VARIANTS[variant], int(gcomp is not None), int(bf16), corr_ptr,
+            nrhs or 0, stream)
+    name = {"ext": "K3" if mh is not None else "K1-T", "int": "K3-I", "bnd": "K4"}[variant]
+    if rc != 0:
+        raise RuntimeError(f"slab hopping kernel ({name}) launch failed: CUDA error {rc}")
+    hopping_slab_split.launches[name] += 1
+    hopping_slab_split.bf16_launches += bf16
+    hopping_slab_split.rhs_launches += r_axis is not None
+    return out
+
+
+hopping_slab_split.launches = {"K3": 0, "K3-I": 0, "K4": 0, "K1-T": 0}
+hopping_slab_split.bf16_launches = 0
+hopping_slab_split.rhs_launches = 0
+
+
+def _canon(c: torch.Tensor, r_axis: int | None) -> torch.Tensor:
+    """A complex field -> [4, 3, R', *sites] (R' = 1 without an R axis; a
+    doublet's flavour axis moved behind colour)."""
+    if r_axis is None:
+        return c.unsqueeze(2)
+    if r_axis == _DOUBLET_AXIS:
+        return torch.movedim(c, 0, 2)
+    return c
+
+
+def _from_canon(c: torch.Tensor, r_axis: int | None) -> torch.Tensor:
+    if r_axis is None:
+        return split_c(c.squeeze(2))
+    if r_axis == _DOUBLET_AXIS:
+        return split_c(torch.movedim(c, 2, 0))
+    return split_c(c)
+
+
+def hopping_slab_split_plain(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Lattice, mesh,
+                             variant: str, out: torch.Tensor, th=None, mh=None,
+                             gcomp: tuple | None = None,
+                             r_axis: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the slab kernels, all slabs at once: the
+    field is viewed slab by slab [.., tsh, T_loc, X, msh, m_loc] and each
+    slab extended by its halos to [.., T_loc + 2, X, m_loc + 2 zh] (t halo
+    rows below and above, y halo columns left and right); the stencil reads
+    its neighbours by slicing that tensor, with no roll, and the arithmetic
+    per direction is `hopping_split_plain`'s (link times spinor, then the
+    dense projector).  The variant's rows of `out` are overwritten."""
+    hopping_slab_split_plain.calls += 1
+    tl, xx, _, _ = mesh.local(lat).dims
+    ml, zh, tsh, msh = mesh.local(lat).m, lat.zh, mesh.t, mesh.y
+    ug = merge_c(ug_p.float())
+    if gcomp is not None:
+        ug = _row2(ug, gcomp)
+    # [8, 3, 3, 1 (every column), tsh, T_loc, X, msh, m_loc]
+    ug = ug.unsqueeze(3).unflatten(-1, (msh, ml)).unflatten(-4, (tsh, tl))
+
+    def slabs(f, rows):  # complex [4, 3, R', tsh, rows, X, msh, m']
+        return _canon(merge_c(f), r_axis).unflatten(-1, (msh, -1)).unflatten(-4, (-1, rows))
+
+    c_psi = slabs(psi, tl + 2 if variant == "ext" else tl)
+    center = c_psi[..., 1:tl + 1, :, :, :] if variant == "ext" else c_psi
+    e = center.new_zeros(center.shape[:-4] + (tl + 2, xx, msh, ml + 2 * zh))
+    e[..., 1:tl + 1, :, :, zh:zh + ml] = center
+    if variant == "ext":
+        e[..., 0:1, :, :, zh:zh + ml] = c_psi[..., 0:1, :, :, :]
+        e[..., tl + 1:, :, :, zh:zh + ml] = c_psi[..., tl + 1:, :, :, :]
+    elif variant == "bnd":
+        c_th = _canon(merge_c(th), r_axis).unflatten(-1, (msh, ml)).unflatten(-4, (2, tsh))
+        e[..., 0, :, :, zh:zh + ml] = c_th[..., 0, :, :, :, :]
+        e[..., tl + 1, :, :, zh:zh + ml] = c_th[..., 1, :, :, :, :]
+    if mh is None:
+        e[..., 1:tl + 1, :, :, :zh] = center[..., ml - zh:]
+        e[..., 1:tl + 1, :, :, zh + ml:] = center[..., :zh]
+    else:
+        # [4, 3, R', 2 (below / above), tsh, T_loc, X, msh, zh]
+        c_mh = _canon(merge_c(mh), r_axis).unflatten(-1, (msh, zh)).unflatten(-4, (2, tsh, tl))
+        e[..., 1:tl + 1, :, :, :zh] = c_mh[..., 0, :, :, :, :, :]
+        e[..., 1:tl + 1, :, :, zh + ml:] = c_mh[..., 1, :, :, :, :, :]
+    dev = psi.device
+    rr = torch.tensor({"ext": list(range(tl)), "int": list(range(1, tl - 1)),
+                       "bnd": [0, tl - 1]}[variant], device=dev)
+    # slot (t + x + y + p) odd in slab coordinates [rows, X, 1, m_loc], z edges
+    yl = torch.arange(ml, device=dev) // zh
+    kk = torch.arange(ml, device=dev) % zh
+    s1 = (rr.view(-1, 1, 1, 1) + torch.arange(xx, device=dev).view(1, -1, 1, 1) + yl + p) % 2 == 1
+    s0 = ~s1
+    last, first = kk == zh - 1, kk == 0
+
+    rows = e.index_select(-4, rr + 1)  # the output rows, y halo columns included
+
+    def win(off):
+        return rows[..., zh + off:zh + off + ml]
+
+    cur = win(0)
+    nbrs = (e.index_select(-4, rr + 2)[..., zh:zh + ml], e.index_select(-4, rr)[..., zh:zh + ml],
+            torch.cat([cur[..., 1:, :, :], cur[..., :1, :, :]], dim=-3),
+            torch.cat([cur[..., -1:, :, :], cur[..., :-1, :, :]], dim=-3),
+            win(zh), win(-zh),
+            torch.where(s1 & last, win(-(zh - 1)), torch.where(s1, win(1), cur)),
+            torch.where(s0 & first, win(zh - 1), torch.where(s0, win(-1), cur)))
+    u = ug.index_select(-4, rr)
+    acc = None
+    for d in range(8):
+        term = spin_apply(hop_projector(d // 2, d % 2, cur), color_apply(u[d], nbrs[d]))
+        acc = term if acc is None else acc + term
+    out.unflatten(-1, (msh, ml)).unflatten(-4, (tsh, tl))[..., rr, :, :, :] = _from_canon(
+        acc, r_axis)
+    return out
+
+
+hopping_slab_split_plain.calls = 0
+
+
+def _halo_maps() -> dict:
+    """For the t and y directions d (0, 1: t forward / backward; 4, 5: y):
+    W_d has, in column a, one lower row s_a with a real entry c_a = +-1, so
+    W_d^+ x = (x_a + c_a x_{s_a})_a and 0.5 W_d h = (0.5 h, 0.5 c_a h_a at
+    row s_a).  -> {d: (rows (s_0, s_1), (c_0, c_1))}."""
+    maps = {}
+    for d in (0, 1, 4, 5):
+        rows, coef = [], []
+        for a in range(2):
+            (s,) = [s for s in (2, 3) if W[d][s, a] != 0]
+            assert W[d][s, a].imag == 0 and abs(W[d][s, a].real) == 1
+            rows.append(s)
+            coef.append(float(W[d][s, a].real))
+        maps[d] = (tuple(rows), tuple(coef))
+    return maps
+
+
+_HALO_MAPS = _halo_maps()
+
+
+_COEFS: dict = {}
+
+
+def _coef(values: tuple, like: torch.Tensor, ax: int) -> torch.Tensor:
+    """The two coefficients as a tensor broadcasting along the spin axis
+    `ax` of `like`, made once per device (no host copy per hop)."""
+    key = (values, like.dtype, like.device, like.ndim - ax - 1)
+    if key not in _COEFS:
+        _COEFS[key] = torch.tensor(values, dtype=like.dtype, device=like.device).view(
+            (2,) + (1,) * (like.ndim - ax - 1))
+    return _COEFS[key]
+
+
+def _project_halo(x2: torch.Tensor, d: int, ax: int) -> torch.Tensor:
+    """W_d^+ x on the spin axis `ax` of a split field, [.., 4, ..] -> [.., 2,
+    ..]: h_a = x_a + c_a x_{s_a}, one rounding each, as the kernels form the
+    half-spinor of direction d (the halfspinor halo: half the bytes)."""
+    rows, coef = _HALO_MAPS[d]
+    part = x2.narrow(ax, 2, 2)
+    if rows != (2, 3):
+        part = part.flip(ax)
+    return torch.addcmul(x2.narrow(ax, 0, 2), part, _coef(coef, x2, ax))
+
+
+def _rebuild_halo(h2: torch.Tensor, d: int, ax: int, out: torch.Tensor) -> None:
+    """0.5 W_d h into `out` (4 spin components at `ax`): the 4-spinor whose
+    W_d^+ is h again exactly (W^+ W = 2; every product is exact)."""
+    rows, coef = _HALO_MAPS[d]
+    torch.mul(h2, 0.5, out=out.narrow(ax, 0, 2))
+    half = tuple(0.5 * c for c in coef)
+    if rows != (2, 3):  # row 2 takes a = 1, row 3 a = 0
+        h2, half = h2.flip(ax), half[::-1]
+    torch.mul(h2, _coef(half, h2, ax), out=out.narrow(ax, 2, 2))
+
+
+def _spin_axis(r_axis: int | None) -> int:
+    return 2 if r_axis == _DOUBLET_AXIS else 1
+
+
+def _send(x: torch.Tensor, shift: int, dim: int, d: int, ax: int, halfspinor: bool,
+          out: torch.Tensor) -> None:
+    """One halo: `x` projected by W_d^+ (with `halfspinor`), sent one slab
+    along `dim` (a copy: `roll` by `shift`, the one-device counterpart of the
+    reference's ppermute) and rebuilt into `out` on the receiving side."""
+    if halfspinor:
+        _rebuild_halo(torch.roll(_project_halo(x, d, ax), shift, dims=dim), d, ax, out)
+    else:
+        out.copy_(torch.roll(x, shift, dims=dim))
+
+
+def _y_halos(psi: torch.Tensor, lat: Lattice, mesh, halfspinor: bool = True,
+             r_axis: int | None = None) -> torch.Tensor | None:
+    """The y exchange: mh [.., 2 T, X, msh zh] of `hopping_slab_split`.  Each
+    slab column's last y-row goes up to column j+1 (projected for the y-1
+    hop, direction 5), its first y-row down to j-1 (direction 4).  None with
+    one y slab: the y hops then wrap inside the slab (the reference copies
+    the slab's own rows into its halos; the values are the same)."""
+    if mesh.y == 1:
+        return None
+    ml, zh = mesh.local(lat).m, lat.zh
+    v = psi.unflatten(-1, (mesh.y, ml))
+    lo, hi = v[..., ml - zh:], v[..., :zh]
+    mh = torch.empty(lo.shape[:-4] + (2,) + lo.shape[-4:], dtype=psi.dtype, device=psi.device)
+    ax = _spin_axis(r_axis)
+    _send(lo, 1, -2, 5, ax, halfspinor, mh.select(-5, 0))
+    _send(hi, -1, -2, 4, ax, halfspinor, mh.select(-5, 1))
+    return mh.flatten(-5, -4).flatten(-2)
+
+
+def _t_halos(psi: torch.Tensor, lat: Lattice, mesh, halfspinor: bool = True,
+             r_axis: int | None = None, ext: bool = False) -> torch.Tensor:
+    """The t exchange: each slab row's last timeslice goes up to row i+1
+    (projected for the t-1 hop, direction 1), its first down to row i-1
+    (direction 0).  Returns the halos th [.., 2 tsh, X, M] of the boundary
+    kernel K4 (row i the halo below slab row i, tsh + i the one above), or
+    with `ext` the extended field [.., tsh (T_loc + 2), X, M] of K3 and K1-T
+    (each slab row with its halos concatenated)."""
+    t_loc = mesh.local(lat).dims[0]
+    v = psi.unflatten(-3, (mesh.t, t_loc))
+    ax = _spin_axis(r_axis)
+    if ext:
+        buf = torch.empty(v.shape[:-3] + (t_loc + 2,) + v.shape[-2:], dtype=psi.dtype,
+                          device=psi.device)
+        buf[..., 1:t_loc + 1, :, :].copy_(v)
+        lo_out, hi_out = buf.select(-3, 0), buf.select(-3, t_loc + 1)
+    else:
+        buf = torch.empty(v.shape[:-4] + (2,) + v.shape[-4:-3] + v.shape[-2:], dtype=psi.dtype,
+                          device=psi.device)
+        lo_out, hi_out = buf.select(-4, 0), buf.select(-4, 1)
+    _send(v.select(-3, t_loc - 1), 1, -3, 1, ax, halfspinor, lo_out)
+    _send(v.select(-3, 0), -1, -3, 0, ax, halfspinor, hi_out)
+    return buf.flatten(-4, -3)
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The stream K3-I runs on beside the t exchange (one per device)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[key]
+
+
+def hopping_shard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
+                  gcomp: tuple | None = None, r_axis: int | None = None) -> torch.Tensor:
+    """Domain-decomposed H_{p,q} psi on the (t, y) slabs of `mesh`, all on
+    one device: the port of `hopping_pallas_shard` (dslash_pallas.py:1345).
+
+    The y halos are exchanged first (projected to half-spinors by W^+ of
+    (1 -/+ gamma_2) with `mesh.halfspinor`, rebuilt as 0.5 W s).  With
+    `mesh.overlap`
+    the interior kernel K3-I then runs on a side stream (CUDA) while the t
+    halos are packed with the (1 -/+ gamma_0) maps; the surface kernel K4
+    follows, and the caller's stream waits for both.  `overlap=False` runs
+    K3 on psi with its t halos concatenated.  With one y slab there is no y
+    exchange: the kernels wrap the y hops inside the slab (without overlap
+    that is K1-T).  Both kernels write into one output, so there is no
+    assembly step.  psi_q [2,4,3,T,X,M], or with an R
+    axis at `r_axis` (3: a batch; 1: a flavour doublet); ug_p and gcomp as
+    for K1 (f32 or bf16).  The result equals `hopping_split` /
+    `hopping_split_rhs` on the whole lattice."""
+    halfspinor = mesh.halfspinor
+    t_loc = mesh.local(lat).dims[0]
+    out = torch.empty_like(psi_q)
+    kw = dict(gcomp=gcomp, r_axis=r_axis)
+    mh = _y_halos(psi_q, lat, mesh, halfspinor, r_axis)
+    if not mesh.overlap:
+        return hopping_slab_split(ug_p, _t_halos(psi_q, lat, mesh, halfspinor, r_axis, ext=True),
+                                  p, lat, mesh, "ext", out, mh=mh, **kw)
+    side = None
+    if t_loc > 2:
+        if psi_q.device.type == "cuda":
+            side = _side_stream(psi_q.device)
+            side.wait_stream(torch.cuda.current_stream(psi_q.device))
+            with torch.cuda.stream(side):
+                hopping_slab_split(ug_p, psi_q, p, lat, mesh, "int", out, mh=mh, **kw)
+        else:
+            hopping_slab_split(ug_p, psi_q, p, lat, mesh, "int", out, mh=mh, **kw)
+    th = _t_halos(psi_q, lat, mesh, halfspinor, r_axis)
+    hopping_slab_split(ug_p, psi_q, p, lat, mesh, "bnd", out, th=th, mh=mh, **kw)
+    if side is not None:
+        torch.cuda.current_stream(psi_q.device).wait_stream(side)
+    return out
+
+
+def hopping_tshard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
+                   gcomp: tuple | None = None) -> torch.Tensor:
+    """t-decomposed H_{p,q} psi (K1-T): the port of `hopping_pallas_tshard`
+    (dslash_pallas.py:1065).  Each t slab gets its two t halos concatenated
+    (half-spinor halos with `mesh.halfspinor`) and the stencil runs on the
+    extended slabs with the y hops wrapping inside them: `hopping_shard`
+    without overlap on a mesh of one y slab.  psi_q [2,4,3,T,X,M]."""
+    if mesh.y != 1:
+        raise ValueError(f"hopping_tshard decomposes t only: the mesh has {mesh.y} y slabs")
+    return hopping_shard(ug_p, psi_q, p, lat, dataclasses.replace(mesh, overlap=False), gcomp)
 
 
 # ---------------------------------------------------------------------------
@@ -606,10 +1039,16 @@ def reset_counters() -> None:
     hopping_split_rhs.launches = 0
     hopping_split_rhs.clover_launches = 0
     hopping_split_rhs.doublet_launches = 0
+    hopping_split_rhs.bf16_launches = 0
     hopping_ug_vjp.launches = 0
+    for name in hopping_slab_split.launches:
+        hopping_slab_split.launches[name] = 0
+    hopping_slab_split.bf16_launches = 0
+    hopping_slab_split.rhs_launches = 0
     hopping_split_plain.calls = 0
     hopping_split_rhs_plain.calls = 0
     hopping_ug_vjp_plain.calls = 0
+    hopping_slab_split_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,13 @@ reference.  Every operator above runs on it unchanged; K1 reads it as bf16
 and computes in f32 (K1-B).  The clover blocks stay f32.  The mixed-precision
 solvers use it for their low operator.
 
-Not ported yet: the sharded (`_shard`) operators.
+The domain-decomposed operators (`*_shard`, reference wilson_fast.py:183-320)
+take a `parallel.Mesh` and run every hop through `dslash_cuda.hopping_shard`:
+the slab kernels K3-I and K4 over the mesh's (t, y) slabs, all on one
+device, with the halos moved by device-local copies.  The diagonals (twisted
+mass, clover blocks, the doublet's flavour mixing) are applied outside the
+kernels, as in the reference's `_m_hat_clover_fast_shard`: the slab kernels
+carry no epilogue.  The results equal the unsharded operators'.
 
 Layout: psi [2, 4, 3, T, X, M] f32; gauge as FastGauge (pre-gathered split
 links of both parities, phases folded).  A batch of R right-hand sides is
@@ -86,6 +92,16 @@ __all__ = [
     "q_nd_sq_clover_fast",
     "split_clover_nd_pair",
     "q_nd_clover_diff",
+    "hop_shard",
+    "m_hat_fast_shard",
+    "q_hat_pm_fast_shard",
+    "q_hat_pm_clover_fast_shard",
+    "q_nd_fast_shard",
+    "q_nd_sq_fast_shard",
+    "q_nd_clover_fast_shard",
+    "q_nd_sq_clover_fast_shard",
+    "q_hat_pm_operator",
+    "q_hat_pm_clover_operator",
 ]
 
 
@@ -568,3 +584,114 @@ def q_nd_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_u: torch.Tensor
     tmp = _hop_nd_diff(ug_e, ug_o, tmp, ODD, lat)
     m = _mee_nd_apply_split(moo_u, moo_d, eps, chi2) - k2 * tmp
     return _gamma5_nd(_tau1_split(m))
+
+
+# ---------------------------------------------------------------------------
+# domain-decomposed operators: every hop on the slab kernels of a Mesh
+# ---------------------------------------------------------------------------
+
+
+def hop_shard(fg: FastGauge, psi2: torch.Tensor, p: int, lat: Lattice, mesh,
+              r_axis: int | None = None) -> torch.Tensor:
+    """H_{p,1-p} psi2 on parity-p sites through `dslash_cuda.hopping_shard`
+    (K3-I and K4 on the slabs of `mesh`; K3, or K1-T on t slabs alone,
+    without the mesh's overlap)."""
+    ug = fg.ug_even if p == EVEN else fg.ug_odd
+    return dc.hopping_shard(ug, psi2, p, lat, mesh, fg.gcomp, r_axis)
+
+
+def m_hat_fast_shard(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
+                     mesh, sign: float = +1.0, g5: bool = False,
+                     r_axis: int | None = None) -> torch.Tensor:
+    """Mhat(+-) with both hops on the slab kernels and the twisted-mass
+    diagonals applied between and after them (reference :183)."""
+    tmp = mee_inv_split(hop_shard(fg, psi2_o, EVEN, lat, mesh, r_axis), params.mutld, sign)
+    tmp = hop_shard(fg, tmp, ODD, lat, mesh, r_axis)
+    out = mee_split(psi2_o, params.mutld, sign) - (params.kappa * params.kappa) * tmp
+    return gamma5_split(out) if g5 else out
+
+
+def q_hat_pm_fast_shard(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams,
+                        lat: Lattice, mesh, r_axis: int | None = None) -> torch.Tensor:
+    """Qhat_pm on the slab kernels: the CG operator under a mesh (four
+    sharded hops; a batch along `r_axis` = 3 runs the multi-RHS slab kernels)."""
+    tmp = m_hat_fast_shard(fg, psi2_o, params, lat, mesh, +1.0, True, r_axis)
+    return m_hat_fast_shard(fg, tmp, params, lat, mesh, -1.0, True, r_axis)
+
+
+def _m_hat_clover_fast_shard(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams,
+                             lat: Lattice, mesh, sign: float = +1.0, g5: bool = False,
+                             r_axis: int | None = None) -> torch.Tensor:
+    """The clover Schur complement with both hops on the slab kernels; the
+    site-local block matvecs run outside them (reference :225)."""
+    mee_inv = fc.mee_inv_p if sign > 0 else fc.mee_inv_m
+    moo = fc.moo_p if sign > 0 else fc.moo_m
+    tmp = blocks_apply_flat(mee_inv, hop_shard(fc.fg, psi2_o, EVEN, lat, mesh, r_axis), r_axis)
+    tmp = hop_shard(fc.fg, tmp, ODD, lat, mesh, r_axis)
+    out = blocks_apply_flat(moo, psi2_o, r_axis) - (params.kappa * params.kappa) * tmp
+    return gamma5_split(out) if g5 else out
+
+
+def q_hat_pm_clover_fast_shard(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams,
+                               lat: Lattice, mesh, r_axis: int | None = None) -> torch.Tensor:
+    """Qsw_pm on the slab kernels (reference :248)."""
+    tmp = _m_hat_clover_fast_shard(fc, psi2_o, params, lat, mesh, +1.0, True, r_axis)
+    return _m_hat_clover_fast_shard(fc, tmp, params, lat, mesh, -1.0, True, r_axis)
+
+
+def q_hat_pm_operator(fg: FastGauge, params: DiracParams, lat: Lattice, mesh=None,
+                      r_axis: int | None = None):
+    """Qhat_pm as a callable on split fields (a batch along `r_axis`): the
+    whole-lattice kernels, or the sharded operator over `mesh`."""
+    if mesh is not None:
+        return lambda x2: q_hat_pm_fast_shard(fg, x2, params, lat, mesh, r_axis=r_axis)
+    return lambda x2: q_hat_pm_fast(fg, x2, params, lat, r_axis)
+
+
+def q_hat_pm_clover_operator(fc: FastClover, params: DiracParams, lat: Lattice, mesh=None,
+                             r_axis: int | None = None):
+    """Qsw_pm as a callable on split fields, as `q_hat_pm_operator`."""
+    if mesh is not None:
+        return lambda x2: q_hat_pm_clover_fast_shard(fc, x2, params, lat, mesh, r_axis=r_axis)
+    return lambda x2: q_hat_pm_clover_fast(fc, x2, params, lat, r_axis)
+
+
+def _hop_nd_shard(fg: FastGauge, chi2: torch.Tensor, p: int, lat: Lattice, mesh) -> torch.Tensor:
+    """The doublet hop as one multi-RHS slab launch per variant, flavour the
+    R axis (`r_axis=1`): the gauge read once for both flavours, both in one
+    halo exchange (reference :262)."""
+    return hop_shard(fg, chi2.contiguous(), p, lat, mesh, 1)
+
+
+def q_nd_fast_shard(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice,
+                    mesh) -> torch.Tensor:
+    """Q_nd on the slab kernels; the flavour-mixing diagonals are
+    elementwise (reference :276)."""
+    tmp = _hop_nd_shard(fg, chi2, EVEN, lat, mesh)
+    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
+    tmp = _hop_nd_shard(fg, tmp, ODD, lat, mesh)
+    m = (_mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0)
+         - (params.kappa * params.kappa) * tmp)
+    return _gamma5_nd(_tau1_split(m))
+
+
+def q_nd_sq_fast_shard(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice,
+                       mesh) -> torch.Tensor:
+    return q_nd_fast_shard(fg, q_nd_fast_shard(fg, chi2, params, lat, mesh), params, lat, mesh)
+
+
+def q_nd_clover_fast_shard(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice,
+                           mesh) -> torch.Tensor:
+    """Q_nd^sw on the slab kernels (reference :297)."""
+    tmp = _hop_nd_shard(fc.fg, chi2, EVEN, lat, mesh)
+    tmp = _mee_inv_nd_apply_split(fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, tmp)
+    tmp = _hop_nd_shard(fc.fg, tmp, ODD, lat, mesh)
+    m = (_mee_nd_apply_split(fc.moo_u, fc.moo_d, fc.epsbar_t, chi2)
+         - (params.kappa * params.kappa) * tmp)
+    return _gamma5_nd(_tau1_split(m))
+
+
+def q_nd_sq_clover_fast_shard(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice,
+                              mesh) -> torch.Tensor:
+    return q_nd_clover_fast_shard(fc, q_nd_clover_fast_shard(fc, chi2, params, lat, mesh),
+                                  params, lat, mesh)
