@@ -14,7 +14,11 @@ result lines):
    card tensors; the multi-RHS hopping K1-R (R = 12 and 3) against its plain
    version and against R single K1 launches; K1-R on the flavour-doublet
    axis (K1-R-D, R = 2, `r_axis` 1) against its plain version and bit for
-   bit against two K1 launches; the doublet force surrogates `q_nd_diff`
+   bit against two K1 launches; K1-S (the Schur operator in one cooperative
+   launch) bit for bit against the K1 launches it replaces and against its
+   plain version, in both epilogue pairs, Mhat(+-) and Qhat_pm, g5 on and
+   off, 18/12-real, f32/bf16, at 16^3x32, 32^3x64 (where its grid-stride
+   loop wraps) and 10x6x14x6; the doublet force surrogates `q_nd_diff`
    and `q_nd_clover_diff` forward and backward against the plain path; K1
    on the bf16 gauge copy (K1-B) in every epilogue, both copies and both
    parities, and the copy bit-equal to the bf16 cast of the f32 copy.  The
@@ -32,7 +36,11 @@ result lines):
    measured in the same run, and the bound at the card's published rates.
    One sharded hop on the (4,2) mesh in pieces (y exchange, t pack, K3-I,
    K4; K3 without the overlap) beside K1, K1-T on 4 t slabs, and K1-RB at
-   R = 12 beside f32 K1-R, at both sizes.
+   R = 12 beside f32 K1-R, at both sizes.  K1, K1-B and K1-C split into
+   wrapper-loop, host and device time (torch.profiler; a CUDA graph of the
+   launches as a second reading) with each instance's registers and
+   occupancy, and one Qhat_pm (Qsw_pm, Qhat_pm on bf16) as one K1-S launch
+   beside the four K1 launches it replaces, in turns, at both sizes.
 4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory, one
    twisted-clover Hasenbusch trajectory and one GAUGE + NDRAT trajectory at
    8^4, each on the kernel path
@@ -97,6 +105,15 @@ result lines):
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
+
+    python3 chip_smoke.py --k1-split          # phases 1, 2 and phase 3's split
+    python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 7, 8 alone
+
+`--e2e` prints s/trajectory of paths 1, 3 and 8 and path 7's seconds per
+solver as one JSON line; `--root DIR` takes the package from another
+checkout (a parent commit's `tmlqcd_tpu_torch/` unpacked under `dist/`), so
+two commits can run in turns in one session on one card.  Neither prints
+the result lines.
 """
 
 from __future__ import annotations
@@ -479,6 +496,77 @@ def phase_kernels(lat, dev="cuda"):
     return worst
 
 
+def _schur_stages(params, kind: str, signs: tuple, g5: bool, blocks=None) -> tuple:
+    """K1-S stages of `dslash_cuda.hopping_schur`: one per sign (Mhat(+-):
+    one; Qhat_pm: (+1, -1)); `kind` "tm" or "clover" (then blocks[2 j],
+    blocks[2 j + 1] are stage j's even and odd blocks)."""
+    k2 = params.kappa ** 2
+    if kind == "tm":
+        return tuple((("mee_inv", params.mutld, sign), ("mhat", params.mutld, sign, k2, g5),
+                      None, None) for sign in signs)
+    return tuple((("clov_inv",), ("clov_mhat", k2, g5), blocks[2 * j], blocks[2 * j + 1])
+                 for j in range(len(signs)))
+
+
+def _schur_by_k1(dc, fg, x, lat, stages):
+    """The K1 launches K1-S replaces: per stage the even hop, then the odd
+    hop reading the stage's input as psi_o."""
+    for epi_e, epi_o, blk_e, blk_o in stages:
+        tmp = dc.hopping_split(fg.ug_even, x, 0, lat, epi=epi_e, gcomp=fg.gcomp, blocks=blk_e)
+        x = dc.hopping_split(fg.ug_odd, tmp, 1, lat, epi=epi_o, psi_o=x, gcomp=fg.gcomp,
+                             blocks=blk_o)
+    return x
+
+
+def phase_schur_kernels(lats, dev="cuda"):
+    """K1-S against the K1 launches it replaces, bit for bit, and against its
+    plain version: both epilogue pairs (mee_inv -> mhat, clov_inv ->
+    clov_mhat), Mhat(+), Mhat(-) and Qhat_pm, with and without gamma5, 18-
+    and 12-real links in f32 and bf16, on each lattice of `lats`."""
+    import torch
+
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    worst, n_exact, n_cases = 0.0, 0, 0
+    for lat in lats:
+        tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
+        params, fg18, fg12, psi, _, _, sloppy = _fields(lat, dev, 41)
+        blocks = [_random_blocks(lat, dev, 50 + i) for i in range(4)]
+        for gname, fg in (("18-real f32", fg18), ("12-real f32", fg12),
+                          ("18-real bf16", sloppy["18-real"]), ("12-real bf16", sloppy["12-real"])):
+            exact, cases, rel_max = 0, 0, 0.0
+            for kind in ("tm", "clover"):
+                for g5 in (True, False):
+                    for signs in ((1.0,), (-1.0,), (1.0, -1.0)):
+                        stages = _schur_stages(params, kind, signs, g5, blocks)
+                        n0 = dc.hopping_schur.launches
+                        out = dc.hopping_schur(fg.ug_even, fg.ug_odd, psi, lat, stages, fg.gcomp)
+                        seq = _schur_by_k1(dc, fg, psi, lat, stages)
+                        ref = dc.hopping_schur_plain(fg.ug_even, fg.ug_odd, psi, lat, stages,
+                                                     fg.gcomp)
+                        _sync(dev)
+                        _check(dc.hopping_schur.launches == n0 + 1, "K1-S launch not counted")
+                        same = bool(torch.equal(out, seq))
+                        err, rel = _rel_err(out, ref)
+                        worst = max(worst, err)
+                        rel_max = max(rel_max, rel)
+                        exact += same
+                        cases += 1
+                        what = f"K1-S {tag} {gname} {kind} signs {signs} g5 {g5}"
+                        _check(same, f"{what} differs from the K1 launches by "
+                                     f"{float((out - seq).abs().max()):.3e}")
+                        _check(rel <= KERNEL_RTOL, f"{what} off its plain version by {rel:.3e}")
+            n_exact += exact
+            n_cases += cases
+            _say(f"[check] K1-S {tag} {gname}: {exact} of {cases} cases (tm and clover, Mhat(+), "
+                 f"Mhat(-), Qhat_pm, g5 on and off) bit-equal to the K1 launches; against plain "
+                 f"max rel {rel_max:.2e}")
+        del params, fg18, fg12, psi, sloppy, blocks, out, seq, ref
+        torch.cuda.empty_cache()
+    _say(f"[check] K1-S: {n_exact} of {n_cases} bit-equal to the K1 launches they replace")
+    return worst
+
+
 def _whole_hop(dc, fg, x, p, lat, r_axis):
     """K1 / K1-R / K1-R-D (on a bf16 gauge K1-B / K1-RB) on the whole lattice."""
     ug = fg.ug_even if p == 0 else fg.ug_odd
@@ -623,6 +711,78 @@ def _time_ms(fn, n: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def _sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _host_ms(fn, n: int) -> float:
+    """Host time per call: the loop of n calls on the host's clock, stopped
+    before the synchronisation (the enqueue alone, no device wait)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _device_ms(fn, n: int, sub: str) -> tuple[float, int]:
+    """Device time per call of the kernels whose name holds `sub`, summed
+    from torch.profiler's device intervals over n calls, and the number of
+    such kernels it saw (0: the profiler reported no device time, nan)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and sub in ev.name:
+            total += float(ev.time_range.end - ev.time_range.start)
+            count += 1
+    return (total / n / 1e3 if count else float("nan")), count
+
+
+def _graph_ms(fn, n: int) -> float:
+    """Time per call of n calls captured in one CUDA graph and replayed
+    (CUDA events around 3 replays): launches without the host between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / (3 * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _copy_bandwidth() -> float:
@@ -809,6 +969,109 @@ def phase_timings(lat16, lat32):
         del params, fg18, fg12, psi, psi_o, g, psis, psis_o, cols, blocks, chi, fl, sloppy
         torch.cuda.empty_cache()
     return rows, bw
+
+
+def phase_k1_split(lat16, lat32, bw: float):
+    """K1's device time apart from its host time: K1 (12-real f32, mhat+g5),
+    K1-B (the same on the bf16 copy) and K1-C (clov_mhat+g5) at 16^3x32 and
+    32^3x64, each timed as phase 3 times it (CUDA events around a loop of
+    wrapper calls), on the host's clock (the enqueue alone), on the device
+    (torch.profiler's kernel intervals) and as a CUDA graph of the launches;
+    each instance's registers and resident blocks per SM; then one Qhat_pm
+    (Qsw_pm, and Qhat_pm on the bf16 copy) as one K1-S launch beside the four
+    K1 launches it replaces, in turns, and K1-S's instances."""
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    rows = {}
+    for lat in (lat16, lat32):
+        tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
+        params, _, fg12, psi, psi_o, _, sloppy = _fields(lat, "cuda", 12)
+        blocks = _random_blocks(lat, "cuda", 17)
+        sites = lat.volume // 2
+        k2 = params.kappa ** 2
+        n = 200 if lat is lat16 else 50
+        mhat = ("mhat", params.mutld, 1.0, k2, True)
+        for name, fg, gbytes, epi in (("K1", fg12, 384, mhat),
+                                      ("K1-B", sloppy["12-real"], 192, mhat),
+                                      ("K1-C", fg12, 384, ("clov_mhat", k2, True))):
+            kw = dict(epi=epi, gcomp=fg.gcomp, **_epi_kw(epi, psi_o, blocks))
+
+            def fn(fg=fg, kw=kw, lat=lat):
+                return dc.hopping_split(fg.ug_odd, psi, 1, lat, **kw)
+
+            loop = _time_ms(fn, n)
+            host = _host_ms(fn, n)
+            dev, seen = _device_ms(fn, n, "hopping_kernel")
+            graph = _graph_ms(fn, n)
+            info = dc.kernel_info(epi, True, name == "K1-B")
+            site_bytes, site_flops = _model(epi, gbytes)
+            bound = _bound_ms(site_bytes * sites, site_flops * sites)
+            share = site_bytes * sites / (dev * 1e-3) / bw
+            rows[(tag, name)] = dict(loop=loop, host=host, device=dev, graph=graph,
+                                     bound=bound[0], share=share, **info)
+            _say(f"[split] {name:4s} {tag} 12-real {epi[0]}+g5: wrapper loop {loop * 1e3:7.1f} us, "
+                 f"host {host * 1e3:6.1f} us/call, device {dev * 1e3:7.1f} us ({seen} kernels "
+                 f"profiled), graph {graph * 1e3:7.1f} us, bound {bound[0] * 1e3:.1f} us by "
+                 f"{bound[1]} ({site_bytes} B/site; device time {share:.1%} of copy "
+                 f"bandwidth); {info['registers']} registers, {info['local_bytes']} B of local "
+                 f"memory, "
+                 f"{info['blocks_per_sm']} blocks of {info['threads']} per SM "
+                 f"({info['blocks_per_sm'] * info['threads'] // 32} warps of 64), "
+                 f"{-(-sites // info['threads'])} blocks in the grid")
+        # one Qhat_pm (Qsw_pm): K1-S beside the four K1 launches it replaces,
+        # in turns (K1 x 4, K1-S, K1-S, K1 x 4); the bound is the four hops'
+        # byte models summed
+        blks = [_random_blocks(lat, "cuda", 60 + i) for i in range(4)]
+        for name, fg, gbytes, kind in (("Qhat_pm", fg12, 384, "tm"),
+                                       ("Qhat_pm bf16", sloppy["12-real"], 192, "tm"),
+                                       ("Qsw_pm", fg12, 384, "clover")):
+            stages = _schur_stages(params, kind, (1.0, -1.0), True, blks)
+
+            def by_k1(fg=fg, stages=stages, lat=lat):
+                return _schur_by_k1(dc, fg, psi, lat, stages)
+
+            def by_k1s(fg=fg, stages=stages, lat=lat):
+                return dc.hopping_schur(fg.ug_even, fg.ug_odd, psi, lat, stages, fg.gcomp)
+
+            times = {"K1 x 4": [], "K1-S": []}
+            for label, fn in (("K1 x 4", by_k1), ("K1-S", by_k1s), ("K1-S", by_k1s),
+                              ("K1 x 4", by_k1)):
+                times[label].append((_time_ms(fn, n), _host_ms(fn, n),
+                                     _device_ms(fn, n, "hopping_")[0]))
+            nbytes = sum(_model(epi, gbytes)[0] for st in stages for epi in st[:2]) * sites
+            flops = sum(_model(epi, gbytes)[1] for st in stages for epi in st[:2]) * sites
+            bound = _bound_ms(nbytes, flops)
+            pms = (_time_ms(lambda fg=fg, stages=stages, lat=lat: dc.hopping_schur_plain(
+                fg.ug_even, fg.ug_odd, psi, lat, stages, fg.gcomp), max(n // 20, 3))
+                   if lat is lat16 else float("nan"))
+            best = {k: tuple(min(r[i] for r in v) for i in range(3)) for k, v in times.items()}
+            rows[(tag, name)] = dict(
+                loop=best["K1-S"][0], host=best["K1-S"][1], device=best["K1-S"][2],
+                k1_loop=best["K1 x 4"][0], k1_host=best["K1 x 4"][1],
+                k1_device=best["K1 x 4"][2], bound=bound[0], bound_by=bound[1], plain=pms,
+                share=nbytes / (best["K1-S"][2] * 1e-3) / bw)
+            fmt = lambda v: ", ".join(f"{x * 1e3:.1f}" for x in v)  # noqa: E731
+            _say(f"[split] {name:12s} {tag} 12-real: K1-S wrapper loop "
+                 f"{fmt(r[0] for r in times['K1-S'])} us, host {fmt(r[1] for r in times['K1-S'])}"
+                 f" us, device {fmt(r[2] for r in times['K1-S'])} us; four K1 launches wrapper "
+                 f"loop {fmt(r[0] for r in times['K1 x 4'])} us, host "
+                 f"{fmt(r[1] for r in times['K1 x 4'])} us, device "
+                 f"{fmt(r[2] for r in times['K1 x 4'])} us; bound {bound[0] * 1e3:.1f} us by "
+                 f"{bound[1]} ({nbytes // sites} B/site, K1-S device time "
+                 f"{rows[(tag, name)]['share']:.1%} of copy bandwidth); plain {pms * 1e3:.1f} us")
+        for clover in (False, True):
+            for bf16 in (False, True):
+                info = dc.schur_kernel_info(clover, True, True, bf16)
+                _say(f"[split] K1-S instance {'clover' if clover else 'tm'} g5 12-real "
+                     f"{'bf16' if bf16 else 'f32'}: {info['registers']} "
+                     f"registers, {info['local_bytes']} B of local memory, {info['blocks_per_sm']} "
+                     f"blocks of {info['threads']} per SM, a resident grid of "
+                     f"{info['blocks_per_sm'] * _sm_count()} blocks")
+        del params, fg12, psi, psi_o, sloppy, blocks, blks
+        import torch
+
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _slab_model(lat, mesh, variant: str, gbytes: int, nrhs: int = 1,
@@ -1173,7 +1436,14 @@ def nf211_smoke_input(text: str, online_from: str) -> str:
 
 def _read_counts(dc) -> dict:
     slab = dc.hopping_slab_split.launches
+    # K1-S and its hops (0 in a tree from before K1-S, run with --root)
+    schur = getattr(dc, "hopping_schur", None)
+    schur_plain = getattr(dc, "hopping_schur_plain", None)
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
+            "K1-S": schur.launches if schur else 0, "K1-S hops": schur.hops if schur else 0,
+            "K1-S clover hops": schur.clover_hops if schur else 0,
+            "K1-S bf16 hops": schur.bf16_hops if schur else 0,
+            "K1-S plain": schur_plain.calls if schur_plain else 0,
             "K1-C": dc.hopping_split.clover_launches,
             "K1-RC": dc.hopping_split_rhs.clover_launches,
             "K1-R-D": dc.hopping_split_rhs.doublet_launches,
@@ -1185,6 +1455,12 @@ def _read_counts(dc) -> dict:
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
             "K2 plain": dc.hopping_ug_vjp_plain.calls,
             "slab plain": dc.hopping_slab_split_plain.calls}
+
+
+def _schur_ran(dc, counts: dict) -> bool:
+    """K1-S ran on a path, where the tree has it (not in one from before
+    K1-S, run with --root)."""
+    return counts["K1-S"] > 0 or not hasattr(dc, "hopping_schur")
 
 
 def _check_no_plain(counts: dict) -> None:
@@ -1262,10 +1538,13 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
         secs.append(float(cols[6]))
         acc.append(acc_iters)
     _say(f"[{tag}] acceptance-solve iterations per monomial and trajectory {acc}")
-    _check(counts["K1"] > 0 and counts["K2"] > 0, f"a kernel was not launched: {counts}")
-    # only the ONLINE solve (twisted mass, no clover term) runs K1 without a
-    # clover epilogue on the clover path, beside the hops of the force
-    _check((counts["K1-C"] > 0) == (clover or nf211), f"clover epilogue launches: {counts}")
+    _check(counts["K1"] > 0 and counts["K2"] > 0 and _schur_ran(dc, counts),
+           f"a kernel was not launched: {counts}")
+    # only the ONLINE solve (twisted mass, no clover term) runs the Schur
+    # operator without a clover epilogue on the clover path, beside the hops
+    # of the force; every Mhat and Qhat_pm runs on K1-S
+    _check((counts["K1-C"] + counts["K1-S clover hops"] > 0) == (clover or nf211),
+           f"clover epilogue launches: {counts}")
     # every multishift iteration, heatbath Q and y_j of NDRAT is 2 or 4
     # launches of K1-R on the doublet axis
     _check((counts["K1-R-D"] > 0) == nf211 and counts["K1-R"] == counts["K1-R-D"],
@@ -1634,19 +1913,22 @@ def phase_invert_clover(workdir: str, conf: str):
          f"operator over the 12 columns: max {worst:.3e} (bound {RESIDUAL_BOUND_CLOVER:.0e})")
     tol = float(op.precision) ** 0.5
     b = point_source(lat, 7 // 3, 7 % 3, (0, 0, 0, 0), device="cuda")
-    n0 = dc.hopping_split.clover_launches
+    n0 = _read_counts(dc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     one = invert_clover_eo(u, b, params, lat, tol=tol, maxiter=op.max_solver_iterations)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    n1 = _read_counts(dc)
+    # hops with a clover epilogue: single K1 launches and those K1-S ran
+    hops = sum(n1[k] - n0[k] for k in ("K1-C", "K1-S clover hops"))
     diff, scale = float((one.x - x[7]).abs().max()), float(one.x.abs().max())
     _say(f"[invert-clover] column 7: invert_clover_eo {one.iterations} iters in {dt:.3f} s "
-         f"({dc.hopping_split.clover_launches - n0} K1 clover launches), "
+         f"({hops} hops with the clover epilogues, {n1['K1-S'] - n0['K1-S']} K1-S launches), "
          f"max|x_batch - x_single| {diff:.3e} (max|x| {scale:.3e})")
     _check(diff <= BATCH_VS_SINGLE * scale, f"clover column 7: batch and single differ by {diff:.3e}")
-    _check(dc.hopping_split.clover_launches - n0 == 4 * one.iterations + 7,
-           "invert_clover_eo did not run K1 with the clover epilogues as counted")
+    _check(hops == 4 * one.iterations + 7,
+           "invert_clover_eo did not run the hops with the clover epilogues as counted")
     _check_no_plain(_read_counts(dc))
     bs = torch.stack([point_source(lat, s, c, (0, 0, 0, 0), device="cuda")
                       for s in range(4) for c in range(3)])
@@ -1851,6 +2133,7 @@ def phase_invert_solvers(workdir: str, conf: str, cconf: str, batched_s: float):
     from tmlqcd_tpu_torch.io.propagator import read_propagator
     from tmlqcd_tpu_torch.meas.sources import point_source
     from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
     from tmlqcd_tpu_torch.ops.wilson import DiracParams, boundary_phases, d_full, dslash_full
 
     path = os.path.join(workdir, "invert-solvers.input")
@@ -1864,7 +2147,8 @@ def phase_invert_solvers(workdir: str, conf: str, cconf: str, batched_s: float):
                                           out_dir], [(inverter, "mixed_cg", rec)])
     _check(rc == 0, f"cli.invert (solvers) returned {rc}")
     _say(f"[invert-solvers] cli.invert exit {rc}, {wall:.1f} s wall; launches {counts}")
-    _check(counts["K1-B"] > 0 and counts["K1"] > 0 and counts["K1-R"] > 0,
+    _check(counts["K1-B"] + counts["K1-S bf16 hops"] > 0 and counts["K1"] > 0
+           and counts["K1-R"] > 0 and _schur_ran(dc, counts),
            f"a kernel of the solvers' path was not launched: {counts}")
     _check_no_plain(counts)
     setups = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
@@ -1922,7 +2206,8 @@ def phase_invert_solvers(workdir: str, conf: str, cconf: str, batched_s: float):
     rc, log, ccounts, cwall = _run_cli(cli, ["-f", cpath, "-c", cconf, "--format", "lime", "-o",
                                              cdir], [(inverter, "mixed_cg", rec)])
     _check(rc == 0, f"cli.invert (CLOVER mixedcg) returned {rc}")
-    _check(ccounts["K1-C"] > 0, f"no clover epilogue launch: {ccounts}")
+    _check(ccounts["K1-C"] + ccounts["K1-S clover hops"] > 0, f"no clover epilogue launch: "
+                                                               f"{ccounts}")
     _check_no_plain(ccounts)
     csecs = [float(t) for t in re.findall(r"\(CLOVER\) source \(s=\d,c=\d\): \d+ iters, "
                                           r"\|r\|\^2=\S+, (\S+)s", log)]
@@ -2022,8 +2307,11 @@ def phase_mixed_hmc(workdir: str, secs_cg: list, cconf: str):
         _check(math.isfinite(dh), f"non-finite dH in {cols}")
         _check(0.0 < plaq < 1.0, f"plaquette {plaq} outside (0, 1)")
         secs.append(float(cols[6]))
-    _check(counts["K1-B"] > 0 and counts["K1"] > counts["K1-B"] and counts["K2"] > 0,
-           f"a kernel of the mixed HMC path was not launched: {counts}")
+    # the low operator on the bf16 copy (K1-B or K1-S on it), f32 hops beside it
+    bf16 = counts["K1-B"] + counts["K1-S bf16 hops"]
+    _check(bf16 > 0 and counts["K1"] + counts["K1-S hops"] > bf16 and counts["K2"] > 0
+           and _schur_ran(dc, counts), f"a kernel of the mixed HMC path was not launched: "
+                                       f"{counts}")
     _check_no_plain(counts)
     outer = [o for o, _ in rec.calls]
     _say(f"[main-mixed] s/trajectory {secs} (CG, phase 5: {secs_cg}); {len(rec.calls)} mixed "
@@ -2044,23 +2332,25 @@ def phase_mixed_hmc(workdir: str, secs_cg: list, cconf: str):
     fc = wf.make_fast_clover(u, params, lat)
     res = {}
     for solver in ("cg", "rgmixedcg", "rgmixedcg", "cg"):
-        n0 = (dc.hopping_split.bf16_launches, dc.hopping_split.clover_launches)
+        n0 = _read_counts(dc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = monomials._solve_qsw(fc, b2, params, lat, tol, MAXITER, solver)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        nb = dc.hopping_split.bf16_launches - n0[0]
-        nc = dc.hopping_split.clover_launches - n0[1]
+        n1 = _read_counts(dc)
+        # hops on the bf16 copy and with a clover epilogue, K1's and K1-S's
+        nb = sum(n1[k] - n0[k] for k in ("K1-B", "K1-S bf16 hops"))
+        nc = sum(n1[k] - n0[k] for k in ("K1-C", "K1-S clover hops"))
         r = wf.q_hat_pm_clover_fast(fc, out.x, params, lat) - b2
         rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b2))
         res.setdefault(solver, []).append((dt, out.iterations, rel, nb, nc))
         _say(f"[main-mixed] Qsw_pm solve {solver} on the clover gauge: {out.iterations} "
              f"iterations, {dt:.4f} s, |Q x - b| / |b| {rel:.3e} (tol {tol:.0e}); "
-             f"K1 launches bf16 {nb}, clover {nc}")
+             f"hops bf16 {nb}, clover {nc}")
         _check(rel <= 10 * tol and out.iterations < MAXITER, f"{solver} solve off: {rel:.3e}")
     _check(all(nb > 0 and nc >= nb for _, _, _, nb, nc in res["rgmixedcg"]),
-           "the rgmixedcg solve did not run K1 with the clover epilogues on the bf16 copy")
+           "the rgmixedcg solve did not run the clover epilogues on the bf16 copy")
     _check_no_plain(_read_counts(dc))
     return counts, secs, rec.calls, res
 
@@ -2084,16 +2374,18 @@ def mesh_smoke_input(text: str, **keys) -> str:
 
 class _SolveRecorder:
     """Wraps dispatch.solve_degenerate: the whole-lattice hopping launches
-    (K1, K1-R) made inside the solves, summed."""
+    (K1, K1-R, K1-S) made inside the solves, summed."""
 
     def __init__(self, fn, dc):
-        self.fn, self.dc, self.k1, self.k1r, self.calls = fn, dc, 0, 0, 0
+        self.fn, self.dc, self.k1, self.k1r, self.k1s, self.calls = fn, dc, 0, 0, 0, 0
 
     def __call__(self, *a, **k):
-        n0 = (self.dc.hopping_split.launches, self.dc.hopping_split_rhs.launches)
+        n0 = _read_counts(self.dc)
         res = self.fn(*a, **k)
-        self.k1 += self.dc.hopping_split.launches - n0[0]
-        self.k1r += self.dc.hopping_split_rhs.launches - n0[1]
+        n1 = _read_counts(self.dc)
+        self.k1 += n1["K1"] - n0["K1"]
+        self.k1r += n1["K1-R"] - n0["K1-R"]
+        self.k1s += n1["K1-S"] - n0["K1-S"]
         self.calls += 1
         return res
 
@@ -2170,12 +2462,13 @@ def phase_mesh_hmc(workdir: str):
         res_counts[tag] = counts
         _say(f"[main-mesh] 16^3x32 mesh {tag}: {wall:.1f} s wall, s/trajectory {secs[tag]}, "
              f"acceptance iterations {[int(c[8]) for c in rows]}; {rec.calls} solves, inside "
-             f"them K1 {rec.k1}, K1-R {rec.k1r}; launches {counts}")
+             f"them K1 {rec.k1}, K1-R {rec.k1r}, K1-S {rec.k1s}; launches {counts}")
         _check_no_plain(counts)
         if procs == (4, 2):
-            _check(counts["K3-I"] > 0 and counts["K4"] > 0 and rec.k1 == 0 and rec.k1r == 0,
+            _check(counts["K3-I"] > 0 and counts["K4"] > 0 and rec.k1 == 0 and rec.k1r == 0
+                   and rec.k1s == 0,
                    f"the solves on the mesh did not run on K3-I / K4 alone: {counts}, inside "
-                   f"the solves K1 {rec.k1} K1-R {rec.k1r}")
+                   f"the solves K1 {rec.k1} K1-R {rec.k1r} K1-S {rec.k1s}")
             conf = os.path.join(run, "conf.000002.npz")
     _say(f"[main-mesh] s/trajectory at 16^3x32: 4 x 2 slabs {secs['4x2']}, no mesh "
          f"{secs['1x1']} ({min(secs['4x2']) / min(secs['1x1']):.2f}x)")
@@ -2231,14 +2524,31 @@ def phase_mesh_hmc(workdir: str):
     return total, secs
 
 
+def _e2e(label: str) -> None:
+    """Main paths 1, 3, 7 and 8 alone (`--e2e`): s/trajectory of paths 1, 3
+    and 8, and path 7's seconds per solver, printed as one JSON line."""
+    with tempfile.TemporaryDirectory() as workdir:
+        _, secs1, conf = phase_main_path(workdir)
+        _, secs3, cconf = phase_main_path(workdir, clover=True)
+        _, solvers = phase_invert_solvers(workdir, conf, cconf, float("nan"))
+        _, secs8, _, _ = phase_mixed_hmc(workdir, secs1, cconf)
+    print(json.dumps({"e2e": label, "path1_s_traj": secs1, "path3_s_traj": secs3,
+                      "path8_s_traj": secs8,
+                      "path7_s": {k: v[1] for k, v in solvers.items()}}), flush=True)
+
+
 def main() -> int:
-    if not (os.path.isdir(os.path.join(HERE, "tmlqcd_tpu_torch"))
+    args = sys.argv[1:]
+    # --root DIR: the package and its kernel sources from another checkout
+    # (the parent commit beside the change, for --e2e)
+    root = os.path.abspath(args[args.index("--root") + 1]) if "--root" in args else HERE
+    if not (os.path.isdir(os.path.join(root, "tmlqcd_tpu_torch"))
             and all(os.path.exists(f) for f in (SAMPLE, SAMPLE_CLOVER, SAMPLE_NF211,
                                                 SAMPLE_DOUBLET))):
         print("chip_smoke: run from a checkout of the repository "
               "(tmlqcd_tpu_torch/ and sample-input/ are missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
@@ -2248,6 +2558,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tmlqcd_tpu_torch.lattice import Lattice
 
+    if "--k1-split" in args or "--e2e" in args:
+        # the kernel checks and K1's device / host split alone (phases 1, 2
+        # and phase 3's split), or main paths 1, 3, 7 and 8 alone; neither
+        # prints the result lines
+        try:
+            phase_card()
+            if "--k1-split" in args:
+                lat16, lat32 = Lattice((32, 16, 16, 16)), Lattice((64, 32, 32, 32))
+                phase_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
+                phase_kernels(lat16)
+                phase_shard_kernels(lat16)
+                phase_k1_split(lat16, lat32, _copy_bandwidth())
+            else:
+                _e2e(root)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+            return 1
+        return 0
     t_start = time.perf_counter()
 
     def done(phase):
@@ -2260,10 +2588,13 @@ def main() -> int:
         worst = phase_kernels(lat16)
         slab_worst, _, _ = phase_shard_kernels(lat16)
         worst.update(slab_worst)
-        done("2 kernel checks")
         lat32 = Lattice((64, 32, 32, 32))
+        # 32^3x64: the grid-stride loop wraps; 10x6x14x6: V = 2520, no whole block
+        worst["K1-S"] = phase_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
+        done("2 kernel checks")
         rows, bw = phase_timings(lat16, lat32)
         rows.update(phase_shard_timings(lat16, lat32, bw))
+        split = phase_k1_split(lat16, lat32, bw)
         done("3 timings")
         _, dh_tm = phase_parity()
         _, dh_clover = phase_parity(clover=True)
@@ -2282,7 +2613,8 @@ def main() -> int:
             chmc_counts, _, cconf = phase_main_path(workdir, clover=True)
             done("7 main path 3")
             phase_profile(workdir, cconf, "main-clover.input", "clover",
-                          {"K1": "hopping_kernel", "K2": "ug_vjp_kernel"})
+                          {"K1-S": "hopping_schur_kernel", "K1": "hopping_kernel",
+                           "K2": "ug_vjp_kernel"})
             done("7 clover profile")
             cinv_counts, _, _ = phase_invert_clover(workdir, cconf)
             done("8 main path 4")
@@ -2294,7 +2626,8 @@ def main() -> int:
             base = rational_monomials._RationalBase
             phase_profile(
                 workdir, nconf, "main-nf211.input", "Nf=2+1+1",
-                {"K1": "hopping_kernel", "K1-R-D": "hopping_rhs_kernel", "K2": "ug_vjp_kernel"},
+                {"K1-S": "hopping_schur_kernel", "K1": "hopping_kernel",
+                 "K1-R-D": "hopping_rhs_kernel", "K2": "ug_vjp_kernel"},
                 patches=[(base, "heatbath", "NDRAT heatbath"),
                          (base, "force_info", "NDRAT force (solve, y_j, surrogate, autograd)"),
                          (base, "action_info", "NDRAT acceptance"),
@@ -2325,29 +2658,47 @@ def main() -> int:
              "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts,
              "launches_hmc_mesh": mesh_counts}
 
-    def entry(name, replaces, key, row, source=src):
+    def entry(name, replaces, key, row, source=src, device_ms=None):
         ms, plain_ms, bound_ms, bound_by = row[:4]
         per_path = {k: c[key] for k, c in paths.items()}
+        extra = {} if device_ms is None else {"device_ms": device_ms}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(per_path.values()), **per_path,
                 "max_abs_err": worst[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by, "library_ms": None, **extra}
+
+    tag16 = "16x16x16x32"
+    qpm = split[(tag16, "Qhat_pm")]
+    k1s = entry("hopping_schur (K1-S)",
+                "tmlqcd_tpu/ops/dslash_pallas.py:520 x4 via tmlqcd_tpu/ops/wilson_fast.py:166",
+                "K1-S", (qpm["loop"], qpm["plain"], qpm["bound"], qpm["bound_by"]),
+                device_ms=qpm["device"])
+    k1s["hops"] = sum(c["K1-S hops"] for c in paths.values())
+
+    def moved(key):
+        """The hops of an epilogue or link type that ran inside K1-S on the
+        main paths (where K1-C and K1-B launched before K1-S)."""
+        return {"hops_in_k1s": sum(c[key] for c in paths.values())}
 
     kernels = [
         entry("hopping_split (K1)", "tmlqcd_tpu/ops/dslash_pallas.py:520", "K1",
-              rows[("16x16x16x32", "12-real", "mhat+g5")]),
+              rows[("16x16x16x32", "12-real", "mhat+g5")],
+              device_ms=split[(tag16, "K1")]["device"]),
+        k1s,
         entry("hopping_ug_vjp (K2)", "tmlqcd_tpu/ops/dslash_pallas.py:1489", "K2",
               rows[("16x16x16x32", "K2")]),
         entry("hopping_split_rhs (K1-R)", "tmlqcd_tpu/ops/dslash_pallas.py:491", "K1-R",
               rows[("16x16x16x32", "K1-R", "12-real", "mhat+g5")]),
         entry("hopping_split clov (K1-C)", "tmlqcd_tpu/ops/dslash_pallas.py:409", "K1-C",
-              rows[("16x16x16x32", "12-real", "clov_mhat+g5")]),
+              rows[("16x16x16x32", "12-real", "clov_mhat+g5")],
+              device_ms=split[(tag16, "K1-C")]["device"]) | moved("K1-S clover hops"),
         entry("hopping_split_rhs clov (K1-RC)", "tmlqcd_tpu/ops/dslash_pallas.py:409", "K1-RC",
               rows[("16x16x16x32", "K1-R", "12-real", "clov_mhat+g5")]),
         entry("hopping_split_rhs doublet (K1-R-D)", "tmlqcd_tpu/ops/dslash_pallas.py:491",
               "K1-R-D", rows[("16x16x16x32", "K1-R-D", "12-real")]),
         entry("hopping_split bf16 gauge (K1-B)", "tmlqcd_tpu/ops/dslash_pallas.py:186", "K1-B",
-              rows[("16x16x16x32", "K1-B", "12-real", "mhat+g5")]),
+              rows[("16x16x16x32", "K1-B", "12-real", "mhat+g5")],
+              device_ms=split[(tag16, "K1-B")]["device"]) | moved("K1-S bf16 hops"),
         entry("hopping_split_rhs bf16 gauge (K1-RB)", "tmlqcd_tpu/ops/dslash_pallas.py:491",
               "K1-RB", rows[("16x16x16x32", "K1-RB")]),
         entry("hopping_slab_split ext (K3)", "tmlqcd_tpu/ops/dslash_pallas.py:1228", "K3",

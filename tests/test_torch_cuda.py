@@ -154,8 +154,11 @@ def test_clover_inversions_run_on_the_kernels(cuda):
     assert dc.hopping_split_rhs.launches == 4 * out.iterations + 8
     assert dc.hopping_split_rhs.clover_launches == 4 * out.iterations + 7
     one = invert_clover_eo(u, bs[1], CLOVER, lat, tol=1e-7, maxiter=500)
-    assert dc.hopping_split.clover_launches == 4 * one.iterations + 7
+    # the Schur operators run on K1-S: its clover hops count as K1 launches did
+    assert dc.hopping_split.clover_launches + dc.hopping_schur.clover_hops == (
+        4 * one.iterations + 7)
     assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+    assert dc.hopping_schur_plain.calls == 0
     assert float((out.x[1] - one.x).abs().max()) < 2e-5
     ref = invert_eo_rhs(u.cpu(), bs.cpu(), CLOVER, lat, tol=1e-7, maxiter=500)
     assert out.iterations == ref.iterations
@@ -297,8 +300,10 @@ def test_clover_trajectory_kernel_path_matches_plain_path(cuda):
         d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
         _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
         if dev.type == "cuda":
-            assert dc.hopping_split.clover_launches > 0 and dc.hopping_ug_vjp.launches > 0
+            assert dc.hopping_split.clover_launches + dc.hopping_schur.clover_hops > 0
+            assert dc.hopping_schur.launches > 0 and dc.hopping_ug_vjp.launches > 0
             assert dc.hopping_split_plain.calls == 0 and dc.hopping_ug_vjp_plain.calls == 0
+            assert dc.hopping_schur_plain.calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
@@ -437,6 +442,69 @@ def test_bf16_gauge_hopping_kernel_matches_plain(cuda, dims, compress):
             fg.ug_odd, batch[:, :, :, r].contiguous(), 1, lat, gcomp=fg.gcomp))
 
 
+def _schur_stages(params, kind, signs, g5, blocks):
+    k2 = params.kappa ** 2
+    if kind == "tm":
+        return tuple((("mee_inv", params.mutld, s), ("mhat", params.mutld, s, k2, g5), None, None)
+                     for s in signs)
+    return tuple((("clov_inv",), ("clov_mhat", k2, g5), blocks[2 * j], blocks[2 * j + 1])
+                 for j in range(len(signs)))
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 4), (6, 4, 6, 10), (16, 8, 8, 8)])
+@pytest.mark.parametrize("gauge", ["18real", "12real", "18real-bf16", "12real-bf16"])
+def test_schur_kernel_matches_k1_launches(cuda, dims, gauge):
+    """K1-S (the Schur operator in one cooperative launch) against the K1
+    launches it replaces, bit for bit, and against its plain version: both
+    epilogue pairs, Mhat(+), Mhat(-) and Qhat_pm, gamma5 on and off.  Every
+    lattice here fits the resident grid in one pass; chip_smoke.py holds the
+    grid-stride loop's wrap at 32^3 x 64."""
+    lat, u, (psi, _, _) = _setup(dims, cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, compress=gauge.startswith("12"),
+                            sloppy=gauge.endswith("bf16"))
+    blocks = [_blocks(lat, cuda, 20 + i) for i in range(4)]
+    for kind in ("tm", "clover"):
+        for g5 in (True, False):
+            for signs in ((1.0,), (-1.0,), (1.0, -1.0)):
+                stages = _schur_stages(PARAMS, kind, signs, g5, blocks)
+                n, h = dc.hopping_schur.launches, dc.hopping_schur.hops
+                out = dc.hopping_schur(fg.ug_even, fg.ug_odd, psi, lat, stages, fg.gcomp)
+                assert (dc.hopping_schur.launches, dc.hopping_schur.hops) == (n + 1,
+                                                                            h + 2 * len(signs))
+                x = psi
+                for epi_e, epi_o, blk_e, blk_o in stages:
+                    tmp = dc.hopping_split(fg.ug_even, x, 0, lat, epi=epi_e, gcomp=fg.gcomp,
+                                           blocks=blk_e)
+                    x = dc.hopping_split(fg.ug_odd, tmp, 1, lat, epi=epi_o, psi_o=x,
+                                         gcomp=fg.gcomp, blocks=blk_o)
+                assert torch.equal(out, x), (kind, g5, signs)
+                ref = dc.hopping_schur_plain(fg.ug_even, fg.ug_odd, psi, lat, stages, fg.gcomp)
+                assert _close(out, ref), (kind, g5, signs)
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 4), (6, 4, 6, 10), (16, 8, 8, 8)])
+def test_bf16x2_link_loads_match_plain_and_k1rb(cuda, dims):
+    """K1-B reading each link element's re and im as one bf16x2 load (the
+    sloppy copy holds them side by side) against its plain version in every
+    epilogue, with no spills, and each column of K1-RB (the same loads,
+    staged in shared memory) against it bit for bit with the epilogue none."""
+    lat, u, (psi, psi_o, chi) = _setup(dims, cuda)
+    fg = wf.make_fast_gauge(u, PARAMS, lat, sloppy=True)
+    blocks = _blocks(lat, cuda)
+    info = dc.kernel_info(("none",), True, True)
+    assert info["local_bytes"] == 0
+    for p, ug in ((0, fg.ug_even), (1, fg.ug_odd)):
+        for epi in EPIS:
+            kw = dict(epi=epi, gcomp=fg.gcomp, **_extras(epi, psi_o, blocks))
+            assert _close(dc.hopping_split(ug, psi, p, lat, **kw),
+                          dc.hopping_split_plain(ug, psi, p, lat, **kw)), (p, epi)
+        batch = torch.stack([psi, chi], dim=3).contiguous()
+        out = dc.hopping_split_rhs(ug, batch, p, lat, gcomp=fg.gcomp)
+        for r in range(2):
+            assert torch.equal(out[:, :, :, r], dc.hopping_split(
+                ug, batch[:, :, :, r].contiguous(), p, lat, gcomp=fg.gcomp))
+
+
 @pytest.mark.parametrize("solver", ["fastmixed", "dflfgmres"])
 def test_mixed_and_deflated_inversions_run_on_the_kernels(cuda, solver):
     """invert_eo with fastmixed (inner solves on K1-B) and with dflfgmres
@@ -452,8 +520,9 @@ def test_mixed_and_deflated_inversions_run_on_the_kernels(cuda, solver):
     dc.reset_counters()
     out = invert_eo(u, b, PARAMS, lat, tol=1e-7, maxiter=500, solver=solver)
     assert dc.hopping_split_plain.calls == 0 and dc.hopping_split_rhs_plain.calls == 0
+    assert dc.hopping_schur_plain.calls == 0
     if solver == "fastmixed":
-        assert dc.hopping_split.bf16_launches > 0
+        assert dc.hopping_split.bf16_launches + dc.hopping_schur.bf16_hops > 0
     else:
         assert dc.hopping_split_rhs.launches > 0
     res = torch.linalg.vector_norm(d_full(u, out.x, PARAMS, lat) - b) / torch.linalg.vector_norm(b)
@@ -488,7 +557,8 @@ def test_mixedcg_trajectory_kernel_path_matches_plain_path(cuda):
         with torch.no_grad():
             _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
         if dev.type == "cuda":
-            assert dc.hopping_split.bf16_launches > 0 and dc.hopping_split_plain.calls == 0
+            assert dc.hopping_split.bf16_launches + dc.hopping_schur.bf16_hops > 0
+            assert dc.hopping_split_plain.calls == 0 and dc.hopping_schur_plain.calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 3e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
 

@@ -106,6 +106,18 @@ def test_meshes_over_several_devices_are_not_ported():
     assert parallel.make_mesh((2, 2), ["cpu"]).shape == {"t": 2, "m": 2}
 
 
+def test_default_device_raises_without_a_card(monkeypatch):
+    """Without a card a mesh's default device raises, naming `device=`,
+    where it chose the CPU quietly; the CPU is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: parallel.Mesh(2, 2), lambda: parallel.make_mesh((2, 2)),
+                  lambda: parallel.mesh_from_procs((2, 0, 2, 0), LAT),
+                  lambda: parallel.auto_mesh(LAT)):
+        with pytest.raises(RuntimeError, match="device="):
+            build()
+    assert parallel.Mesh(2, 2, "cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("dims, shape, halfspinor", [
     ((8, 4, 4, 4), (4, 2), True), ((8, 4, 4, 4), (2, 1), False),
     ((64, 32, 32, 32), (4, 2), True), ((32, 16, 16, 16), (1, 2), True),

@@ -74,7 +74,9 @@ def test_sloppy_copies_are_bit_equal_to_reference(fields, compress):
     fj = jwf.make_fast_gauge(fields["u"], fields["jp"], JL, sloppy=True, compress=compress)
     ft = wf.make_fast_gauge(fields["ut"], fields["tp"], LAT, sloppy=True, compress=compress)
     assert ft.ug_even.dtype == ft.ug_odd.dtype == torch.bfloat16
-    assert ft.ug_even.is_contiguous() and ft.ug_odd.is_contiguous() and ft.gcomp == fj.gcomp
+    # the port's layout: re/im innermost in memory (one bf16x2 load per element)
+    assert all(t.movedim(0, -1).is_contiguous() for t in (ft.ug_even, ft.ug_odd))
+    assert ft.gcomp == fj.gcomp
     np.testing.assert_array_equal(_bits(ft.ug_even), _bits(fj.ug_even))
     np.testing.assert_array_equal(_bits(ft.ug_odd), _bits(fj.ug_odd))
     # the cast of the f32 copy, and the clover copy's gauge, are the same bits
@@ -179,7 +181,8 @@ def test_bf16_gauge_wrapper_contract(fields):
         dc.hopping_split(ft.ug_even, psi2.to(torch.bfloat16), EVEN, LAT, gcomp=ft.gcomp)
     with pytest.raises(TypeError):
         dc.hopping_split(ft.ug_even.to(torch.float16), psi2, EVEN, LAT, gcomp=ft.gcomp)
-    # the plain bf16 hop is the f32 hop on the upcast links
-    up = wf.FastGauge(ft.ug_even.float(), ft.ug_odd.float(), ft.gcomp)
+    # the plain bf16 hop is the f32 hop on the upcast links (made contiguous:
+    # the upcast keeps the bf16 copy's re/im-innermost layout)
+    up = wf.FastGauge(ft.ug_even.float().contiguous(), ft.ug_odd.float().contiguous(), ft.gcomp)
     assert torch.equal(dc.hopping_split(ft.ug_odd, psi2, ODD, LAT, gcomp=ft.gcomp),
                        dc.hopping_split(up.ug_odd, psi2, ODD, LAT, gcomp=up.gcomp))

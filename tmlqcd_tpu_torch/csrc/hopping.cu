@@ -1,12 +1,15 @@
-// Even/odd Wilson hopping (K1), its multi-right-hand-side form (K1-R) and the
-// gauge-cotangent kernel (K2) for NVIDIA Hopper (sm_90a), bound to Python
-// through a plain C interface.
+// Even/odd Wilson hopping (K1), the Schur operator in one launch (K1-S), the
+// multi-right-hand-side form (K1-R) and the gauge-cotangent kernel (K2) for
+// NVIDIA Hopper (sm_90a), bound to Python through a plain C interface.
 //
 // K1 replaces the Pallas kernel `_dslash_kernel` (+ `_stencil_accum`,
-// `_apply_epilogue`) of tmlqcd_tpu/ops/dslash_pallas.py; K1-R replaces
-// `_dslash_kernel_r` / `_dslash_kernel_tb_r`; K2 replaces `_ug_vjp_kernel` of
-// the same file.  All read the reference's split structure-of-arrays layout
-// unchanged:
+// `_apply_epilogue`) of tmlqcd_tpu/ops/dslash_pallas.py; K1-S the two or
+// four `_dslash_kernel` calls of one Mhat / Qhat_pm (the reference's
+// ops/wilson_fast.py m_hat_fast, q_hat_pm_fast and the clover forms); K1-R
+// replaces `_dslash_kernel_r` / `_dslash_kernel_tb_r`; K2 replaces
+// `_ug_vjp_kernel` of the same file.  All read the reference's split
+// structure-of-arrays layout unchanged (the bf16 copy: see load_link in
+// hopping_common.cuh):
 //
 //   psi  [2 re/im][4 spin][3 colour][V]          V = T * X * M sites of one parity
 //   psi  [2 re/im][4 spin][3 colour][R][V]       K1-R: R right-hand sides
@@ -46,21 +49,43 @@
 //
 // The bf16 gauge (K1-B; `_load_g` and the upcast in `_stencil_accum` of the
 // Pallas file, reached from `make_fast_gauge(sloppy=True)`): K1 reads the
-// links as __nv_bfloat16, 2 bytes an element, and upcasts them in registers
-// (__bfloat162float).  Everything after the load stays f32: the 12-real
-// row-2 reconstruction (from the rounded rows 0 and 1), the accumulation and
-// every epilogue.  K1-R has the same bf16 instances (K1-RB, the bf16
-// instances of `_dslash_kernel_r`): the block stages the upcast links once
-// for its columns; K2 reads f32 links.  It moves 288 B (18-real) or 192 B
-// (12-real) of gauge per site instead of 576 or 384.
+// links as __nv_bfloat16, re and im of an element side by side in one
+// 4-byte __nv_bfloat162 load, and upcasts them in registers.  Everything
+// after the load stays f32: the 12-real row-2 reconstruction (from the
+// rounded rows 0 and 1), the accumulation and every epilogue.  K1-R has the
+// same bf16 instances (K1-RB, the bf16 instances of `_dslash_kernel_r`): the
+// block stages the upcast links once for its columns; K2 reads f32 links.
+// It moves 288 B (18-real) or 192 B (12-real) of gauge per site instead of
+// 576 or 384.  With re and im V elements apart (the f32 copy's layout) a
+// warp's link load moved 64 B and K1-B reached 77.5 % of copy bandwidth at
+// 32^3x64; with them side by side it moves a 128-byte line, and K1-B
+// reached 88.2 % (H100, chip_smoke.py).  Two sites per thread on paired
+// loads, the other way to whole lines, took 144 registers (3 blocks per SM)
+// and reached 71.0 %: occupancy, not load width, then bound it.
 //
 // Bound: memory.  1320 flops per site against 576 B (18-real) or 384 B
 // (12-real) of gauge, 96 B per spinor read (8 neighbour reads of which the
 // caches absorb most) and 96 B written; the mhat epilogue reads one more
 // spinor.  At ~1.7-2.3 flop/B it sits far below the card's ridge point, so
-// the only lever is bytes.  This first version relies on L1/L2 for
-// neighbour reuse; shared-memory tiling and several sites per thread are
-// later work.
+// the only lever is bytes.  K1 relies on L1/L2 for neighbour reuse and
+// reaches 86-92 % of copy bandwidth at 32^3x64 (H100, chip_smoke.py), so
+// shared-memory tiling of the neighbours has little left to win there.  At
+// the main paths' 16^3x32 the kernel body sits within 1.2-1.5x of its bound
+// and the host set the time: 27-56 us of Python and launch per K1 call
+// against 12-36 us on the device.  K1-S answers that (below).
+//
+// K1-S: the two hops of Mhat(+-) or the four of Qhat_pm, each K1's per-site
+// work with its epilogue (mee_inv then mhat, or clov_inv then clov_mhat), as
+// phases of one cooperative launch separated by grid-wide barriers
+// (cooperative_groups::this_grid().sync(), no -rdc).  The grid is what the
+// card holds resident (the occupancy API x SMs) and each phase walks its
+// sites in a grid-stride loop.  One wrapper call and one launch replace two
+// or four; the arithmetic is K1's device functions in K1's order, so the
+// result is bit for bit that of the K1 launches.  Every intermediate field
+// has a buffer of its own, so no phase reads a field through the read-only
+// cache that a later phase writes.  Bound: memory, the hops' bytes summed
+// (Qhat_pm on the 12-real f32 copy: 2 x 576 + 2 x 672 = 2496 B per site of
+// one parity); the barriers add a few microseconds each.
 //
 // K1-R: one thread per (site, right-hand side); threadIdx.x runs along the
 // sites (one 128-byte line per component load of a warp, as in K1) and
@@ -88,7 +113,15 @@
 // 2 * (G + 192) for two K1 launches.  With R = 2 a block is 32 sites x 2
 // rows = 64 threads, and each row stages four of the eight directions.
 
+#include <cooperative_groups.h>
+
 #include "hopping_common.cuh"
+
+// The part of this file's instances one compilation builds (see the note
+// above the tm_part_* functions); 0 holds the C entries.
+#ifndef TM_PART
+#define TM_PART 0
+#endif
 
 namespace {
 
@@ -189,6 +222,25 @@ __device__ __forceinline__ void store_clover(const float (&ar)[4][3], const floa
   }
 }
 
+// K1's work on one site: the sum of the 8 directions and the epilogue
+template <int EPI, bool G5, bool COMP, typename G>
+__device__ __forceinline__ void hop_site(const float* __restrict__ psi,
+                                         const G* __restrict__ ug,
+                                         const float* __restrict__ psi_o,
+                                         const float* __restrict__ blocks,
+                                         float* __restrict__ out, const Geo& geo, long long V,
+                                         int site, float mt, float inv, float k2,
+                                         const Corr& corr) {
+  const Strides st{12 * V, V};
+  float ar[4][3], ai[4][3];
+  accum_site<COMP, G>(psi, ug, geo, V, st, site, corr, ar, ai);
+  if constexpr (EPI >= 3)
+    store_clover<EPI, G5, true>(ar, ai, psi_o, out, st, site, inv, k2, blocks, V, site);
+  else
+    store_epilogue<EPI, G5>(ar, ai, psi_o, out, st, site, mt, inv, k2);
+}
+
+// K1: one thread per site
 template <int EPI, bool G5, bool COMP, typename G>
 __global__ void __launch_bounds__(128)
 hopping_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
@@ -197,13 +249,76 @@ hopping_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
   const long long V = (long long)geo.T * geo.X * geo.M;
   const int site = blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= V) return;
-  const Strides st{12 * V, V};
-  float ar[4][3], ai[4][3];
-  accum_site<COMP, G>(psi, ug, geo, V, st, site, corr, ar, ai);
-  if constexpr (EPI >= 3)
-    store_clover<EPI, G5, true>(ar, ai, psi_o, out, st, site, inv, k2, blocks, V, site);
-  else
-    store_epilogue<EPI, G5>(ar, ai, psi_o, out, st, site, mt, inv, k2);
+  hop_site<EPI, G5, COMP, G>(psi, ug, psi_o, blocks, out, geo, V, site, mt, inv, k2, corr);
+}
+
+// K1-S: the Schur operator in one persistent launch.  A phase is one K1 hop
+// with its epilogue; the phases of Mhat (2) or Qhat_pm (4) run one after the
+// other, separated by grid-wide barriers, in one cooperative launch.
+struct Phase {
+  const float* psi;     // the hopped field
+  const float* psi_o;   // the odd input of Mhat (odd phases: mhat, clov_mhat)
+  const float* blocks;  // clover blocks (clov_inv, clov_mhat)
+  float* out;
+  float mt, inv, k2;
+};
+
+constexpr int kMaxPhases = 4;
+
+struct SchurArgs {
+  Phase ph[kMaxPhases];
+  const void* ug[2];  // the link copies of the even and the odd output sites
+  Geo geo;            // geo.p is set phase by phase
+  Corr corr;
+  int nphase;
+};
+
+// K1-S holds at least this many blocks of 128 per SM: its registers are
+// capped at 128 (65536 / (4 x 128)).  Uncapped it took 118 (twisted mass)
+// to 144 (clover) registers, 3-4 blocks per SM, since the grid-stride loop
+// keeps the phase's descriptor and hoisted address arithmetic in registers
+// across its iterations.  528 resident blocks on 132 SMs cover 16^3x32's 512
+// in one pass of every phase.  Measured on an H100 with chip_smoke.py
+// (ptxas for sm_90a), the alternatives were slower: capped at K1's 80
+// registers it spilled 144 B a thread; with the four phases written out
+// (four copies of the per-site code, constant-index descriptors) or the
+// site's work behind a call that is not inlined (a 296-byte stack frame), a
+// Qhat_pm took 1.3-1.5x longer at 16^3x32.
+constexpr int kSchurBlocksPerSM = 4;
+
+// One phase of K1-S: K1's per-site work with epilogue EPI on every site of
+// the phase's parity, walked in a grid-stride loop (the grid is what the
+// card holds resident, so any volume runs).
+template <int EPI, bool G5, bool COMP, typename G>
+__device__ __forceinline__ void schur_phase(const Phase& f, const G* __restrict__ ug,
+                                            const Geo& geo, int V, const Corr& corr) {
+  for (int site = blockIdx.x * blockDim.x + threadIdx.x; site < V;
+       site += gridDim.x * blockDim.x)
+    hop_site<EPI, G5, COMP, G>(f.psi, ug, f.psi_o, f.blocks, f.out, geo, V, site, f.mt, f.inv,
+                               f.k2, corr);
+}
+
+// Even phases (p = 0) run the even epilogue, mee_inv or clov_inv; odd phases
+// (p = 1) the odd one, mhat or clov_mhat (G5: with gamma5).  The phase's
+// descriptor is picked with constant indices, so the kernel parameters are
+// read where they lie and never copied to local memory.
+template <bool CLOV, bool G5, bool COMP, typename G>
+__global__ void __launch_bounds__(128, kSchurBlocksPerSM)
+hopping_schur_kernel(SchurArgs a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int V = a.geo.T * a.geo.X * a.geo.M;
+  for (int ph = 0; ph < a.nphase; ++ph) {
+    if (ph > 0) grid.sync();
+    const Phase f = ph == 0 ? a.ph[0] : ph == 1 ? a.ph[1] : ph == 2 ? a.ph[2] : a.ph[3];
+    Geo geo = a.geo;
+    geo.p = ph & 1;
+    if (ph & 1)
+      schur_phase<CLOV ? 4 : 2, G5, COMP, G>(f, static_cast<const G*>(a.ug[1]), geo, V,
+                                             a.corr);
+    else
+      schur_phase<CLOV ? 3 : 1, false, COMP, G>(f, static_cast<const G*>(a.ug[0]), geo, V,
+                                                a.corr);
+  }
 }
 
 // K1-R: block (kRhsSites sites, up to kRhsCols right-hand sides); the
@@ -289,6 +404,7 @@ hopping_rhs_kernel(const float* __restrict__ psi, const G* __restrict__ ug,
                             inv, k2);
 }
 
+#if TM_PART == 0
 template <int D>
 __device__ __forceinline__ void vjp_dir(const float* __restrict__ psi, long long V, int nsite,
                                         int site, const float (&g_r)[4][3],
@@ -359,13 +475,14 @@ ug_vjp_kernel(const float* __restrict__ g, const float* __restrict__ psi,
   vjp_dir<6>(psi, V, nb[6], site, g_r, g_i, out);
   vjp_dir<7>(psi, V, nb[7], site, g_r, g_i, out);
 }
+#endif  // TM_PART == 0
 
 constexpr int kBlock = 128;
 
 // one launch of K1 (R == 0) or K1-R (R > 0)
 struct Args {
   const float* psi;
-  const void* ug;  // float, or __nv_bfloat16 (K1 only)
+  const void* ug;  // float, or __nv_bfloat16 (K1-B, K1-RB)
   const float* psi_o;
   const float* blocks;
   float* out;
@@ -376,12 +493,31 @@ struct Args {
   Strides st;
   long long rstride;
   cudaStream_t stream;
+  int* info;  // set: fill kernel_info instead of launching
 };
+
+// info[0..3] = resident blocks per SM (the occupancy API), registers per
+// thread, local-memory bytes (spills, stack) per thread, threads per block
+template <typename K>
+void kernel_info(K kern, int block, int* info) {
+  cudaFuncAttributes attr{};
+  cudaFuncGetAttributes(&attr, (const void*)kern);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, 0);
+  info[0] = per_sm;
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  info[3] = block;
+}
 
 // G: the gauge element type (float, or __nv_bfloat16 for K1-B and K1-RB).
 template <int EPI, bool G5, bool COMP, typename G>
 void launch(const Args& a) {
   const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
+  if (a.info != nullptr) {
+    kernel_info(hopping_kernel<EPI, G5, COMP, G>, kBlock, a.info);
+    return;
+  }
   if (a.R == 0) {
     const unsigned blocks = (unsigned)((V + kBlock - 1) / kBlock);
     hopping_kernel<EPI, G5, COMP, G><<<blocks, kBlock, 0, a.stream>>>(
@@ -410,29 +546,134 @@ void dispatch_epi(int epi, int g5, const Args& a) {
   else launch<4, false, COMP, G>(a);
 }
 
+constexpr int kMaxDevices = 64;
+
+// One cooperative launch of K1-S's instance on `stream`, or (info set) its
+// kernel_info.  The grid is what the card holds resident of this instance,
+// blocks per SM (the occupancy API) x SMs, found once per device and kept; a
+// cooperative launch larger than that is refused
+// (cudaErrorCooperativeLaunchTooLarge).  Fewer blocks when the sites need
+// fewer: each barrier then waits on fewer blocks.
+template <bool CLOV, bool G5, bool COMP, typename G>
+int launch_schur(const SchurArgs& a, cudaStream_t stream, int* info) {
+  const auto kern = hopping_schur_kernel<CLOV, G5, COMP, G>;
+  if (info != nullptr) {
+    kernel_info(kern, kBlock, info);
+    return 0;
+  }
+  static int resident[kMaxDevices];
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kBlock, 0);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != 0) return rc;
+    if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
+  const long long need = (V + kBlock - 1) / kBlock;
+  const unsigned grid = (unsigned)(need < resident[dev] ? need : resident[dev]);
+  void* args[] = {const_cast<SchurArgs*>(&a)};
+  rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kBlock), args, 0,
+                                        stream);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+template <typename G>
+int dispatch_schur(const SchurArgs& a, int clover, int g5, int comp, cudaStream_t stream,
+                   int* info) {
+  if (clover && g5)
+    return comp ? launch_schur<true, true, true, G>(a, stream, info)
+                : launch_schur<true, true, false, G>(a, stream, info);
+  if (clover)
+    return comp ? launch_schur<true, false, true, G>(a, stream, info)
+                : launch_schur<true, false, false, G>(a, stream, info);
+  if (g5)
+    return comp ? launch_schur<false, true, true, G>(a, stream, info)
+                : launch_schur<false, true, false, G>(a, stream, info);
+  return comp ? launch_schur<false, false, true, G>(a, stream, info)
+              : launch_schur<false, false, false, G>(a, stream, info);
+}
+
 bool bad_geometry(int T, int X, int M, int zh, int p) {
   return T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1);
 }
+
+}  // namespace
+
+// The instances are compiled in four parts, one nvcc process each, all
+// started together (dslash_cuda._JOBS builds this file with -DTM_PART=0
+// to 3): 0 K1 and K1-R on f32 links, K2 and the C entries; 1 K1 and K1-R on
+// bf16 links (K1-B, K1-RB); 2 K1-S on f32 links; 3 K1-S on bf16 links.  The
+// build then takes as long as its largest part, not as all of them.  The
+// entries of part 0 reach the others through the tm_part_* functions, which
+// take the argument struct by pointer (every part compiles the same
+// definition of it).
+extern "C" {
+int tm_part_hopping_bf16(const void* args, int epi, int g5, int comp);
+int tm_part_schur_f32(const void* args, int clover, int g5, int comp, void* stream, int* info);
+int tm_part_schur_bf16(const void* args, int clover, int g5, int comp, void* stream, int* info);
+}
+
+#if TM_PART == 1
+int tm_part_hopping_bf16(const void* args, int epi, int g5, int comp) {
+  const Args& a = *static_cast<const Args*>(args);
+  if (comp) dispatch_epi<true, __nv_bfloat16>(epi, g5, a);
+  else dispatch_epi<false, __nv_bfloat16>(epi, g5, a);
+  return 0;
+}
+#endif
+
+#if TM_PART == 2
+int tm_part_schur_f32(const void* args, int clover, int g5, int comp, void* stream, int* info) {
+  return dispatch_schur<float>(*static_cast<const SchurArgs*>(args), clover, g5, comp,
+                               (cudaStream_t)stream, info);
+}
+#endif
+
+#if TM_PART == 3
+int tm_part_schur_bf16(const void* args, int clover, int g5, int comp, void* stream, int* info) {
+  return dispatch_schur<__nv_bfloat16>(*static_cast<const SchurArgs*>(args), clover, g5, comp,
+                                       (cudaStream_t)stream, info);
+}
+#endif
+
+#if TM_PART == 0
+namespace {
 
 // validates the shared arguments, fills corr and launches; R == 0 is K1,
 // gbf16 != 0 a bf16 gauge (K1-B, or K1-RB with R > 0)
 int run_hopping(Args a, int epi, int g5, int comp, int gbf16, const float* corr16) {
   const bool needs_psi_o = epi == 2 || epi == 4;
-  if (epi < 0 || epi > 4 || (needs_psi_o && a.psi_o == nullptr) ||
-      (epi >= 3 && a.blocks == nullptr) || (comp && corr16 == nullptr))
+  if (epi < 0 || epi > 4)
     return (int)cudaErrorInvalidValue;
-  for (int d = 0; d < 8; ++d) {
-    a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
-    a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  if (a.info == nullptr) {
+    if ((needs_psi_o && a.psi_o == nullptr) || (epi >= 3 && a.blocks == nullptr) ||
+        (comp && corr16 == nullptr))
+      return (int)cudaErrorInvalidValue;
+    for (int d = 0; d < 8; ++d) {
+      a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
+      a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+    }
   }
   if (gbf16) {
-    if (comp) dispatch_epi<true, __nv_bfloat16>(epi, g5, a);
-    else dispatch_epi<false, __nv_bfloat16>(epi, g5, a);
+    tm_part_hopping_bf16(&a, epi, g5, comp);
   } else {
     if (comp) dispatch_epi<true, float>(epi, g5, a);
     else dispatch_epi<false, float>(epi, g5, a);
   }
   return (int)cudaGetLastError();
+}
+
+// K1-S on the links' type: part 2 (f32) or part 3 (bf16)
+int run_schur(const SchurArgs& a, int clover, int g5, int comp, int gbf16, void* stream,
+              int* info) {
+  return gbf16 ? tm_part_schur_bf16(&a, clover, g5, comp, stream, info)
+               : tm_part_schur_f32(&a, clover, g5, comp, stream, info);
 }
 
 }  // namespace
@@ -451,8 +692,74 @@ int tm_hopping(const float* psi, const void* ug, const float* psi_o, const float
   if (bad_geometry(T, X, M, zh, p)) return (int)cudaErrorInvalidValue;
   const long long V = (long long)T * X * M;
   const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, 0,
-               Strides{12 * V, V}, 0, (cudaStream_t)stream};
+               Strides{12 * V, V}, 0, (cudaStream_t)stream, nullptr};
   return run_hopping(a, epi, g5, comp, gbf16, corr16);
+}
+
+// The K1 instance of (epi, g5, comp, gbf16): info[0..3] as kernel_info
+// (blocks per SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// registers, spill bytes, threads per block).  Launches nothing.
+int tm_hopping_info(int epi, int g5, int comp, int gbf16, int* info) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.geo = Geo{1, 1, 1, 1, 0};
+  a.info = info;
+  const int rc = run_hopping(a, epi, g5, comp, gbf16, nullptr);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// K1-S: nstage Schur applications in one cooperative launch, each the
+// even hop with the even epilogue and then the odd hop with the odd one:
+//   clover 0: mee_inv then mhat (Mhat(sign), [g5]);
+//   clover 1: clov_inv then clov_mhat (blocks: M_ee^-1, then M_oo).
+// nstage 1 (Mhat, Qhat): psi -> e1 -> out.  nstage 2 (Qhat_pm): psi -> e1 ->
+// o1 -> e2 -> out, the second stage's odd input o1.  Every intermediate has
+// a buffer of its own (the wrapper's scratch), and no phase writes a field
+// that an earlier phase read.  blk0..blk3: the blocks of phases 0..3
+// (clover only).  consts: (mt, inv, k2) of phases 0..3 as tm_hopping takes
+// them (`inv` the scale of clov_inv).  g5 applies to the odd phases.  The
+// links: ug_e for the even phases, ug_o for the odd, bf16 with gbf16 != 0.
+// Returns the launch's error (0 = success); an invalid argument returns
+// cudaErrorInvalidValue.
+int tm_hopping_schur(const float* psi, const void* ug_e, const void* ug_o, const float* blk0,
+                     const float* blk1, const float* blk2, const float* blk3, float* e1,
+                     float* o1, float* e2, float* out, int T, int X, int M, int zh, int nstage,
+                     int clover, int g5, int comp, int gbf16, const float* consts,
+                     const float* corr16, void* stream) {
+  const bool two = nstage == 2;
+  if (bad_geometry(T, X, M, zh, 0) || (nstage != 1 && !two) || psi == nullptr ||
+      ug_e == nullptr || ug_o == nullptr || e1 == nullptr || out == nullptr ||
+      consts == nullptr || (comp && corr16 == nullptr) ||
+      (two && (o1 == nullptr || e2 == nullptr)) ||
+      (clover && (blk0 == nullptr || blk1 == nullptr ||
+                  (two && (blk2 == nullptr || blk3 == nullptr)))))
+    return (int)cudaErrorInvalidValue;
+  SchurArgs a{};
+  a.ug[0] = ug_e;
+  a.ug[1] = ug_o;
+  a.geo = Geo{T, X, M, zh, 0};
+  for (int d = 0; d < 8; ++d) {
+    a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
+    a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  }
+  a.nphase = 2 * nstage;
+  const float* c = consts;
+  a.ph[0] = Phase{psi, nullptr, blk0, e1, c[0], c[1], c[2]};
+  a.ph[1] = Phase{e1, psi, blk1, two ? o1 : out, c[3], c[4], c[5]};
+  if (two) {
+    a.ph[2] = Phase{o1, nullptr, blk2, e2, c[6], c[7], c[8]};
+    a.ph[3] = Phase{e2, o1, blk3, out, c[9], c[10], c[11]};
+  }
+  return run_schur(a, clover, g5, comp, gbf16, stream, nullptr);
+}
+
+// K1-S's instance of (clover, g5, comp, gbf16): info[0..3] as kernel_info.
+// Launches nothing.
+int tm_hopping_schur_info(int clover, int g5, int comp, int gbf16, int* info) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  const SchurArgs a{};
+  const int rc = run_schur(a, clover, g5, comp, gbf16, nullptr, info);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 // K1-R: R right-hand sides on one read of the gauge.  psi, psi_o and out
@@ -468,7 +775,7 @@ int tm_hopping_rhs(const float* psi, const void* ug, const float* psi_o, const f
       r_stride <= 0)
     return (int)cudaErrorInvalidValue;
   const Args a{psi, ug, psi_o, blocks, out, Geo{T, X, M, zh, p}, mt, inv, k2, Corr{}, R,
-               Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream};
+               Strides{im_stride, comp_stride}, r_stride, (cudaStream_t)stream, nullptr};
   return run_hopping(a, epi, g5, comp, gbf16, corr16);
 }
 
@@ -484,3 +791,4 @@ int tm_hopping_ug_vjp(const float* g, const float* psi, float* out, int T, int X
 }
 
 }  // extern "C"
+#endif  // TM_PART == 0

@@ -1,18 +1,21 @@
-// Shared device code of the hopping kernels (csrc/hopping.cu: K1, K1-R, K2;
-// csrc/hopping_slab.cu: the slab kernels K3, K3-I, K4 and K1-T): the
-// half-spinor maps, the link load with the 12-real row-2 rebuild and the
+// Shared device code of the hopping kernels (csrc/hopping.cu: K1, K1-S,
+// K1-R, K2; csrc/hopping_slab.cu: the slab kernels K3, K3-I, K4 and K1-T):
+// the half-spinor maps, the link load with the 12-real row-2 rebuild and the
 // bf16 upcast, and the per-direction stencil step.  Every kernel that
 // computes H psi runs these functions in the same order (directions 0..7,
 // each: project, link times half-spinor, spread back), so a site's sum is
 // formed the same way in all of them.
 //
 // Layouts (element strides, sites minor-most): psi [2 re/im][4][3][V] with
-// Strides {im, comp}; ug [2 re/im][8 dir][rows][3][V], rows 3 or 2.
+// Strides {im, comp}; ug [2 re/im][8 dir][rows][3][V], rows 3 or 2, in f32,
+// and [8 dir][rows][3][V][2 re/im] in bf16 (see load_link).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -97,15 +100,17 @@ __device__ __forceinline__ void neighbours(const Geo& g, int site, int nb[8]) {
   nb[7] = tx * g.M + mzb;
 }
 
-// one gauge element, upcast to f32 in registers
-__device__ __forceinline__ float gload(const float* __restrict__ p) { return __ldg(p); }
-__device__ __forceinline__ float gload(const __nv_bfloat16* __restrict__ p) {
-  return __bfloat162float(__ldg(p));
-}
-
-// the 3 x 3 link of direction D at `site` into (gr, gi); the 12-real copy
-// stores rows 0 and 1 and row 2 is rebuilt.  G: the gauge element type
-// (float, or __nv_bfloat16 for the sloppy copy)
+// The 3 x 3 link of direction D at `site` into (gr, gi), upcast to f32 in
+// registers; the 12-real copy stores rows 0 and 1 and row 2 is rebuilt.
+// G: the gauge element type.  float: the copy [2 re/im][8][rows][3][V].
+// __nv_bfloat16 (the sloppy copy): [8][rows][3][V][2 re/im], re and im of an
+// element side by side, read as one __nv_bfloat162.  With the two parts V
+// apart, as in the f32 copy, a warp's 2-byte load moved 64 B, half a
+// 128-byte line, and K1-B reached 74-78 % of copy bandwidth at 32^3x64
+// against f32 K1's 82-87 % (H100); side by side, a warp's load moves a whole
+// line, one site per thread as in f32 K1.  The upcast is exact, so every
+// reader of the bf16 copy (K1-B, K1-S, K1-RB, the slab kernels) sees the
+// f32 values of the rounded links, and row 2 is rebuilt from them.
 template <int D, bool COMP, typename G>
 __device__ __forceinline__ void load_link(const G* __restrict__ ug, long long V, long long site,
                                           const Corr& corr, float (&gr)[3][3],
@@ -115,8 +120,16 @@ __device__ __forceinline__ void load_link(const G* __restrict__ ug, long long V,
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      gr[i][j] = gload(ug + (((0 * 8 + D) * R + i) * 3 + j) * V + site);
-      gi[i][j] = gload(ug + (((1 * 8 + D) * R + i) * 3 + j) * V + site);
+      const long long e = ((D * R + i) * 3 + j) * V + site;
+      if constexpr (std::is_same<G, __nv_bfloat16>::value) {
+        const float2 v =
+            __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(ug) + e));
+        gr[i][j] = v.x;
+        gi[i][j] = v.y;
+      } else {
+        gr[i][j] = __ldg(ug + e);
+        gi[i][j] = __ldg(ug + 8 * R * 3 * V + e);
+      }
     }
   if (COMP) {
     // row2 = corr * conj(row0 x row1)  (corr restores the folded phase)

@@ -21,11 +21,22 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   576 B of blocks and 576 flops more.
 * `hopping_split` on a bf16 gauge (K1-B) replaces the bf16 gauge of the same
   kernel (`_load_g` :186-195 and the upcast in `_stencil_accum` :263-265,
-  reached from `make_fast_gauge(sloppy=True)`): the links are read as bf16
-  and upcast in registers, everything after the load is f32.  Bound by
-  memory: 288 B (18-real) or 192 B (12-real) of gauge per site instead of
+  reached from `make_fast_gauge(sloppy=True)`): the links are read as bf16,
+  re and im of an element side by side in one 4-byte load (the copy holds
+  re/im innermost in memory, the tensor's shape and bits are the f32 copy's
+  cast), and upcast in registers; everything after the load is f32.  Bound
+  by memory: 288 B (18-real) or 192 B (12-real) of gauge per site instead of
   576 / 384.  K1-R takes a bf16 gauge too (K1-RB, the bf16 instances of
   `_dslash_kernel_r`); K2 reads no gauge.
+* `hopping_schur` (K1-S) replaces the K1 launches of one Schur operator
+  (`m_hat_fast` / `q_hat_pm_fast` and the clover forms in the reference's
+  ops/wilson_fast.py, each hop an `_dslash_kernel` :520): the two hops of
+  Mhat or the four of Qhat_pm as phases of one cooperative launch,
+  separated by grid-wide barriers, each phase K1's per-site work with its
+  epilogue, bit for bit the K1 launches.  One wrapper call and one launch
+  per operator instead of two or four; bound by memory as the hops summed
+  (2 x 576 + 2 x 672 = 2496 B per site of one parity for Qhat_pm on the
+  12-real f32 copy).
 * `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
   batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
   `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
@@ -69,8 +80,11 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
 Routing: the device of the tensors decides.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor takes the plain version.  There is no
 fallback between the two.  Each wrapper counts its kernel launches in a
-plain int attribute (`hopping_split.launches`, `hopping_split_rhs.launches`,
-`hopping_ug_vjp.launches`); each plain version counts its calls (`.calls`).
+plain int attribute (`hopping_split.launches`, `hopping_schur.launches`,
+`hopping_split_rhs.launches`, `hopping_ug_vjp.launches`); each plain version
+counts its calls (`.calls`).  `hopping_schur.hops` counts the K1 hops its
+launches ran, `.clover_hops` and `.bf16_hops` those with a clover epilogue
+and on a bf16 gauge.
 `hopping_split.clover_launches` and `hopping_split_rhs.clover_launches` count
 those of the launches that ran a clover epilogue, `hopping_split.bf16_launches`
 those on a bf16 gauge,
@@ -89,6 +103,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -119,6 +134,8 @@ __all__ = [
     "compress_ug",
     "hopping_split",
     "hopping_split_plain",
+    "hopping_schur",
+    "hopping_schur_plain",
     "hopping_split_rhs",
     "hopping_split_rhs_plain",
     "hopping_ug_vjp",
@@ -127,6 +144,8 @@ __all__ = [
     "blk_flatten",
     "blk_unflatten",
     "kernel_library",
+    "kernel_info",
+    "schur_kernel_info",
     "reset_counters",
 ]
 
@@ -141,9 +160,10 @@ W = np.stack([
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-# each source is one nvcc process, all started together; the objects are
-# linked into one library
-_SOURCES = ("hopping.cu", "hopping_slab.cu")
+# each (source, part) is one nvcc process, all started together; the objects
+# are linked into one library.  hopping.cu is built in four parts
+# (-DTM_PART, see the note above its tm_part_* functions).
+_JOBS = tuple(("hopping.cu", part) for part in range(4)) + (("hopping_slab.cu", None),)
 _HEADERS = ("hopping_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-Xcompiler", "-fPIC")
@@ -160,18 +180,20 @@ def _nvcc() -> str:
 
 
 def _build(so: str, verbose: bool) -> None:
-    """Compile every source in its own nvcc process, all at once, and link
-    the objects into `so` (moved into place atomically)."""
+    """Compile every (source, part) in its own nvcc process, all at once,
+    and link the objects into `so` (moved into place atomically)."""
     os.makedirs(_BUILD, exist_ok=True)
     tmpdir = tempfile.mkdtemp(dir=_BUILD)
     try:
         procs = []
-        for name in _SOURCES:
-            obj = os.path.join(tmpdir, name + ".o")
-            cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
-                   "-o", obj, os.path.join(_CSRC, name)]
-            procs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.PIPE, text=True)))
+        for name, part in _JOBS:
+            obj = os.path.join(tmpdir, f"{name}.{part}.o")
+            cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   *([f"-DTM_PART={part}"] if part is not None else []), "-c", "-o", obj,
+                   os.path.join(_CSRC, name)]
+            label = name if part is None else f"{name} part {part}"
+            procs.append((label, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                       stderr=subprocess.PIPE, text=True)))
         failed = []
         for name, _, proc in procs:
             _, err = proc.communicate()
@@ -202,8 +224,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
     with _lib_lock:
         if _lib_handle is not None:
             return _lib_handle
-        h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        for name in _SOURCES + _HEADERS:
+        h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode() + repr(_JOBS).encode())
+        for name in tuple(dict.fromkeys(name for name, _ in _JOBS)) + _HEADERS:
             with open(os.path.join(_CSRC, name), "rb") as f:
                 h.update(f.read())
         so = os.path.join(_BUILD, f"libtmlqcd_kernels_{h.hexdigest()[:16]}.so")
@@ -217,6 +239,12 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         lib.tm_hopping_rhs.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, f,
                                        vp, i, ll, ll, ll, vp]
         lib.tm_hopping_rhs.restype = i
+        lib.tm_hopping_info.argtypes = [i, i, i, i, vp]
+        lib.tm_hopping_info.restype = i
+        lib.tm_hopping_schur.argtypes = [vp] * 11 + [i] * 9 + [vp, vp, vp]
+        lib.tm_hopping_schur.restype = i
+        lib.tm_hopping_schur_info.argtypes = [i, i, i, i, vp]
+        lib.tm_hopping_schur_info.restype = i
         lib.tm_hopping_ug_vjp.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         lib.tm_hopping_ug_vjp.restype = i
         lib.tm_hopping_slab.argtypes = ([vp, ll, ll, ll] * 3 + [vp, vp, ll, ll, ll]
@@ -333,7 +361,8 @@ def _check_fields(lat: Lattice, ug_p, psi_q, psi_o, epi, gcomp, nrhs: int | None
 
 def _check_tensors(need, device) -> None:
     """(name, tensor, shape) triples: f32 (the gauge `ug_p`: f32 or bf16),
-    that shape, contiguous, on `device`."""
+    that shape, contiguous (a bf16 gauge: re/im innermost, the layout of
+    `wilson_fast.sloppy_gauge`), on `device`."""
     for name, t, shape in need:
         ok = (torch.float32, torch.bfloat16) if name == "ug_p" else (torch.float32,)
         if t.dtype not in ok:
@@ -341,7 +370,11 @@ def _check_tensors(need, device) -> None:
             raise TypeError(f"{name} must be {names}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
+        if t.dtype == torch.bfloat16:
+            if not t.movedim(0, -1).is_contiguous():
+                raise ValueError(f"{name}: a bf16 gauge holds re/im innermost in memory "
+                                 f"(wilson_fast.sloppy_gauge)")
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, psi on {device}")
@@ -369,12 +402,19 @@ def _ptr(t, wanted: bool):
     return t.data_ptr() if wanted else None
 
 
-def _corr_arg(gcomp):
-    """(keep-alive ctypes array, void pointer) of the 8 row-2 constants."""
-    if gcomp is None:
-        return None, None
+@functools.lru_cache(maxsize=64)
+def _corr_cached(gcomp: tuple) -> tuple:
     corr = (ctypes.c_float * 16)(*[v for pair in gcomp for v in pair])
     return corr, ctypes.cast(corr, ctypes.c_void_p)
+
+
+def _corr_arg(gcomp):
+    """(keep-alive ctypes array, void pointer) of the 8 row-2 constants,
+    made once per set of constants (one per gauge copy's boundary phases)
+    and kept, so a launch builds no host array."""
+    if gcomp is None:
+        return None, None
+    return _corr_cached(gcomp if isinstance(gcomp, tuple) else tuple(map(tuple, gcomp)))
 
 
 def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
@@ -424,6 +464,164 @@ def hopping_split(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
 hopping_split.launches = 0
 hopping_split.clover_launches = 0
 hopping_split.bf16_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1-S: the Schur operator in one persistent launch
+# ---------------------------------------------------------------------------
+
+# the (even, odd) epilogue pairs of one Schur application
+_SCHUR_PAIRS = {("mee_inv", "mhat"): 0, ("clov_inv", "clov_mhat"): 1}
+
+
+@functools.lru_cache(maxsize=256)
+def _schur_consts(epis: tuple) -> tuple:
+    """(keep-alive ctypes array, pointer) of the (mt, inv, k2) of the 4
+    phases, from the stages' (even, odd) epilogues; made once per set of
+    constants and kept."""
+    vals = []
+    for epi_e, epi_o in epis:
+        for epi in (epi_e, epi_o):
+            vals.extend(_epilogue_args(epi)[2:])
+    vals.extend([0.0] * (12 - len(vals)))
+    arr = (ctypes.c_float * 12)(*vals)
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _check_schur(ug_e, ug_o, psi, lat: Lattice, stages, gcomp) -> tuple:
+    """Raise on anything K1-S does not take; -> (stages as tuples, the
+    stages' epilogue pairs, clover?, g5?)."""
+    stages = tuple(tuple(st) for st in stages)
+    if len(stages) not in (1, 2):
+        raise ValueError(f"K1-S runs 1 (Mhat) or 2 (Qhat_pm) Schur applications, got "
+                         f"{len(stages)}")
+    kinds, g5s, need = set(), set(), []
+    site = lat.eo_site_shape
+    for j, st in enumerate(stages):
+        if len(st) != 4:
+            raise ValueError("a Schur stage is (even epilogue, odd epilogue, even blocks, odd "
+                             "blocks)")
+        epi_e, epi_o, blk_e, blk_o = tuple(st[0]), tuple(st[1]), st[2], st[3]
+        pair = (epi_e[0], epi_o[0])
+        if pair not in _SCHUR_PAIRS:
+            raise ValueError(f"K1-S runs the epilogue pairs (mee_inv, mhat) and (clov_inv, "
+                             f"clov_mhat), got {pair}")
+        kinds.add(_SCHUR_PAIRS[pair])
+        g5s.add(bool(epi_o[-1]))
+        if pair[0] == "clov_inv":
+            for name, blk in ((f"stage {j} even blocks", blk_e), (f"stage {j} odd blocks", blk_o)):
+                if blk is None:
+                    raise ValueError(f"the clover stages need blocks: {name} missing")
+                need.append(("blocks", blk, (2, 72) + site))
+    if len(kinds) != 1 or len(g5s) != 1:
+        raise ValueError("the stages of one K1-S launch share their epilogue pair and their "
+                         "gamma5")
+    if gcomp is not None and len(gcomp) != 8:
+        raise ValueError("gcomp must hold 8 (re, im) pairs")
+    rows = 2 if gcomp is not None else 3
+    if ug_e.dtype != ug_o.dtype:
+        raise TypeError(f"the two link copies differ in type: {ug_e.dtype}, {ug_o.dtype}")
+    need += [("psi_q", psi, (2, 4, 3) + site), ("ug_p", ug_e, (2, 8, rows, 3) + site),
+             ("ug_p", ug_o, (2, 8, rows, 3) + site)]
+    _check_tensors(need, psi.device)
+    epis = tuple((tuple(st[0]), tuple(st[1])) for st in stages)
+    return stages, epis, kinds.pop() == 1, g5s.pop()
+
+
+def hopping_schur(ug_e: torch.Tensor, ug_o: torch.Tensor, psi: torch.Tensor, lat: Lattice,
+                  stages, gcomp: tuple | None = None) -> torch.Tensor:
+    """K1-S: the even/odd Schur operator in one launch, equal bit for bit to
+    the sequence of K1 launches it replaces.
+
+    `stages`: 1 (Mhat, Qhat) or 2 (Qhat_pm) Schur applications, each
+    (epi_even, epi_odd, blocks_even, blocks_odd) of `hopping_split`'s forms:
+      (("mee_inv", mutld, sign), ("mhat", mutld, sign, k2, g5), None, None)
+      (("clov_inv",), ("clov_mhat", k2, g5), M_ee^-1 blocks, M_oo blocks)
+    Stage j runs tmp = K1(ug_e, x, even, epi_even) and then x = K1(ug_o,
+    tmp, odd, epi_odd, psi_o=x), x the input for j = 0; the stages share
+    their pair and their g5.  ug_e, ug_o: the even and odd link copies
+    (FastGauge), f32 or bf16 (the sloppy copy's layout);
+    psi: [2,4,3,T,X,M] f32."""
+    stages, epis, clover, g5 = _check_schur(ug_e, ug_o, psi, lat, stages, gcomp)
+    if psi.device.type == "cpu":
+        return hopping_schur_plain(ug_e, ug_o, psi, lat, stages, gcomp)
+    if psi.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi.device}")
+    lib = kernel_library()
+    two = len(stages) == 2
+    # every intermediate in a buffer of its own: a phase never writes a field
+    # that an earlier phase of the launch read through the read-only cache
+    e1 = torch.empty_like(psi)
+    o1 = torch.empty_like(psi) if two else None
+    e2 = torch.empty_like(psi) if two else None
+    out = torch.empty_like(psi)
+    blk = [st[k].data_ptr() if clover else None for st in stages for k in (2, 3)]
+    blk += [None] * (4 - len(blk))
+    bf16 = ug_e.dtype == torch.bfloat16
+    _, consts = _schur_consts(epis)
+    _, corr_ptr = _corr_arg(gcomp)
+    t, x, _, _ = lat.dims
+    args = (psi.data_ptr(), ug_e.data_ptr(), ug_o.data_ptr(), *blk, e1.data_ptr(),
+            o1.data_ptr() if two else None, e2.data_ptr() if two else None, out.data_ptr(),
+            t, x, lat.m, lat.zh, len(stages), int(clover), int(g5), int(gcomp is not None),
+            int(bf16), consts, corr_ptr)
+    if psi.device.index == torch.cuda.current_device():
+        rc = lib.tm_hopping_schur(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(psi.device):
+            rc = lib.tm_hopping_schur(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"Schur hopping kernel (K1-S) launch failed: CUDA error {rc}")
+    hops = 2 * len(stages)
+    hopping_schur.launches += 1
+    hopping_schur.hops += hops
+    hopping_schur.clover_hops += hops if clover else 0
+    hopping_schur.bf16_hops += hops if bf16 else 0
+    return out
+
+
+hopping_schur.launches = 0
+hopping_schur.hops = 0
+hopping_schur.clover_hops = 0
+hopping_schur.bf16_hops = 0
+
+
+def hopping_schur_plain(ug_e: torch.Tensor, ug_o: torch.Tensor, psi: torch.Tensor, lat: Lattice,
+                        stages, gcomp: tuple | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K1-S: the stages as the composition of
+    `hopping_split_plain`, the even hop and then the odd one."""
+    hopping_schur_plain.calls += 1
+    x = psi
+    for epi_e, epi_o, blk_e, blk_o in stages:
+        tmp = hopping_split_plain(ug_e, x, 0, lat, epi_e, gcomp=gcomp, blocks=blk_e)
+        x = hopping_split_plain(ug_o, tmp, 1, lat, epi_o, psi_o=x, gcomp=gcomp, blocks=blk_o)
+    return x
+
+
+hopping_schur_plain.calls = 0
+
+
+def schur_kernel_info(clover: bool, g5: bool, gcomp: bool, bf16: bool) -> dict:
+    """K1-S's instance as the card runs it, as `kernel_info`."""
+    return _kernel_info(kernel_library().tm_hopping_schur_info, int(clover), int(g5),
+                        int(gcomp), int(bf16))
+
+
+def _kernel_info(entry, *args) -> dict:
+    info = (ctypes.c_int * 4)()
+    rc = entry(*args, info)
+    if rc != 0:
+        raise RuntimeError(f"kernel info query failed: CUDA error {rc}")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "threads"), info))
+
+
+def kernel_info(epi: tuple, gcomp: bool, bf16: bool) -> dict:
+    """The K1 instance of an epilogue and link type as the card runs it:
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local-memory bytes (spills, stack) per thread, threads
+    per block."""
+    code, g5, _, _, _ = _epilogue_args(tuple(epi))
+    return _kernel_info(kernel_library().tm_hopping_info, code, g5, int(gcomp), int(bf16))
 
 
 def blk_flatten(blk2: torch.Tensor) -> torch.Tensor:
@@ -1041,11 +1239,16 @@ def reset_counters() -> None:
     hopping_split_rhs.doublet_launches = 0
     hopping_split_rhs.bf16_launches = 0
     hopping_ug_vjp.launches = 0
+    hopping_schur.launches = 0
+    hopping_schur.hops = 0
+    hopping_schur.clover_hops = 0
+    hopping_schur.bf16_hops = 0
     for name in hopping_slab_split.launches:
         hopping_slab_split.launches[name] = 0
     hopping_slab_split.bf16_launches = 0
     hopping_slab_split.rhs_launches = 0
     hopping_split_plain.calls = 0
+    hopping_schur_plain.calls = 0
     hopping_split_rhs_plain.calls = 0
     hopping_ug_vjp_plain.calls = 0
     hopping_slab_split_plain.calls = 0

@@ -2,11 +2,15 @@
 the hopping kernel — the production path of the port.
 
 Port of the single-device parts of `tmlqcd_tpu/ops/wilson_fast.py`.  Every
-Dirac application goes through `dslash_cuda.hopping_split` (K1), which runs
-the CUDA kernel for CUDA tensors and its plain version for CPU tensors; the
-Schur complement is exactly two K1 calls with the diagonals fused into the
-epilogues — for the clover operator the per-site block matvecs with
-M_ee^{-1} and M_oo (`FastClover`, epilogues clov_inv and clov_mhat).  The
+Dirac application goes through the hopping kernel, which runs on the card
+for CUDA tensors and as its plain version for CPU tensors.  The Schur
+complement is two hops with the diagonals fused into the epilogues — for the
+clover operator the per-site block matvecs with M_ee^{-1} and M_oo
+(`FastClover`, epilogues clov_inv and clov_mhat); `m_hat_fast`,
+`q_hat_pm_fast` and their clover forms run them (two for Mhat, four for
+Qhat_pm) in one launch of `dslash_cuda.hopping_schur` (K1-S), bit for bit
+the K1 launches they replace (`dslash_cuda.hopping_split`, which single
+hops such as the inverter's prologue still use).  The
 force surrogates `q_hat_diff` and `q_hat_clover_diff` run on `HoppingDiff`,
 whose backward is K2 plus the adjoint hop on K1; the clover blocks enter the
 latter as differentiable inputs.
@@ -22,8 +26,9 @@ fields (`FastCloverND`).  The force surrogates `q_nd_diff` and
 The sloppy gauge copy (`make_fast_gauge(sloppy=True)`, `sloppy_gauge`,
 `make_fast_clover(sloppy=True)`) holds the links in bf16: the f32 copy cast
 to bf16 (round to nearest even) before row 2 is dropped, as in the
-reference.  Every operator above runs on it unchanged; K1 reads it as bf16
-and computes in f32 (K1-B).  The clover blocks stay f32.  The mixed-precision
+reference, stored with re/im innermost so that a kernel reads both parts of
+an element in one load.  Every operator above runs on it unchanged; K1 and
+K1-S read it as bf16 and compute in f32 (K1-B).  The clover blocks stay f32.  The mixed-precision
 solvers use it for their low operator.
 
 The domain-decomposed operators (`*_shard`, reference wilson_fast.py:183-320)
@@ -107,10 +112,10 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class FastGauge:
-    """Pre-gathered split gauge: ug[p] f32 (or bf16, the sloppy copy)
-    [2, 8, 3, 3, T, X, M] for each output parity p, or the 12-real copy
-    [2, 8, 2, 3, T, X, M] when gcomp (row-2 constants from
-    `dslash_cuda.gauge_corr`) is set."""
+    """Pre-gathered split gauge: ug[p] f32 (or bf16, the sloppy copy, with
+    re/im innermost in memory) [2, 8, 3, 3, T, X, M] for each output parity
+    p, or the 12-real copy [2, 8, 2, 3, T, X, M] when gcomp (row-2 constants
+    from `dslash_cuda.gauge_corr`) is set."""
 
     ug_even: torch.Tensor
     ug_odd: torch.Tensor
@@ -136,11 +141,19 @@ def make_fast_gauge(u: torch.Tensor, params: DiracParams, lat: Lattice,
     return sloppy_gauge(fg) if sloppy else fg
 
 
+def _bf16_links(ug: torch.Tensor) -> torch.Tensor:
+    """ug [2, 8, rows, 3, T, X, M] cast to bf16 and stored with re/im
+    innermost ([8, rows, 3, T, X, M, 2] in memory), returned as a view of the
+    same shape and bits: a kernel reads an element's re and im as one
+    __nv_bfloat162 (hopping_common.cuh, load_link)."""
+    return ug.to(torch.bfloat16).movedim(0, -1).contiguous().movedim(-1, 0)
+
+
 def sloppy_gauge(fg: FastGauge) -> FastGauge:
     """The bf16 copy of an f32 FastGauge, bit for bit the one
     `make_fast_gauge(..., sloppy=True)` builds from the same gauge (dropping
-    row 2 and rounding commute)."""
-    return FastGauge(fg.ug_even.to(torch.bfloat16), fg.ug_odd.to(torch.bfloat16), fg.gcomp)
+    row 2 and rounding commute); re/im innermost in memory (`_bf16_links`)."""
+    return FastGauge(_bf16_links(fg.ug_even), _bf16_links(fg.ug_odd), fg.gcomp)
 
 
 def to_split(psi: torch.Tensor) -> torch.Tensor:
@@ -175,18 +188,25 @@ def hop_fast(fg: FastGauge, psi2: torch.Tensor, p: int, lat: Lattice, epi: tuple
                                 r_axis=r_axis, blocks=blocks)
 
 
+def _tm_stage(params: DiracParams, sign: float, g5: bool) -> tuple:
+    """One twisted-mass Schur application as a K1-S stage: Mee^{-1} after the
+    even hop, Mee psi - k^2 H tmp (and gamma5) after the odd one."""
+    mutld, k2 = float(params.mutld), float(params.kappa * params.kappa)
+    return (("mee_inv", mutld, float(sign)), ("mhat", mutld, float(sign), k2, bool(g5)), None,
+            None)
+
+
 def m_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
                sign: float = +1.0, g5: bool = False, r_axis: int | None = None) -> torch.Tensor:
-    """Mhat(+-) on odd sites, split layout: two K1 calls, the Mee^{-1}
+    """Mhat(+-) on odd sites, split layout: the two hops with the Mee^{-1}
     diagonal and the Mee psi - k^2 H tmp assembly (plus the optional gamma5
-    of Qhat) fused into their epilogues.  With `r_axis` set, psi2_o is a
-    batch along that axis and the two calls are K1-R."""
-    tmp = hop_fast(fg, psi2_o, EVEN, lat, ("mee_inv", float(params.mutld), float(sign)),
-                   r_axis=r_axis)
-    return hop_fast(fg, tmp, ODD, lat,
-                    ("mhat", float(params.mutld), float(sign), float(params.kappa * params.kappa),
-                     bool(g5)),
-                    psi_o=psi2_o, r_axis=r_axis)
+    of Qhat) fused into their epilogues, in one K1-S launch.  With `r_axis`
+    set, psi2_o is a batch along that axis and the two hops are K1-R calls."""
+    stage = _tm_stage(params, sign, g5)
+    if r_axis is None:
+        return dc.hopping_schur(fg.ug_even, fg.ug_odd, psi2_o, lat, (stage,), fg.gcomp)
+    tmp = hop_fast(fg, psi2_o, EVEN, lat, stage[0], r_axis=r_axis)
+    return hop_fast(fg, tmp, ODD, lat, stage[1], psi_o=psi2_o, r_axis=r_axis)
 
 
 def q_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
@@ -196,7 +216,12 @@ def q_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: La
 
 def q_hat_pm_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams,
                   lat: Lattice, r_axis: int | None = None) -> torch.Tensor:
-    """Qhat_pm on split fields — the CG operator (four K1 or K1-R calls)."""
+    """Qhat_pm on split fields — the CG operator: its four hops in one K1-S
+    launch, or four K1-R calls on a batch along `r_axis`."""
+    if r_axis is None:
+        return dc.hopping_schur(fg.ug_even, fg.ug_odd, psi2_o, lat,
+                                (_tm_stage(params, +1.0, True), _tm_stage(params, -1.0, True)),
+                                fg.gcomp)
     return q_hat_fast(fg, q_hat_fast(fg, psi2_o, params, lat, +1.0, r_axis), params, lat, -1.0,
                       r_axis)
 
@@ -336,19 +361,29 @@ def blocks_apply_flat(blk: torch.Tensor, psi2: torch.Tensor,
     return _blocks_apply_split(blk2, psi2).contiguous()
 
 
+def _clover_stage(fc: FastClover, params: DiracParams, sign: float, g5: bool) -> tuple:
+    """One clover Schur application as a K1-S stage: the M_ee(+-)^{-1} blocks
+    after the even hop, M_oo(+-) psi - k^2 H tmp (and gamma5) after the odd
+    one.  The sign of mu picks the block fields, not a kernel argument."""
+    mee_inv = fc.mee_inv_p if sign > 0 else fc.mee_inv_m
+    moo = fc.moo_p if sign > 0 else fc.moo_m
+    return (("clov_inv",), ("clov_mhat", float(params.kappa * params.kappa), bool(g5)), mee_inv,
+            moo)
+
+
 def m_hat_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
                       sign: float = +1.0, g5: bool = False,
                       r_axis: int | None = None) -> torch.Tensor:
     """Clover Schur complement on split fields, M_oo(+-) psi - k^2 H_oe
-    M_ee(+-)^{-1} H_eo psi: two K1 calls (K1-R with `r_axis`), both block
-    applications fused into their epilogues.  The sign of mu picks the block
-    fields, not a kernel argument."""
-    mee_inv = fc.mee_inv_p if sign > 0 else fc.mee_inv_m
-    moo = fc.moo_p if sign > 0 else fc.moo_m
-    tmp = hop_fast(fc.fg, psi2_o, EVEN, lat, ("clov_inv",), r_axis=r_axis, blocks=mee_inv)
-    return hop_fast(fc.fg, tmp, ODD, lat,
-                    ("clov_mhat", float(params.kappa * params.kappa), bool(g5)),
-                    psi_o=psi2_o, r_axis=r_axis, blocks=moo)
+    M_ee(+-)^{-1} H_eo psi: the two hops with both block applications fused
+    into their epilogues, in one K1-S launch (two K1-R calls with
+    `r_axis`)."""
+    stage = _clover_stage(fc, params, sign, g5)
+    if r_axis is None:
+        return dc.hopping_schur(fc.fg.ug_even, fc.fg.ug_odd, psi2_o, lat, (stage,), fc.fg.gcomp)
+    epi_e, epi_o, mee_inv, moo = stage
+    tmp = hop_fast(fc.fg, psi2_o, EVEN, lat, epi_e, r_axis=r_axis, blocks=mee_inv)
+    return hop_fast(fc.fg, tmp, ODD, lat, epi_o, psi_o=psi2_o, r_axis=r_axis, blocks=moo)
 
 
 def q_hat_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams, lat: Lattice,
@@ -358,7 +393,12 @@ def q_hat_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams,
 
 def q_hat_pm_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams,
                          lat: Lattice, r_axis: int | None = None) -> torch.Tensor:
-    """Qsw_pm on split fields — the CG operator (four K1 or K1-R calls)."""
+    """Qsw_pm on split fields — the CG operator: its four hops in one K1-S
+    launch, or four K1-R calls on a batch along `r_axis`."""
+    if r_axis is None:
+        return dc.hopping_schur(fc.fg.ug_even, fc.fg.ug_odd, psi2_o, lat,
+                                (_clover_stage(fc, params, +1.0, True),
+                                 _clover_stage(fc, params, -1.0, True)), fc.fg.gcomp)
     return q_hat_clover_fast(fc, q_hat_clover_fast(fc, psi2_o, params, lat, +1.0, r_axis),
                              params, lat, -1.0, r_axis)
 

@@ -49,9 +49,12 @@ __all__ = [
 
 
 def _default_device() -> torch.device:
+    """The current CUDA device; without a card it raises instead of choosing
+    the CPU, so a mesh on the CPU is always asked for by name."""
     if torch.cuda.is_available():
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    raise RuntimeError("no CUDA device: pass the mesh's device explicitly (device= of Mesh, "
+                       "mesh_from_procs; devices= of make_mesh, auto_mesh), e.g. 'cpu'")
 
 
 def _several_devices(n: int):
@@ -120,7 +123,8 @@ def mesh_from_procs(nr_procs, lat: Lattice | None = None, device=None) -> Mesh |
     Y must split into even slabs (ValueError).
 
     Unlike the reference, a mesh needs no more devices than one: all its
-    slabs live on `device` (default: the current CUDA device, else the CPU)."""
+    slabs live on `device` (default: the current CUDA device; without a card
+    the default raises, and the CPU is asked for by name)."""
     t_p, x_p, y_p, z_p = (max(1, int(p)) for p in nr_procs)
     if x_p > 1 or z_p > 1:
         raise ValueError(
