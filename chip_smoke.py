@@ -24,10 +24,16 @@ result lines):
    parities, and the copy bit-equal to the bf16 cast of the f32 copy.  The
    slab kernels of the domain decomposition (K3, K3-I, K4 on meshes (4,2),
    (2,1), (2,2); K1-T on 4 and 2 t slabs) against their plain version on the
-   same halos, R = 0, 12 and the doublet; the assembled sharded hop against
-   K1 / K1-R / K1-R-D / K1-B / K1-RB on the whole lattice in every
-   (halfspinor, overlap) pair, 18- and 12-real, f32 and bf16; K1-R on the
-   bf16 copy (K1-RB) against its plain version and 12 launches of K1-B.
+   same halos, R = 0, 12 and the doublet; the halo kernel KH against the
+   torch exchange and its plain version element for element; the assembled
+   sharded hop (KH, K3-I, K4) against K1 / K1-R / K1-R-D / K1-B / K1-RB on
+   the whole lattice in every (halfspinor, overlap) pair, 18- and 12-real,
+   f32 and bf16, bit for bit; K1-R on the bf16 copy (K1-RB) against its
+   plain version and 12 launches of K1-B.  K1-SD (the doublet's Q_nd and
+   Q_nd^2 in one cooperative launch) against the K1-R-D launches and torch
+   diagonals it replaces (bit for bit on the twisted-mass doublet, within
+   1e-6 of max on the clover doublet) and against its plain version, 12-
+   and 18-real, at 16^3x32, 32^3x64 and 10x6x14x6.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
    sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
    of K1, K1-B beside f32 K1 (mhat + g5 and clov_mhat + g5), kernel and
@@ -40,7 +46,13 @@ result lines):
    wrapper-loop, host and device time (torch.profiler; a CUDA graph of the
    launches as a second reading) with each instance's registers and
    occupancy, and one Qhat_pm (Qsw_pm, Qhat_pm on bf16) as one K1-S launch
-   beside the four K1 launches it replaces, in turns, at both sizes.
+   beside the four K1 launches it replaces, in turns, at both sizes.  Q_nd,
+   Q_nd^2 and the clover Q_nd^2 as one K1-SD launch beside the K1-R-D
+   launches and torch diagonals, and one sharded hop on (4,2) with KH (and
+   with KH and one slab launch over all rows) beside the torch exchange, in
+   turns, each split into wrapper-loop, host and device time, at both sizes;
+   the device time of every other K1-R and slab kernel and K2; K1-R-D's and
+   K1-SD's instances.
 4. end-to-end parity: one Nf=2 twisted-mass Hasenbusch trajectory, one
    twisted-clover Hasenbusch trajectory and one GAUGE + NDRAT trajectory at
    8^4, each on the kernel path
@@ -73,15 +85,17 @@ result lines):
    CLOVERDET + NDRAT with its own beta, kappa, CSW, mu, mubar, epsbar,
    DegreeOfRational and interval; hmc6's ONLINE block in place of
    GRADIENTFLOW; 1 trajectory, an ILDG checkpoint read back), with the
-   interval check's line and the launch counters read around it; then one
+   interval check's line and the launch counters read around it (every
+   Q_nd and Q_nd^2 one K1-SD launch); then one
    profiled trajectory at steps 1/1/1 for the device's idle share and one
    whole trajectory with synchronising timers around the NDRAT heatbath,
    force and acceptance, the multishift solves and the doublet hops.
 10. main path 6: `cli.invert.main` with the DBTMWILSON and DBCLOVER operators
    of sample-input/invert0-doublet.input at 16^3x32 on phase 9's checkpoint:
-   12 columns each through `invert_doublet_eo` on K1-R-D, every column's true
-   residual of the doublet system against the plain unpreconditioned
-   operator.
+   12 columns each through `invert_doublet_eo` (one K1-SD launch per CG
+   iteration, K1-R-D for the single hops around the solve, the counts
+   checked), every column's true residual of the doublet system against
+   the plain unpreconditioned operator.
 11. main path 7: `cli.invert.main` on phase 5's checkpoint with one TMWILSON
    operator per solver (fastmixed, mixedcg, dflfgmres, dflgcr, increigcg; 12
    columns each), every column's true residual, iterations (outer / inner
@@ -95,9 +109,10 @@ result lines):
 13. main path 9: `cli.hmc.main` on sample-input/hmc5-multichip.input as
    shipped (4^3x8 on 4 x 2 slabs of one card, 4 trajectories, K4 alone, the
    checkpoint read back), then the same action at 16^3x32 on 4 x 2 slabs (2
-   trajectories: K3-I and K4 launched, no K1 or K1-R inside the solves)
+   trajectories: KH and K3-I+K4 launched, one each per sharded hop, no K1 or K1-R
+   inside the solves)
    beside the same input without a mesh, then batched inversions of 12
-   point columns on its checkpoint: under the mesh (multi-RHS K3-I / K4),
+   point columns on its checkpoint: under the mesh (KH, multi-RHS K3-I+K4),
    without overlap (K3) and on t slabs alone (K1-T), each column's true
    residual and the unsharded batched CG beside them.  Path 9's launches
    are those of the runs through a mesh; K1-RB has no caller on a main path
@@ -107,10 +122,11 @@ The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
 
     python3 chip_smoke.py --k1-split          # phases 1, 2 and phase 3's split
-    python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 7, 8 alone
+    python3 chip_smoke.py --nd-split          # K1-SD's and KH's checks and splits
+    python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 5-9 alone
 
-`--e2e` prints s/trajectory of paths 1, 3 and 8 and path 7's seconds per
-solver as one JSON line; `--root DIR` takes the package from another
+`--e2e` prints s/trajectory of paths 1, 3, 5, 8 and 9, path 6's and path
+7's seconds per operator and solver as one JSON line; `--root DIR` takes the package from another
 checkout (a parent commit's `tmlqcd_tpu_torch/` unpacked under `dist/`), so
 two commits can run in turns in one session on one card.  Neither prints
 the result lines.
@@ -310,6 +326,7 @@ def phase_kernels(lat, dev="cuda"):
     import torch
 
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import split_diag as sd
     from tmlqcd_tpu_torch.ops import wilson_fast as wf
 
     params, fg18, fg12, psi, psi_o, g, sloppy = _fields(lat, dev, 11)
@@ -441,8 +458,8 @@ def phase_kernels(lat, dev="cuda"):
 
     def plain_q(ug_e, ug_o, moo, mee_inv, x):
         tmp = dc.hopping_split_plain(ug_e, x, 0, lat)
-        tmp = dc.hopping_split_plain(ug_o, wf._blocks_apply_split(mee_inv, tmp), 1, lat)
-        return wf.gamma5_split(wf._blocks_apply_split(moo, x) - k2 * tmp)
+        tmp = dc.hopping_split_plain(ug_o, sd.blocks_apply_split(mee_inv, tmp), 1, lat)
+        return wf.gamma5_split(sd.blocks_apply_split(moo, x) - k2 * tmp)
 
     grads = []
     for fn in (lambda *a: wf.q_hat_clover_diff(*a, params, lat), plain_q):
@@ -467,14 +484,14 @@ def phase_kernels(lat, dev="cuda"):
         return dc.hopping_split_rhs_plain(ug, c2, p, lat, r_axis=1)
 
     def plain_qnd(ug_e, ug_o, c2):
-        tmp = wf._mee_inv_nd_split(plain_hop(ug_e, c2, 0), ndp.mubar_t, ndp.epsbar_t, +1.0)
-        m = wf._mee_nd_split(c2, ndp.mubar_t, ndp.epsbar_t, +1.0) - k2 * plain_hop(ug_o, tmp, 1)
-        return wf._gamma5_nd(wf._tau1_split(m))
+        tmp = sd.mee_inv_nd_split(plain_hop(ug_e, c2, 0), ndp.mubar_t, ndp.epsbar_t, +1.0)
+        m = sd.mee_nd_split(c2, ndp.mubar_t, ndp.epsbar_t, +1.0) - k2 * plain_hop(ug_o, tmp, 1)
+        return sd.gamma5_nd(sd.tau1_split(m))
 
     def plain_qnd_clover(ug_e, ug_o, moo_u, moo_d, ma, mb, me, c2):
-        tmp = wf._mee_inv_nd_apply_split(ma, mb, me, ndp.epsbar_t, plain_hop(ug_e, c2, 0))
-        m = wf._mee_nd_apply_split(moo_u, moo_d, ndp.epsbar_t, c2) - k2 * plain_hop(ug_o, tmp, 1)
-        return wf._gamma5_nd(wf._tau1_split(m))
+        tmp = sd.mee_inv_nd_apply_split(ma, mb, me, ndp.epsbar_t, plain_hop(ug_e, c2, 0))
+        m = sd.mee_nd_apply_split(moo_u, moo_d, ndp.epsbar_t, c2) - k2 * plain_hop(ug_o, tmp, 1)
+        return sd.gamma5_nd(sd.tau1_split(m))
 
     blk5 = [dc.blk_unflatten(_random_blocks(lat, dev, s)) for s in (18, 19, 20, 21, 22)]
     cases = (("q_nd_diff", (), lambda *a: wf.q_nd_diff(*a, ndp, lat), plain_qnd,
@@ -567,6 +584,76 @@ def phase_schur_kernels(lats, dev="cuda"):
     return worst
 
 
+# K1-SD on the clover doublet against the K1-R-D launches and torch block
+# matvecs it replaces: torch sums a block row with `.sum(dim=(2, 4))`, K1-SD
+# in K1's `store_clover` order, so the two differ by f32 summation order
+# (~1e-7 of the scale); a wrong block, flavour or sign is O(1).
+ND_CLOVER_RTOL = 1e-6
+
+
+def phase_nd_schur_kernels(lats, dev="cuda"):
+    """K1-SD (`dslash_cuda.hopping_schur_nd`: every Q_nd and Q_nd^2 on a
+    CUDA tensor in one cooperative launch) against the route it replaced
+    (two K1-R-D launches per Q_nd and the torch flavour diagonals,
+    `_nd_by_k1rd`), on the same card tensors: bit for bit on the
+    twisted-mass doublet, within ND_CLOVER_RTOL of max|composed| on the
+    clover doublet; and against its plain version (KERNEL_RTOL).  Q_nd and
+    Q_nd^2, twisted mass and clover, 12- and 18-real links, each lattice of
+    `lats`."""
+    import torch
+
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+    worst, n_exact, n_tm, n_cases, clover_rel = 0.0, 0, 0, 0, 0.0
+    for lat in lats:
+        tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
+        for compress in (True, False):
+            ndp, ndc, fg, fc, chi = _nd_fixture(lat, dev, 80, compress)
+            gname = "12-real" if compress else "18-real"
+            for clover in (False, True):
+                op, params = (fc, ndc) if clover else (fg, ndp)
+                for square in (False, True):
+                    fn = {(False, False): wf.q_nd_fast, (False, True): wf.q_nd_sq_fast,
+                          (True, False): wf.q_nd_clover_fast,
+                          (True, True): wf.q_nd_sq_clover_fast}[(clover, square)]
+                    n0 = dc.hopping_schur_nd.launches
+                    out = fn(op, chi, params, lat)
+                    _check(dc.hopping_schur_nd.launches == n0 + 1, "K1-SD launch not counted")
+                    comp = _nd_by_k1rd(dc, wf, op, chi, params, lat, clover, square)
+                    stage = wf._nd_stage(params, fc if clover else None)
+                    ref = dc.hopping_schur_nd_plain(fg.ug_even, fg.ug_odd, chi, lat, stage,
+                                                    fg.gcomp, square)
+                    _sync(dev)
+                    what = (f"K1-SD {tag} {gname} {'clover' if clover else 'tm'} "
+                            f"{'Q_nd^2' if square else 'Q_nd'}")
+                    _check(bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0.0,
+                           f"{what}: output not finite or empty")
+                    d_comp = float((out - comp).abs().max())
+                    scale = float(comp.abs().max())
+                    err, rel = _rel_err(out, ref)
+                    worst = max(worst, err)
+                    n_cases += 1
+                    if clover:
+                        clover_rel = max(clover_rel, d_comp / scale)
+                        _check(d_comp <= ND_CLOVER_RTOL * scale,
+                               f"{what} differs from the composed path by {d_comp:.3e} "
+                               f"(max {scale:.3e})")
+                    else:
+                        n_tm += 1
+                        n_exact += d_comp == 0.0
+                        _check(d_comp == 0.0, f"{what} differs from the composed path by "
+                                              f"{d_comp:.3e}")
+                    _check(rel <= KERNEL_RTOL, f"{what} off its plain version by {rel:.3e}")
+            del ndp, ndc, fg, fc, chi, out, comp, ref
+            torch.cuda.empty_cache()
+    _say(f"[check] K1-SD: {n_exact} of {n_tm} twisted-mass cases bit-equal to the K1-R-D "
+         f"launches and torch diagonals they replace; clover doublet within "
+         f"{clover_rel:.2e} of max|composed| (bound {ND_CLOVER_RTOL:.0e}); {n_cases} cases "
+         f"against plain max|d| {worst:.3e} (bound rel {KERNEL_RTOL:.0e})")
+    return worst
+
+
 def _whole_hop(dc, fg, x, p, lat, r_axis):
     """K1 / K1-R / K1-R-D (on a bf16 gauge K1-B / K1-RB) on the whole lattice."""
     ug = fg.ug_even if p == 0 else fg.ug_odd
@@ -596,8 +683,9 @@ def phase_shard_kernels(lat, dev="cuda"):
     inputs = {None: psi,
               3: torch.randn((2, 4, 3, NRHS) + lat.eo_site_shape, generator=gen, device=dev),
               1: torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=dev)}
-    worst = {"K3": 0.0, "K3-I": 0.0, "K4": 0.0, "K1-T": 0.0, "K1-RB": 0.0}
-    n_hops = n_exact = 0
+    worst = {"K3": 0.0, "K3-I": 0.0, "K4": 0.0, "K1-T": 0.0, "K1-RB": 0.0, "KH": 0.0,
+             "K3-I+K4": 0.0}
+    n_hops = n_exact = n_kh = 0
     shard_err = 0.0
     for shape in SHARD_MESHES:
         mesh = parallel.Mesh(*shape, device=dev)
@@ -605,9 +693,10 @@ def phase_shard_kernels(lat, dev="cuda"):
         for (gname, fg), (r_axis, x) in itertools.product(
                 (("12-real", fg12), ("18-real bf16", sloppy["18-real"])), inputs.items()):
             mh = dc._y_halos(x, lat, mesh, True, r_axis)
+            th = dc._t_halos(x, lat, mesh, True, r_axis)
             cases = (("K3", "ext", dc._t_halos(x, lat, mesh, True, r_axis, ext=True), {}),
-                     ("K3-I", "int", x, {}),
-                     ("K4", "bnd", x, {"th": dc._t_halos(x, lat, mesh, True, r_axis)}))
+                     ("K3-I", "int", x, {}), ("K4", "bnd", x, {"th": th}),
+                     ("K3-I+K4", "all", x, {"th": th}))
             for name, variant, src, extra in cases:
                 if variant == "int" and mesh.local(lat).dims[0] < 4:
                     continue
@@ -626,7 +715,29 @@ def phase_shard_kernels(lat, dev="cuda"):
                                            f"plain version by {rel:.3e}")
                 _check(float(outs[0].abs().max()) > 0.0, f"{name} wrote nothing")
         _say(f"[check] slab kernels on mesh {shape}: max|d| vs plain K3 {worst['K3']:.3e}, "
-             f"K3-I {worst['K3-I']:.3e}, K4 {worst['K4']:.3e}, K1-T {worst['K1-T']:.3e}")
+             f"K3-I {worst['K3-I']:.3e}, K4 {worst['K4']:.3e}, K3-I+K4 {worst['K3-I+K4']:.3e}, "
+             f"K1-T {worst['K1-T']:.3e}")
+        # KH (halo_pack) against its plain version, the torch exchange,
+        # element for element: every product in a halo is exact
+        for (r_axis, x), hs in itertools.product(inputs.items(), (True, False)):
+            n0 = dc.halo_pack.launches
+            mh, th = dc.halo_pack(x, lat, mesh, r_axis, hs)
+            _check(dc.halo_pack.launches == n0 + 1, "KH launch not counted")
+            ref_mh = dc._y_halos(x, lat, mesh, hs, r_axis)
+            ref_th = dc._t_halos(x, lat, mesh, hs, r_axis)
+            _sync(dev)
+            _check((mh is None) == (ref_mh is None) and th.shape == ref_th.shape
+                   and (mh is None or mh.shape == ref_mh.shape),
+                   f"KH mesh {shape} R axis {r_axis}: halo shapes differ from the torch exchange")
+            worst["KH"] = max(worst["KH"], float((th - ref_th).abs().max()),
+                              0.0 if mh is None else float((mh - ref_mh).abs().max()))
+            _check((mh is None or torch.equal(mh, ref_mh)) and torch.equal(th, ref_th),
+                   f"KH mesh {shape} halfspinor {hs} R axis {r_axis} differs from the "
+                   f"torch exchange")
+            n_kh += 1
+        _say(f"[check] KH on mesh {shape}: the y and t halos equal the torch exchange "
+             f"element for element (R axis None, 1, 3; half-spinor on and off; max|d| "
+             f"{worst['KH']:.3e})")
         # the assembled sharded hop against K1 on the whole lattice
         for (hs, ov), (gname, fg), (r_axis, x), p in itertools.product(
                 itertools.product((True, False), (True, False)), gauges.items(),
@@ -643,9 +754,10 @@ def phase_shard_kernels(lat, dev="cuda"):
             n_exact += err == 0.0
             _check(err <= SHARD_RTOL * scale, f"sharded hop mesh {shape} hs={hs} ov={ov} {gname} "
                                               f"R axis {r_axis} p={p} differs from K1 by {err:.3e}")
-    _say(f"[check] sharded hop (K3-I + K4, or K3) vs K1 / K1-R / K1-R-D / K1-B / K1-RB on the "
-         f"whole lattice: {n_hops} hops on meshes {SHARD_MESHES}, {n_exact} bit for bit, "
-         f"max rel {shard_err:.3e} (bound {SHARD_RTOL:.0e})")
+    _say(f"[check] sharded hop (KH + K3-I+K4, or K3) vs K1 / K1-R / K1-R-D / K1-B / K1-RB on "
+         f"the whole lattice: {n_hops} hops on meshes {SHARD_MESHES}, {n_exact} bit for bit, "
+         f"max rel {shard_err:.3e} (bound {SHARD_RTOL:.0e}); KH {n_kh} cases")
+    _check(n_exact == n_hops, f"{n_hops - n_exact} sharded hops differ from K1 in their bits")
     # K1-T: t slabs with concatenated halos, the y hops wrapping in the slab
     for t_shards, (gname, fg), hs in itertools.product((4, 2), gauges.items(), (True, False)):
         mesh = parallel.Mesh(t_shards, 1, device=dev, halfspinor=hs)
@@ -1087,6 +1199,8 @@ def _slab_model(lat, mesh, variant: str, gbytes: int, nrhs: int = 1,
     yrow = xx * msh * zh  # y-halo sites of one timeslice (both sides: x 2)
     if variant == "int":
         sites, psi_rows, halo = tsh * (tl - 2) * row, tsh * tl, 2 * tsh * (tl - 2) * yrow
+    elif variant == "all":
+        sites, psi_rows, halo = tsh * tl * row, tsh * tl, 2 * tsh * row + 2 * tsh * tl * yrow
     elif variant == "bnd":
         sites, psi_rows, halo = 2 * tsh * row, tsh * min(4, tl), 2 * tsh * row + 4 * tsh * yrow
     else:  # "ext": K3 and K1-T
@@ -1125,14 +1239,16 @@ def phase_shard_timings(lat16, lat32, bw: float):
                                                         mh=mh, gcomp=gc)),
             "K3": ("ext", lambda: dc.hopping_slab_split(ug, ext, 1, lat, mesh, "ext", out, mh=mh,
                                                         gcomp=gc)),
+            "K3-I+K4": ("all", lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "all", out,
+                                                             th=th, mh=mh, gcomp=gc)),
         }
         parts = {}
         for name, (variant, fn) in timed.items():
             ms = _time_ms(fn, n)
             plain = dc.hopping_slab_split_plain
             pms = _time_ms(lambda: plain(ug, ext if variant == "ext" else psi, 1, lat, mesh,
-                                         variant, out, th=th if variant == "bnd" else None, mh=mh,
-                                         gcomp=gc), max(n // 10, 5))
+                                         variant, out, th=th if variant in ("bnd", "all") else None,
+                                         mh=mh, gcomp=gc), max(n // 10, 5))
             nbytes, flops = _slab_model(lat, mesh, variant, 384)
             bound = _bound_ms(nbytes, flops)
             parts[name] = ms
@@ -1194,6 +1310,253 @@ def phase_shard_timings(lat16, lat32, bw: float):
         del params, fg18, fg12, psi, psi_o, sloppy, mh, th, ext, out, psis, psis_o, text
         torch.cuda.empty_cache()
     return rows
+
+
+# bytes per site of one parity of the doublet Schur operator on the 12-real
+# f32 copy: a hop of both flavours is 384 B of gauge + 2 x (96 read + 96
+# written); the odd phase reads chi_o of both flavours (192 B) more; the
+# clover doublet adds 3 (even) + 2 (odd) block fields of 576 B
+ND_HOP_BYTES = 384 + 2 * (96 + 96)
+ND_QND_BYTES = 2 * ND_HOP_BYTES + 2 * 96
+ND_CLOVER_BYTES = 5 * BLOCK_BYTES
+
+
+def _nd_fixture(lat, dev, seed, compress: bool = True):
+    """The doublet operator's inputs at hmc3's NDRAT point (2Kappamubar =
+    0.1315052, 2Kappaepsbar = 0.1351419, kappa = 0.1400645): a random gauge,
+    its FastGauge (12- or 18-real), the FastCloverND of CSW 1.74 on it, and
+    a doublet."""
+    import torch
+
+    from tmlqcd_tpu_torch import rng, su3
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops import ndoublet as nd
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+    two_k = 2 * 0.1400645
+    ndp = nd.NDParams(kappa=0.1400645, mubar=0.1315052 / two_k, epsbar=0.1351419 / two_k)
+    ndc = nd.NDParams(kappa=0.1400645, mubar=0.1315052 / two_k, epsbar=0.1351419 / two_k,
+                      c_sw=1.74)
+    u = su3.random_su3(rng.generator(rng.Key(seed), dev), (4,) + lat.site_shape)
+    fg = wf.make_fast_gauge(u, ndp.wilson, lat, compress=compress)
+    with torch.no_grad():
+        sw_e, sw_o = cl.sw_blocks_eo(u, ndc.kappa, ndc.c_sw, lat)
+    fc = wf.fast_clover_nd_from(fg, sw_e, sw_o, ndc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    chi = torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=dev)
+    return ndp, ndc, fg, fc, chi
+
+
+def _nd_by_k1rd(dc, wf, op, chi, params, lat, clover: bool, square: bool):
+    """Q_nd (Q_nd^2; clover forms) as composed before K1-SD: each hop one
+    K1-R-D launch, the flavour diagonals in torch (`dslash_cuda._q_nd_by`
+    on `hopping_split_rhs`, the composition K1-SD's plain version runs on
+    its plain hop)."""
+    fg = op.fg if clover else op
+    stage = wf._nd_stage(params, op if clover else None)
+    for _ in range(2 if square else 1):
+        chi = dc._q_nd_by(dc.hopping_split_rhs, fg.ug_even, fg.ug_odd, chi, lat, stage, fg.gcomp)
+    return chi
+
+
+def _split3(fn, n: int) -> tuple:
+    """(wrapper loop, host, device) ms per call: CUDA events around a loop
+    of calls, the host's clock around the enqueue alone, and the sum of
+    every device interval torch.profiler saw (kernels and copies)."""
+    return _time_ms(fn, n), _host_ms(fn, n), _device_ms(fn, n, "")[0]
+
+
+def _fmt_us(v) -> str:
+    return ", ".join(f"{x * 1e3:.1f}" for x in v)
+
+
+def phase_nd_shard_split(lat16, lat32, bw: float):
+    """The doublet Schur operator and the sharded hop split into wrapper
+    loop, host and device time (`_split3`), at 16^3x32 and 32^3x64, 12-real
+    f32; K1-SD and KH (`dslash_cuda.hopping_schur_nd`, `halo_pack`) each
+    beside the route it replaced, in turns (old, new, new, old).  Q_nd,
+    Q_nd^2 and Q_nd^2 with clover; one sharded hop on the (4,2) mesh and its
+    pieces (the y exchange, the t pack, K3-I, K4, KH).  Then the device time
+    of every other slab and K1-R kernel and K2 by itself, and the instances
+    (registers, blocks per SM) of K1-R-D, K1-SD, KH and the slab kernel."""
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+    rows = {}
+    mesh = parallel.Mesh(4, 2, device="cuda")
+    for lat in (lat16, lat32):
+        tag = "x".join(map(str, lat.dims[::-1][:3])) + f"x{lat.dims[0]}"
+        sites = lat.volume // 2
+        n = 100 if lat is lat16 else 20
+        ndp, ndc, fg, fc, chi = _nd_fixture(lat, "cuda", 70)
+        for name, clover, square, site_bytes in (
+                ("Q_nd", False, False, ND_QND_BYTES),
+                ("Q_nd^2", False, True, 2 * ND_QND_BYTES),
+                ("Q_nd^2 clover", True, True, 2 * (ND_QND_BYTES + ND_CLOVER_BYTES))):
+            op, params = (fc, ndc) if clover else (fg, ndp)
+
+            def composed(op=op, params=params, clover=clover, square=square, lat=lat):
+                return _nd_by_k1rd(dc, wf, op, chi, params, lat, clover, square)
+
+            fn = {(False, False): wf.q_nd_fast, (False, True): wf.q_nd_sq_fast,
+                  (True, True): wf.q_nd_sq_clover_fast}[(clover, square)]
+
+            def new(fn=fn, op=op, params=params, lat=lat):
+                return fn(op, chi, params, lat)
+
+            times = {}
+            turns = [("composed", composed), ("K1-SD", new), ("K1-SD", new),
+                     ("composed", composed)]
+            for label, f in turns:
+                times.setdefault(label, []).append(_split3(f, n))
+            bound = _bound_ms(site_bytes * sites, 0.0)
+            best = {k: tuple(min(r[i] for r in v) for i in range(3)) for k, v in times.items()}
+            rows[(tag, name)] = dict(bound=bound[0], bound_by=bound[1],
+                                     **{f"{k} {w}": best[k][i] for k in best
+                                        for i, w in enumerate(("loop", "host", "device"))})
+            if lat is lat16 and name == "Q_nd^2":
+                stage = wf._nd_stage(params)
+                rows[(tag, name)]["plain"] = _time_ms(
+                    lambda: dc.hopping_schur_nd_plain(fg.ug_even, fg.ug_odd, chi, lat, stage,
+                                                      fg.gcomp, square=True), 3)
+            _say(f"[nd-split] {name:13s} {tag} 12-real: " + "; ".join(
+                f"{k} loop {_fmt_us(r[0] for r in v)} us, host {_fmt_us(r[1] for r in v)} us, "
+                f"device {_fmt_us(r[2] for r in v)} us" for k, v in times.items())
+                 + f"; bound {bound[0] * 1e3:.1f} us ({site_bytes} B/site)")
+        del fg, fc, chi
+        # one sharded hop on the (4,2) mesh and its pieces
+        params, _, fg12, psi, _, _, _ = _fields(lat, "cuda", 33)
+        ug, gc = fg12.ug_odd, fg12.gcomp
+        out = torch.empty_like(psi)
+        mh = dc._y_halos(psi, lat, mesh)
+        th = dc._t_halos(psi, lat, mesh)
+        pieces = {
+            "y exchange": lambda: dc._y_halos(psi, lat, mesh),
+            "t pack": lambda: dc._t_halos(psi, lat, mesh),
+            "K3-I": lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "int", out, mh=mh,
+                                                  gcomp=gc),
+            "K4": lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "bnd", out, th=th, mh=mh,
+                                                gcomp=gc),
+            "KH": lambda: dc.halo_pack(psi, lat, mesh),
+        }
+        for name, fn in pieces.items():
+            rows[(tag, "shard " + name)] = _split3(fn, n)
+
+        def glue_hop():
+            return _shard_by_glue(dc, ug, psi, 1, lat, mesh, gc, None)
+
+        def hop():
+            return dc.hopping_shard(ug, psi, 1, lat, mesh, gc)
+
+        times = {}
+        turns = [("glue", glue_hop), ("KH", hop), ("KH", hop), ("glue", glue_hop)]
+        for label, f in turns:
+            times.setdefault(label, []).append(_split3(f, n))
+        rows[(tag, "shard hop")] = {k: tuple(min(r[i] for r in v) for i in range(3))
+                                    for k, v in times.items()}
+        _say(f"[shard-split] {tag} mesh (4,2) 12-real: " + "; ".join(
+            f"{k} loop / host / device {_fmt_us(v)} us" for k, v in
+            ((k, rows[(tag, "shard " + k)]) for k in pieces)))
+        _say(f"[shard-split] {tag} sharded hop: " + "; ".join(
+            f"{k} loop {_fmt_us(r[0] for r in v)} us, host {_fmt_us(r[1] for r in v)} us, "
+            f"device {_fmt_us(r[2] for r in v)} us" for k, v in times.items()))
+        # KH's bound: each halo site and column read once (96 B) and written
+        # once (96 B)
+        halo_sites = 2 * lat.dims[0] * lat.dims[1] * mesh.y * lat.zh + 2 * mesh.t * (
+            lat.dims[1] * lat.m)
+        kh_bound = _bound_ms(192 * halo_sites, 0.0)
+        kh_plain = _time_ms(lambda: (dc._y_halos(psi, lat, mesh), dc._t_halos(psi, lat, mesh)), n)
+        rows[(tag, "KH")] = rows[(tag, "shard KH")] + (kh_bound[0], kh_bound[1], kh_plain)
+        _say(f"[shard-split] KH {tag} mesh (4,2): {halo_sites} halo sites, bound "
+             f"{kh_bound[0] * 1e3:.2f} us ({192 * halo_sites / 1e6:.2f} MB); plain "
+             f"{kh_plain * 1e3:.1f} us")
+        # the device time of the other kernels, each by itself
+        k2 = params.kappa ** 2
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        psis = torch.randn((2, 4, 3, NRHS) + lat.eo_site_shape, generator=gen, device="cuda")
+        psis_o = torch.randn_like(psis)
+        blocks = _random_blocks(lat, "cuda", 72)
+        mhat = ("mhat", params.mutld, 1.0, k2, True)
+        cmhat = ("clov_mhat", k2, True)
+        chi = torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device="cuda")
+        tmesh = parallel.Mesh(4, 1, device="cuda")
+        text = dc._t_halos(psi, lat, tmesh, ext=True)
+        ext = dc._t_halos(psi, lat, mesh, ext=True)
+        g = torch.randn_like(psi)
+        sloppy = wf.sloppy_gauge(fg12)
+        solo = {
+            "1R K1-R R=12 mhat+g5": (lambda: dc.hopping_split_rhs(
+                ug, psis, 1, lat, epi=mhat, psi_o=psis_o, gcomp=gc), "hopping_rhs_kernel"),
+            "1RC K1-RC R=12 clov_mhat+g5": (lambda: dc.hopping_split_rhs(
+                ug, psis, 1, lat, epi=cmhat, psi_o=psis_o, gcomp=gc, blocks=blocks),
+                "hopping_rhs_kernel"),
+            "1D K1-R-D": (lambda: dc.hopping_split_rhs(ug, chi, 1, lat, gcomp=gc, r_axis=1),
+                          "hopping_rhs_kernel"),
+            "1R-B K1-RB R=12 mhat+g5": (lambda: dc.hopping_split_rhs(
+                sloppy.ug_odd, psis, 1, lat, epi=mhat, psi_o=psis_o, gcomp=gc),
+                "hopping_rhs_kernel"),
+            "3 K1-T 4 t slabs": (lambda: dc.hopping_slab_split(ug, text, 1, lat, tmesh, "ext", out,
+                                                               gcomp=gc), "slab_kernel"),
+            "4 K3 (4,2)": (lambda: dc.hopping_slab_split(ug, ext, 1, lat, mesh, "ext", out, mh=mh,
+                                                         gcomp=gc), "slab_kernel"),
+            "5 K3-I (4,2)": (pieces["K3-I"], "slab_kernel"),
+            "6 K4 (4,2)": (pieces["K4"], "slab_kernel"),
+            "6B K3-I+K4 (4,2)": (lambda: dc.hopping_slab_split(ug, psi, 1, lat, mesh, "all", out,
+                                                               th=th, mh=mh, gcomp=gc),
+                                 "slab_kernel"),
+            "7 K2": (lambda: dc.hopping_ug_vjp(g, psi, 0, lat), "ug_vjp_kernel"),
+        }
+        for name, (fn, sub) in solo.items():
+            dev, seen = _device_ms(fn, n, sub)
+            rows[(tag, "device " + name)] = dev
+            _say(f"[device] {name} {tag}: {dev * 1e3:.1f} us device ({seen} kernels profiled)")
+        del params, fg12, psi, out, mh, th, psis, psis_o, blocks, chi, text, ext, g, sloppy
+        torch.cuda.empty_cache()
+    info = dc.rhs_kernel_info(("none",), True, False, 2)
+    rows["K1-R-D info"] = info
+    _say(f"[split] K1-R-D instance (hopping_rhs_kernel, epilogue none, 12-real f32, R = 2): "
+         f"{info['registers']} registers, {info['local_bytes']} B of local memory, "
+         f"{info['blocks_per_sm']} blocks of {info['threads']} per SM")
+    for clover in (False, True):
+        info = dc.schur_nd_kernel_info(clover, True)
+        rows[f"K1-SD info {'clover' if clover else 'tm'}"] = info
+        _say(f"[split] K1-SD instance {'clover' if clover else 'tm'} 12-real f32: "
+             f"{info['registers']} registers, {info['local_bytes']} B of local memory, "
+             f"{info['blocks_per_sm']} blocks of {info['threads']} per SM, a resident grid "
+             f"of {info['blocks_per_sm'] * _sm_count()} blocks")
+    for name, what in (("KH", "KH (halo_kernel)"),
+                       ("slab", "K4 and K3-I+K4 (slab_kernel, 12-real f32, one spinor)")):
+        info = dc.slab_kernel_info(name)
+        rows[f"{name} info"] = info
+        _say(f"[split] {what} instance: {info['registers']} registers, "
+             f"{info['local_bytes']} B of local memory, {info['blocks_per_sm']} blocks of "
+             f"{info['threads']} per SM")
+    return rows
+
+
+def _shard_by_glue(dc, ug, psi, p, lat, mesh, gcomp, r_axis):
+    """The sharded hop as routed before KH: the y halos by the torch
+    exchange (`_y_halos`), K3-I on a side stream while the t halos are
+    packed (`_t_halos`), then K4."""
+    import torch
+
+    out = torch.empty_like(psi)
+    mh = dc._y_halos(psi, lat, mesh, mesh.halfspinor, r_axis)
+    if not hasattr(_shard_by_glue, "side"):
+        _shard_by_glue.side = torch.cuda.Stream()
+    side = _shard_by_glue.side
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dc.hopping_slab_split(ug, psi, p, lat, mesh, "int", out, mh=mh, gcomp=gcomp,
+                              r_axis=r_axis)
+    th = dc._t_halos(psi, lat, mesh, mesh.halfspinor, r_axis)
+    dc.hopping_slab_split(ug, psi, p, lat, mesh, "bnd", out, th=th, mh=mh, gcomp=gcomp,
+                          r_axis=r_axis)
+    torch.cuda.current_stream().wait_stream(side)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1439,6 +1802,10 @@ def _read_counts(dc) -> dict:
     # K1-S and its hops (0 in a tree from before K1-S, run with --root)
     schur = getattr(dc, "hopping_schur", None)
     schur_plain = getattr(dc, "hopping_schur_plain", None)
+    # K1-SD and KH (absent from a tree before them, run with --root)
+    nd = getattr(dc, "hopping_schur_nd", None)
+    nd_plain = getattr(dc, "hopping_schur_nd_plain", None)
+    kh = getattr(dc, "halo_pack", None)
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
             "K1-S": schur.launches if schur else 0, "K1-S hops": schur.hops if schur else 0,
             "K1-S clover hops": schur.clover_hops if schur else 0,
@@ -1450,6 +1817,12 @@ def _read_counts(dc) -> dict:
             "K1-B": dc.hopping_split.bf16_launches,
             "K1-RB": dc.hopping_split_rhs.bf16_launches,
             "K3": slab["K3"], "K3-I": slab["K3-I"], "K4": slab["K4"], "K1-T": slab["K1-T"],
+            "K3-I+K4": slab.get("K3-I+K4", 0),
+            "K1-SD": nd.launches if nd else 0, "K1-SD hops": nd.hops if nd else 0,
+            "K1-SD clover": nd.clover_launches if nd else 0,
+            "KH": kh.launches if kh else 0,
+            "K1-SD plain": nd_plain.calls if nd_plain else 0,
+            "KH plain": getattr(kh, "plain_calls", 0),
             "slab R>0": dc.hopping_slab_split.rhs_launches,
             "K2": dc.hopping_ug_vjp.launches, "K1 plain": dc.hopping_split_plain.calls,
             "K1-R plain": dc.hopping_split_rhs_plain.calls,
@@ -1545,10 +1918,15 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
     # of the force; every Mhat and Qhat_pm runs on K1-S
     _check((counts["K1-C"] + counts["K1-S clover hops"] > 0) == (clover or nf211),
            f"clover epilogue launches: {counts}")
-    # every multishift iteration, heatbath Q and y_j of NDRAT is 2 or 4
-    # launches of K1-R on the doublet axis
-    _check((counts["K1-R-D"] > 0) == nf211 and counts["K1-R"] == counts["K1-R-D"],
-           f"doublet launches: {counts}")
+    if hasattr(dc, "hopping_schur_nd"):
+        # every multishift iteration of NDRAT is one K1-SD launch (Q_nd^2),
+        # every heatbath Q and y_j one (Q_nd); no doublet hop runs alone
+        _check((counts["K1-SD"] > 0) == nf211 and counts["K1-R"] == 0,
+               f"doublet launches: {counts}")
+    else:
+        # before K1-SD: 2 or 4 launches of K1-R on the doublet axis each
+        _check((counts["K1-R-D"] > 0) == nf211 and counts["K1-R"] == counts["K1-R-D"],
+               f"doublet launches: {counts}")
     _check_no_plain(counts)
     # the ONLINE measurement of the last trajectory
     meas = os.path.join(run_dir, f"onlinemeas.{ntraj - 1:06d}")
@@ -2021,13 +2399,23 @@ def phase_invert_doublet(workdir: str, conf: str):
         _say(f"[invert-doublet] {ty}: iterations per column {its}, seconds per column "
              f"{secs} (sum {sum(secs):.3f} s)")
         _check(all(0 < n < MAXITER for n in its), f"a {ty} solve ran {its} iterations")
-    # every hop of a solve is one K1-R launch on the doublet axis: 4 per
-    # iteration, 4 for CG's first residual, 3 in the Schur prologue, 1 after
-    expect = sum(4 * n + 8 for _, n, _ in solves)
+    if hasattr(dc, "hopping_schur_nd"):
+        # per solve of n CG iterations: K1-SD once per CG operator
+        # application (n + 1, the first for r0 = b - A x0) and once for the
+        # right-hand side's Q_nd; K1-R-D for the prologue's and the
+        # epilogue's single hops
+        expect = {"K1-SD": sum(n + 2 for _, n, _ in solves), "K1-R-D": 2 * len(solves)}
+        got = {"K1-SD": counts["K1-SD"], "K1-R-D": counts["K1-R-D"]}
+        ok = got == expect and counts["K1-R"] == counts["K1-R-D"]
+    else:
+        # before K1-SD every hop of a solve was one K1-R-D launch: 4 per
+        # iteration, 4 for CG's first residual, 3 in the Schur prologue, 1 after
+        expect = {"K1-R-D": sum(4 * n + 8 for _, n, _ in solves)}
+        got = {"K1-R-D": counts["K1-R-D"]}
+        ok = got == expect and counts["K1-R"] == counts["K1-R-D"]
     _say(f"[invert-doublet] cli.invert exit {rc}, {wall:.1f} s wall; launches {counts} "
-         f"(expected K1-R-D {expect})")
-    _check(counts["K1-R-D"] == expect and counts["K1-R"] == expect,
-           f"K1-R-D launches {counts['K1-R-D']} != {expect}")
+         f"(expected {expect})")
+    _check(ok, f"doublet launches {got} != {expect}")
     _check_no_plain(counts)
 
     arr, _, _ = load_checkpoint(conf, lat)
@@ -2390,6 +2778,22 @@ class _SolveRecorder:
         return res
 
 
+def _hop_kernels(dc) -> tuple:
+    """The slab kernels of a sharded hop with the overlap: KH and K3-I+K4
+    (K3-I and K4 in a tree from before KH, run with --root)."""
+    return ("KH", "K3-I+K4") if hasattr(dc, "halo_pack") else ("K3-I", "K4")
+
+
+def _check_kh(dc, counts: dict, what: str) -> None:
+    """Every sharded hop with the overlap ran KH and then K3-I+K4, and
+    nothing else of the slab kernels (a tree from before KH, run with
+    --root, has neither)."""
+    if hasattr(dc, "halo_pack"):
+        _check(counts["KH"] > 0 and counts["KH"] == counts["K3-I+K4"]
+               and counts["K3-I"] == counts["K4"] == 0,
+               f"{what}: a sharded hop did not run KH and K3-I+K4: {counts}")
+
+
 def _output_rows(run_dir: str) -> list:
     with open(os.path.join(run_dir, "output.data")) as f:
         return [ln.split() for ln in f if ln.strip() and not ln.startswith("#")]
@@ -2397,7 +2801,7 @@ def _output_rows(run_dir: str) -> list:
 
 def phase_mesh_hmc(workdir: str):
     """`cli.hmc` on hmc5-multichip as shipped (4^3x8 on 4 x 2 slabs, K4
-    alone), then at 16^3x32 on 4 x 2 slabs (K3-I and K4) for 2 trajectories
+    alone), then at 16^3x32 on 4 x 2 slabs (KH, K3-I+K4) for 2 trajectories
     beside the same input without a mesh, then one batched inversion of 12
     point columns on its checkpoint under the mesh against the unsharded one."""
     import numpy as np
@@ -2428,7 +2832,9 @@ def phase_mesh_hmc(workdir: str):
                f"hmc5 trajectory off: {cols}")
     arr, traj, _ = load_checkpoint(os.path.join(run_dir, "conf.000004.npz"))
     _check(traj == 4 and bool(np.isfinite(arr).all()), "conf.000004.npz does not read back")
-    _check(counts["K4"] > 0 and counts["K3-I"] == 0, f"hmc5 slab launches: {counts}")
+    _check(counts[_hop_kernels(dc)[-1]] > 0 and counts["K3-I"] == 0,
+           f"hmc5 slab launches: {counts}")
+    _check_kh(dc, counts, "hmc5")
     _check_no_plain(counts)
     total = dict(counts)  # every run of path 9, summed
     _say(f"[main-mesh] hmc5: plaquettes {[float(c[1]) for c in rows]}, s/trajectory "
@@ -2465,16 +2871,17 @@ def phase_mesh_hmc(workdir: str):
              f"them K1 {rec.k1}, K1-R {rec.k1r}, K1-S {rec.k1s}; launches {counts}")
         _check_no_plain(counts)
         if procs == (4, 2):
-            _check(counts["K3-I"] > 0 and counts["K4"] > 0 and rec.k1 == 0 and rec.k1r == 0
-                   and rec.k1s == 0,
-                   f"the solves on the mesh did not run on K3-I / K4 alone: {counts}, inside "
-                   f"the solves K1 {rec.k1} K1-R {rec.k1r} K1-S {rec.k1s}")
+            _check(all(counts[k] > 0 for k in _hop_kernels(dc)) and rec.k1 == 0
+                   and rec.k1r == 0 and rec.k1s == 0,
+                   f"the solves on the mesh did not run on the slab kernels alone: {counts}, "
+                   f"inside the solves K1 {rec.k1} K1-R {rec.k1r} K1-S {rec.k1s}")
+            _check_kh(dc, counts, "16^3x32 (4,2)")
             conf = os.path.join(run, "conf.000002.npz")
     _say(f"[main-mesh] s/trajectory at 16^3x32: 4 x 2 slabs {secs['4x2']}, no mesh "
          f"{secs['1x1']} ({min(secs['4x2']) / min(secs['1x1']):.2f}x)")
 
     # 3. 12 point columns under the mesh (the multi-RHS slab kernels): the
-    # default mesh (K3-I / K4), without overlap (K3), and on t slabs alone
+    # default mesh (KH, K3-I+K4), without overlap (K3), and on t slabs alone
     # without overlap (K1-T), each beside the batched CG on the whole lattice
     cfg = read_input(os.path.join(workdir, "mesh-4x2.input"))
     lat, det = cfg.lat, cfg.monomials[1]
@@ -2484,7 +2891,7 @@ def phase_mesh_hmc(workdir: str):
     bs = torch.stack([point_source(lat, sp, c, (0, 0, 0, 0), device="cuda")
                       for sp in range(4) for c in range(3)])
     runs = (("whole", None, ()),
-            ("mesh (4,2)", parallel.Mesh(4, 2, device="cuda"), ("K3-I", "K4")),
+            ("mesh (4,2)", parallel.Mesh(4, 2, device="cuda"), _hop_kernels(dc)),
             ("mesh (4,2) no overlap", parallel.Mesh(4, 2, device="cuda", overlap=False),
              ("K3",)),
             ("t slabs (4,1) no overlap", parallel.Mesh(4, 1, device="cuda", overlap=False),
@@ -2517,6 +2924,8 @@ def phase_mesh_hmc(workdir: str):
                f"{name}: {res.iterations} iterations, whole lattice {ref.iterations}")
         _check(all(cm[k] > 0 for k in kernels) and (mesh is None or cm["K1-R"] == 4),
                f"{name}: launches {cm}")
+        if mesh is not None and mesh.overlap:
+            _check_kh(dc, cm, name)
         _say(f"[main-mesh] invert_eo_rhs 12 columns, {name}: {res.iterations} "
              f"iterations, {dt:.3f} s, true residual max {worst:.3e}, max|x - x_whole| "
              f"{diff:.3e} (max|x| {scale:.3e}); launches " +
@@ -2525,15 +2934,24 @@ def phase_mesh_hmc(workdir: str):
 
 
 def _e2e(label: str) -> None:
-    """Main paths 1, 3, 7 and 8 alone (`--e2e`): s/trajectory of paths 1, 3
-    and 8, and path 7's seconds per solver, printed as one JSON line."""
+    """Main paths 1, 3, 5, 6, 7, 8 and 9 alone (`--e2e`): s/trajectory of
+    paths 1, 3, 5 and 8, path 6's seconds per operator (12 columns each),
+    path 7's seconds per solver and path 9's s/trajectory on the (4,2) mesh
+    and without it, printed as one JSON line."""
     with tempfile.TemporaryDirectory() as workdir:
         _, secs1, conf = phase_main_path(workdir)
         _, secs3, cconf = phase_main_path(workdir, clover=True)
+        _, secs5, nconf = phase_main_path(workdir, nf211=True)
+        _, _, solves6 = phase_invert_doublet(workdir, nconf)
         _, solvers = phase_invert_solvers(workdir, conf, cconf, float("nan"))
         _, secs8, _, _ = phase_mixed_hmc(workdir, secs1, cconf)
+        _, secs9 = phase_mesh_hmc(workdir)
+    path6 = {}
+    for ty, _, sec in solves6:
+        path6[ty] = path6.get(ty, 0.0) + sec
     print(json.dumps({"e2e": label, "path1_s_traj": secs1, "path3_s_traj": secs3,
-                      "path8_s_traj": secs8,
+                      "path5_s_traj": secs5, "path6_s": path6, "path8_s_traj": secs8,
+                      "path9_s_traj": secs9,
                       "path7_s": {k: v[1] for k, v in solvers.items()}}), flush=True)
 
 
@@ -2558,6 +2976,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from tmlqcd_tpu_torch.lattice import Lattice
 
+    if "--nd-split" in args:
+        # K1-SD's and KH's checks (phase 2), and the doublet operator and the
+        # sharded hop split into loop, host and device time beside the
+        # routes they replaced, with the other kernels' device times (phase
+        # 3), alone
+        try:
+            phase_card()
+            lat16, lat32 = Lattice((32, 16, 16, 16)), Lattice((64, 32, 32, 32))
+            phase_nd_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
+            phase_shard_kernels(lat16)
+            phase_nd_shard_split(lat16, lat32, _copy_bandwidth())
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+            return 1
+        return 0
     if "--k1-split" in args or "--e2e" in args:
         # the kernel checks and K1's device / host split alone (phases 1, 2
         # and phase 3's split), or main paths 1, 3, 7 and 8 alone; neither
@@ -2591,10 +3024,12 @@ def main() -> int:
         lat32 = Lattice((64, 32, 32, 32))
         # 32^3x64: the grid-stride loop wraps; 10x6x14x6: V = 2520, no whole block
         worst["K1-S"] = phase_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
+        worst["K1-SD"] = phase_nd_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
         done("2 kernel checks")
         rows, bw = phase_timings(lat16, lat32)
         rows.update(phase_shard_timings(lat16, lat32, bw))
         split = phase_k1_split(lat16, lat32, bw)
+        nd_rows = phase_nd_shard_split(lat16, lat32, bw)
         done("3 timings")
         _, dh_tm = phase_parity()
         _, dh_clover = phase_parity(clover=True)
@@ -2627,12 +3062,14 @@ def main() -> int:
             phase_profile(
                 workdir, nconf, "main-nf211.input", "Nf=2+1+1",
                 {"K1-S": "hopping_schur_kernel", "K1": "hopping_kernel",
-                 "K1-R-D": "hopping_rhs_kernel", "K2": "ug_vjp_kernel"},
+                 "K1-SD": "hopping_schur_nd", "K1-R-D": "hopping_rhs_kernel",
+                 "K2": "ug_vjp_kernel"},
                 patches=[(base, "heatbath", "NDRAT heatbath"),
                          (base, "force_info", "NDRAT force (solve, y_j, surrogate, autograd)"),
                          (base, "action_info", "NDRAT acceptance"),
                          (rational_monomials, "cg_multishift", "multishift solves (in the three above)"),
-                         (wf, "_hop_nd", "doublet hops K1-R-D, each synchronised (in the solves and outside)"),
+                         (wf, "q_nd_fast", "Q_nd (K1-SD, heatbath and y_j), each synchronised"),
+                         (wf, "q_nd_sq_fast", "Q_nd^2 (K1-SD, multishift), each synchronised"),
                          (rational_monomials._NDOps, "force", "NDRAT autograd.grad + TA"),
                          (monomials._CloverState, "force", "CLOVERDET autograd.grad + TA"),
                          (monomials, "_surrogate_force", "CLOVERTRLOG force (its sw_blocks forward included)"),
@@ -2675,6 +3112,16 @@ def main() -> int:
                 device_ms=qpm["device"])
     k1s["hops"] = sum(c["K1-S hops"] for c in paths.values())
 
+    qsq = nd_rows[(tag16, "Q_nd^2")]
+    k1sd = entry("hopping_schur_nd (K1-SD)",
+                 "tmlqcd_tpu/ops/dslash_pallas.py:491 x4 via tmlqcd_tpu/ops/wilson_fast.py:376",
+                 "K1-SD", (qsq["K1-SD loop"], qsq["plain"], qsq["bound"], qsq["bound_by"]),
+                 device_ms=qsq["K1-SD device"])
+    k1sd["hops"] = sum(c["K1-SD hops"] for c in paths.values())
+    # KH at 16^3x32 on (4,2): (loop, plain, bound, bound by, device)
+    kh = nd_rows[(tag16, "KH")]
+    kh_row = (kh[0], kh[5], kh[3], kh[4], kh[2])
+
     def moved(key):
         """The hops of an epilogue or link type that ran inside K1-S on the
         main paths (where K1-C and K1-B launched before K1-S)."""
@@ -2709,6 +3156,13 @@ def main() -> int:
               rows[("16x16x16x32", "K4")], slab_src),
         entry("hopping_tshard (K1-T)", "tmlqcd_tpu/ops/dslash_pallas.py:997", "K1-T",
               rows[("16x16x16x32", "K1-T")], slab_src),
+        k1sd,
+        entry("hopping_slab_split all rows (K3-I+K4)",
+              "tmlqcd_tpu/ops/dslash_pallas.py:1267 and :1307 in one launch", "K3-I+K4",
+              rows[("16x16x16x32", "K3-I+K4")], slab_src,
+              device_ms=nd_rows[(tag16, "device 6B K3-I+K4 (4,2)")]),
+        entry("halo_pack (KH)", "tmlqcd_tpu/ops/dslash_pallas.py:1413 (the halo exchange of "
+              "hopping_pallas_shard :1345)", "KH", kh_row[:4], slab_src, device_ms=kh_row[4]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,7 @@ from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.models.suites import nf2_twisted_mass_hasenbusch
 from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
@@ -175,8 +176,8 @@ def test_q_hat_clover_diff_matches_plain(cuda):
 
     def plain_q(ug_e, ug_o, moo, mee_inv, x):
         tmp = dc.hopping_split_plain(ug_e, x, 0, lat)
-        tmp = dc.hopping_split_plain(ug_o, wf._blocks_apply_split(mee_inv, tmp), 1, lat)
-        return wf.gamma5_split(wf._blocks_apply_split(moo, x) - k2 * tmp)
+        tmp = dc.hopping_split_plain(ug_o, sd.blocks_apply_split(mee_inv, tmp), 1, lat)
+        return wf.gamma5_split(sd.blocks_apply_split(moo, x) - k2 * tmp)
 
     grads = []
     for fn in (lambda *a: wf.q_hat_clover_diff(*a, PARAMS, lat), plain_q):
@@ -352,13 +353,86 @@ def test_doublet_inversion_runs_on_the_doublet_kernel(cuda, c_sw):
     b = torch.stack([src, torch.zeros_like(src)])
     dc.reset_counters()
     out = invert_doublet_eo(u, b, params, lat, tol=1e-7, maxiter=500)
-    # Schur prologue 1, right-hand side 2, r0 = b - A x0 4, 4 per iteration, epilogue 1
-    assert dc.hopping_split_rhs.doublet_launches == 4 * out.iterations + 8
+    # K1-SD: the right-hand side's Q_nd, r0 = b - A x0, one Q_nd^2 per
+    # iteration; K1-R-D: the Schur prologue's and epilogue's single hops
+    assert dc.hopping_schur_nd.launches == out.iterations + 2
+    assert dc.hopping_schur_nd.clover_launches == (out.iterations + 2) * (c_sw != 0.0)
+    assert dc.hopping_split_rhs.doublet_launches == 2
     assert dc.hopping_split_rhs.launches == dc.hopping_split_rhs.doublet_launches
     assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
+    assert dc.hopping_schur_nd_plain.calls == 0
     ref = invert_doublet_eo(u.cpu(), b.cpu(), params, lat, tol=1e-7, maxiter=500)
     assert out.iterations == ref.iterations
     assert float((out.x.cpu() - ref.x).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 4), (6, 4, 6, 10)])
+@pytest.mark.parametrize("compress", [False, True], ids=["18real", "12real"])
+def test_doublet_schur_kernel_matches_the_composed_operator(cuda, dims, compress):
+    """K1-SD (Q_nd and Q_nd^2 in one launch) against the K1-R-D launches and
+    torch flavour diagonals it replaces: bit for bit on the twisted-mass
+    doublet; on the clover doublet within 1e-6 of max|composed| (torch sums
+    a block row in another order); against its plain version RTOL."""
+    from tmlqcd_tpu_torch.ops import clover as cl
+    from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+
+    lat, u, psi = _setup(dims, cuda)
+    tm = NDParams(kappa=0.13, mubar=0.15, epsbar=0.12)
+    sw = NDParams(kappa=0.13, mubar=0.15, epsbar=0.12, c_sw=1.74)
+    fg = wf.make_fast_gauge(u, tm.wilson, lat, compress=compress)
+    sw_e, sw_o = cl.sw_blocks_eo(u, sw.kappa, sw.c_sw, lat)
+    fc = wf.fast_clover_nd_from(fg, sw_e, sw_o, sw)
+    chi = torch.stack([psi[0], psi[1]], dim=1).contiguous()
+
+    def composed(op, x, params, clover):
+        k2 = params.kappa * params.kappa
+        g = op.fg if clover else op
+        tmp = wf._hop_nd(g, x, 0, lat)
+        tmp = (sd.mee_inv_nd_apply_split(op.minv_a, op.minv_b, op.minv_e, op.epsbar_t, tmp)
+               if clover else sd.mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, 1.0))
+        tmp = wf._hop_nd(g, tmp, 1, lat)
+        m = (sd.mee_nd_apply_split(op.moo_u, op.moo_d, op.epsbar_t, x) if clover
+             else sd.mee_nd_split(x, params.mubar_t, params.epsbar_t, 1.0)) - k2 * tmp
+        return sd.gamma5_nd(sd.tau1_split(m))
+
+    for clover, op, params, q, q2 in ((False, fg, tm, wf.q_nd_fast, wf.q_nd_sq_fast),
+                                      (True, fc, sw, wf.q_nd_clover_fast,
+                                       wf.q_nd_sq_clover_fast)):
+        stage = wf._nd_stage(params, fc if clover else None)
+        one, two = q(op, chi, params, lat), q2(op, chi, params, lat)
+        ref_one = composed(op, chi, params, clover)
+        ref_two = composed(op, ref_one, params, clover)
+        for out, ref, square in ((one, ref_one, False), (two, ref_two, True)):
+            if clover:
+                assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+            else:
+                assert torch.equal(out, ref)
+            assert _close(out, dc.hopping_schur_nd_plain(fg.ug_even, fg.ug_odd, chi, lat,
+                                                         stage, fg.gcomp, square))
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 1)])
+def test_halo_kernel_matches_the_torch_exchange(cuda, shape):
+    """KH against its plain version, the torch exchange it replaces
+    (`_y_halos`, `_t_halos`), element for element: one spinor, R = 5 and
+    the doublet, half-spinor halos on and off."""
+    from tmlqcd_tpu_torch import parallel
+
+    lat, _, (psi, _, _) = _setup((16, 8, 8, 8), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    inputs = {None: psi,
+              3: torch.randn((2, 4, 3, 5) + lat.eo_site_shape, generator=gen, device=cuda),
+              1: torch.randn((2, 2, 4, 3) + lat.eo_site_shape, generator=gen, device=cuda)}
+    for hs in (True, False):
+        mesh = parallel.Mesh(*shape, device=cuda, halfspinor=hs)
+        for r_axis, x in inputs.items():
+            n = dc.halo_pack.launches
+            mh, th = dc.halo_pack(x, lat, mesh, r_axis)
+            assert dc.halo_pack.launches == n + 1
+            ref_mh = dc._y_halos(x, lat, mesh, hs, r_axis)
+            assert (mh is None) == (ref_mh is None)
+            assert mh is None or torch.equal(mh, ref_mh)
+            assert torch.equal(th, dc._t_halos(x, lat, mesh, hs, r_axis))
 
 
 _NDRAT_INPUT = """L = 4
@@ -402,9 +476,9 @@ def test_ndrat_trajectory_kernel_path_matches_plain_path(cuda):
         d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
         _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
         if dev.type == "cuda":
-            assert dc.hopping_split_rhs.doublet_launches > 0 and dc.hopping_ug_vjp.launches > 0
+            assert dc.hopping_schur_nd.launches > 0 and dc.hopping_ug_vjp.launches > 0
             assert dc.hopping_split_rhs_plain.calls == 0 and dc.hopping_split_plain.calls == 0
-            assert dc.hopping_ug_vjp_plain.calls == 0
+            assert dc.hopping_ug_vjp_plain.calls == 0 and dc.hopping_schur_nd_plain.calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
@@ -573,7 +647,7 @@ def test_mixedcg_trajectory_kernel_path_matches_plain_path(cuda):
 def test_slab_kernels_match_plain_and_k1(cuda, shape, gauge):
     """Each slab kernel against its plain version on the same halos, and the
     assembled sharded hop against K1 / K1-R / K1-R-D on the whole lattice at
-    16 x 8^3 (T_loc = 4 or 8: K3-I and K4; without overlap K3, or K1-T on
+    16 x 8^3 (T_loc = 4 or 8: KH and K3-I+K4; without overlap K3, or K1-T on
     t slabs alone), one spinor, R = 5 and the doublet, every (halfspinor,
     overlap) pair.  The slab kernels run K1's
     per-site sum on the same neighbour values: 1e-6 of max|K1| (bit equality
@@ -590,9 +664,10 @@ def test_slab_kernels_match_plain_and_k1(cuda, shape, gauge):
     mesh = parallel.Mesh(*shape, device=cuda)
     for r_axis, x in inputs.items():
         mh = dc._y_halos(x, lat, mesh, True, r_axis)
+        th = dc._t_halos(x, lat, mesh, True, r_axis)
         for variant, src, extra in (("ext", dc._t_halos(x, lat, mesh, True, r_axis, ext=True), {}),
-                                    ("int", x, {}),
-                                    ("bnd", x, {"th": dc._t_halos(x, lat, mesh, True, r_axis)})):
+                                    ("int", x, {}), ("bnd", x, {"th": th}),
+                                    ("all", x, {"th": th})):
             outs = [fn(fg.ug_even, src, 0, lat, mesh, variant, torch.zeros_like(x), mh=mh,
                        gcomp=fg.gcomp, r_axis=r_axis, **extra)
                     for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain)]
@@ -611,10 +686,11 @@ def test_slab_kernels_match_plain_and_k1(cuda, shape, gauge):
                     err = float((out - whole).abs().max())
                     assert err <= 1e-6 * float(whole.abs().max()), (hs, ov, r_axis, p, err)
                     ran = {k: v - n[k] for k, v in dc.hopping_slab_split.launches.items()}
-                    # without overlap K3, or K1-T on t slabs alone
-                    assert ran == ({"K3": 0, "K3-I": 1, "K4": 1, "K1-T": 0} if ov
+                    # with overlap KH and K3-I+K4; without it K3, or K1-T on t
+                    # slabs alone
+                    assert ran == ({"K3": 0, "K3-I": 0, "K4": 0, "K1-T": 0, "K3-I+K4": 1} if ov
                                    else {"K3": int(shape[1] > 1), "K3-I": 0, "K4": 0,
-                                         "K1-T": int(shape[1] == 1)})
+                                         "K1-T": int(shape[1] == 1), "K3-I+K4": 0})
 
 
 def test_tshard_kernel_matches_plain_and_k1(cuda):
@@ -638,7 +714,7 @@ def test_tshard_kernel_matches_plain_and_k1(cuda):
 
 def test_sharded_trajectory_kernel_path_matches_plain_path(cuda):
     """One 8^4 twisted-mass Hasenbusch trajectory with every solve on the
-    slab kernels of a (2, 2) mesh (T_loc = 4: K3-I and K4), on CUDA tensors
+    slab kernels of a (2, 2) mesh (T_loc = 4: KH and K3-I+K4), on CUDA tensors
     and on CPU tensors (the plain versions) with the same draws; |ddH| <=
     3e-3 as for the unsharded 8^4 trajectory of chip_smoke.py (f32 rounding
     of |H| ~ 2.4e5 in two summation orders); the same iteration counts."""
@@ -663,9 +739,9 @@ def test_sharded_trajectory_kernel_path_matches_plain_path(cuda):
         d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
         _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
         if dev.type == "cuda":
-            assert dc.hopping_slab_split.launches["K3-I"] > 0
-            assert dc.hopping_slab_split.launches["K4"] > 0
-            assert dc.hopping_slab_split_plain.calls == 0
+            assert dc.hopping_slab_split.launches["K3-I+K4"] > 0
+            assert dc.halo_pack.launches == dc.hopping_slab_split.launches["K3-I+K4"]
+            assert dc.hopping_slab_split_plain.calls == 0 and dc.halo_pack.plain_calls == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 3e-3
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
 
@@ -674,7 +750,7 @@ def test_sharded_trajectory_kernel_path_matches_plain_path(cuda):
                          ids=["2x2", "2x1-K1T"])
 def test_batched_inversion_runs_the_multirhs_slabs(cuda, mesh_shape, overlap):
     """invert_eo_rhs under a mesh at 8^4 on CUDA tensors: the batched CG on
-    the multi-RHS slab kernels (K3-I / K4, or K1-T on t slabs without the
+    the multi-RHS slab kernels (KH and K3-I+K4, or K1-T on t slabs without the
     overlap); no plain version is called; the true residual |M x - b| / |b|
     <= 1e-5 (tol 1e-7) and the solution within 2e-5 of the CPU plain path's."""
     from tmlqcd_tpu_torch import parallel

@@ -34,6 +34,7 @@ from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, pack_gauge_eo
 from tmlqcd_tpu_torch.ops import clover as cl
 from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 from tmlqcd_tpu_torch.ops import ndoublet as nd
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops import wilson as w
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 
@@ -120,7 +121,7 @@ def test_doublet_hop_checks_its_arguments(fields):
     with pytest.raises(TypeError, match="float32"):
         dc.hopping_split_rhs(fg.ug_even, c2.double(), EVEN, LAT, **kw)
     # the flat block matvec names the function that serves a doublet
-    with pytest.raises(ValueError, match="_mee_nd_apply_split"):
+    with pytest.raises(ValueError, match="mee_nd_apply_split"):
         wf.blocks_apply_flat(torch.zeros((2, 72) + LAT.eo_site_shape), c2, r_axis=1)
     dc.reset_counters()
     dc.hopping_split_rhs(fg.ug_even, c2, EVEN, LAT, **kw)
@@ -252,8 +253,8 @@ def test_q_nd_fast_matches_complex_operator_and_reference(fields):
     assert _maxdiff(sq, jnd.q_nd_sq(jueo, jchi, JP, JL, jph)) < 1e-5
     # the split diagonals against the complex ones
     for sign in (+1.0, -1.0):
-        assert _maxdiff(wf.from_split(wf._mee_nd_split(fields["c2"], TP.mubar_t, TP.epsbar_t, sign)),
+        assert _maxdiff(wf.from_split(sd.mee_nd_split(fields["c2"], TP.mubar_t, TP.epsbar_t, sign)),
                         nd.mee_nd(fields["chit"], TP.mubar_t, TP.epsbar_t, sign)) < 1e-6
-        assert _maxdiff(wf.from_split(wf._mee_inv_nd_split(fields["c2"], TP.mubar_t, TP.epsbar_t,
+        assert _maxdiff(wf.from_split(sd.mee_inv_nd_split(fields["c2"], TP.mubar_t, TP.epsbar_t,
                                                            sign)),
                         nd.mee_inv_nd(fields["chit"], TP.mubar_t, TP.epsbar_t, sign)) < 1e-6

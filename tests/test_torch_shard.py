@@ -128,11 +128,10 @@ def test_shard_matches_whole_lattice_hop_and_reference(fields, shape, halfspinor
         if gname != "bf16":
             got = wf.from_split(out) if r_axis != 3 else wf.from_split_rhs(out).movedim(0, 2)
             assert _maxdiff(got, _ref_of(fields["ref"][p], r_axis)) < ATOL_REF, (gname, r_axis, p)
-    # the CPU path ran the kernels' plain versions: K3 without overlap, else
-    # K4 and, where T_loc >= 4, K3-I
-    calls = dc.hopping_slab_split_plain.calls
-    per_hop = 1 if not overlap else (2 if DIMS[0] // shape[0] >= 4 else 1)
-    assert calls == 3 * 3 * 2 * per_hop
+    # the CPU path ran the kernels' plain versions, one slab call per hop:
+    # K3 without overlap, else KH's halos and K3-I+K4 over every row
+    assert dc.hopping_slab_split_plain.calls == 3 * 3 * 2
+    assert dc.halo_pack.plain_calls == (3 * 3 * 2 if overlap else 0)
     assert sum(dc.hopping_slab_split.launches.values()) == 0
 
 
@@ -176,8 +175,9 @@ def test_tshard_matches_reference(fields, t_shards, halfspinor):
 
 def test_mesh_options_pick_the_kernel(fields, monkeypatch):
     """The mesh's `overlap` and `halfspinor` set the sharded hop:
-    overlap runs K3-I and K4, no overlap K3; on t slabs alone no y halo is
-    built and the y hops wrap inside the slab (without overlap: K1-T)."""
+    overlap runs KH's halos and K3-I+K4 (the slab kernel over every row), no
+    overlap K3; on t slabs alone no y halo is built and the y hops wrap
+    inside the slab (without overlap: K1-T)."""
     seen = []
     plain = dc.hopping_slab_split_plain
 
@@ -189,11 +189,10 @@ def test_mesh_options_pick_the_kernel(fields, monkeypatch):
     monkeypatch.setattr(dc, "hopping_slab_split_plain", spy)
     fg, x = fields["gauges"]["12"], fields["inputs"][None]
     whole = _whole(fg, x, EVEN, None)
-    for mesh, want in ((parallel.Mesh(2, 2, "cpu"), [("int", True), ("bnd", True)]),
+    for mesh, want in ((parallel.Mesh(2, 2, "cpu"), [("all", True)]),
                        (parallel.Mesh(2, 2, "cpu", overlap=False), [("ext", True)]),
                        (parallel.Mesh(2, 1, "cpu", overlap=False), [("ext", False)]),
-                       (parallel.Mesh(2, 1, "cpu", halfspinor=False), [("int", False),
-                                                                        ("bnd", False)])):
+                       (parallel.Mesh(2, 1, "cpu", halfspinor=False), [("all", False)])):
         seen.clear()
         out = wf.hop_shard(fg, x, EVEN, LAT, mesh)
         assert seen == want, (mesh, seen)
@@ -212,8 +211,11 @@ def test_slab_wrapper_checks_inputs(fields):
                               mh=torch.zeros((2, 4, 3, 16, 4, 4)))
     with pytest.raises(ValueError, match="needs the y halos"):
         dc.hopping_slab_split(fg.ug_even, x, EVEN, LAT, mesh, "ext", out, gcomp=fg.gcomp)
+    with pytest.raises(ValueError, match="needs the t halos"):
+        dc.hopping_slab_split(fg.ug_even, x, EVEN, LAT, mesh, "all", out, gcomp=fg.gcomp,
+                              mh=torch.zeros((2, 4, 3, 16, 4, 4)))
     with pytest.raises(ValueError, match="unknown slab variant"):
-        dc.hopping_slab_split(fg.ug_even, x, EVEN, LAT, mesh, "all", out)
+        dc.hopping_slab_split(fg.ug_even, x, EVEN, LAT, mesh, "rows", out)
     with pytest.raises(ValueError, match="shape"):  # psi is not the extended field
         dc.hopping_slab_split(fg.ug_even, x, EVEN, LAT, parallel.Mesh(2, 1, "cpu"), "ext", out,
                               gcomp=fg.gcomp)

@@ -152,18 +152,18 @@ def gauge():
     ids=["tm", "clover", "tm-2x2-K3", "tm-2x1-K1T"])
 def test_batched_inversion_under_a_mesh(gauge, c_sw, mesh):
     """invert_eo_rhs of 3 sources on slabs (the batched CG on the multi-RHS
-    slab kernels: K3-I and K4 on 2 x 2 slabs, K3 without the overlap, K1-T
-    on t slabs without it) against the same solve
+    slab kernels: KH's halos and K3-I+K4 on 2 x 2 slabs, K3 without the
+    overlap, K1-T on t slabs without it) against the same solve
     without a mesh: the same iterations, solutions within 1e-5."""
     params = DiracParams(kappa=0.13, mu=0.04, c_sw=c_sw)
     bs = bridge.sources_from_numpy(
         bridge.numpy_spinor(np.random.default_rng(72), (3, 4, 3) + LAT.site_shape), LAT)
     dc.reset_counters()
     out = invert_eo_rhs(gauge, bs, params, LAT, tol=1e-7, maxiter=300, mesh=mesh)
-    # one slab call per hop, two (K3-I, K4) with the overlap on slabs of
-    # T_loc >= 4; 4 hops per CG iteration and per initial residual
-    per_hop = 2 if mesh.overlap and DIMS[0] // mesh.t >= 4 else 1
-    assert dc.hopping_slab_split_plain.calls == 4 * per_hop * (out.iterations + 1)
+    # one slab call per hop (K3-I+K4 with the overlap, after KH's halos);
+    # 4 hops per CG iteration and per initial residual
+    assert dc.hopping_slab_split_plain.calls == 4 * (out.iterations + 1)
+    assert dc.halo_pack.plain_calls == (4 * (out.iterations + 1) if mesh.overlap else 0)
     ref = invert_eo_rhs(gauge, bs, params, LAT, tol=1e-7, maxiter=300)
     assert out.iterations == ref.iterations < 300
     assert float((out.x - ref.x).abs().max()) < 1e-5

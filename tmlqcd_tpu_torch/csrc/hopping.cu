@@ -1,13 +1,16 @@
 // Even/odd Wilson hopping (K1), the Schur operator in one launch (K1-S), the
-// multi-right-hand-side form (K1-R) and the gauge-cotangent kernel (K2) for
-// NVIDIA Hopper (sm_90a), bound to Python through a plain C interface.
+// doublet's Schur operator in one launch (K1-SD), the multi-right-hand-side
+// form (K1-R) and the gauge-cotangent kernel (K2) for NVIDIA Hopper
+// (sm_90a), bound to Python through a plain C interface.
 //
 // K1 replaces the Pallas kernel `_dslash_kernel` (+ `_stencil_accum`,
 // `_apply_epilogue`) of tmlqcd_tpu/ops/dslash_pallas.py; K1-S the two or
 // four `_dslash_kernel` calls of one Mhat / Qhat_pm (the reference's
-// ops/wilson_fast.py m_hat_fast, q_hat_pm_fast and the clover forms); K1-R
-// replaces `_dslash_kernel_r` / `_dslash_kernel_tb_r`; K2 replaces
-// `_ug_vjp_kernel` of the same file.  All read the reference's split
+// ops/wilson_fast.py m_hat_fast, q_hat_pm_fast and the clover forms); K1-SD
+// the two or four `_dslash_kernel_r` calls (r_pos 1) and the jnp flavour
+// diagonals of one Q_nd / Q_nd^2 (the reference's q_nd_fast, q_nd_sq_fast
+// :376-388 and the clover forms :609-622); K1-R replaces `_dslash_kernel_r` /
+// `_dslash_kernel_tb_r`; K2 replaces `_ug_vjp_kernel` of the same file.  All read the reference's split
 // structure-of-arrays layout unchanged (the bf16 copy: see load_link in
 // hopping_common.cuh):
 //
@@ -112,6 +115,27 @@
 // G + 2 * 192 = 960 B (18-real) or 768 B (12-real) per site, against
 // 2 * (G + 192) for two K1 launches.  With R = 2 a block is 32 sites x 2
 // rows = 64 threads, and each row stages four of the eight directions.
+//
+// K1-SD: Q_nd = gamma5 tau1 Mhat_nd (2 phases) or Q_nd^2 (4) of the doublet
+// as phases of one cooperative launch, as K1-S runs Qhat_pm.  Each phase is
+// one hop of both flavours with the flavour-mixing diagonal fused: even
+// Mee_nd^-1 (twisted mass: (x - i mubar g5 tau3 x - epsbar tau1 x) / (1 +
+// mubar^2 - epsbar^2); clover: FastCloverND's [[A, -eps E], [-eps E, B]] on
+// the 6 x 6 chirality blocks), odd gamma5 tau1 (Mee_nd chi_o - k2 H tmp)
+// (clover: [[moo_u, eps], [eps, moo_d]]).  It replaces 2 or 4 K1-R-D
+// launches and ~25 or ~50 small torch operations, whose host time set the
+// operator's (the device sat idle) and whose passes over the field set its
+// device time at 32^3 x 64.  The twisted-mass kernel holds both flavours of
+// a site in one thread, the link loaded and rebuilt once for both; its
+// epilogues round as the torch composition does (one _rn intrinsic per
+// operation), so it equals the K1-R-D launches plus the torch diagonals bit
+// for bit.  The clover kernel splits a site over two threads, one per
+// flavour, which swap accumulators through shared memory (the block
+// epilogues of both flavours did not fit one thread's registers).  Bound:
+// memory, 768 B per site for a hop of both flavours (12-real: 384 gauge + 2
+// x (96 + 96)), 192 B more for the odd phase's chi_o: Q_nd 1728, Q_nd^2 3456
+// B per site of one parity; the clover doublet adds 3 (even) + 2 (odd)
+// block fields of 576 B per Q_nd.
 
 #include <cooperative_groups.h>
 
@@ -321,6 +345,324 @@ hopping_schur_kernel(SchurArgs a) {
   }
 }
 
+// K1-SD: the doublet Schur operator Q_nd = gamma5 tau1 Mhat_nd (2 phases) or
+// Q_nd^2 (4) in one persistent launch, as K1-S runs Qhat_pm.  A phase is one
+// hop of both flavours with its flavour-mixing epilogue; the doublet is
+// [2 re/im][2 flavour][4][3][V] (strides {24 V, V}, flavour 12 V).
+struct NdPhase {
+  const float* chi;     // the hopped doublet
+  const float* chi_o;   // odd phases: the stage's input
+  const float* blk[3];  // clover: even minv_a, minv_b, minv_e; odd moo_u, moo_d
+  float* out;
+  // twisted mass: even (mubar, epsbar, 1 / (1 + mubar^2 - epsbar^2)), odd
+  // (mubar, epsbar, k2); clover: even (epsbar), odd (epsbar, k2)
+  float c0, c1, c2;
+};
+
+struct SchurNdArgs {
+  NdPhase ph[kMaxPhases];
+  const float* ug[2];  // the f32 link copies of the even and the odd output sites
+  Geo geo;             // geo.p is set phase by phase
+  Corr corr;
+  int nphase;
+};
+
+// acc_f += W_D U (W_D^+ chi_f(nsite)) for both flavours on one load of the
+// link: K1-R-D's per-flavour step (hop_dir on the same upcast, rebuilt link)
+template <int D, bool COMP>
+__device__ __forceinline__ void nd_dir(const float* __restrict__ chi,
+                                       const float* __restrict__ ug, long long V,
+                                       const Strides& st, long long nsite, long long site,
+                                       const Corr& corr, float (&ar)[2][4][3],
+                                       float (&ai)[2][4][3]) {
+  float gr[3][3], gi[3][3];
+  load_link<D, COMP, float>(ug, V, site, corr, gr, gi);
+  hop_dir<D>(chi, st, nsite, gr, gi, ar[0], ai[0]);
+  hop_dir<D>(chi + 12 * V, st, nsite, gr, gi, ar[1], ai[1]);
+}
+
+// H chi of both flavours at `site`: directions 0..7 in K1's order
+template <bool COMP>
+__device__ __forceinline__ void accum_doublet(const float* __restrict__ chi,
+                                              const float* __restrict__ ug, const Geo& geo,
+                                              long long V, int site, const Corr& corr,
+                                              float (&ar)[2][4][3], float (&ai)[2][4][3]) {
+  const Strides st{24 * V, V};
+  int nb[8];
+  neighbours(geo, site, nb);
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) { ar[f][s][c] = 0.f; ai[f][s][c] = 0.f; }
+  nd_dir<0, COMP>(chi, ug, V, st, nb[0], site, corr, ar, ai);
+  nd_dir<1, COMP>(chi, ug, V, st, nb[1], site, corr, ar, ai);
+  nd_dir<2, COMP>(chi, ug, V, st, nb[2], site, corr, ar, ai);
+  nd_dir<3, COMP>(chi, ug, V, st, nb[3], site, corr, ar, ai);
+  nd_dir<4, COMP>(chi, ug, V, st, nb[4], site, corr, ar, ai);
+  nd_dir<5, COMP>(chi, ug, V, st, nb[5], site, corr, ar, ai);
+  nd_dir<6, COMP>(chi, ug, V, st, nb[6], site, corr, ar, ai);
+  nd_dir<7, COMP>(chi, ug, V, st, nb[7], site, corr, ar, ai);
+}
+
+// The twisted-mass epilogues round where the torch composition rounds
+// (ops/dslash_cuda.py `_mee_inv_nd_split`, `_mee_nd_split`, then
+// `- k2 * tmp` and gamma5 tau1), one IEEE operation at a time with the _rn
+// intrinsics, which nvcc never contracts into an FMA; gamma5, tau1 and i
+// only move and negate values.  So the result is the composed path's bits.
+//
+// even: out_f = ((x_f - i mu_f g5 x_f) - eps x_{1-f}) * inv, mu_0 = mu,
+// mu_1 = -mu (tau3), x = H chi
+__device__ __forceinline__ void store_nd_mee_inv(const float (&ar)[2][4][3],
+                                                 const float (&ai)[2][4][3],
+                                                 float* __restrict__ out, long long V, int site,
+                                                 float mu, float eps, float inv) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const float gs = s < 2 ? 1.f : -1.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const float cf = (f == 0 ? mu : -mu) * gs;  // exact
+        const float xr = ar[f][s][c], xi = ai[f][s][c];
+        // i cf x = (-cf xi, cf xr)
+        const float tr = __fsub_rn(xr, __fmul_rn(-cf, xi));
+        const float ti = __fsub_rn(xi, __fmul_rn(cf, xr));
+        const long long o = (f * 12 + s * 3 + c) * V + site;
+        out[o] = __fmul_rn(__fsub_rn(tr, __fmul_rn(eps, ar[1 - f][s][c])), inv);
+        out[24 * V + o] = __fmul_rn(__fsub_rn(ti, __fmul_rn(eps, ai[1 - f][s][c])), inv);
+      }
+  }
+}
+
+// odd: m_g = ((y_g + i mu_g g5 y_g) + eps y_{1-g}) - k2 x_g with y = chi_o,
+// x = H tmp; out_f = g5 m_{1-f}
+__device__ __forceinline__ void store_nd_mhat(const float (&ar)[2][4][3],
+                                              const float (&ai)[2][4][3],
+                                              const float* __restrict__ chi_o,
+                                              float* __restrict__ out, long long V, int site,
+                                              float mu, float eps, float k2) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const float gs = s < 2 ? 1.f : -1.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const long long e = (s * 3 + c) * V + site;
+      float yr[2], yi[2];
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        yr[g] = __ldg(chi_o + g * 12 * V + e);
+        yi[g] = __ldg(chi_o + 24 * V + g * 12 * V + e);
+      }
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const float cg = (g == 0 ? mu : -mu) * gs;
+        const float m1r = __fadd_rn(yr[g], __fmul_rn(-cg, yi[g]));
+        const float m1i = __fadd_rn(yi[g], __fmul_rn(cg, yr[g]));
+        const float m2r = __fadd_rn(m1r, __fmul_rn(eps, yr[1 - g]));
+        const float m2i = __fadd_rn(m1i, __fmul_rn(eps, yi[1 - g]));
+        const float mr = __fsub_rn(m2r, __fmul_rn(k2, ar[g][s][c]));
+        const float mi = __fsub_rn(m2i, __fmul_rn(k2, ai[g][s][c]));
+        out[(1 - g) * 12 * V + e] = gs * mr;
+        out[24 * V + (1 - g) * 12 * V + e] = gs * mi;
+      }
+    }
+  }
+}
+
+// One phase of the twisted-mass K1-SD on every site of its parity, in a
+// grid-stride loop
+template <bool ODD, bool COMP>
+__device__ __forceinline__ void schur_nd_phase(const NdPhase& f, const float* __restrict__ ug,
+                                               const Geo& geo, int V, const Corr& corr) {
+  for (int site = blockIdx.x * blockDim.x + threadIdx.x; site < V;
+       site += gridDim.x * blockDim.x) {
+    float ar[2][4][3], ai[2][4][3];
+    accum_doublet<COMP>(f.chi, ug, geo, V, site, corr, ar, ai);
+    if constexpr (ODD)
+      store_nd_mhat(ar, ai, f.chi_o, f.out, V, site, f.c0, f.c1, f.c2);
+    else
+      store_nd_mee_inv(ar, ai, f.out, V, site, f.c0, f.c1, f.c2);
+  }
+}
+
+// The twisted-mass K1-SD: a thread per site holding both flavours (48
+// accumulators), registers capped at 128 so that 4 blocks of 128 share an
+// SM and 16^3 x 32's 65,536 sites of a parity run in one pass of the
+// resident grid (528 blocks).  Measured with chip_smoke.py on an NVIDIA
+// H100 80GB HBM3 at 700.00 W (PERF.md section 6, run C), Q_nd^2 at 16^3 x
+// 32: 112.8 us of device here against 148.9 us at 3 blocks (168 registers,
+// 1.3 passes) and 135.5 us for a thread per (site, flavour).
+template <bool COMP>
+__global__ void __launch_bounds__(128, 4)
+hopping_schur_nd_kernel(SchurNdArgs a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int V = a.geo.T * a.geo.X * a.geo.M;
+  for (int ph = 0; ph < a.nphase; ++ph) {
+    if (ph > 0) grid.sync();
+    const NdPhase f = ph == 0 ? a.ph[0] : ph == 1 ? a.ph[1] : ph == 2 ? a.ph[2] : a.ph[3];
+    Geo geo = a.geo;
+    geo.p = ph & 1;
+    if (ph & 1)
+      schur_nd_phase<true, COMP>(f, a.ug[1], geo, V, a.corr);
+    else
+      schur_nd_phase<false, COMP>(f, a.ug[0], geo, V, a.corr);
+  }
+}
+
+// The clover K1-SD: a thread per (site, flavour), a block kNdPairSites sites
+// (threadIdx.x) x 2 flavours (threadIdx.y).  Each thread sums H chi of its
+// flavour (K1's accum_site on that flavour's field, so the sum is K1-R-D's),
+// the two exchange their accumulators through shared memory, and each writes
+// its output flavour.  The flavour-2x2 block epilogues need both flavours'
+// accumulators and 3 block fields: in one thread they spilled 504 B a thread
+// at 128 registers (Q_nd^2 363.2 us of device at 16^3 x 32) and took 380.5
+// us at 168; split over two threads, 322.8 us (chip_smoke.py on an NVIDIA
+// H100 80GB HBM3 at 700.00 W; PERF.md section 6, run C).
+constexpr int kNdPairSites = 64;
+
+// sum_{s', c'} blk[k] v[s'][c'] of chirality b, row (s, c): the block
+// entries of this site streamed from device memory, used once
+__device__ __forceinline__ void blk_row(const float* __restrict__ blk, long long V, int site,
+                                        int b, int s, int c, const float (&vr)[4][3],
+                                        const float (&vi)[4][3], float& sr, float& si) {
+  sr = 0.f;
+  si = 0.f;
+#pragma unroll
+  for (int sp = 0; sp < 2; ++sp)
+#pragma unroll
+    for (int cp = 0; cp < 3; ++cp) {
+      const int k = ((b * 2 + s) * 2 + sp) * 9 + c * 3 + cp;
+      const float br = __ldg(blk + k * V + site), bi = __ldg(blk + (72 + k) * V + site);
+      sr += br * vr[2 * b + sp][cp] - bi * vi[2 * b + sp][cp];
+      si += br * vi[2 * b + sp][cp] + bi * vr[2 * b + sp][cp];
+    }
+}
+
+// the clover epilogues by output flavour fl: `own` this thread's
+// accumulators (x_fl), `oth` the other flavour's (x_{1-fl}).  even: out_0 =
+// A x_0 - eps E x_1, out_1 = B x_1 - eps E x_0 (FastCloverND's M_ee^-1 =
+// [[A, -eps E], [-eps E, B]]); odd: out_fl = g5 m_{1-fl}, m_g = (moo_g y_g +
+// eps y_{1-g}) - k2 x_g, y = chi_o
+__device__ __forceinline__ void store_ndf_clov_inv(const float (&owr)[4][3],
+                                                   const float (&owi)[4][3],
+                                                   const float (&otr)[4][3],
+                                                   const float (&oti)[4][3],
+                                                   float* __restrict__ out, long long V,
+                                                   int site, int fl, float eps,
+                                                   const float* const (&blk)[3]) {
+  const float* diag = fl == 0 ? blk[0] : blk[1];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float dr, di, er, ei;
+        blk_row(diag, V, site, b, s, c, owr, owi, dr, di);
+        blk_row(blk[2], V, site, b, s, c, otr, oti, er, ei);
+        const long long o = (fl * 12 + (2 * b + s) * 3 + c) * V + site;
+        out[o] = dr - eps * er;
+        out[24 * V + o] = di - eps * ei;
+      }
+}
+
+__device__ __forceinline__ void store_ndf_clov_mhat(const float (&otr)[4][3],
+                                                    const float (&oti)[4][3],
+                                                    const float* __restrict__ chi_o,
+                                                    float* __restrict__ out, long long V,
+                                                    int site, int fl, float eps, float k2,
+                                                    const float* const (&blk)[3]) {
+  const int g = 1 - fl;
+  const float* moo = g == 0 ? blk[0] : blk[1];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    float ygr[4][3], ygi[4][3];
+#pragma unroll
+    for (int sp = 0; sp < 2; ++sp)
+#pragma unroll
+      for (int cp = 0; cp < 3; ++cp) {
+        const long long e = (g * 12 + (2 * b + sp) * 3 + cp) * V + site;
+        ygr[2 * b + sp][cp] = __ldg(chi_o + e);
+        ygi[2 * b + sp][cp] = __ldg(chi_o + 24 * V + e);
+      }
+    const float g5 = b == 1 ? -1.f : 1.f;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float ur, ui;
+        blk_row(moo, V, site, b, s, c, ygr, ygi, ur, ui);
+        const int r = 2 * b + s;
+        const long long e = (fl * 12 + r * 3 + c) * V + site;
+        const float yor = __ldg(chi_o + e), yoi = __ldg(chi_o + 24 * V + e);
+        out[e] = g5 * ((ur + eps * yor) - k2 * otr[r][c]);
+        out[24 * V + e] = g5 * ((ui + eps * yoi) - k2 * oti[r][c]);
+      }
+  }
+}
+
+template <bool ODD, bool COMP>
+__device__ __forceinline__ void schur_nd_pair_phase(const NdPhase& f, const float* __restrict__ ug,
+                                                    const Geo& geo, int V, const Corr& corr,
+                                                    float* __restrict__ sx) {
+  const int fl = threadIdx.y, lane = threadIdx.x;
+  const long long VV = V;
+  const Strides st{24 * VV, VV};
+  const int ntiles = (V + kNdPairSites - 1) / kNdPairSites;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int site = tile * kNdPairSites + lane;
+    const bool live = site < V;
+    float owr[4][3], owi[4][3];
+    if (live) {
+      accum_site<COMP, float>(f.chi + fl * 12 * VV, ug, geo, VV, st, site, corr, owr, owi);
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sx[((fl * 2) * 12 + s * 3 + c) * kNdPairSites + lane] = owr[s][c];
+          sx[((fl * 2 + 1) * 12 + s * 3 + c) * kNdPairSites + lane] = owi[s][c];
+        }
+    }
+    __syncthreads();
+    if (live) {
+      float otr[4][3], oti[4][3];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          otr[s][c] = sx[(((1 - fl) * 2) * 12 + s * 3 + c) * kNdPairSites + lane];
+          oti[s][c] = sx[(((1 - fl) * 2 + 1) * 12 + s * 3 + c) * kNdPairSites + lane];
+        }
+      if constexpr (ODD)
+        store_ndf_clov_mhat(otr, oti, f.chi_o, f.out, VV, site, fl, f.c0, f.c1, f.blk);
+      else
+        store_ndf_clov_inv(owr, owi, otr, oti, f.out, VV, site, fl, f.c0, f.blk);
+    }
+    __syncthreads();
+  }
+}
+
+template <bool COMP>
+__global__ void __launch_bounds__(128)
+hopping_schur_nd_pair_kernel(SchurNdArgs a) {
+  __shared__ float sx[2 * 24 * kNdPairSites];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int V = a.geo.T * a.geo.X * a.geo.M;
+  for (int ph = 0; ph < a.nphase; ++ph) {
+    if (ph > 0) grid.sync();
+    const NdPhase f = ph == 0 ? a.ph[0] : ph == 1 ? a.ph[1] : ph == 2 ? a.ph[2] : a.ph[3];
+    Geo geo = a.geo;
+    geo.p = ph & 1;
+    if (ph & 1)
+      schur_nd_pair_phase<true, COMP>(f, a.ug[1], geo, V, a.corr, sx);
+    else
+      schur_nd_pair_phase<false, COMP>(f, a.ug[0], geo, V, a.corr, sx);
+  }
+}
+
 // K1-R: block (kRhsSites sites, up to kRhsCols right-hand sides); the
 // thread of (site, r) runs K1's arithmetic on column r, whose fields start
 // r * rstride elements into psi, psi_o and out.
@@ -515,7 +857,11 @@ template <int EPI, bool G5, bool COMP, typename G>
 void launch(const Args& a) {
   const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
   if (a.info != nullptr) {
-    kernel_info(hopping_kernel<EPI, G5, COMP, G>, kBlock, a.info);
+    if (a.R == 0)
+      kernel_info(hopping_kernel<EPI, G5, COMP, G>, kBlock, a.info);
+    else
+      kernel_info(hopping_rhs_kernel<EPI, G5, COMP, G>,
+                  kRhsSites * (a.R < kRhsCols ? a.R : kRhsCols), a.info);
     return;
   }
   if (a.R == 0) {
@@ -548,12 +894,36 @@ void dispatch_epi(int epi, int g5, const Args& a) {
 
 constexpr int kMaxDevices = 64;
 
+// One cooperative launch of `kern` (argument struct `args`) over V sites,
+// `sites_per_block` a block.  The grid is what the card holds resident of
+// the kernel, blocks per SM (the occupancy API) x SMs, found once per device
+// into `resident` and kept; a cooperative launch larger than that is
+// refused (cudaErrorCooperativeLaunchTooLarge).  Fewer blocks when the
+// sites need fewer: each barrier then waits on fewer blocks.
+int launch_resident(const void* kern, void* args, long long V, dim3 block, int sites_per_block,
+                    int (&resident)[kMaxDevices], cudaStream_t stream) {
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, (int)(block.x * block.y * block.z), 0);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != 0) return rc;
+    if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  const long long need = (V + sites_per_block - 1) / sites_per_block;
+  const unsigned grid = (unsigned)(need < resident[dev] ? need : resident[dev]);
+  void* kargs[] = {args};
+  rc = (int)cudaLaunchCooperativeKernel(kern, dim3(grid), block, kargs, 0, stream);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
 // One cooperative launch of K1-S's instance on `stream`, or (info set) its
-// kernel_info.  The grid is what the card holds resident of this instance,
-// blocks per SM (the occupancy API) x SMs, found once per device and kept; a
-// cooperative launch larger than that is refused
-// (cudaErrorCooperativeLaunchTooLarge).  Fewer blocks when the sites need
-// fewer: each barrier then waits on fewer blocks.
+// kernel_info (launch_resident, one site a thread).
 template <bool CLOV, bool G5, bool COMP, typename G>
 int launch_schur(const SchurArgs& a, cudaStream_t stream, int* info) {
   const auto kern = hopping_schur_kernel<CLOV, G5, COMP, G>;
@@ -562,25 +932,9 @@ int launch_schur(const SchurArgs& a, cudaStream_t stream, int* info) {
     return 0;
   }
   static int resident[kMaxDevices];
-  int dev = 0;
-  int rc = (int)cudaGetDevice(&dev);
-  if (rc != 0) return rc;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kBlock, 0);
-    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc != 0) return rc;
-    if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-    resident[dev] = per_sm * sms;
-  }
-  const long long V = (long long)a.geo.T * a.geo.X * a.geo.M;
-  const long long need = (V + kBlock - 1) / kBlock;
-  const unsigned grid = (unsigned)(need < resident[dev] ? need : resident[dev]);
-  void* args[] = {const_cast<SchurArgs*>(&a)};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kBlock), args, 0,
-                                        stream);
-  return rc != 0 ? rc : (int)cudaGetLastError();
+  return launch_resident((const void*)kern, const_cast<SchurArgs*>(&a),
+                         (long long)a.geo.T * a.geo.X * a.geo.M, dim3(kBlock), kBlock, resident,
+                         stream);
 }
 
 template <typename G>
@@ -599,16 +953,34 @@ int dispatch_schur(const SchurArgs& a, int clover, int g5, int comp, cudaStream_
               : launch_schur<false, false, false, G>(a, stream, info);
 }
 
+// One cooperative launch of K1-SD's instance, or (info set) its
+// kernel_info (launch_resident).  CLOV: the clover kernel, a thread per
+// (site, flavour); else a thread per site.
+template <bool CLOV, bool COMP>
+int launch_schur_nd(const SchurNdArgs& a, cudaStream_t stream, int* info) {
+  const auto kern = CLOV ? hopping_schur_nd_pair_kernel<COMP> : hopping_schur_nd_kernel<COMP>;
+  if (info != nullptr) {
+    kernel_info(kern, kBlock, info);
+    return 0;
+  }
+  static int resident[kMaxDevices];
+  return launch_resident((const void*)kern, const_cast<SchurNdArgs*>(&a),
+                         (long long)a.geo.T * a.geo.X * a.geo.M,
+                         CLOV ? dim3(kNdPairSites, 2) : dim3(kBlock),
+                         CLOV ? kNdPairSites : kBlock, resident, stream);
+}
+
 bool bad_geometry(int T, int X, int M, int zh, int p) {
   return T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1);
 }
 
 }  // namespace
 
-// The instances are compiled in four parts, one nvcc process each, all
+// The instances are compiled in five parts, one nvcc process each, all
 // started together (dslash_cuda._JOBS builds this file with -DTM_PART=0
-// to 3): 0 K1 and K1-R on f32 links, K2 and the C entries; 1 K1 and K1-R on
-// bf16 links (K1-B, K1-RB); 2 K1-S on f32 links; 3 K1-S on bf16 links.  The
+// to 4): 0 K1 and K1-R on f32 links, K2 and the C entries; 1 K1 and K1-R on
+// bf16 links (K1-B, K1-RB); 2 K1-S on f32 links; 3 K1-S on bf16 links; 4
+// K1-SD.  The
 // build then takes as long as its largest part, not as all of them.  The
 // entries of part 0 reach the others through the tm_part_* functions, which
 // take the argument struct by pointer (every part compiles the same
@@ -617,6 +989,7 @@ extern "C" {
 int tm_part_hopping_bf16(const void* args, int epi, int g5, int comp);
 int tm_part_schur_f32(const void* args, int clover, int g5, int comp, void* stream, int* info);
 int tm_part_schur_bf16(const void* args, int clover, int g5, int comp, void* stream, int* info);
+int tm_part_schur_nd(const void* args, int clover, int comp, void* stream, int* info);
 }
 
 #if TM_PART == 1
@@ -639,6 +1012,16 @@ int tm_part_schur_f32(const void* args, int clover, int g5, int comp, void* stre
 int tm_part_schur_bf16(const void* args, int clover, int g5, int comp, void* stream, int* info) {
   return dispatch_schur<__nv_bfloat16>(*static_cast<const SchurArgs*>(args), clover, g5, comp,
                                        (cudaStream_t)stream, info);
+}
+#endif
+
+#if TM_PART == 4
+int tm_part_schur_nd(const void* args, int clover, int comp, void* stream, int* info) {
+  const SchurNdArgs& a = *static_cast<const SchurNdArgs*>(args);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (clover)
+    return comp ? launch_schur_nd<true, true>(a, st, info) : launch_schur_nd<true, false>(a, st, info);
+  return comp ? launch_schur_nd<false, true>(a, st, info) : launch_schur_nd<false, false>(a, st, info);
 }
 #endif
 
@@ -708,6 +1091,19 @@ int tm_hopping_info(int epi, int g5, int comp, int gbf16, int* info) {
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
+// The K1-R instance of (epi, g5, comp, gbf16) at R right-hand sides (the
+// block is 32 sites x min(R, 12) columns): info[0..3] as kernel_info.
+// Launches nothing.
+int tm_hopping_rhs_info(int epi, int g5, int comp, int gbf16, int R, int* info) {
+  if (info == nullptr || R <= 0) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.geo = Geo{1, 1, 1, 1, 0};
+  a.R = R;
+  a.info = info;
+  const int rc = run_hopping(a, epi, g5, comp, gbf16, nullptr);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
 // K1-S: nstage Schur applications in one cooperative launch, each the
 // even hop with the even epilogue and then the odd hop with the odd one:
 //   clover 0: mee_inv then mhat (Mhat(sign), [g5]);
@@ -759,6 +1155,67 @@ int tm_hopping_schur_info(int clover, int g5, int comp, int gbf16, int* info) {
   if (info == nullptr) return (int)cudaErrorInvalidValue;
   const SchurArgs a{};
   const int rc = run_schur(a, clover, g5, comp, gbf16, nullptr, info);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// K1-SD: nstage (1: Q_nd, 2: Q_nd^2) doublet Schur applications in one
+// cooperative launch on f32 links, each the even hop of both flavours with
+// the even epilogue and then the odd hop with the odd one: clover 0
+// (twisted mass) Mee_nd^-1, then gamma5 tau1 (Mee_nd chi_o - k2 H); clover
+// 1 the flavour-2x2 block forms.  nstage 1: chi -> e1 -> out; nstage 2: chi
+// -> e1 -> o1 -> e2 -> out, the second stage's odd input o1; every
+// intermediate a buffer of its own.  Both stages of Q_nd^2 are the same
+// Q_nd: blk holds 5 pointers (clover: even minv_a, minv_b, minv_e, then odd
+// moo_u, moo_d), each a [2][72][V] block field, and consts the (c0, c1, c2)
+// of the even and then the odd phase (NdPhase).
+// Returns the launch's error (0 = success); an invalid argument returns
+// cudaErrorInvalidValue.
+int tm_hopping_schur_nd(const float* chi, const void* ug_e, const void* ug_o,
+                        const float* const* blk, float* e1, float* o1, float* e2, float* out,
+                        int T, int X, int M, int zh, int nstage, int clover, int comp,
+                        const float* consts, const float* corr16, void* stream) {
+  const bool two = nstage == 2;
+  if (bad_geometry(T, X, M, zh, 0) || (nstage != 1 && !two) || chi == nullptr ||
+      ug_e == nullptr || ug_o == nullptr || e1 == nullptr || out == nullptr ||
+      consts == nullptr || blk == nullptr || (comp && corr16 == nullptr) ||
+      (two && (o1 == nullptr || e2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (clover)
+    for (int k = 0; k < 5; ++k)
+      if (blk[k] == nullptr) return (int)cudaErrorInvalidValue;
+  SchurNdArgs a{};
+  a.ug[0] = static_cast<const float*>(ug_e);
+  a.ug[1] = static_cast<const float*>(ug_o);
+  a.geo = Geo{T, X, M, zh, 0};
+  for (int d = 0; d < 8; ++d) {
+    a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
+    a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  }
+  a.nphase = 2 * nstage;
+  const float* ins[4] = {chi, e1, o1, e2};
+  const float* odd_in[4] = {nullptr, chi, nullptr, o1};
+  float* outs[4] = {e1, two ? o1 : out, e2, out};
+  for (int ph = 0; ph < a.nphase; ++ph) {
+    // every Q_nd of Q_nd^2 reads the same constants and block fields
+    const int odd = ph & 1;
+    NdPhase& f = a.ph[ph];
+    f.chi = ins[ph];
+    f.chi_o = odd_in[ph];
+    for (int k = 0; k < 3; ++k) f.blk[k] = odd ? (k < 2 ? blk[3 + k] : nullptr) : blk[k];
+    f.out = outs[ph];
+    f.c0 = consts[3 * odd];
+    f.c1 = consts[3 * odd + 1];
+    f.c2 = consts[3 * odd + 2];
+  }
+  return tm_part_schur_nd(&a, clover, comp, stream, nullptr);
+}
+
+// K1-SD's instance of (clover, comp): info[0..3] as kernel_info.  Launches
+// nothing.
+int tm_hopping_schur_nd_info(int clover, int comp, int* info) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  const SchurNdArgs a{};
+  const int rc = tm_part_schur_nd(&a, clover, comp, nullptr, info);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 

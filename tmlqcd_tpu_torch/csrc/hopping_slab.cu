@@ -15,7 +15,10 @@
 //        concatenated and the y hops wrapping inside the slab (the 1D
 //        t-sharded `hopping_pallas_tshard`).
 // One kernel serves all four; the variant picks which rows of the slabs run
-// and where their t neighbours come from.  Epilogue none, f32 accumulation,
+// and where their t neighbours come from.  KH (halo_kernel, below) packs
+// the y and t halos of every slab in one launch; with it a sharded hop is
+// one C call (`tm_shard_hop`: KH, then K3-I+K4, the interior and surface
+// rows in one launch).  Epilogue none, f32 accumulation,
 // 18- or 12-real links, f32 or bf16 links (upcast on loading), one spinor
 // (R = 0), a batch of R right-hand sides or a flavour doublet (the R axis
 // addressed by a stride, as K1-R does).
@@ -58,7 +61,10 @@
 
 namespace {
 
-enum { kExt = 0, kInt = 1, kBnd = 2 };
+// kAll (K3-I+K4): every row of every slab, psi the whole field, the t
+// halos of rows 0 and T_loc-1 from th: the interior and the surface kernel
+// in one launch, which the sharded hop runs after KH
+enum { kExt = 0, kInt = 1, kBnd = 2, kAll = 3 };
 
 // element strides of one field: re -> im, component (s, c) -> the next, and
 // right-hand side r -> r + 1
@@ -237,6 +243,171 @@ bool bad_fld(const Fld& f, int R) {
   return f.p == nullptr || f.im <= 0 || f.comp <= 0 || (R > 0 && f.r <= 0);
 }
 
+// KH: the halos of one sharded hop, every slab in one launch.  It replaces
+// the ~20 torch operations of the exchange around the slab kernels
+// (dslash_cuda `_y_halos`, `_t_halos`: slice, project, roll, rebuild), the
+// one-device counterpart of the reference's ppermute around
+// `hopping_pallas_shard` (dslash_pallas.py:1345).  One thread per halo site
+// and column (blockIdx.y): it reads the source row's site, projects it by
+// W_d^+ (h_a = x_a + c_a x_{s_a}, c_a = +-1, one rounding each, as the slab
+// kernel would form it from the neighbour) and writes 0.5 W_d h, whose W_d^+
+// is h again exactly; without the half-spinor form it copies.  The slab
+// shift of the exchange is index arithmetic: the y halo below slab column j
+// (row t of mh) is the last y-row of column j-1, projected for direction 5;
+// the one above (row T + t) the first y-row of column j+1, direction 4; the
+// t halo below slab row i (row i of th) the last timeslice of row i-1,
+// direction 1; the one above (row tsh + i) the first timeslice of row i+1,
+// direction 0.  Threads run along the halo's minor index, so its stores are
+// contiguous.  Bound: memory, 96 B read (the whole source site, also for
+// the half-spinor form) and 96 B written per halo site and column; no flops
+// to speak of.
+struct HaloArgs {
+  Fld psi;  // the whole field [.., T, X, M]
+  float* mh;
+  long long mh_im, mh_comp, mh_r;  // [.., 2 T, X, msh zh]; null with msh == 1
+  float* th;
+  long long th_im, th_comp, th_r;  // [.., 2 tsh, X, M]
+  int T, X, M, zh, tsh, msh, tl, ml, half;
+};
+
+__global__ void __launch_bounds__(128) halo_kernel(HaloArgs a) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  const long long ny = a.mh != nullptr ? 2ll * a.T * a.X * a.msh * a.zh : 0;
+  const long long nt = 2ll * a.tsh * a.X * a.M;
+  if (n >= ny + nt) return;
+  long long src, dst, o_im, o_comp;
+  float* o;
+  int d;
+  if (n < ny) {
+    // mh[(row X + x) msh zh + j zh + k], row = side T + t
+    const int k = (int)(n % a.zh);
+    long long q = n / a.zh;
+    const int j = (int)(q % a.msh);
+    q /= a.msh;
+    const int x = (int)(q % a.X);
+    const int row = (int)(q / a.X);
+    const int side = row / a.T, t = row - side * a.T;
+    const int js = side == 0 ? (j + a.msh - 1) % a.msh : (j + 1) % a.msh;
+    const int m = js * a.ml + (side == 0 ? a.ml - a.zh : 0) + k;
+    src = ((long long)t * a.X + x) * a.M + m;
+    d = side == 0 ? 5 : 4;
+    o = a.mh + r * a.mh_r;
+    dst = n;
+    o_im = a.mh_im;
+    o_comp = a.mh_comp;
+  } else {
+    // th[(row X + x) M + m], row = side tsh + i
+    const long long n2 = n - ny;
+    const int m = (int)(n2 % a.M);
+    const long long q = n2 / a.M;
+    const int x = (int)(q % a.X);
+    const int row = (int)(q / a.X);
+    const int side = row / a.tsh, i = row - side * a.tsh;
+    const int is = side == 0 ? (i + a.tsh - 1) % a.tsh : (i + 1) % a.tsh;
+    const int t = is * a.tl + (side == 0 ? a.tl - 1 : 0);
+    src = ((long long)t * a.X + x) * a.M + m;
+    d = side == 0 ? 1 : 0;
+    o = a.th + r * a.th_r;
+    dst = n2;
+    o_im = a.th_im;
+    o_comp = a.th_comp;
+  }
+  const float* p = a.psi.p + r * a.psi.r;
+  float vr[4][3], vi[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      vr[s][c] = __ldg(p + (s * 3 + c) * a.psi.comp + src);
+      vi[s][c] = __ldg(p + a.psi.im + (s * 3 + c) * a.psi.comp + src);
+    }
+  if (a.half) {
+    // column a of W_d: the identity row a and one lower row s_a with c_a =
+    // +-1 (W-TABLE of hopping_common.cuh): d = 0 rows (2, 3) (+1, +1);
+    // 1 (2, 3) (-1, -1); 4 (3, 2) (+1, -1); 5 (3, 2) (-1, +1)
+    const bool low2 = d < 4;  // s_0 = 2, s_1 = 3 (else s_0 = 3, s_1 = 2)
+    const float c0 = (d == 1 || d == 5) ? -1.f : 1.f;
+    const float c1 = (d == 1 || d == 4) ? -1.f : 1.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // selects, not an index: the arrays stay in registers
+      const float s0r = low2 ? vr[2][c] : vr[3][c], s0i = low2 ? vi[2][c] : vi[3][c];
+      const float s1r = low2 ? vr[3][c] : vr[2][c], s1i = low2 ? vi[3][c] : vi[2][c];
+      const float h0r = vr[0][c] + c0 * s0r, h0i = vi[0][c] + c0 * s0i;
+      const float h1r = vr[1][c] + c1 * s1r, h1i = vi[1][c] + c1 * s1i;
+      vr[0][c] = 0.5f * h0r;
+      vi[0][c] = 0.5f * h0i;
+      vr[1][c] = 0.5f * h1r;
+      vi[1][c] = 0.5f * h1i;
+      const float l0r = (0.5f * c0) * h0r, l0i = (0.5f * c0) * h0i;
+      const float l1r = (0.5f * c1) * h1r, l1i = (0.5f * c1) * h1i;
+      vr[2][c] = low2 ? l0r : l1r;
+      vi[2][c] = low2 ? l0i : l1i;
+      vr[3][c] = low2 ? l1r : l0r;
+      vi[3][c] = low2 ? l1i : l0i;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[(s * 3 + c) * o_comp + dst] = vr[s][c];
+      o[o_im + (s * 3 + c) * o_comp + dst] = vi[s][c];
+    }
+}
+
+int launch_halo(const HaloArgs& a, int R, cudaStream_t stream) {
+  const long long n = (a.mh != nullptr ? 2ll * a.T * a.X * a.msh * a.zh : 0) +
+                      2ll * a.tsh * a.X * a.M;
+  halo_kernel<<<dim3((unsigned)((n + 127) / 128), (unsigned)(R > 0 ? R : 1)), 128, 0,
+                stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the slab geometry shared by the C entries; false on an invalid one
+bool slab_geometry(int T, int X, int M, int zh, int p, int tsh, int msh, int& tl, int& ml) {
+  if (T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1) ||
+      tsh <= 0 || msh <= 0 || T % tsh != 0 || M % msh != 0)
+    return false;
+  tl = T / tsh;
+  ml = M / msh;
+  return tl % 2 == 0 && ml % zh == 0 && (ml / zh) % 2 == 0;
+}
+
+void fill_corr(Corr& corr, int comp, const float* corr16) {
+  for (int d = 0; d < 8; ++d) {
+    corr.re[d] = comp ? corr16[2 * d] : 1.f;
+    corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
+  }
+}
+
+template <bool COMP>
+void launch_slab_on(const SlabArgs& a, const void* ug, int gbf16, cudaStream_t s) {
+  if (gbf16) launch_slab<COMP, __nv_bfloat16>(a, ug, s);
+  else launch_slab<COMP, float>(a, ug, s);
+}
+
+void launch_slab_any(const SlabArgs& a, const void* ug, int comp, int gbf16, cudaStream_t s) {
+  if (comp) launch_slab_on<true>(a, ug, gbf16, s);
+  else launch_slab_on<false>(a, ug, gbf16, s);
+}
+
+// info[0..3] = resident blocks per SM (the occupancy API), registers per
+// thread, local-memory bytes (spills, stack) per thread, threads per block
+template <typename K>
+int slab_kernel_info(K kern, int block, int* info) {
+  cudaFuncAttributes attr{};
+  cudaFuncGetAttributes(&attr, (const void*)kern);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, 0);
+  info[0] = per_sm;
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  info[3] = block;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -244,7 +415,8 @@ extern "C" {
 // One slab-kernel launch over all slabs.  variant: 0 K3 / K1-T (psi the
 // extended field, every row), 1 K3-I (psi the whole field, rows 1 .. T_loc-2
 // of every slab row), 2 K4 (psi the whole field, rows 0 and T_loc-1, t
-// halos from th).  mh null: the y hops wrap inside the slab (msh must be
+// halos from th), 3 K3-I+K4 (psi the whole field, every row, t halos from
+// th).  mh null: the y hops wrap inside the slab (msh must be
 // 1).  Field strides as in `Fld` (r strides read only when R > 0).  comp:
 // the 12-real copy with corr16 (8 (re, im) pairs on the host); gbf16: a
 // bf16 gauge.  Returns cudaGetLastError() after the launch (0 = success);
@@ -257,7 +429,7 @@ int tm_hopping_slab(const float* psi, long long psi_im, long long psi_comp, long
                     int variant, int comp, int gbf16, const float* corr16, int R,
                     void* stream) {
   if (T <= 0 || X <= 0 || M <= 0 || zh <= 0 || M % zh != 0 || (p != 0 && p != 1) ||
-      tsh <= 0 || msh <= 0 || T % tsh != 0 || M % msh != 0 || variant < 0 || variant > 2 ||
+      tsh <= 0 || msh <= 0 || T % tsh != 0 || M % msh != 0 || variant < 0 || variant > 3 ||
       R < 0 || ug == nullptr || out == nullptr || (comp && corr16 == nullptr))
     return (int)cudaErrorInvalidValue;
   const int tl = T / tsh, ml = M / msh;
@@ -266,25 +438,83 @@ int tm_hopping_slab(const float* psi, long long psi_im, long long psi_comp, long
   const Fld fpsi{psi, psi_im, psi_comp, psi_r};
   const Fld fth{th, th_im, th_comp, th_r};
   const Fld fmh{mh, mh_im, mh_comp, mh_r};
-  if (bad_fld(fpsi, R) || (variant == kBnd && bad_fld(fth, R)) ||
+  if (bad_fld(fpsi, R) || ((variant == kBnd || variant == kAll) && bad_fld(fth, R)) ||
       (mh == nullptr ? msh != 1 : bad_fld(fmh, R)) || out_im <= 0 || out_comp <= 0 ||
       (R > 0 && out_r <= 0))
     return (int)cudaErrorInvalidValue;
-  const int nrows = variant == kExt ? T : variant == kInt ? tsh * (tl - 2) : 2 * tsh;
+  const int nrows = variant == kExt || variant == kAll ? T
+                  : variant == kInt                     ? tsh * (tl - 2)
+                                                        : 2 * tsh;
   SlabArgs a{fpsi, fth, fmh, out, out_im, out_comp, out_r,
              SlabGeo{T, X, M, zh, p, tsh, msh, tl, ml, variant, nrows}, Corr{}, R};
   for (int d = 0; d < 8; ++d) {
     a.corr.re[d] = comp ? corr16[2 * d] : 1.f;
     a.corr.im[d] = comp ? corr16[2 * d + 1] : 0.f;
   }
+  launch_slab_any(a, ug, comp, gbf16, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// KH alone: the y halos into mh (null when msh == 1) and the t halos into
+// th of the field psi, for every slab; half != 0 the half-spinor form.
+// Strides as tm_hopping_slab's.  Returns cudaGetLastError() after the
+// launch; an invalid argument returns cudaErrorInvalidValue.
+int tm_halo_pack(const float* psi, long long psi_im, long long psi_comp, long long psi_r,
+                 float* mh, long long mh_im, long long mh_comp, long long mh_r, float* th,
+                 long long th_im, long long th_comp, long long th_r, int T, int X, int M,
+                 int zh, int tsh, int msh, int half, int R, void* stream) {
+  int tl = 0, ml = 0;
+  if (!slab_geometry(T, X, M, zh, 0, tsh, msh, tl, ml) || R < 0 ||
+      bad_fld(Fld{psi, psi_im, psi_comp, psi_r}, R) ||
+      bad_fld(Fld{th, th_im, th_comp, th_r}, R) ||
+      (mh == nullptr ? msh != 1 : bad_fld(Fld{mh, mh_im, mh_comp, mh_r}, R)))
+    return (int)cudaErrorInvalidValue;
+  const HaloArgs a{Fld{psi, psi_im, psi_comp, psi_r}, mh, mh_im, mh_comp, mh_r, th, th_im,
+                   th_comp, th_r, T, X, M, zh, tsh, msh, tl, ml, half};
+  return launch_halo(a, R, (cudaStream_t)stream);
+}
+
+// The instance of KH (which 0), or of the slab kernel on a 12-real f32
+// gauge with one spinor (which 1: K3, K3-I, K4 and K3-I+K4 as path 9's
+// solves run them): info[0..3] as slab_kernel_info.  Launches nothing.
+int tm_slab_info(int which, int* info) {
+  if (info == nullptr || which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+  return which == 0 ? slab_kernel_info(halo_kernel, 128, info)
+                    : slab_kernel_info(slab_kernel<true, float>, 128, info);
+}
+
+// One sharded hop with the overlap in one call: KH (the halos into the
+// caller's mh and th), then the slab kernel over every row of every slab
+// (K3-I+K4), both on `stream`.  `out` has psi's strides.  Returns the first
+// error (0 = success); an invalid argument returns cudaErrorInvalidValue.
+//
+// KH comes first, so on one card nothing is left for a side stream to
+// overlap: after KH, K3-I on a side stream beside K4 took 37.8-85.7 us of
+// wrapper loop and 22.3-30.5 us of device time per hop at 16^3 x 32 on
+// (4,2), the one launch 37.8-60.1 us and 17.0-17.7 us (chip_smoke.py on an
+// NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6, runs C and D).
+int tm_shard_hop(const float* psi, long long psi_im, long long psi_comp, long long psi_r,
+                 float* mh, long long mh_im, long long mh_comp, long long mh_r, float* th,
+                 long long th_im, long long th_comp, long long th_r, const void* ug, float* out,
+                 int T, int X, int M, int zh, int p, int tsh, int msh, int half, int comp,
+                 int gbf16, const float* corr16, int R, void* stream) {
+  int tl = 0, ml = 0;
+  const Fld fpsi{psi, psi_im, psi_comp, psi_r};
+  const Fld fth{th, th_im, th_comp, th_r};
+  const Fld fmh{mh, mh_im, mh_comp, mh_r};
+  if (!slab_geometry(T, X, M, zh, p, tsh, msh, tl, ml) || R < 0 || ug == nullptr ||
+      out == nullptr || (comp && corr16 == nullptr) || bad_fld(fpsi, R) || bad_fld(fth, R) ||
+      (mh == nullptr ? msh != 1 : bad_fld(fmh, R)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (gbf16) {
-    if (comp) launch_slab<true, __nv_bfloat16>(a, ug, s);
-    else launch_slab<false, __nv_bfloat16>(a, ug, s);
-  } else {
-    if (comp) launch_slab<true, float>(a, ug, s);
-    else launch_slab<false, float>(a, ug, s);
-  }
+  const int rc = launch_halo(HaloArgs{fpsi, mh, mh_im, mh_comp, mh_r, th, th_im, th_comp, th_r,
+                                      T, X, M, zh, tsh, msh, tl, ml, half},
+                             R, s);
+  if (rc != 0) return rc;
+  SlabArgs a{fpsi, fth, fmh, out, psi_im, psi_comp, psi_r,
+             SlabGeo{T, X, M, zh, p, tsh, msh, tl, ml, kAll, T}, Corr{}, R};
+  fill_corr(a.corr, comp, corr16);
+  launch_slab_any(a, ug, comp, gbf16, s);
   return (int)cudaGetLastError();
 }
 

@@ -22,9 +22,9 @@ per heatbath, acceptance and force:
 Routing, as for the other monomials of the port: pseudofermions live in the
 split f32 layout (a doublet is [2(re/im), 2(flavour), 4, 3, T, X, M]) and
 every Dirac application — multishift iterations, the heatbath's Q, the y_j —
-runs through `ops/wilson_fast`: for CUDA tensors the hopping kernel (K1-R on
-the flavour-doublet axis for ND, K1 for RAT / CLOVERRAT), for CPU tensors its
-plain version.  Every force surrogate runs on `HoppingDiff` (K1 forward, K2
+runs through `ops/wilson_fast`: for CUDA tensors the hopping kernels (one
+K1-SD launch per Q_nd or Q_nd^2 for ND, K1-S / K1 for RAT / CLOVERRAT), for
+CPU tensors their plain versions.  Every force surrogate runs on `HoppingDiff` (K1 forward, K2
 and the adjoint K1 backward); the clover-term part is autograd through
 `ops/clover`.  The reference runs its complex jnp operator for the heatbath's
 Q and, off the TPU, everywhere; the results differ by f32 rounding.  Each
@@ -52,6 +52,7 @@ from tmlqcd_tpu_torch.hmc.monomials import _CloverState, _force_from_surrogate, 
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops import clover as cl
 from tmlqcd_tpu_torch.ops import ndoublet as nd
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.solvers.cg import cg
 from tmlqcd_tpu_torch.solvers.multishift import cg_multishift
@@ -97,7 +98,10 @@ class _NDOps:
                 return wf.q_nd_sq_clover_fast_shard(self.fast, x2, self.params, self.lat,
                                                     self.mesh)
             return wf.q_nd_sq_fast_shard(self.fast, x2, self.params, self.lat, self.mesh)
-        return self.q(self.q(x2))
+        # one K1-SD launch per multishift iteration
+        if self.clover:
+            return wf.q_nd_sq_clover_fast(self.fast, x2, self.params, self.lat)
+        return wf.q_nd_sq_fast(self.fast, x2, self.params, self.lat)
 
     def q_diff(self, x2: torch.Tensor) -> torch.Tensor:
         if self.clover:
@@ -149,7 +153,7 @@ def _combine(coef: np.ndarray, xs: torch.Tensor) -> torch.Tensor:
     [n, 2, ...]: the real parts scale, the imaginary parts scale i x."""
     c = torch.as_tensor(np.stack([coef.real, coef.imag]), dtype=xs.dtype, device=xs.device)
     re, im = torch.tensordot(c, xs, dims=1)
-    return re + wf._i_mul_nd(im)
+    return re + sd.i_mul_nd(im)
 
 
 def _weighted_sum(rho: np.ndarray, xs: torch.Tensor) -> torch.Tensor:
@@ -187,7 +191,7 @@ class _RationalBase:
         # v = eta + sum_l gamma_l (Q - i alpha_l) x_l
         v = eta2 + ops.q(_combine(gamma, xs)) + _combine(gamma * (-1j) * alpha, xs)
         # phi = (Q + i beta_N) v / sqrt(rhoL)
-        phi2 = (ops.q(v) + float(beta_n) * wf._i_mul_nd(v)) * float(1.0 / np.sqrt(rho_lead))
+        phi2 = (ops.q(v) + float(beta_n) * sd.i_mul_nd(v)) * float(1.0 / np.sqrt(rho_lead))
         return phi2, wf.dot_re_f64_split(eta2, eta2)
 
     def action_info(self, u, phi2, hist=None):

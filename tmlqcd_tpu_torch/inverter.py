@@ -64,6 +64,7 @@ import torch
 from tmlqcd_tpu_torch import rng
 from tmlqcd_tpu_torch.gamma import gamma5_split
 from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, eo_pack, eo_unpack
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers.cg import cg, cg_rhs
@@ -302,8 +303,10 @@ def invert_doublet_eo(u: torch.Tensor, b: torch.Tensor, params, lat: Lattice,
     """Solve the non-degenerate doublet system M_nd x = b for a flavour
     doublet source b [2, 4, 3, T, X, Y*Z] (the DBTMWILSON operator;
     `params.c_sw != 0` selects the clover doublet, DBCLOVER).  params:
-    `ops.ndoublet.NDParams`.  Split f32 fields on K1-R (doublet axis) for
-    CUDA tensors, the plain version for CPU tensors."""
+    `ops.ndoublet.NDParams`.  Split f32 fields: on CUDA tensors the CG
+    operator Q_nd^2 and the right-hand side's Q_nd are one K1-SD launch
+    each, the prologue's and epilogue's single hops K1-R-D; CPU tensors take
+    the plain versions."""
     kappa = float(params.kappa)
     with torch.no_grad():
         b_e, b_o = eo_pack(b, lat)  # the flavour axis rides along as a batch axis
@@ -311,18 +314,20 @@ def invert_doublet_eo(u: torch.Tensor, b: torch.Tensor, params, lat: Lattice,
         if params.c_sw != 0.0:
             fc = wf.make_fast_clover_nd(u, params, lat)
             fg = fc.fg
-            mee_inv = lambda c2: wf._mee_inv_nd_apply_split(  # noqa: E731
+            mee_inv = lambda c2: sd.mee_inv_nd_apply_split(  # noqa: E731
                 fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, c2)
             qnd = lambda c2: wf.q_nd_clover_fast(fc, c2, params, lat)  # noqa: E731
+            qnd_sq = lambda c2: wf.q_nd_sq_clover_fast(fc, c2, params, lat)  # noqa: E731
         else:
             fg = wf.make_fast_gauge(u, params.wilson, lat)
-            mee_inv = lambda c2: wf._mee_inv_nd_split(  # noqa: E731
+            mee_inv = lambda c2: sd.mee_inv_nd_split(  # noqa: E731
                 c2, params.mubar_t, params.epsbar_t, +1.0)
             qnd = lambda c2: wf.q_nd_fast(fg, c2, params, lat)  # noqa: E731
+            qnd_sq = lambda c2: wf.q_nd_sq_fast(fg, c2, params, lat)  # noqa: E731
 
         bhat = b_o2 + kappa * wf._hop_nd(fg, mee_inv(b_e2), ODD, lat)
-        rhs = qnd(wf._gamma5_nd(wf._tau1_split(bhat)))
-        res = cg(lambda c2: qnd(qnd(c2)), rhs, tol=tol, maxiter=maxiter)
+        rhs = qnd(sd.gamma5_nd(sd.tau1_split(bhat)))
+        res = cg(qnd_sq, rhs, tol=tol, maxiter=maxiter)
         x_e2 = mee_inv(b_e2 + kappa * wf._hop_nd(fg, res.x, EVEN, lat))
         x = eo_unpack(wf.from_split(x_e2), wf.from_split(res.x), lat)
     return InvertResult(x=x.to(b.dtype), iterations=res.iterations, residual_sq=res.residual_sq)

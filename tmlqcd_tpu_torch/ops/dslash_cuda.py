@@ -37,6 +37,15 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   per operator instead of two or four; bound by memory as the hops summed
   (2 x 576 + 2 x 672 = 2496 B per site of one parity for Qhat_pm on the
   12-real f32 copy).
+* `hopping_schur_nd` (K1-SD) replaces the K1-R-D launches and torch flavour
+  diagonals of one Q_nd or Q_nd^2 of the non-degenerate doublet (the
+  reference's `q_nd_fast` / `q_nd_sq_fast`, ops/wilson_fast.py:376-388, and
+  the clover forms :609-622, each hop an `_dslash_kernel_r` :491 with r_pos
+  1): the 2 or 4 hops of both flavours as phases of one cooperative launch,
+  the flavour-mixing diagonals fused into their epilogues; the twisted-mass
+  doublet bit for bit the route it replaced.  Bound by memory: 1728 B
+  (Q_nd) or 3456 B (Q_nd^2) per site of one parity on the 12-real copy,
+  5 x 576 B of clover blocks more per Q_nd.
 * `hopping_split_rhs` (K1-R) replaces the same entry called with a 7-dim
   batch and the Pallas kernels `_dslash_kernel_r` (dslash_pallas.py:491) and
   `_dslash_kernel_tb_r` (:497): out[r] = epilogue(H_{p,q} psi[r]) for R
@@ -69,10 +78,17 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   links, one spinor, R columns or the doublet.  Bound by memory as K1: the
   links of the variant's sites, psi's rows once, the halo buffers and the
   output.
-* `hopping_shard` replaces `hopping_pallas_shard` (:1345-1480): the y and t
-  halo exchanges (half-spinor projection W^+ with the (1 -/+ gamma_2) and
-  (1 -/+ gamma_0) maps, the send as a device-local copy, the rebuild
-  0.5 W s) around K3-I (on a side stream) and K4, or K3 without overlap;
+* `halo_pack` (KH) replaces the halo exchange `_exchange` of
+  `hopping_pallas_shard` (:1413): the y and t halos of every slab in one
+  launch (half-spinor projection W^+ with the (1 -/+ gamma_2) and (1 -/+
+  gamma_0) maps, the send a write into the receiving slab's slot, the
+  rebuild 0.5 W s), element for element the torch exchange (`_y_halos`,
+  `_t_halos`) it replaced.  Bound by memory: 96 B read and 96 B written per
+  halo site and column.
+* `hopping_shard` replaces `hopping_pallas_shard` (:1345-1480): with the
+  overlap, KH then one slab launch over the interior and surface rows
+  (K3-I+K4) in one C call (`tm_shard_hop`); without it the torch exchange
+  and K3;
   `hopping_tshard` replaces `hopping_pallas_tshard` (:1065) on K1-T.  Both
   equal K1 on the whole lattice: the slab kernels run K1's per-site sum on
   the same neighbour values.
@@ -91,8 +107,12 @@ those on a bf16 gauge,
 `hopping_split_rhs.doublet_launches` those on the flavour-doublet axis,
 `hopping_split_rhs.bf16_launches` those on a bf16 gauge (K1-RB);
 `hopping_slab_split.launches` counts the slab kernels by name (K3, K3-I,
-K4, K1-T), `.bf16_launches` and `.rhs_launches` those on a bf16 gauge and
-with an R axis.
+K4, K1-T, K3-I+K4), `.bf16_launches` and `.rhs_launches` those on a bf16
+gauge and with an R axis; the sharded hop counts its launches there too.
+`hopping_schur_nd.launches` counts K1-SD's launches, `.hops` the doublet
+hops they ran and `.clover_launches` those on the clover doublet;
+`halo_pack.launches` counts KH's and `halo_pack.plain_calls` the calls
+its plain version (the torch exchange) served.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/`, one
 nvcc process per source, into a shared library with a plain C interface,
@@ -116,6 +136,7 @@ import torch
 
 from tmlqcd_tpu_torch.gamma import GAMMA, apply_gamma5, gamma5_split
 from tmlqcd_tpu_torch.lattice import Lattice, hop_packed
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops.clover import blocks_apply
 from tmlqcd_tpu_torch.ops.wilson import (
     color_apply,
@@ -138,6 +159,12 @@ __all__ = [
     "hopping_schur_plain",
     "hopping_split_rhs",
     "hopping_split_rhs_plain",
+    "hopping_schur_nd",
+    "hopping_schur_nd_plain",
+    "schur_nd_kernel_info",
+    "slab_kernel_info",
+    "halo_pack",
+    "hopping_shard",
     "hopping_ug_vjp",
     "hopping_ug_vjp_plain",
     "HoppingDiff",
@@ -146,6 +173,7 @@ __all__ = [
     "kernel_library",
     "kernel_info",
     "schur_kernel_info",
+    "rhs_kernel_info",
     "reset_counters",
 ]
 
@@ -161,9 +189,9 @@ W = np.stack([
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
 # each (source, part) is one nvcc process, all started together; the objects
-# are linked into one library.  hopping.cu is built in four parts
+# are linked into one library.  hopping.cu is built in five parts
 # (-DTM_PART, see the note above its tm_part_* functions).
-_JOBS = tuple(("hopping.cu", part) for part in range(4)) + (("hopping_slab.cu", None),)
+_JOBS = tuple(("hopping.cu", part) for part in range(5)) + (("hopping_slab.cu", None),)
 _HEADERS = ("hopping_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-Xcompiler", "-fPIC")
@@ -241,6 +269,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         lib.tm_hopping_rhs.restype = i
         lib.tm_hopping_info.argtypes = [i, i, i, i, vp]
         lib.tm_hopping_info.restype = i
+        lib.tm_hopping_rhs_info.argtypes = [i, i, i, i, i, vp]
+        lib.tm_hopping_rhs_info.restype = i
         lib.tm_hopping_schur.argtypes = [vp] * 11 + [i] * 9 + [vp, vp, vp]
         lib.tm_hopping_schur.restype = i
         lib.tm_hopping_schur_info.argtypes = [i, i, i, i, vp]
@@ -250,6 +280,16 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         lib.tm_hopping_slab.argtypes = ([vp, ll, ll, ll] * 3 + [vp, vp, ll, ll, ll]
                                         + [i] * 10 + [vp, i, vp])
         lib.tm_hopping_slab.restype = i
+        lib.tm_halo_pack.argtypes = [vp, ll, ll, ll] * 3 + [i] * 8 + [vp]
+        lib.tm_halo_pack.restype = i
+        lib.tm_shard_hop.argtypes = [vp, ll, ll, ll] * 3 + [vp, vp] + [i] * 10 + [vp, i, vp]
+        lib.tm_shard_hop.restype = i
+        lib.tm_hopping_schur_nd.argtypes = [vp] * 8 + [i] * 7 + [vp, vp, vp]
+        lib.tm_hopping_schur_nd.restype = i
+        lib.tm_hopping_schur_nd_info.argtypes = [i, i, vp]
+        lib.tm_hopping_schur_nd_info.restype = i
+        lib.tm_slab_info.argtypes = [i, vp]
+        lib.tm_slab_info.restype = i
         _lib_handle = lib
         return lib
 
@@ -624,6 +664,14 @@ def kernel_info(epi: tuple, gcomp: bool, bf16: bool) -> dict:
     return _kernel_info(kernel_library().tm_hopping_info, code, g5, int(gcomp), int(bf16))
 
 
+def rhs_kernel_info(epi: tuple, gcomp: bool, bf16: bool, nrhs: int) -> dict:
+    """The K1-R instance of an epilogue and link type at `nrhs` columns
+    (K1-R-D: epilogue none, nrhs 2) as the card runs it, as `kernel_info`."""
+    code, g5, _, _, _ = _epilogue_args(tuple(epi))
+    return _kernel_info(kernel_library().tm_hopping_rhs_info, code, g5, int(gcomp), int(bf16),
+                        int(nrhs))
+
+
 def blk_flatten(blk2: torch.Tensor) -> torch.Tensor:
     """Split blocks [2, 2, 2, 2, 3, 3, *sites] -> the kernels' [2, 72, *sites]
     layout (row-major over chirality, s, s', c, c'), contiguous."""
@@ -799,10 +847,173 @@ hopping_split_rhs_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
+# K1-SD: the doublet Schur operator in one persistent launch
+# ---------------------------------------------------------------------------
+
+# the (even, odd) epilogue pairs of one Q_nd application -> clover?
+_ND_PAIRS = {("nd_mee_inv", "nd_mhat"): False, ("nd_clov_inv", "nd_clov_mhat"): True}
+
+
+def _nd_phase_consts(epi: tuple) -> tuple:
+    """The three floats a K1-SD phase reads: nd_mee_inv (mubar_t, epsbar_t,
+    1 / (1 + mubar_t^2 - epsbar_t^2)), nd_mhat (mubar_t, epsbar_t, k2),
+    nd_clov_inv (epsbar_t, 0, 0), nd_clov_mhat (epsbar_t, k2, 0); the
+    reciprocal is formed in double, as `split_diag.mee_inv_nd_split` forms it."""
+    kind = epi[0]
+    if kind == "nd_mee_inv":
+        mu, eps = float(epi[1]), float(epi[2])
+        return mu, eps, 1.0 / (1.0 + mu * mu - eps * eps)
+    if kind == "nd_mhat":
+        return float(epi[1]), float(epi[2]), float(epi[3])
+    if kind == "nd_clov_inv":
+        return float(epi[1]), 0.0, 0.0
+    return float(epi[1]), float(epi[2]), 0.0
+
+
+@functools.lru_cache(maxsize=256)
+def _schur_nd_consts(epi_e: tuple, epi_o: tuple) -> tuple:
+    """(keep-alive ctypes array, pointer) of the even and the odd phase's
+    constants, made once per set of constants and kept."""
+    arr = (ctypes.c_float * 6)(*_nd_phase_consts(epi_e), *_nd_phase_consts(epi_o))
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _check_schur_nd(ug_e, ug_o, chi, lat: Lattice, stage, gcomp) -> tuple:
+    """Raise on anything K1-SD does not take; -> (even epilogue, odd
+    epilogue, even blocks, odd blocks, clover?)."""
+    if len(stage) != 4:
+        raise ValueError("a doublet Schur stage is (even epilogue, odd epilogue, even blocks, "
+                         "odd blocks)")
+    epi_e, epi_o, blk_e, blk_o = tuple(stage[0]), tuple(stage[1]), stage[2], stage[3]
+    pair = (epi_e[0], epi_o[0])
+    if pair not in _ND_PAIRS:
+        raise ValueError(f"K1-SD runs the epilogue pairs (nd_mee_inv, nd_mhat) and "
+                         f"(nd_clov_inv, nd_clov_mhat), got {pair}")
+    if len(epi_e) != (3 if pair[0] == "nd_mee_inv" else 2) or len(epi_o) != (
+            4 if pair[1] == "nd_mhat" else 3):
+        raise ValueError(f"epilogue arguments {epi_e}, {epi_o}")
+    clover = _ND_PAIRS[pair]
+    need = []
+    if clover:
+        blk_shape = (2, 2, 2, 2, 3, 3) + lat.eo_site_shape
+        for name, blks, count in (("even", blk_e, 3), ("odd", blk_o, 2)):
+            if blks is None or len(blks) != count:
+                raise ValueError(f"the clover doublet needs {count} {name} block fields")
+            need += [("blocks", b, blk_shape) for b in blks]
+    if gcomp is not None and len(gcomp) != 8:
+        raise ValueError("gcomp must hold 8 (re, im) pairs")
+    for name, ug in (("ug_e", ug_e), ("ug_o", ug_o)):
+        if ug.dtype != torch.float32:
+            raise TypeError(f"K1-SD takes f32 links, {name} is {ug.dtype}")
+    rows = 2 if gcomp is not None else 3
+    need += [("chi", chi, (2, 2, 4, 3) + lat.eo_site_shape),
+             ("ug_p", ug_e, (2, 8, rows, 3) + lat.eo_site_shape),
+             ("ug_p", ug_o, (2, 8, rows, 3) + lat.eo_site_shape)]
+    _check_tensors(need, chi.device)
+    return epi_e, epi_o, blk_e, blk_o, clover
+
+
+def hopping_schur_nd(ug_e: torch.Tensor, ug_o: torch.Tensor, chi: torch.Tensor, lat: Lattice,
+                     stage, gcomp: tuple | None = None, square: bool = False) -> torch.Tensor:
+    """K1-SD: Q_nd = gamma5 tau1 Mhat_nd of the non-degenerate doublet, or
+    with `square` Q_nd^2 (the same Q_nd applied twice), in one launch, each
+    hop both flavours with its flavour-mixing epilogue fused; the
+    twisted-mass doublet bit for bit the K1-R-D launches and torch
+    diagonals it replaces.
+
+    `stage` (epi_even, epi_odd, blocks_even, blocks_odd):
+      (("nd_mee_inv", mubar_t, epsbar_t), ("nd_mhat", mubar_t, epsbar_t, k2), None, None)
+      (("nd_clov_inv", epsbar_t), ("nd_clov_mhat", epsbar_t, k2),
+       (minv_a, minv_b, minv_e), (moo_u, moo_d))
+    Q_nd x: tmp = Mee_nd^-1 H_eo x (the clover doublet: [[A, -eps E],
+    [-eps E, B]] H_eo x), then gamma5 tau1 (Mee_nd x - k2 H_oe tmp)
+    ([[moo_u, eps], [eps, moo_d]] x for clover).  The block fields are
+    FastCloverND's [2,2,2,2,3,3,T,X,M] f32.  ug_e, ug_o: the even and odd
+    f32 link copies (18- or 12-real with gcomp); chi: [2, 2, 4, 3, T, X, M]
+    f32."""
+    epi_e, epi_o, blk_e, blk_o, clover = _check_schur_nd(ug_e, ug_o, chi, lat, stage, gcomp)
+    if chi.device.type == "cpu":
+        return hopping_schur_nd_plain(ug_e, ug_o, chi, lat, stage, gcomp, square)
+    if chi.device.type != "cuda":
+        raise ValueError(f"no kernel for device {chi.device}")
+    lib = kernel_library()
+    # every intermediate in a buffer of its own, as for K1-S
+    e1 = torch.empty_like(chi)
+    o1 = torch.empty_like(chi) if square else None
+    e2 = torch.empty_like(chi) if square else None
+    out = torch.empty_like(chi)
+    blk = (ctypes.c_void_p * 5)(*([b.data_ptr() for b in (*blk_e, *blk_o)] if clover
+                                  else [None] * 5))
+    _, consts = _schur_nd_consts(epi_e, epi_o)
+    _, corr_ptr = _corr_arg(gcomp)
+    t, x, _, _ = lat.dims
+    args = (chi.data_ptr(), ug_e.data_ptr(), ug_o.data_ptr(), blk, e1.data_ptr(),
+            o1.data_ptr() if square else None, e2.data_ptr() if square else None,
+            out.data_ptr(), t, x, lat.m, lat.zh, 2 if square else 1, int(clover),
+            int(gcomp is not None), consts, corr_ptr)
+    if chi.device.index == torch.cuda.current_device():
+        rc = lib.tm_hopping_schur_nd(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(chi.device):
+            rc = lib.tm_hopping_schur_nd(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"doublet Schur kernel (K1-SD) launch failed: CUDA error {rc}")
+    hopping_schur_nd.launches += 1
+    hopping_schur_nd.hops += 4 if square else 2
+    hopping_schur_nd.clover_launches += clover
+    return out
+
+
+hopping_schur_nd.launches = 0
+hopping_schur_nd.hops = 0
+hopping_schur_nd.clover_launches = 0
+
+
+def _q_nd_by(hop, ug_e, ug_o, x: torch.Tensor, lat: Lattice, stage, gcomp) -> torch.Tensor:
+    """One doublet Schur stage with `hop` (K1-R-D or its plain version) for
+    the two hops and the torch diagonals between and after them."""
+    epi_e, epi_o, blk_e, blk_o = stage
+    tmp = hop(ug_e, x, 0, lat, gcomp=gcomp, r_axis=_DOUBLET_AXIS)
+    if epi_e[0] == "nd_clov_inv":
+        tmp = sd.mee_inv_nd_apply_split(*blk_e, epi_e[1], tmp)
+    else:
+        tmp = sd.mee_inv_nd_split(tmp, epi_e[1], epi_e[2], +1.0)
+    tmp = hop(ug_o, tmp, 1, lat, gcomp=gcomp, r_axis=_DOUBLET_AXIS)
+    if epi_o[0] == "nd_clov_mhat":
+        m = sd.mee_nd_apply_split(*blk_o, epi_o[1], x) - epi_o[2] * tmp
+    else:
+        m = sd.mee_nd_split(x, epi_o[1], epi_o[2], +1.0) - epi_o[3] * tmp
+    return sd.gamma5_nd(sd.tau1_split(m))
+
+
+def hopping_schur_nd_plain(ug_e: torch.Tensor, ug_o: torch.Tensor, chi: torch.Tensor,
+                           lat: Lattice, stage, gcomp: tuple | None = None,
+                           square: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K1-SD: each Q_nd the two doublet hops of
+    `hopping_split_rhs_plain` (`r_axis=1`) with the torch diagonals between
+    and after them, as the doublet operators were composed before K1-SD."""
+    hopping_schur_nd_plain.calls += 1
+    x = _q_nd_by(hopping_split_rhs_plain, ug_e, ug_o, chi, lat, stage, gcomp)
+    if square:
+        x = _q_nd_by(hopping_split_rhs_plain, ug_e, ug_o, x, lat, stage, gcomp)
+    return x
+
+
+hopping_schur_nd_plain.calls = 0
+
+
+def schur_nd_kernel_info(clover: bool, gcomp: bool) -> dict:
+    """K1-SD's instance as the card runs it, as `kernel_info`."""
+    return _kernel_info(kernel_library().tm_hopping_schur_nd_info, int(clover), int(gcomp))
+
+
+# ---------------------------------------------------------------------------
 # K3 / K3-I / K4 / K1-T: the slab kernels, and the halo exchange around them
 # ---------------------------------------------------------------------------
 
-_SLAB_VARIANTS = {"ext": 0, "int": 1, "bnd": 2}
+_SLAB_VARIANTS = {"ext": 0, "int": 1, "bnd": 2, "all": 3}
+# the counter name of each variant (ext: K3, or K1-T without y halos)
+_SLAB_NAMES = {"int": "K3-I", "bnd": "K4", "all": "K3-I+K4"}
 
 
 def _spinor_prefix(r_axis: int | None, nrhs: int | None) -> tuple:
@@ -833,7 +1044,9 @@ def hopping_slab_split(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Latti
       "int"  K3-I: rows 1 .. T_loc-2 of every slab (T_loc >= 4), psi the
              whole field [.., T, X, M]; no t halo is read;
       "bnd"  K4: rows 0 and T_loc-1, psi the whole field, the t halos `th`
-             [.., 2 tsh, X, M] (row i below slab row i, row tsh + i above it).
+             [.., 2 tsh, X, M] (row i below slab row i, row tsh + i above it);
+      "all"  K3-I+K4: every row, psi the whole field, th as for "bnd" (the
+             sharded hop's one launch after KH).
     `mh` [.., 2 T, X, msh zh]: the y halos, row t the y-row below
     the slab at columns [j zh, (j+1) zh), row T + t the one above; None
     (one y slab only) lets the y hops wrap inside the slab.
@@ -854,9 +1067,9 @@ def hopping_slab_split(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Latti
             ("out", out, pre + lat.eo_site_shape)]
     if variant == "int" and t_loc < 4:
         raise ValueError(f"the interior kernel (K3-I) needs T_loc >= 4, have {t_loc}")
-    if variant == "bnd":
+    if variant in ("bnd", "all"):
         if th is None:
-            raise ValueError("the boundary kernel (K4) needs the t halos `th`")
+            raise ValueError(f"the {_SLAB_NAMES[variant]} slab kernel needs the t halos `th`")
         need.append(("th", th, pre + (2 * mesh.t, x, lat.m)))
     if mh is None:
         if mesh.y > 1:
@@ -879,11 +1092,11 @@ def hopping_slab_split(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Latti
     with torch.cuda.device(psi.device):
         stream = torch.cuda.current_stream(psi.device).cuda_stream
         rc = lib.tm_hopping_slab(
-            *fld(psi), *fld(th if variant == "bnd" else None), *fld(mh), ug_p.data_ptr(),
+            *fld(psi), *fld(th if variant in ("bnd", "all") else None), *fld(mh), ug_p.data_ptr(),
             out.data_ptr(), *_field_strides(out, r_axis), t, x, lat.m, lat.zh, int(p), mesh.t,
             mesh.y, _SLAB_VARIANTS[variant], int(gcomp is not None), int(bf16), corr_ptr,
             nrhs or 0, stream)
-    name = {"ext": "K3" if mh is not None else "K1-T", "int": "K3-I", "bnd": "K4"}[variant]
+    name = _SLAB_NAMES.get(variant, "K3" if mh is not None else "K1-T")
     if rc != 0:
         raise RuntimeError(f"slab hopping kernel ({name}) launch failed: CUDA error {rc}")
     hopping_slab_split.launches[name] += 1
@@ -892,7 +1105,7 @@ def hopping_slab_split(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat: Latti
     return out
 
 
-hopping_slab_split.launches = {"K3": 0, "K3-I": 0, "K4": 0, "K1-T": 0}
+hopping_slab_split.launches = {"K3": 0, "K3-I": 0, "K4": 0, "K1-T": 0, "K3-I+K4": 0}
 hopping_slab_split.bf16_launches = 0
 hopping_slab_split.rhs_launches = 0
 
@@ -945,7 +1158,7 @@ def hopping_slab_split_plain(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat:
     if variant == "ext":
         e[..., 0:1, :, :, zh:zh + ml] = c_psi[..., 0:1, :, :, :]
         e[..., tl + 1:, :, :, zh:zh + ml] = c_psi[..., tl + 1:, :, :, :]
-    elif variant == "bnd":
+    elif variant in ("bnd", "all"):
         c_th = _canon(merge_c(th), r_axis).unflatten(-1, (msh, ml)).unflatten(-4, (2, tsh))
         e[..., 0, :, :, zh:zh + ml] = c_th[..., 0, :, :, :, :]
         e[..., tl + 1, :, :, zh:zh + ml] = c_th[..., 1, :, :, :, :]
@@ -959,7 +1172,7 @@ def hopping_slab_split_plain(ug_p: torch.Tensor, psi: torch.Tensor, p: int, lat:
         e[..., 1:tl + 1, :, :, zh + ml:] = c_mh[..., 1, :, :, :, :, :]
     dev = psi.device
     rr = torch.tensor({"ext": list(range(tl)), "int": list(range(1, tl - 1)),
-                       "bnd": [0, tl - 1]}[variant], device=dev)
+                       "bnd": [0, tl - 1], "all": list(range(tl))}[variant], device=dev)
     # slot (t + x + y + p) odd in slab coordinates [rows, X, 1, m_loc], z edges
     yl = torch.arange(ml, device=dev) // zh
     kk = torch.arange(ml, device=dev) % zh
@@ -1012,19 +1225,6 @@ def _halo_maps() -> dict:
 _HALO_MAPS = _halo_maps()
 
 
-_COEFS: dict = {}
-
-
-def _coef(values: tuple, like: torch.Tensor, ax: int) -> torch.Tensor:
-    """The two coefficients as a tensor broadcasting along the spin axis
-    `ax` of `like`, made once per device (no host copy per hop)."""
-    key = (values, like.dtype, like.device, like.ndim - ax - 1)
-    if key not in _COEFS:
-        _COEFS[key] = torch.tensor(values, dtype=like.dtype, device=like.device).view(
-            (2,) + (1,) * (like.ndim - ax - 1))
-    return _COEFS[key]
-
-
 def _project_halo(x2: torch.Tensor, d: int, ax: int) -> torch.Tensor:
     """W_d^+ x on the spin axis `ax` of a split field, [.., 4, ..] -> [.., 2,
     ..]: h_a = x_a + c_a x_{s_a}, one rounding each, as the kernels form the
@@ -1033,7 +1233,7 @@ def _project_halo(x2: torch.Tensor, d: int, ax: int) -> torch.Tensor:
     part = x2.narrow(ax, 2, 2)
     if rows != (2, 3):
         part = part.flip(ax)
-    return torch.addcmul(x2.narrow(ax, 0, 2), part, _coef(coef, x2, ax))
+    return torch.addcmul(x2.narrow(ax, 0, 2), part, sd.const_like(coef, x2, ax))
 
 
 def _rebuild_halo(h2: torch.Tensor, d: int, ax: int, out: torch.Tensor) -> None:
@@ -1044,7 +1244,7 @@ def _rebuild_halo(h2: torch.Tensor, d: int, ax: int, out: torch.Tensor) -> None:
     half = tuple(0.5 * c for c in coef)
     if rows != (2, 3):  # row 2 takes a = 1, row 3 a = 0
         h2, half = h2.flip(ax), half[::-1]
-    torch.mul(h2, _coef(half, h2, ax), out=out.narrow(ax, 2, 2))
+    torch.mul(h2, sd.const_like(half, h2, ax), out=out.narrow(ax, 2, 2))
 
 
 def _spin_axis(r_axis: int | None) -> int:
@@ -1106,15 +1306,130 @@ def _t_halos(psi: torch.Tensor, lat: Lattice, mesh, halfspinor: bool = True,
     return buf.flatten(-4, -3)
 
 
-_SIDE_STREAMS: dict = {}
+def _check_halo_field(psi: torch.Tensor, lat: Lattice, r_axis: int | None) -> int | None:
+    nrhs = None if r_axis is None else _check_r_axis(r_axis, psi, ("none",))
+    _check_tensors([("psi", psi, _spinor_prefix(r_axis, nrhs) + lat.eo_site_shape)], psi.device)
+    return nrhs
 
 
-def _side_stream(device: torch.device):
-    """The stream K3-I runs on beside the t exchange (one per device)."""
-    key = device.index if device.index is not None else torch.cuda.current_device()
-    if key not in _SIDE_STREAMS:
-        _SIDE_STREAMS[key] = torch.cuda.Stream(device=device)
-    return _SIDE_STREAMS[key]
+def halo_pack(psi: torch.Tensor, lat: Lattice, mesh, r_axis: int | None = None,
+              halfspinor: bool | None = None) -> tuple:
+    """KH: the halos of one sharded hop over every slab of `mesh` in one
+    launch: the y halos mh [.., 2 T, X, msh zh] (None with one y slab) and
+    the t halos th [.., 2 tsh, X, M] of `hopping_slab_split` (K3-I reads
+    mh, K4 both).  Each halo site is its source row's site, projected by
+    W_d^+ and rebuilt as 0.5 W_d h with `halfspinor` (default
+    `mesh.halfspinor`), else copied; the slab shift of the reference's
+    ppermute is index arithmetic.  Equal element for element to the torch
+    exchange `_y_halos` and `_t_halos`, its plain version, which it runs on
+    CPU tensors (counted in `halo_pack.plain_calls`).  psi [2,4,3,T,X,M]
+    f32, or with an R axis at `r_axis`."""
+    halfspinor = mesh.halfspinor if halfspinor is None else halfspinor
+    nrhs = _check_halo_field(psi, lat, r_axis)
+    mesh.local(lat)  # raises unless T and Y split into even slabs
+    if psi.device.type == "cpu":
+        halo_pack.plain_calls += 1
+        return (_y_halos(psi, lat, mesh, halfspinor, r_axis),
+                _t_halos(psi, lat, mesh, halfspinor, r_axis))
+    if psi.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi.device}")
+    pre = _spinor_prefix(r_axis, nrhs)
+    t, x, _, _ = lat.dims
+    mh = (torch.empty(pre + (2 * t, x, mesh.y * lat.zh), dtype=psi.dtype, device=psi.device)
+          if mesh.y > 1 else None)
+    th = torch.empty(pre + (2 * mesh.t, x, lat.m), dtype=psi.dtype, device=psi.device)
+
+    def fld(f):
+        return (None, 0, 0, 0) if f is None else (f.data_ptr(),) + _field_strides(f, r_axis)
+
+    lib = kernel_library()
+    with torch.cuda.device(psi.device):
+        rc = lib.tm_halo_pack(*fld(psi), *fld(mh), *fld(th), t, x, lat.m, lat.zh, mesh.t,
+                              mesh.y, int(halfspinor), nrhs or 0,
+                              torch.cuda.current_stream(psi.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"halo kernel (KH) launch failed: CUDA error {rc}")
+    halo_pack.launches += 1
+    return mh, th
+
+
+halo_pack.launches = 0
+halo_pack.plain_calls = 0  # its plain version: the torch exchange on CPU tensors
+
+_SHARD_PLANS: dict = {}
+
+
+def _shard_plan(ug_p: torch.Tensor, psi_q: torch.Tensor, lat: Lattice, mesh,
+                gcomp, r_axis) -> tuple:
+    """The checks of one sharded hop, made once per (lattice, mesh, R axis,
+    shapes, strides, types, gcomp) and kept: -> (halo shapes, the halos' and
+    psi's element strides, R)."""
+    key = (lat, mesh.t, mesh.y, r_axis, tuple(psi_q.shape), psi_q.stride(), psi_q.dtype,
+           tuple(ug_p.shape), ug_p.stride(), ug_p.dtype, gcomp is not None, psi_q.device)
+    plan = _SHARD_PLANS.get(key)
+    if plan is None:
+        nrhs = _check_halo_field(psi_q, lat, r_axis)
+        mesh.local(lat)  # raises unless T and Y split into even slabs
+        if gcomp is not None and len(gcomp) != 8:
+            raise ValueError("gcomp must hold 8 (re, im) pairs")
+        _check_tensors([("ug_p", ug_p, (2, 8, 2 if gcomp is not None else 3, 3)
+                         + lat.eo_site_shape)], psi_q.device)
+        pre = _spinor_prefix(r_axis, nrhs)
+        t, x, _, _ = lat.dims
+        mh_shape = pre + (2 * t, x, mesh.y * lat.zh) if mesh.y > 1 else None
+        th_shape = pre + (2 * mesh.t, x, lat.m)
+
+        def strides(shape):
+            return (0, 0, 0) if shape is None else _field_strides(
+                torch.empty(shape, device="meta"), r_axis)
+
+        plan = (mh_shape, th_shape, strides(mh_shape), strides(th_shape),
+                _field_strides(psi_q, r_axis), nrhs or 0)
+        _SHARD_PLANS[key] = plan
+    return plan
+
+
+def _hopping_shard_cuda(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
+                        gcomp, r_axis) -> torch.Tensor:
+    """The sharded hop with the overlap on the card, one C call: KH, then
+    K3-I+K4 (the slab kernel over every row) on the caller's stream."""
+    mh_shape, th_shape, mh_st, th_st, psi_st, nrhs = _shard_plan(
+        ug_p, psi_q, lat, mesh, gcomp, r_axis)
+    if not psi_q.is_contiguous():
+        raise ValueError("psi_q must be contiguous")
+    dev = psi_q.device
+    out = torch.empty_like(psi_q)
+    mh = None if mh_shape is None else torch.empty(mh_shape, dtype=psi_q.dtype, device=dev)
+    th = torch.empty(th_shape, dtype=psi_q.dtype, device=dev)
+    _, corr_ptr = _corr_arg(gcomp)
+    t, x, _, _ = lat.dims
+    bf16 = ug_p.dtype == torch.bfloat16
+    args = (psi_q.data_ptr(), *psi_st, None if mh is None else mh.data_ptr(), *mh_st,
+            th.data_ptr(), *th_st, ug_p.data_ptr(), out.data_ptr(), t, x, lat.m, lat.zh, int(p),
+            mesh.t, mesh.y, int(mesh.halfspinor), int(gcomp is not None), int(bf16), corr_ptr,
+            nrhs)
+    lib = kernel_library()
+    if dev.index == torch.cuda.current_device():
+        rc = lib.tm_shard_hop(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.tm_shard_hop(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sharded hop (KH, K3-I+K4) launch failed: CUDA error {rc}")
+    halo_pack.launches += 1
+    hopping_slab_split.launches["K3-I+K4"] += 1
+    hopping_slab_split.bf16_launches += bf16
+    hopping_slab_split.rhs_launches += r_axis is not None
+    return out
+
+
+def slab_kernel_info(name: str) -> dict:
+    """KH's instance (`name` "KH") or the slab kernel's on a 12-real f32
+    gauge with one spinor ("slab": K3, K3-I, K4, K3-I+K4) as the card runs
+    it, as `kernel_info`."""
+    if name not in ("KH", "slab"):
+        raise ValueError(f"slab_kernel_info takes 'KH' or 'slab', got {name!r}")
+    return _kernel_info(kernel_library().tm_slab_info, 0 if name == "KH" else 1)
 
 
 def hopping_shard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
@@ -1122,41 +1437,31 @@ def hopping_shard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
     """Domain-decomposed H_{p,q} psi on the (t, y) slabs of `mesh`, all on
     one device: the port of `hopping_pallas_shard` (dslash_pallas.py:1345).
 
-    The y halos are exchanged first (projected to half-spinors by W^+ of
-    (1 -/+ gamma_2) with `mesh.halfspinor`, rebuilt as 0.5 W s).  With
-    `mesh.overlap`
-    the interior kernel K3-I then runs on a side stream (CUDA) while the t
-    halos are packed with the (1 -/+ gamma_0) maps; the surface kernel K4
-    follows, and the caller's stream waits for both.  `overlap=False` runs
-    K3 on psi with its t halos concatenated.  With one y slab there is no y
-    exchange: the kernels wrap the y hops inside the slab (without overlap
-    that is K1-T).  Both kernels write into one output, so there is no
-    assembly step.  psi_q [2,4,3,T,X,M], or with an R
+    With `mesh.overlap` (the default) one wrapper call per hop: KH packs the
+    y and t halos of every slab (`halo_pack`: half-spinors by W^+ of
+    (1 -/+ gamma_2) and (1 -/+ gamma_0) with `mesh.halfspinor`, rebuilt as
+    0.5 W s), then one slab launch runs the interior and the surface rows
+    (K3-I+K4, the reference's K3-I and K4); on the card that is one C call,
+    its checks made once per lattice, mesh and layout (`_shard_plan`).
+    `overlap=False` runs K3 on psi with its t halos concatenated, the halos
+    by the torch exchange (`_y_halos`, `_t_halos`).  With one y slab there
+    is no y halo: the kernels wrap the y hops inside the slab (without
+    overlap that is K1-T).  The kernel writes the whole output, so there is
+    no assembly step.  psi_q [2,4,3,T,X,M], or with an R
     axis at `r_axis` (3: a batch; 1: a flavour doublet); ug_p and gcomp as
     for K1 (f32 or bf16).  The result equals `hopping_split` /
     `hopping_split_rhs` on the whole lattice."""
-    halfspinor = mesh.halfspinor
-    t_loc = mesh.local(lat).dims[0]
-    out = torch.empty_like(psi_q)
-    kw = dict(gcomp=gcomp, r_axis=r_axis)
-    mh = _y_halos(psi_q, lat, mesh, halfspinor, r_axis)
     if not mesh.overlap:
-        return hopping_slab_split(ug_p, _t_halos(psi_q, lat, mesh, halfspinor, r_axis, ext=True),
-                                  p, lat, mesh, "ext", out, mh=mh, **kw)
-    side = None
-    if t_loc > 2:
-        if psi_q.device.type == "cuda":
-            side = _side_stream(psi_q.device)
-            side.wait_stream(torch.cuda.current_stream(psi_q.device))
-            with torch.cuda.stream(side):
-                hopping_slab_split(ug_p, psi_q, p, lat, mesh, "int", out, mh=mh, **kw)
-        else:
-            hopping_slab_split(ug_p, psi_q, p, lat, mesh, "int", out, mh=mh, **kw)
-    th = _t_halos(psi_q, lat, mesh, halfspinor, r_axis)
-    hopping_slab_split(ug_p, psi_q, p, lat, mesh, "bnd", out, th=th, mh=mh, **kw)
-    if side is not None:
-        torch.cuda.current_stream(psi_q.device).wait_stream(side)
-    return out
+        mh = _y_halos(psi_q, lat, mesh, mesh.halfspinor, r_axis)
+        return hopping_slab_split(ug_p, _t_halos(psi_q, lat, mesh, mesh.halfspinor, r_axis,
+                                                 ext=True),
+                                  p, lat, mesh, "ext", torch.empty_like(psi_q), mh=mh,
+                                  gcomp=gcomp, r_axis=r_axis)
+    if psi_q.device.type == "cuda":
+        return _hopping_shard_cuda(ug_p, psi_q, p, lat, mesh, gcomp, r_axis)
+    mh, th = halo_pack(psi_q, lat, mesh, r_axis)
+    return hopping_slab_split(ug_p, psi_q, p, lat, mesh, "all", torch.empty_like(psi_q), th=th,
+                              mh=mh, gcomp=gcomp, r_axis=r_axis)
 
 
 def hopping_tshard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
@@ -1243,6 +1548,10 @@ def reset_counters() -> None:
     hopping_schur.hops = 0
     hopping_schur.clover_hops = 0
     hopping_schur.bf16_hops = 0
+    hopping_schur_nd.launches = 0
+    hopping_schur_nd.hops = 0
+    hopping_schur_nd.clover_launches = 0
+    halo_pack.launches = 0
     for name in hopping_slab_split.launches:
         hopping_slab_split.launches[name] = 0
     hopping_slab_split.bf16_launches = 0
@@ -1252,6 +1561,8 @@ def reset_counters() -> None:
     hopping_split_rhs_plain.calls = 0
     hopping_ug_vjp_plain.calls = 0
     hopping_slab_split_plain.calls = 0
+    hopping_schur_nd_plain.calls = 0
+    halo_pack.plain_calls = 0
 
 
 # ---------------------------------------------------------------------------

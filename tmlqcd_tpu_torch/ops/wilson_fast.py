@@ -15,13 +15,16 @@ force surrogates `q_hat_diff` and `q_hat_clover_diff` run on `HoppingDiff`,
 whose backward is K2 plus the adjoint hop on K1; the clover blocks enter the
 latter as differentiable inputs.
 
-The non-degenerate doublet operators (`q_nd_fast`, `q_nd_clover_fast`) run
-each hop as ONE multi-RHS call with flavour as the R axis (`_hop_nd`, K1-R on
-`r_axis=1`): the gauge is read once for both flavours.  The flavour-mixing
-diagonals M_ee^{-1} and M_oo are applied outside the kernel, as in the
-reference; for the clover doublet they are materialised flavour-2x2 block
-fields (`FastCloverND`).  The force surrogates `q_nd_diff` and
-`q_nd_clover_diff` run `HoppingDiff` flavour by flavour.
+The non-degenerate doublet operators (`q_nd_fast`, `q_nd_sq_fast` and the
+clover forms) run in one launch of `dslash_cuda.hopping_schur_nd` (K1-SD):
+each hop takes both flavours on one read of the gauge, with the
+flavour-mixing diagonals M_ee^{-1} and M_oo fused into its epilogues (for
+the clover doublet the materialised flavour-2x2 block fields of
+`FastCloverND`); on the twisted-mass doublet bit for bit the K1-R-D launches
+(`_hop_nd`, K1-R on `r_axis=1`) and torch diagonals they replace, which the
+inverter's single hops and the mesh operators still use.  The force
+surrogates `q_nd_diff` and `q_nd_clover_diff` run `HoppingDiff` flavour by
+flavour.
 
 The sloppy gauge copy (`make_fast_gauge(sloppy=True)`, `sloppy_gauge`,
 `make_fast_clover(sloppy=True)`) holds the links in bf16: the f32 copy cast
@@ -57,6 +60,7 @@ from tmlqcd_tpu_torch.gamma import gamma5_split
 from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, pack_gauge_eo
 from tmlqcd_tpu_torch.ops import clover as cl
 from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops.wilson import DiracParams, boundary_phases
 
 __all__ = [
@@ -332,20 +336,6 @@ def fast_gauge_from_pair(ug_e: torch.Tensor, ug_o: torch.Tensor, params: DiracPa
                      dc.gauge_corr(boundary_phases(params, lat)))
 
 
-def _blocks_apply_split(blk2: torch.Tensor, psi2: torch.Tensor) -> torch.Tensor:
-    """Split-complex chirality-block matvec: blk2 [2,2,2,2,3,3,*sites],
-    psi2 [2,4,3,*sites] -> [2,4,3,*sites].  Plain tensor arithmetic: it
-    carries the gradient with respect to the blocks in the force surrogate."""
-    br, bi = blk2[0], blk2[1]  # [2, 2, 2, 3, 3, *sites]
-    ext = (2, 2, 3) + tuple(psi2.shape[3:])
-    pr, pi = psi2[0].reshape(ext), psi2[1].reshape(ext)  # [b, s', c', *sites]
-    # out[b, s, c] = sum_{s', c'} blk[b, s, s', c, c'] psi[b, s', c']
-    xr, xi = pr[:, None, :, None], pi[:, None, :, None]
-    re = (br * xr - bi * xi).sum(dim=(2, 4))
-    im = (br * xi + bi * xr).sum(dim=(2, 4))
-    return torch.stack([re, im]).reshape(psi2.shape)
-
-
 def blocks_apply_flat(blk: torch.Tensor, psi2: torch.Tensor,
                       r_axis: int | None = None) -> torch.Tensor:
     """Flattened blocks [2, 72, T, X, M] on a split spinor, or on a batch
@@ -356,9 +346,9 @@ def blocks_apply_flat(blk: torch.Tensor, psi2: torch.Tensor,
         if r_axis != 3:
             raise ValueError(f"r_axis = {r_axis}: blocks_apply_flat takes the batch axis 3 "
                              "only; the flavour-2x2 blocks of a doublet are applied by "
-                             "_mee_nd_apply_split / _mee_inv_nd_apply_split")
+                             "split_diag.mee_nd_apply_split / mee_inv_nd_apply_split")
         blk2 = blk2.unsqueeze(6)
-    return _blocks_apply_split(blk2, psi2).contiguous()
+    return sd.blocks_apply_split(blk2, psi2).contiguous()
 
 
 def _clover_stage(fc: FastClover, params: DiracParams, sign: float, g5: bool) -> tuple:
@@ -428,9 +418,9 @@ def q_hat_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_blk2: torch.Te
     mee_inv_blocks."""
     k2 = params.kappa * params.kappa
     tmp = dc.HoppingDiff.apply(ug_e, ug_o, psi2_o, EVEN, lat)
-    tmp = _blocks_apply_split(mee_inv_blk2, tmp)
+    tmp = sd.blocks_apply_split(mee_inv_blk2, tmp)
     tmp = dc.HoppingDiff.apply(ug_o, ug_e, tmp.contiguous(), ODD, lat)
-    return gamma5_split(_blocks_apply_split(moo_blk2, psi2_o) - k2 * tmp)
+    return gamma5_split(sd.blocks_apply_split(moo_blk2, psi2_o) - k2 * tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -438,64 +428,37 @@ def q_hat_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_blk2: torch.Te
 # ---------------------------------------------------------------------------
 
 
-def _tau1_split(chi2: torch.Tensor) -> torch.Tensor:
-    """Flavour swap of a split doublet [2(re/im), 2(flavour), 4, 3, T, X, M]."""
-    return chi2.flip(1)
-
-
-def _gamma5_nd(chi2: torch.Tensor) -> torch.Tensor:
-    """gamma5 on both flavours (the spin axis is axis 2)."""
-    sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=chi2.dtype, device=chi2.device)
-    return chi2 * sign.reshape((1, 1, 4) + (1,) * (chi2.ndim - 3))
-
-
-def _i_mul_nd(chi2: torch.Tensor) -> torch.Tensor:
-    """i chi on a split field."""
-    return torch.stack([-chi2[1], chi2[0]])
-
-
-def _imu_g5_tau3_split(chi2: torch.Tensor, mu: float) -> torch.Tensor:
-    """i mu gamma5 tau3 chi (tau3 = diag(+1, -1) in flavour)."""
-    tau3 = torch.tensor([mu, -mu], dtype=chi2.dtype, device=chi2.device)
-    return tau3.reshape((1, 2) + (1,) * (chi2.ndim - 2)) * _i_mul_nd(_gamma5_nd(chi2))
-
-
-def _mee_nd_split(chi2: torch.Tensor, mubar_t: float, epsbar_t: float,
-                  sign: float) -> torch.Tensor:
-    """(1 + i sign mubar_t gamma5 tau3 + epsbar_t tau1) chi."""
-    return chi2 + _imu_g5_tau3_split(chi2, sign * mubar_t) + epsbar_t * _tau1_split(chi2)
-
-
-def _mee_inv_nd_split(chi2: torch.Tensor, mubar_t: float, epsbar_t: float,
-                      sign: float) -> torch.Tensor:
-    """(1 - i sign mubar_t gamma5 tau3 - epsbar_t tau1) chi
-    / (1 + mubar_t^2 - epsbar_t^2)."""
-    inv = 1.0 / (1.0 + mubar_t * mubar_t - epsbar_t * epsbar_t)
-    return (chi2 - _imu_g5_tau3_split(chi2, sign * mubar_t)
-            - epsbar_t * _tau1_split(chi2)) * inv
-
-
 def _hop_nd(fg: FastGauge, chi2: torch.Tensor, p: int, lat: Lattice) -> torch.Tensor:
     """Doublet hopping as ONE multi-RHS call with flavour as the R axis
-    (K1-R, `r_axis=1`): the gauge is read once for both flavours."""
+    (K1-R-D, `r_axis=1`): the gauge is read once for both flavours.  The
+    inverter's single hops around its solve."""
     return hop_fast(fg, chi2.contiguous(), p, lat, r_axis=1)
 
 
-def q_nd_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
-    """Q_nd = gamma5 tau1 Mhat_nd on split doublets [2, 2, 4, 3, T, X, M];
-    params: `ops.ndoublet.NDParams`."""
+def _nd_stage(params, fc: FastCloverND | None = None) -> tuple:
+    """One Q_nd application as a K1-SD stage: Mee_nd^-1 after the even hop,
+    gamma5 tau1 (Mee_nd chi - k2 H tmp) after the odd one; with `fc` the
+    clover doublet's flavour-2x2 block forms."""
     k2 = params.kappa * params.kappa
-    tmp = _hop_nd(fg, chi2, EVEN, lat)
-    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
-    tmp = _hop_nd(fg, tmp, ODD, lat)
-    m = _mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0) - k2 * tmp
-    return _gamma5_nd(_tau1_split(m))
+    if fc is None:
+        return (("nd_mee_inv", params.mubar_t, params.epsbar_t),
+                ("nd_mhat", params.mubar_t, params.epsbar_t, k2), None, None)
+    return (("nd_clov_inv", fc.epsbar_t), ("nd_clov_mhat", fc.epsbar_t, k2),
+            (fc.minv_a, fc.minv_b, fc.minv_e), (fc.moo_u, fc.moo_d))
+
+
+def q_nd_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
+    """Q_nd = gamma5 tau1 Mhat_nd on split doublets [2, 2, 4, 3, T, X, M]
+    in one K1-SD launch; params: `ops.ndoublet.NDParams`."""
+    return dc.hopping_schur_nd(fg.ug_even, fg.ug_odd, chi2.contiguous(), lat, _nd_stage(params),
+                               fg.gcomp)
 
 
 def q_nd_sq_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
-    """Q_nd^2: the multishift-CG operator of the NDRAT monomial (four K1-R
-    calls on the doublet axis)."""
-    return q_nd_fast(fg, q_nd_fast(fg, chi2, params, lat), params, lat)
+    """Q_nd^2: the multishift-CG operator of the NDRAT monomial, its four
+    hops in one K1-SD launch."""
+    return dc.hopping_schur_nd(fg.ug_even, fg.ug_odd, chi2.contiguous(), lat, _nd_stage(params),
+                               fg.gcomp, square=True)
 
 
 def _hop_nd_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, c2: torch.Tensor, p: int,
@@ -513,10 +476,10 @@ def q_nd_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, chi2: torch.Tensor, params
     respect to (ug_e, ug_o), for the NDRAT force surrogate."""
     k2 = params.kappa * params.kappa
     tmp = _hop_nd_diff(ug_e, ug_o, chi2, EVEN, lat)
-    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
+    tmp = sd.mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
     tmp = _hop_nd_diff(ug_e, ug_o, tmp, ODD, lat)
-    m = _mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0) - k2 * tmp
-    return _gamma5_nd(_tau1_split(m))
+    m = sd.mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0) - k2 * tmp
+    return sd.gamma5_nd(sd.tau1_split(m))
 
 
 # ---------------------------------------------------------------------------
@@ -569,35 +532,18 @@ def make_fast_clover_nd(u: torch.Tensor, params, lat: Lattice) -> FastCloverND:
     return fast_clover_nd_from(make_fast_gauge(u, params.wilson, lat), sw_e, sw_o, params)
 
 
-def _mee_nd_apply_split(moo_u, moo_d, eps: float, chi2: torch.Tensor) -> torch.Tensor:
-    """Flavour-2x2 M_oo = [[moo_u, eps], [eps, moo_d]] on raw split blocks."""
-    up = _blocks_apply_split(moo_u, chi2[:, 0]) + eps * chi2[:, 1]
-    dn = _blocks_apply_split(moo_d, chi2[:, 1]) + eps * chi2[:, 0]
-    return torch.stack([up, dn], dim=1)
-
-
-def _mee_inv_nd_apply_split(minv_a, minv_b, minv_e, eps: float,
-                            chi2: torch.Tensor) -> torch.Tensor:
-    """Flavour-2x2 M_ee^{-1} = [[A, -eps E], [-eps E, B]] on raw split blocks."""
-    up = _blocks_apply_split(minv_a, chi2[:, 0]) - eps * _blocks_apply_split(minv_e, chi2[:, 1])
-    dn = _blocks_apply_split(minv_b, chi2[:, 1]) - eps * _blocks_apply_split(minv_e, chi2[:, 0])
-    return torch.stack([up, dn], dim=1)
-
-
 def q_nd_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
-    """Q_nd^sw = gamma5 tau1 Mhat_nd^sw on split doublets: the hops on K1-R
-    (doublet axis), the clover blocks as materialised block matvecs."""
-    k2 = params.kappa * params.kappa
-    tmp = _hop_nd(fc.fg, chi2, EVEN, lat)
-    tmp = _mee_inv_nd_apply_split(fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, tmp)
-    tmp = _hop_nd(fc.fg, tmp, ODD, lat)
-    m = _mee_nd_apply_split(fc.moo_u, fc.moo_d, fc.epsbar_t, chi2) - k2 * tmp
-    return _gamma5_nd(_tau1_split(m))
+    """Q_nd^sw = gamma5 tau1 Mhat_nd^sw on split doublets in one K1-SD
+    launch, the flavour-2x2 clover blocks applied in its epilogues."""
+    return dc.hopping_schur_nd(fc.fg.ug_even, fc.fg.ug_odd, chi2.contiguous(), lat,
+                               _nd_stage(params, fc), fc.fg.gcomp)
 
 
 def q_nd_sq_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params,
                         lat: Lattice) -> torch.Tensor:
-    return q_nd_clover_fast(fc, q_nd_clover_fast(fc, chi2, params, lat), params, lat)
+    """(Q_nd^sw)^2, its four hops in one K1-SD launch."""
+    return dc.hopping_schur_nd(fc.fg.ug_even, fc.fg.ug_odd, chi2.contiguous(), lat,
+                               _nd_stage(params, fc), fc.fg.gcomp, square=True)
 
 
 def split_clover_nd_pair(u: torch.Tensor, params, lat: Lattice) -> tuple:
@@ -620,10 +566,10 @@ def q_nd_clover_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, moo_u: torch.Tensor
     k2 = params.kappa * params.kappa
     eps = params.epsbar_t
     tmp = _hop_nd_diff(ug_e, ug_o, chi2, EVEN, lat)
-    tmp = _mee_inv_nd_apply_split(minv_a, minv_b, minv_e, eps, tmp)
+    tmp = sd.mee_inv_nd_apply_split(minv_a, minv_b, minv_e, eps, tmp)
     tmp = _hop_nd_diff(ug_e, ug_o, tmp, ODD, lat)
-    m = _mee_nd_apply_split(moo_u, moo_d, eps, chi2) - k2 * tmp
-    return _gamma5_nd(_tau1_split(m))
+    m = sd.mee_nd_apply_split(moo_u, moo_d, eps, chi2) - k2 * tmp
+    return sd.gamma5_nd(sd.tau1_split(m))
 
 
 # ---------------------------------------------------------------------------
@@ -708,11 +654,11 @@ def q_nd_fast_shard(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice,
     """Q_nd on the slab kernels; the flavour-mixing diagonals are
     elementwise (reference :276)."""
     tmp = _hop_nd_shard(fg, chi2, EVEN, lat, mesh)
-    tmp = _mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
+    tmp = sd.mee_inv_nd_split(tmp, params.mubar_t, params.epsbar_t, +1.0)
     tmp = _hop_nd_shard(fg, tmp, ODD, lat, mesh)
-    m = (_mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0)
+    m = (sd.mee_nd_split(chi2, params.mubar_t, params.epsbar_t, +1.0)
          - (params.kappa * params.kappa) * tmp)
-    return _gamma5_nd(_tau1_split(m))
+    return sd.gamma5_nd(sd.tau1_split(m))
 
 
 def q_nd_sq_fast_shard(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice,
@@ -724,11 +670,11 @@ def q_nd_clover_fast_shard(fc: FastCloverND, chi2: torch.Tensor, params, lat: La
                            mesh) -> torch.Tensor:
     """Q_nd^sw on the slab kernels (reference :297)."""
     tmp = _hop_nd_shard(fc.fg, chi2, EVEN, lat, mesh)
-    tmp = _mee_inv_nd_apply_split(fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, tmp)
+    tmp = sd.mee_inv_nd_apply_split(fc.minv_a, fc.minv_b, fc.minv_e, fc.epsbar_t, tmp)
     tmp = _hop_nd_shard(fc.fg, tmp, ODD, lat, mesh)
-    m = (_mee_nd_apply_split(fc.moo_u, fc.moo_d, fc.epsbar_t, chi2)
+    m = (sd.mee_nd_apply_split(fc.moo_u, fc.moo_d, fc.epsbar_t, chi2)
          - (params.kappa * params.kappa) * tmp)
-    return _gamma5_nd(_tau1_split(m))
+    return sd.gamma5_nd(sd.tau1_split(m))
 
 
 def q_nd_sq_clover_fast_shard(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice,
