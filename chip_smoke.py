@@ -83,9 +83,10 @@ result lines):
 9. main path 5: `cli.hmc.main` on a 16^3x32 input derived from
    sample-input/hmc3-nf211-clover.input (Nf=2+1+1: GAUGE + CLOVERTRLOG +
    CLOVERDET + NDRAT with its own beta, kappa, CSW, mu, mubar, epsbar,
-   DegreeOfRational and interval; hmc6's ONLINE block in place of
-   GRADIENTFLOW; 1 trajectory, an ILDG checkpoint read back), with the
-   interval check's line and the launch counters read around it (every
+   DegreeOfRational and interval, and its own GRADIENTFLOW block at
+   Frequency 1: 50 flow steps of 0.02, t^2 E read back, E_plaq falling, the
+   flow's seconds and t0; 1 trajectory, an ILDG checkpoint read back), with
+   the interval check's line and the launch counters read around it (every
    Q_nd and Q_nd^2 one K1-SD launch); then one
    profiled trajectory at steps 1/1/1 for the device's idle share and one
    whole trajectory with synchronising timers around the NDRAT heatbath,
@@ -117,6 +118,25 @@ result lines):
    residual and the unsharded batched CG beside them.  Path 9's launches
    are those of the runs through a mesh; K1-RB has no caller on a main path
    (the reference has none) and is held to its plain version in phase 2.
+14. main path 10: `cli.hmc.main` on hmc3's action at 16^3x32 with its NDRAT
+   block retyped as NDPOLY (degree 32 on [0.01, 4.7], 1 trajectory, the
+   validate lines read back): every Q_nd^2 of the heatbath and the
+   acceptance one K1-SD launch (no K1-R-D), the force's Clenshaw through
+   `q_nd_diff` (K1, K2), launches counted per piece, heatbath CG
+   iterations, peak device memory; then one mu-shift reweighting (2
+   samples, mu -> 1.1 mu, Qhat_pm on K1-S) on phase 5's checkpoint.
+15. main path 11: `cli.invert.main` on phase 5's checkpoint with stout
+   smearing (rho 0.1 x 3) and source smearing (APE 0.5 x 2, Jacobi 0.2 x
+   10): 12 smeared point columns in one batched CG on K1-R, each column's
+   true residual against the plain unpreconditioned operator on the smeared
+   gauge, iterations beside phase 6's.
+16. the other entry points: `cli.offline_measurement.main` on phase 9's
+   checkpoint (GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH,
+   every file read back, the flow equal to phase 9's), `cli.benchmark.main`
+   at 16^3x32 (K1 within 1.5x of phase 3's, Qhat_pm on K1-S) and an
+   `api.Session` on phase 5's checkpoint (plaquette equal to its
+   output.data, one point column inverted with its residual checked, the
+   native checksum route in use).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -1779,21 +1799,25 @@ def clover_smoke_input(text: str, dims=(32, 16, 16, 16), steps=None,
     return "\n".join(out) + "\n"
 
 
-def nf211_smoke_input(text: str, online_from: str) -> str:
+def nf211_smoke_input(text: str, online_from: str | None = None) -> str:
     """hmc3-nf211-clover cut to 16^3x32 with 1 trajectory and NSave = 1.
     Its action stays its own: GAUGE + CLOVERTRLOG + CLOVERDET + NDRAT at
     beta = 1.726, kappa = 0.1400645, CSW = 1.74, 2KappaMu = 0.0009 / 0.05,
     2Kappamubar = 0.1315052, 2Kappaepsbar = 0.1351419, DegreeOfRational = 10
-    on [0.01, 4.7].  Cut or replaced: the lattice (24^3x48), the number of
-    trajectories, the integration steps (2/3/6 -> 2/2/3), the precisions and
-    MaxSolverIterations (the other smoke points' 1e-16 / 1e-14 and 1000), and
-    the GRADIENTFLOW block, in whose place stands the ONLINE block of
-    `online_from` (hmc6's text) on the trajectory."""
-    online = re.search(r"(?ims)^BeginMeasurement\s+ONLINE.*?^EndMeasurement[^\n]*\n", online_from)
-    _check(online is not None, "no ONLINE block to take")
-    text, n = re.subn(r"(?ims)^BeginMeasurement\s+GRADIENTFLOW.*?^EndMeasurement[^\n]*\n",
-                      lambda _: online.group(0), text)
-    _check(n == 1, "hmc3 holds no GRADIENTFLOW block to replace")
+    on [0.01, 4.7], and so does its GRADIENTFLOW block (StepSize 0.02,
+    Steps 50), its Frequency cut to 1 for the one trajectory.  Cut: the
+    lattice (24^3x48), the number of trajectories, the integration steps
+    (2/3/6 -> 2/2/3), the precisions and MaxSolverIterations (the other
+    smoke points' 1e-16 / 1e-14 and 1000).  With `online_from` (hmc6's
+    text) its ONLINE block stands in for GRADIENTFLOW: a package from before
+    the flow's port (run with --root) cannot lower it."""
+    if online_from is not None:
+        online = re.search(r"(?ims)^BeginMeasurement\s+ONLINE.*?^EndMeasurement[^\n]*\n",
+                           online_from)
+        _check(online is not None, "no ONLINE block to take")
+        text, n = re.subn(r"(?ims)^BeginMeasurement\s+GRADIENTFLOW.*?^EndMeasurement[^\n]*\n",
+                          lambda _: online.group(0), text)
+        _check(n == 1, "hmc3 holds no GRADIENTFLOW block to replace")
     return clover_smoke_input(text, steps={"GAUGE": "2", "CLOVERDET": "2", "NDRAT": "3"}, ntraj=1)
 
 
@@ -1841,6 +1865,56 @@ def _check_no_plain(counts: dict) -> None:
     _check(not any(plain.values()), f"a plain version served the main path: {counts}")
 
 
+def _check_online(meas: str, tag: str) -> None:
+    """The ONLINE measurement's file: 32 timeslices `1 1 t C_PP C_PA`, C_PP
+    positive and finite."""
+    _check(os.path.exists(meas), f"{os.path.basename(meas)} was not written")
+    with open(meas) as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    cpp = [float(r[3]) for r in rows]
+    _check(len(rows) == 32 and all(r[:3] == ["1", "1", str(t)] for t, r in enumerate(rows)),
+           f"{os.path.basename(meas)} has {len(rows)} lines or a wrong column layout")
+    _check(all(math.isfinite(c) and c > 0.0 for c in cpp)
+           and all(math.isfinite(float(r[4])) for r in rows),
+           f"{os.path.basename(meas)}: C_PP must be positive and finite on every timeslice")
+    _say(f"[{tag}] {os.path.basename(meas)}: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
+         f"min C_PP {min(cpp):.6e}")
+
+
+def _read_gradflow(path: str):
+    """(t, t^2 E_plaq, t^2 E_clover) columns of a gradflow.NNNNNN file."""
+    _check(os.path.exists(path), f"{os.path.basename(path)} was not written")
+    with open(path) as f:
+        head = f.readline()
+        rows = [[float(v) for v in ln.split()] for ln in f if ln.strip()]
+    _check(head == "# t t2E_plaq t2E_clover\n" and rows and all(len(r) == 3 for r in rows),
+           f"{os.path.basename(path)} has a wrong layout")
+    return [list(c) for c in zip(*rows)]
+
+
+def _check_gradflow(path: str, tag: str, flow_s: list) -> None:
+    """hmc3's GRADIENTFLOW file: 50 steps of 0.02, t^2 E finite and
+    positive, E_plaq = t^2 E / t^2 falling at every step (the Wilson flow is
+    the gradient flow of the Wilson action, which E_plaq is up to a
+    constant; E_clover of a rough field may rise at first, as the clover
+    leaves line up); t0 where t^2 E_plaq reaches 0.3, if it does."""
+    from tmlqcd_tpu_torch.meas.gradient_flow import t0_scale
+
+    times, t2p, t2c = _read_gradflow(path)
+    _check(len(times) == 50 and abs(times[-1] - 1.0) < 1e-9,
+           f"{os.path.basename(path)}: {len(times)} flow steps to t = {times[-1]}")
+    _check(all(math.isfinite(v) and v > 0 for v in t2p + t2c),
+           f"{os.path.basename(path)}: t^2 E must be finite and positive")
+    e = [v / t**2 for t, v in zip(times, t2p)]
+    _check(all(b < a for a, b in zip(e, e[1:])), f"E_plaq does not fall monotonically: {e}")
+    t0 = t0_scale(times, t2p, 0.3)
+    _say(f"[{tag}] {os.path.basename(path)}: {len(times)} steps of 0.02 in "
+         f"{sum(flow_s):.3f} s ({len(flow_s)} flow); t^2 E_plaq {t2p[0]:.6e} at t = "
+         f"{times[0]:.2f}, {t2p[-1]:.6e} at t = {times[-1]:.2f}; t^2 E_clover {t2c[0]:.6e}, "
+         f"{t2c[-1]:.6e}; " + (f"t0 = {t0:.6f} (t^2 E_plaq = 0.3)" if math.isfinite(t0)
+                               else "t^2 E_plaq does not reach 0.3 by t = 1"))
+
+
 def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
     import numpy as np
 
@@ -1850,12 +1924,16 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
     from tmlqcd_tpu_torch.io.lime import read_lime
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
+    from tmlqcd_tpu_torch.meas import runner
+
     tag = "main-nf211" if nf211 else "main-clover" if clover else "main"
     with open(SAMPLE_NF211 if nf211 else SAMPLE_CLOVER if clover else SAMPLE) as f:
         text = f.read()
+    # hmc3's own GRADIENTFLOW block, where the package carries the flow
+    flow = nf211 and "GRADIENTFLOW" in runner.PORTED
     if nf211:
         with open(SAMPLE_CLOVER) as f:
-            text = nf211_smoke_input(text, f.read())
+            text = nf211_smoke_input(text, None if flow else f.read())
     else:
         text = clover_smoke_input(text, ntraj=1) if clover else smoke_input(text)
     path = os.path.join(workdir, f"{tag}.input")
@@ -1863,7 +1941,8 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
         f.write(text)
     cfg = read_input(path)
     ntraj = 1 if clover or nf211 else 3
-    online = (("ONLINE", ntraj, 0.1400645, 0.0009) if clover or nf211
+    online = (("GRADIENTFLOW", 1, 0.0, 0.0) if flow
+              else ("ONLINE", ntraj, 0.1400645, 0.0009) if clover or nf211
               else ("ONLINE", 3, 0.13, 0.0026))
     types = (["GAUGE", "CLOVERTRLOG", "CLOVERDET", "NDRAT"] if nf211
              else ["GAUGE", "CLOVERTRLOG", "CLOVERDET", "CLOVERDETRATIO"] if clover
@@ -1874,6 +1953,8 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
            and [m.type for m in cfg.monomials] == types
            and csw == ([1.74, 1.74, 0.0] if nf211 else [1.74 if clover else 0.0] * len(csw)),
            "smoke input was not derived as intended")
+    _check(not flow or (cfg.meas[0].flow_eps, cfg.meas[0].flow_steps) == (0.02, 50),
+           "the GRADIENTFLOW block of the smoke input is not hmc3's")
     if nf211:
         ndrat = cfg.monomials[3]
         _check((ndrat.two_kappa_mubar, ndrat.two_kappa_epsbar, ndrat.rat_order, ndrat.stilde_min,
@@ -1881,11 +1962,30 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
                == (0.1315052, 0.1351419, 10, 0.01, 4.7, 1.726, 0.1400645),
                "the NDRAT block of the smoke input is not hmc3's")
     run_dir = os.path.join(workdir, f"run-{tag}")
+    # the flow's seconds: a synchronising timer around the measurement's flow
+    flow_s, wilson_flow = [], runner.wilson_flow
+
+    def timed_flow(*a, **k):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = wilson_flow(*a, **k)
+        torch.cuda.synchronize()
+        flow_s.append(time.perf_counter() - t0)
+        return res
+
     dc.reset_counters()
     log = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
-        rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
+    try:
+        if flow:
+            runner.wilson_flow = timed_flow
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(["-f", path, "-o", run_dir, "--checkpoint-format", "ildg"])
+    finally:
+        if flow:
+            runner.wilson_flow = wilson_flow
     wall = time.perf_counter() - t0
     counts = _read_counts(dc)
     sys.stdout.write(log.getvalue())
@@ -1928,19 +2028,10 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
         _check((counts["K1-R-D"] > 0) == nf211 and counts["K1-R"] == counts["K1-R-D"],
                f"doublet launches: {counts}")
     _check_no_plain(counts)
-    # the ONLINE measurement of the last trajectory
-    meas = os.path.join(run_dir, f"onlinemeas.{ntraj - 1:06d}")
-    _check(os.path.exists(meas), f"{os.path.basename(meas)} was not written")
-    with open(meas) as f:
-        rows = [ln.split() for ln in f if ln.strip()]
-    cpp = [float(r[3]) for r in rows]
-    _check(len(rows) == 32 and all(r[:3] == ["1", "1", str(t)] for t, r in enumerate(rows)),
-           f"{os.path.basename(meas)} has {len(rows)} lines or a wrong column layout")
-    _check(all(math.isfinite(c) and c > 0.0 for c in cpp)
-           and all(math.isfinite(float(r[4])) for r in rows),
-           f"{os.path.basename(meas)}: C_PP must be positive and finite on every timeslice")
-    _say(f"[{tag}] {os.path.basename(meas)}: 32 timeslices, C_PP(0) {cpp[0]:.6e}, "
-         f"min C_PP {min(cpp):.6e}")
+    if flow:
+        _check_gradflow(os.path.join(run_dir, f"gradflow.{ntraj - 1:06d}"), tag, flow_s)
+    else:
+        _check_online(os.path.join(run_dir, f"onlinemeas.{ntraj - 1:06d}"), tag)
     # the ILDG checkpoint, read back with its checksum verified
     conf = os.path.join(run_dir, f"conf.{ntraj:06d}.lime")
     _check(os.path.exists(conf), f"{os.path.basename(conf)} was not written")
@@ -2933,6 +3024,333 @@ def phase_mesh_hmc(workdir: str):
     return total, secs
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+
+def ndpoly_smoke_input(text: str) -> str:
+    """hmc3 cut as `nf211_smoke_input` cuts it, its NDRAT block retyped as
+    NDPOLY: the same kappa, 2Kappamubar, 2Kappaepsbar and interval [0.01,
+    4.7], degree max(DegreeOfRational, 32) = 32, 3 integration steps on its
+    timescale, heatbath precision 1e-16 (|r| <= 1e-8 |b|).  Its GRADIENTFLOW
+    block is taken out: path 5 runs it."""
+    text, n = re.subn(r"(?im)^(BeginMonomial\s+)NDRAT\b", r"\1NDPOLY", text)
+    _check(n == 1, "hmc3 holds no NDRAT block to retype")
+    text = re.sub(r"(?ims)^BeginMeasurement\s+GRADIENTFLOW.*?^EndMeasurement[^\n]*\n", "", text)
+    return clover_smoke_input(text, steps={"GAUGE": "2", "CLOVERDET": "2", "NDPOLY": "3"},
+                              ntraj=1)
+
+
+def phase_ndpoly(workdir: str, conf1: str):
+    """Main path 10: `cli.hmc.main` on hmc3's action with NDPOLY in place of
+    NDRAT at 16^3x32 (1 trajectory, the validate lines read back), the
+    launches of the NDPOLY heatbath, force and acceptance counted apart,
+    peak device memory; then one mu-shift reweighting (2 samples,
+    mu -> 1.1 mu) on path 1's checkpoint."""
+    import torch
+
+    from tmlqcd_tpu_torch import rng
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.hmc.poly_monomials import NDPolyMonomial
+    from tmlqcd_tpu_torch.hmc.reweight import mu_shift_reweighting
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams
+
+    with open(SAMPLE_NF211) as f:
+        text = ndpoly_smoke_input(f.read())
+    path = os.path.join(workdir, "main-ndpoly.input")
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = read_input(path)
+    poly = cfg.monomials[3]
+    _check(cfg.lat.dims == (32, 16, 16, 16) and not cfg.meas
+           and [m.type for m in cfg.monomials] == ["GAUGE", "CLOVERTRLOG", "CLOVERDET", "NDPOLY"]
+           and (poly.kappa, poly.two_kappa_mubar, poly.two_kappa_epsbar, poly.stilde_min,
+                poly.stilde_max, poly.csw) == (0.1400645, 0.1315052, 0.1351419, 0.01, 4.7, 0.0),
+           "the NDPOLY smoke input was not derived as intended")
+    # each piece of the NDPOLY monomial with the counters read around it
+    pieces = {"heatbath": {}, "force": {}, "action": {}}
+    hb_iters, calls = [], {k: 0 for k in pieces}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            before = _read_counts(dc)
+            out = fn(*a, **k)
+            after = _read_counts(dc)
+            for key, value in after.items():
+                pieces[name][key] = pieces[name].get(key, 0) + value - before[key]
+            calls[name] += 1
+            if name == "heatbath":
+                hb_iters.append(out[2])
+            return out
+        return wrapper
+
+    patches = [(NDPolyMonomial, "heatbath_info", counted("heatbath", NDPolyMonomial.heatbath_info)),
+               (NDPolyMonomial, "force", counted("force", NDPolyMonomial.force)),
+               (NDPolyMonomial, "action_info", counted("action", NDPolyMonomial.action_info))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_dir = os.path.join(workdir, "run-ndpoly")
+    rc, log, counts, wall = _run_cli(cli, ["-f", path, "-o", run_dir, "--checkpoint-format",
+                                           "ildg"], patches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check(rc == 0, f"cli.hmc returned {rc}")
+    m = re.search(r"\[validate\] ndpoly: polynomial degree (\d+), max relative error (\S+)", log)
+    v = re.search(r"\[validate\].*ndpoly: spec\(Q\^2\) ~ \[(\S+), (\S+)\]", log)
+    _check(m is not None and v is not None and int(m.group(1)) == 32,
+           "cli.hmc did not print the NDPOLY validate lines")
+    lmin, lmax = float(v.group(1)), float(v.group(2))
+    _say(f"[ndpoly] cli.hmc exit {rc}, {wall:.1f} s wall; degree 32, max relative error "
+         f"{float(m.group(2)):.3e} of P(x) x^(1/4) on [0.01, 4.7]; spec(Q_nd^2) ~ "
+         f"[{lmin:.3e}, {lmax:.3e}]: {'inside' if 0.01 <= lmin and lmax <= 4.7 else 'OUTSIDE'}")
+    lines = _output_rows(run_dir)
+    _check(len(lines) == 1, f"output.data has {len(lines)} lines")
+    plaq, dh, secs = float(lines[0][1]), float(lines[0][3]), float(lines[0][6])
+    _check(math.isfinite(dh) and 0.0 < plaq < 1.0, f"dH {dh}, plaquette {plaq}")
+    _check(counts["K1-SD"] > 0 and counts["K1-R-D"] == 0 and counts["K1-R"] == 0,
+           f"doublet launches: {counts}")
+    for name in ("heatbath", "action"):
+        c = pieces[name]
+        _check(calls[name] == 1 and c["K1-SD"] > 0
+               and all(c[k] == 0 for k in ("K1-R-D", "K1", "K2", "K1-S")),
+               f"NDPOLY {name}: Q_nd^2 must be K1-SD alone: {c}")
+    f = pieces["force"]
+    _check(f["K1"] > 0 and f["K2"] > 0 and f["K1-SD"] > 0 and f["K1-R-D"] == 0,
+           f"NDPOLY force launches: {f}")
+    _check_no_plain(counts)
+    _say(f"[ndpoly] s/trajectory {secs}, dH {dh:+.6e}, plaquette {plaq:.6f}; heatbath CG "
+         f"iterations {hb_iters}; peak device memory {peak:.2f} GiB")
+    for name in ("heatbath", "force", "action"):
+        c = pieces[name]
+        _say(f"[ndpoly] {name}: {calls[name]} calls, launches K1-SD {c['K1-SD']}, K1 {c['K1']}, "
+             f"K2 {c['K2']}, K1-R-D {c['K1-R-D']}")
+    _say(f"[ndpoly] launches of the whole run: " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                                             if v))
+
+    # mu-shift reweighting on path 1's checkpoint: w = det Qhat_pm(1.1 mu) /
+    # det Qhat_pm(mu), kappa = 0.13, mu = 0.01
+    lat = cfg.lat
+    arr, _, _ = load_checkpoint(conf1, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    p_old = DiracParams(kappa=0.13, mu=0.0026 / 0.26)
+    p_new = DiracParams(kappa=0.13, mu=1.1 * p_old.mu)
+    dc.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = mu_shift_reweighting(u, p_old, p_new, lat, rng.Key(5), n_samples=2, tol=1e-7,
+                                   maxiter=MAXITER)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rcounts = _read_counts(dc)
+    vals = [float(x) for x in samples]
+    _check(len(vals) == 2 and all(math.isfinite(x) for x in vals), f"samples {vals}")
+    _check(rcounts["K1-S"] > 0 and rcounts["K1"] == 0, f"reweighting launches: {rcounts}")
+    _check_no_plain(rcounts)
+    _say(f"[ndpoly] mu-shift reweighting on {os.path.basename(conf1)}, mu {p_old.mu} -> "
+         f"{p_new.mu}: samples {vals} (mean exp {sum(math.exp(x) for x in vals) / 2:.6f}), "
+         f"{dt:.3f} s, K1-S launches {rcounts['K1-S']}")
+    for key, value in rcounts.items():
+        counts[key] += value
+    return counts, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+
+SMEARED_INPUT = INVERT_INPUT + """UseStoutSmearing = yes
+StoutRho = 0.1
+StoutNoIterations = 3
+UseSourceSmearing = yes
+APEAlpha = 0.5
+APEIterations = 2
+JacobiKappa = 0.2
+JacobiIterations = 10
+"""
+
+
+def phase_invert_smeared(workdir: str, conf: str, iters6: int):
+    """Main path 11: `cli.invert.main` on phase 5's checkpoint with stout
+    smearing (rho 0.1, 3 iterations) and source smearing (APE 0.5 x 2,
+    Jacobi 0.2 x 10): 12 smeared point columns in one batched CG on K1-R,
+    each column's true residual against the plain unpreconditioned operator
+    on the stout-smeared gauge."""
+    import torch
+
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.io.propagator import read_propagator
+    from tmlqcd_tpu_torch.meas.smearing import ape_smear_spatial, jacobi_smear, stout_smear
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, d_full
+
+    path = os.path.join(workdir, "invert-smeared.input")
+    with open(path, "w") as f:
+        f.write(SMEARED_INPUT)
+    cfg = read_input(path)
+    op, lat = cfg.operators[0], cfg.lat
+    _check(cfg.use_stout_smearing and cfg.use_source_smearing
+           and (cfg.stout_rho, cfg.stout_iterations, cfg.ape_alpha, cfg.ape_iterations,
+                cfg.jacobi_kappa, cfg.jacobi_iterations) == (0.1, 3, 0.5, 2, 0.2, 10),
+           "the smeared inversion input was not read as intended")
+    out_dir = os.path.join(workdir, "prop-smeared")
+    rc, log, counts, wall = _run_cli(cli, ["-f", path, "-c", conf, "--format", "lime",
+                                           "-o", out_dir])
+    _check(rc == 0, f"cli.invert returned {rc}")
+    m = re.search(r"12 sources batched: (\d+) iters, max\|r\|\^2=(\S+), (\S+)s", log)
+    _check(m is not None and "[invert] stout smearing: rho=0.1 iters=3" in log,
+           "cli.invert did not report the stout smearing and a batched solve of 12 sources")
+    iters, solve_s = int(m.group(1)), float(m.group(3))
+    _check(0 < iters < op.max_solver_iterations and counts["K1-R"] == 4 * iters + 8,
+           f"{iters} iterations, launches {counts}")
+    _check_no_plain(counts)
+    cols, _ = read_propagator(os.path.join(out_dir, "propagator.00.000003.lime"), lat)
+    _check(len(cols) == NRHS, f"{len(cols)} columns")
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = stout_smear(torch.as_tensor(arr, device="cuda").to(torch.complex64), lat, 0.1, 3)
+    u_ape = ape_smear_spatial(u, lat, 0.5, 2)
+    params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa))
+    worst = 0.0
+    for i, (s, c) in enumerate((s, c) for s in range(4) for c in range(3)):
+        b = jacobi_smear(point_source(lat, s, c, (0, 0, 0, 0), device="cuda"), u_ape, lat,
+                         0.2, 10)
+        x = torch.as_tensor(cols[i], device="cuda").to(torch.complex64)
+        res = float(torch.linalg.vector_norm(d_full(u, x, params, lat) - b)
+                    / torch.linalg.vector_norm(b))
+        worst = max(worst, res)
+        _check(res <= RESIDUAL_BOUND, f"smeared column {i}: |M x - b| / |b| = {res:.3e}")
+    _say(f"[smeared] cli.invert exit {rc}, {wall:.1f} s wall; batched solve {solve_s} s "
+         f"({solve_s / NRHS:.4f} s per column), {iters} iterations (phase 6, unsmeared: "
+         f"{iters6}); true residual max {worst:.3e} (bound {RESIDUAL_BOUND:.0e}); launches "
+         f"K1-R {counts['K1-R']}")
+    return counts, solve_s
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+OFFLINE_INPUT = """L = 16
+T = 32
+BeginMeasurement GRADIENTFLOW
+  Frequency = 10
+  StepSize = 0.02
+  Steps = 50
+EndMeasurement
+BeginMeasurement POLYAKOV
+  Direction = 0
+EndMeasurement
+BeginMeasurement ORIENTEDPLAQUETTES
+EndMeasurement
+BeginMeasurement FIELDSTRENGTH
+EndMeasurement
+"""
+
+
+def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: float):
+    """`cli.offline_measurement.main` on phase 9's checkpoint (every file
+    read back, the flow against phase 9's own), `cli.benchmark.main` at
+    16^3x32 (K1 within 1.5x of phase 3's), and an `api.Session` round trip
+    on phase 5's checkpoint (plaquette, one inverted point column, the
+    native checksum route)."""
+    import torch
+
+    from tmlqcd_tpu_torch import api, native
+    from tmlqcd_tpu_torch.cli import benchmark, offline_measurement
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams, d_full
+
+    total = {}
+
+    def add(c):
+        for key, value in c.items():
+            total[key] = total.get(key, 0) + value
+
+    # offline measurement: trajectory 1's checkpoint is measured as trajectory 0
+    path = os.path.join(workdir, "offline.input")
+    with open(path, "w") as f:
+        f.write(OFFLINE_INPUT)
+    out_dir = os.path.join(workdir, "offline")
+    rc, log, counts, wall = _run_cli(offline_measurement, ["-f", path, "-c", nconf, "-o",
+                                                           out_dir])
+    add(counts)
+    _check(rc == 0, f"cli.offline_measurement returned {rc}")
+    names = sorted(os.listdir(out_dir))
+    _check(names == ["field_strength.data", "gradflow.000000", "oriented_plaquettes.data",
+                     "polyakov.data"], f"offline files {names}")
+    times, t2p, t2c = _read_gradflow(os.path.join(out_dir, "gradflow.000000"))
+    _, p9, c9 = _read_gradflow(os.path.join(workdir, "run-main-nf211", "gradflow.000000"))
+    dev = max(abs(a - b) / b for a, b in zip(t2p + t2c, p9 + c9))
+    _check(len(times) == 50 and dev <= 1e-6,
+           f"the offline flow differs from phase 9's by {dev:.3e} relative")
+    rows = {}
+    for name in names[:1] + names[2:]:
+        with open(os.path.join(out_dir, name)) as f:
+            lines = [ln.split() for ln in f if ln.strip()]
+        _check(len(lines) == 1 and lines[0][0] == "00000000"
+               and all(math.isfinite(float(v)) for v in lines[0][1:]),
+               f"{name}: {lines}")
+        rows[name] = lines[0][1:]
+    op = [float(v) for v in rows["oriented_plaquettes.data"]]
+    _check(all(0.0 < v < 1.0 for v in op), f"oriented plaquettes {op}")
+    _say(f"[offline] cli.offline_measurement exit {rc}, {wall:.1f} s wall; gradflow.000000 "
+         f"equals phase 9's within {dev:.1e}; polyakov {rows['polyakov.data']}; oriented "
+         f"plaquettes {op}; field strength (E_plaq, E_clover, Q) {rows['field_strength.data']}")
+
+    # the benchmark CLI at 16^3x32: K1 and one Qhat_pm (K1-S)
+    rc, log, counts, wall = _run_cli(benchmark, ["--dims", "16", "16", "16", "32"])
+    add(counts)
+    _check(rc == 0, f"cli.benchmark returned {rc}")
+    res = json.loads(log.strip().splitlines()[-1])
+    k1, qpm = res["K1"], res["Qhat_pm"]
+    _check(res["route"] == "cuda" and res["card"] != "not read" and counts["K1"] > 0
+           and counts["K1-S"] > 0, f"benchmark {res}, launches {counts}")
+    _check(k1_ms / 1.5 <= k1["ms"] <= 1.5 * k1_ms,
+           f"benchmark K1 {k1['ms']:.4f} ms against phase 3's {k1_ms:.4f} ms")
+    _check_no_plain(counts)
+    _say(f"[benchmark] {res['card']}: K1 {k1['ms'] * 1e3:.1f} us ({k1['gflops']:.1f} GF/s, "
+         f"{k1['bound_share']:.1%} of its bound {k1['bound_ms'] * 1e3:.1f} us; phase 3 "
+         f"{k1_ms * 1e3:.1f} us); Qhat_pm (K1-S) {qpm['ms'] * 1e3:.1f} us ({qpm['gflops']:.1f} "
+         f"GF/s, {qpm['bound_share']:.1%} of its bound {qpm['bound_ms'] * 1e3:.1f} us)")
+
+    # the embedding API
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    inp = os.path.join(workdir, "invert.input")
+    dc.reset_counters()
+    t0 = time.perf_counter()
+    s = api.init(inp)
+    s.read_gauge(conf1)
+    plaq = s.plaquette()
+    b = point_source(s.lat, 0, 0, (0, 0, 0, 0), device="cuda")
+    x = s.invert(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(dc)
+    add(counts)
+    ref_plaq = float(_output_rows(os.path.dirname(conf1))[-1][1])
+    op = s.cfg.operators[0]
+    params = DiracParams(kappa=op.kappa, mu=op.two_kappa_mu / (2 * op.kappa))
+    res = float(torch.linalg.vector_norm(d_full(s.gauge, x, params, s.lat) - b))
+    route = native.checksum_route()
+    _check(s.gauge.device.type == "cuda" and s.trajectory == _conf_traj(conf1),
+           f"session gauge on {s.gauge.device}, trajectory {s.trajectory}")
+    _check(abs(plaq - ref_plaq) <= 1e-11, f"session plaquette {plaq} != output.data {ref_plaq}")
+    _check(res <= RESIDUAL_BOUND, f"session inversion: |M x - b| / |b| = {res:.3e}")
+    _check(route == "native", f"the checksum route is {route}")
+    _check(counts["K1-S"] > 0, f"session launches {counts}")
+    _check_no_plain(counts)
+    s.finalize()
+    _say(f"[api] Session on {os.path.basename(conf1)}: plaquette {plaq:.12f} (output.data "
+         f"{ref_plaq:.12f}); one point column |M x - b| / |b| {res:.3e}; {wall:.2f} s; "
+         f"checksum route {route}; launches K1-S {counts['K1-S']}, K1 {counts['K1']}")
+    return total
+
+
 def _e2e(label: str) -> None:
     """Main paths 1, 3, 5, 6, 7, 8 and 9 alone (`--e2e`): s/trajectory of
     paths 1, 3, 5 and 8, path 6's seconds per operator (12 columns each),
@@ -3043,7 +3461,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             hmc_counts, hmc_secs, conf = phase_main_path(workdir)
             done("5 main path 1")
-            inv_counts, _, inv_solve_s = phase_invert(workdir, conf)
+            inv_counts, inv_iters, inv_solve_s = phase_invert(workdir, conf)
             done("6 main path 2")
             chmc_counts, _, cconf = phase_main_path(workdir, clover=True)
             done("7 main path 3")
@@ -3083,6 +3501,14 @@ def main() -> int:
             done("12 main path 8")
             mesh_counts, _ = phase_mesh_hmc(workdir)
             done("13 main path 9")
+            poly_counts, _ = phase_ndpoly(workdir, conf)
+            done("14 main path 10")
+            smear_counts, _ = phase_invert_smeared(workdir, conf, inv_iters)
+            done("15 main path 11")
+            tag16 = "16x16x16x32"
+            off_counts = phase_offline_benchmark_api(
+                workdir, nconf, conf, rows[(tag16, "12-real", "mhat+g5")][0])
+            done("16 offline measurement, benchmark, api")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3093,7 +3519,9 @@ def main() -> int:
              "launches_hmc_clover": chmc_counts, "launches_invert_clover": cinv_counts,
              "launches_hmc_nf211": nhmc_counts, "launches_invert_doublet": dinv_counts,
              "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts,
-             "launches_hmc_mesh": mesh_counts}
+             "launches_hmc_mesh": mesh_counts, "launches_hmc_ndpoly": poly_counts,
+             "launches_invert_smeared": smear_counts,
+             "launches_offline_benchmark_api": off_counts}
 
     def entry(name, replaces, key, row, source=src, device_ms=None):
         ms, plain_ms, bound_ms, bound_by = row[:4]

@@ -211,17 +211,40 @@ def test_hmc2_lowers_to_the_reference_monomials():
 
 
 @pytest.mark.parametrize("what, text", [
-    ("NDPOLY", "BeginMonomial NDPOLY\n kappa = 0.1\n CSW = 1.0\nEndMonomial\n"),
-    ("ORIENTEDPLAQUETTES", "BeginMeasurement ORIENTEDPLAQUETTES\n Frequency = 1\nEndMeasurement\n"),
     ("SFCOUPLING", "BeginMeasurement SFCOUPLING\n Frequency = 1\nEndMeasurement\n"),
     ("SFGAUGE", "BeginMonomial SFGAUGE\nEndMonomial\n"),
-    ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
-    ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
 ])
 def test_unported_features_raise(what, text):
     cfg = config_tmlqcd.parse_input(text)
     with pytest.raises(NotImplementedError, match=f"(?i){what}.*not yet ported"):
         config.build_hmc(cfg)
+
+
+@pytest.mark.parametrize("what, text", [
+    ("NDPOLY", "BeginMonomial NDPOLY\n kappa = 0.1\n CSW = 1.0\n 2Kappamubar = 0.1\n"
+               " 2Kappaepsbar = 0.12\n DegreeOfRational = 40\n StildeMin = 0.02\n"
+               " StildeMax = 4.5\n AcceptancePrecision = 1e-16\n MaxSolverIterations = 700\n"
+               "EndMonomial\n"),
+    ("ORIENTEDPLAQUETTES", "BeginMeasurement ORIENTEDPLAQUETTES\n Frequency = 1\nEndMeasurement\n"),
+    ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
+    ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
+])
+def test_ported_features_lower(what, text):
+    """What earlier slices refused now lowers: NDPOLY to the reference's
+    NDPolyMonomial fields (degree = max(DegreeOfRational, 32)), the gauge
+    measurements into the run config."""
+    cfg = config_tmlqcd.parse_input(text)
+    out = config.build_hmc(cfg)
+    if what == "NDPOLY":
+        mo = out.monomials[0]
+        mr = jconfig.build_hmc(jconfig_tmlqcd.parse_input(text)).monomials[0]
+        assert type(mo).__name__ == type(mr).__name__ == "NDPolyMonomial"
+        for field in ("degree", "s_min", "s_max", "timescale", "heatbath_tol", "maxiter", "name"):
+            assert getattr(mo, field) == getattr(mr, field)
+        assert dataclasses.asdict(mo.params) == dataclasses.asdict(mr.params)
+        assert mo.degree == 40 and mo.params.c_sw == 1.0 and mo.coeffs.shape == (41,)
+    else:
+        assert [m.type for m in cfg.meas] == [what] and out.monomials[0].name == "gauge"
 
 
 @pytest.mark.parametrize("procs", ["NrXProcs = 2\n", "NrZProcs = 2\n",

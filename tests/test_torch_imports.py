@@ -37,6 +37,10 @@ _SOLVERS_PATH = ("solvers.mixed_cg", "solvers.krylov", "solvers.bicgstab", "solv
                  "solvers.deflation", "solvers.eigcg", "solvers.dispatch")
 # the domain decomposition
 _MESH_PATH = ("parallel", "ops.dslash_cuda", "ops.wilson_fast", "cli.hmc")
+# the gauge observables, the flow, PHMC, smearing and the remaining drivers
+_GAUGE_OBS_PATH = ("meas.gauge_obs", "meas.gradient_flow", "meas.smearing", "solvers.chebyshev",
+                   "hmc.poly_monomials", "hmc.reweight", "cli.offline_measurement",
+                   "cli.benchmark", "api", "models.suites")
 
 
 def test_port_imports_no_jax():
@@ -48,7 +52,8 @@ def test_port_imports_no_jax():
     count, bad, names = res.stdout.strip().split(" ", 2)
     assert int(count) >= 44  # every slice module was imported
     assert bad == "[]", bad
-    for name in _INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH + _MESH_PATH:
+    for name in (_INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH + _MESH_PATH
+                 + _GAUGE_OBS_PATH):
         assert f"tmlqcd_tpu_torch.{name}" in names.split()
 
 

@@ -269,23 +269,23 @@ def test_cli_invert_matches_reference_cli(tmp_path, fields, monkeypatch):
     ("NrZProcs", "NrZProcs = 2\nBeginOperator DBCLOVER\n kappa = 0.13\nEndOperator\n"),
     ("OVERLAP", "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
     ("NrXProcs", "NrXProcs = 2\nBeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\nEndOperator\n"),
-    # a carried solver does not hide an unported feature beside it
-    ("UseStoutSmearing", "UseStoutSmearing = yes\nBeginOperator CLOVER\n kappa = 0.13\n"
-                         " CSW = 1.5\n Solver = dfl\nEndOperator\n"),
+    # a carried solver or smearing option does not hide an unported feature beside it
+    ("OVERLAP", "UseStoutSmearing = yes\nBeginOperator CLOVER\n kappa = 0.13\n"
+                " CSW = 1.5\n Solver = dfl\nEndOperator\nBeginOperator OVERLAP\n kappa = 0.13\n"
+                "EndOperator\n"),
     ("OVERLAP", "BeginOperator TMWILSON\n kappa = 0.13\n Solver = mixedcg\nEndOperator\n"
                 "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
     ("NrTProcs", "NrTProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = fastmixed\n"
                  "EndOperator\n"),
-    ("UseSourceSmearing", "UseSourceSmearing = yes\nBeginOperator TMWILSON\n kappa = 0.13\n"
-                          " Solver = dflfgmres\nEndOperator\n"),
+    ("NrXProcs", "UseSourceSmearing = yes\nNrXProcs = 2\nBeginOperator TMWILSON\n"
+                 " kappa = 0.13\n Solver = dflfgmres\nEndOperator\n"),
     ("NrXProcs", "NrXProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = dflgcr\n"
                  "EndOperator\n"),
     ("NrYProcs", "NrYProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = increigcg\n"
                  "EndOperator\n"),
-    ("UseStoutSmearing", "UseStoutSmearing = yes\nBeginOperator TMWILSON\n kappa = 0.13\n"
-                         "EndOperator\n"),
-    ("UseSourceSmearing", "UseSourceSmearing = yes\nBeginOperator TMWILSON\n kappa = 0.13\n"
-                          "EndOperator\n"),
+    ("OVERLAP", "UseStoutSmearing = yes\nBeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
+    ("NrZProcs", "UseSourceSmearing = yes\nNrZProcs = 2\nBeginOperator TMWILSON\n"
+                 " kappa = 0.13\nEndOperator\n"),
     ("NrTProcs", "NrTProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\nEndOperator\n"),
 ])
 def test_unported_inverter_options_raise(what, text):
@@ -300,6 +300,11 @@ def test_ported_inverter_options_pass():
             for csw in ("", " CSW = 1.0\n"):
                 config.check_invert_ported(config_tmlqcd.parse_input(
                     f"BeginOperator {op}\n kappa = 0.13\n{csw} Solver = {solver}\nEndOperator\n"))
+    # stout and source smearing are carried (tests/test_torch_smearing.py runs them)
+    for keys in ("UseStoutSmearing = yes\n", "UseSourceSmearing = yes\n",
+                 "UseStoutSmearing = yes\nStoutNoIterations = 3\nUseSourceSmearing = yes\n"):
+        config.check_invert_ported(config_tmlqcd.parse_input(
+            keys + "BeginOperator TMWILSON\n kappa = 0.13\nEndOperator\n"))
     # the overlap's solvers are not the inverter's: refused by name
     for solver in ("sumr", "cgne", "nope"):
         with pytest.raises(ValueError, match="unknown solver"):

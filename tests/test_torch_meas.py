@@ -191,14 +191,31 @@ def test_onlinemeas_file_matches_reference(gauge, online_pair):
     assert all(len(c[3]) == len("1.234567890123e-01") for c in out)  # %.12e
 
 
-@pytest.mark.parametrize("ty", ["GRADIENTFLOW", "POLYAKOV", "ORIENTEDPLAQUETTES", "SFCOUPLING",
-                                "FIELDSTRENGTH"])
+@pytest.mark.parametrize("ty", ["SFCOUPLING"])
 def test_unported_measurements_raise(tmp_path, gauge, ty):
     cfg = config_tmlqcd.parse_input(f"L = 4\nT = 4\nBeginMeasurement {ty}\nEndMeasurement\n")
     with pytest.raises(NotImplementedError, match=f"{ty}.*not yet ported"):
         runner.run_measurements(cfg, gauge[1], LAT, 0, str(tmp_path), rng.Key(1))
     with pytest.raises(NotImplementedError, match=f"{ty}.*not yet ported"):
         config.build_hmc(cfg)
+
+
+@pytest.mark.parametrize("ty, name, rows", [
+    ("GRADIENTFLOW", "gradflow.000005", 2), ("POLYAKOV", "polyakov.data", 1),
+    ("ORIENTEDPLAQUETTES", "oriented_plaquettes.data", 1),
+    ("FIELDSTRENGTH", "field_strength.data", 1)])
+def test_gauge_measurements_run(tmp_path, gauge, ty, name, rows):
+    """The gauge measurements run on their Frequency (here 3: after
+    trajectory 5, not after 6) and write their file; build_hmc lowers them
+    (their numbers against the reference: tests/test_torch_offline.py)."""
+    cfg = config_tmlqcd.parse_input(f"L = 4\nT = 4\nBeginMeasurement {ty}\n Frequency = 3\n"
+                                    " Steps = 2\nEndMeasurement\n")
+    for traj in (5, 6):
+        runner.run_measurements(cfg, gauge[1], LAT, traj, str(tmp_path), rng.Key(1))
+    assert [p.name for p in tmp_path.iterdir()] == [name]
+    lines = [ln for ln in (tmp_path / name).read_text().splitlines() if not ln.startswith("#")]
+    assert len(lines) == rows and all(np.isfinite(np.float64(ln.split())).all() for ln in lines)
+    assert config.build_hmc(cfg).monomials[0].name == "gauge"
 
 
 # ---------------------------------------------------------------------------

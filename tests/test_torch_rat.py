@@ -103,19 +103,16 @@ def test_rational_monomials_lower_like_the_reference(ty):
 
 
 def test_hmc3_lowers_to_the_reference_monomials():
-    """hmc3 as shipped raises for its GRADIENTFLOW block; without that block
-    it builds the reference's monomials."""
-    import re
-
+    """hmc3 as shipped, its GRADIENTFLOW block included, builds the
+    reference's monomials."""
     with open(os.path.join(SAMPLES, "hmc3-nf211-clover.input")) as f:
         text = f.read()
     cfg = config_tmlqcd.parse_input(text)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfig_tmlqcd.parse_input(text))
-    with pytest.raises(NotImplementedError, match="GRADIENTFLOW.*not yet ported"):
-        config.build_hmc(cfg)
-    cut = re.sub(r"(?ms)^BeginMeasurement GRADIENTFLOW.*?^EndMeasurement\n", "", text)
-    out = config.build_hmc(config_tmlqcd.parse_input(cut))
-    ref = jconfig.build_hmc(jconfig_tmlqcd.parse_input(cut))
+    assert [(m.type, m.frequency, m.flow_eps, m.flow_steps) for m in cfg.meas] == \
+        [("GRADIENTFLOW", 10, 0.02, 50)]
+    out = config.build_hmc(cfg)
+    ref = jconfig.build_hmc(jconfig_tmlqcd.parse_input(text))
     assert out.lat.dims == ref.lat.dims == (48, 24, 24, 24)
     assert [type(m).__name__ for m in out.monomials] == [type(m).__name__ for m in ref.monomials] \
         == ["GaugeMonomial", "CloverTrlogMonomial", "CloverDetMonomial", "NDRatMonomial"]

@@ -4,11 +4,11 @@ Port of `tmlqcd_tpu/cli/hmc.py`: read input -> the (t, y) slab mesh of
 NrTProcs x NrYProcs (`parallel.mesh_from_procs`, else `parallel.auto_mesh`,
 which gives none on one device; all slabs on the run's one device, every
 solve on the slab kernels) -> start configuration
-(hot/cold/continue) -> the interval check of the rational monomials
-(`hmc/validate.py`, a warning when spec(Q^2) leaves [StildeMin, StildeMax])
--> trajectory loop writing output.data and printing one
-line per trajectory, with the force monitor every 10 trajectories at
-DebugLevel >= 2, the configured measurements (ONLINE, PIONNORM) and the
+(hot/cold/continue) -> the interval check of the rational and polynomial
+monomials (`hmc/validate.py`, a warning when spec(Q^2) leaves [StildeMin,
+StildeMax]) -> trajectory loop writing output.data and printing one line
+per trajectory, with the force monitor every 10 trajectories at DebugLevel
+>= 2, the configured measurements (every type but SFCOUPLING) and the
 ReversibilityCheck -> native or ILDG checkpoints every NSave and at the end.
 
 Usage:

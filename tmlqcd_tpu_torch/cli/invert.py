@@ -23,8 +23,12 @@ The non-degenerate doublets DBTMWILSON and DBCLOVER (2Kappamubar,
 source sits in the upper flavour slot and the solve returns the flavour
 pair, written as one propagator file per flavour
 (`propagator.NN.fl{0,1}.TTTTTT.lime`) or as `propagator_doublet` in the npz.
-OVERLAP, UseStoutSmearing and UseSourceSmearing raise `NotImplementedError`
-naming themselves.
+With UseStoutSmearing the gauge field is stout-smeared (StoutRho,
+StoutNoIterations) before any operator or gauge copy is built, so every
+kernel sees the smeared links; with UseSourceSmearing each source gets
+JacobiIterations Jacobi sweeps (JacobiKappa) on the APE-smeared spatial
+links (APEAlpha, APEIterations) of that same gauge field.  OVERLAP raises
+`NotImplementedError` naming itself.
 
 Usage:
     python -m tmlqcd_tpu_torch.cli.invert -f sample.input -c conf.000010.npz \
@@ -83,6 +87,7 @@ def main(argv=None):
     )
     from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
     from tmlqcd_tpu_torch.io.propagator import write_propagator
+    from tmlqcd_tpu_torch.meas.smearing import ape_smear_spatial, jacobi_smear, stout_smear
     from tmlqcd_tpu_torch.meas.sources import point_source, z2_timeslice_source
     from tmlqcd_tpu_torch.ops.ndoublet import NDParams
     from tmlqcd_tpu_torch.ops.wilson import DiracParams
@@ -102,6 +107,18 @@ def main(argv=None):
     arr, traj, _ = load_checkpoint(conf, lat)
     u = torch.as_tensor(arr, device=device).to(torch.complex64)
     os.makedirs(args.output_dir, exist_ok=True)
+
+    if cfg.use_stout_smearing and cfg.stout_iterations > 0:
+        # operator-level smearing: every operator and gauge copy below is
+        # built on the smeared links
+        u = stout_smear(u, lat, cfg.stout_rho, cfg.stout_iterations)
+        print(f"[invert] stout smearing: rho={cfg.stout_rho} iters={cfg.stout_iterations}",
+              flush=True)
+    if cfg.use_source_smearing:
+        # the sources' Jacobi sweeps run on APE-smeared spatial links of the
+        # (stout-smeared) gauge field, built once
+        u_ape = (ape_smear_spatial(u, lat, cfg.ape_alpha, cfg.ape_iterations)
+                 if cfg.ape_iterations > 0 else u)
 
     if not cfg.operators:
         print("[invert] no BeginOperator block in input", file=sys.stderr)
@@ -137,6 +154,9 @@ def main(argv=None):
                        for s in range(4) for c in range(3)]
         else:
             sources = [(0, 0, z2_timeslice_source(lat, ts, rng.Key(args.seed), device=device))]
+        if cfg.use_source_smearing:
+            sources = [(s, c, jacobi_smear(src, u_ape, lat, cfg.jacobi_kappa,
+                                           cfg.jacobi_iterations)) for s, c, src in sources]
 
         if is_doublet:
             two_k = 2.0 * op.kappa if op.kappa else 1.0

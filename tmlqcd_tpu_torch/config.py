@@ -2,20 +2,21 @@
 
 Port of `tmlqcd_tpu/config.py`.  The dataclasses carry the reference's full
 input schema, so every tmLQCD input the reference accepts parses here too.
-`build_hmc` lowers the ported subset — the GAUGE, DET, DETRATIO, CLOVERDET,
-CLOVERDETRATIO and CLOVERTRLOG monomials and the rational monomials (NDRAT,
-NDCLOVERRAT, RAT, CLOVERRAT and their *COR corrections) on one device, with
-the ONLINE and PIONNORM measurements, the force monitor, ReversibilityCheck
-and native or ILDG checkpoints, and the (t, y) domain decomposition of
-NrTProcs x NrYProcs (a slab mesh on one device, which `cli.hmc` builds with
-`parallel.mesh_from_procs` and `build_hmc` carries by `HMCConfig.mesh` into
-every solving monomial) — and raises `NotImplementedError`, naming the
-feature, for everything else: other monomial types (NDPOLY, SFGAUGE) and
-other measurement types (GRADIENTFLOW, ...).  NrXProcs / NrZProcs > 1 and a
-lattice that does not split into even slabs raise the reference's
-`ValueError` where the mesh is built.  `check_invert_ported` does the
-same for the inverter's operators (ported: TMWILSON, WILSON, CLOVER,
-DBTMWILSON, DBCLOVER) and smearing options, rejects a solver name the
+`build_hmc` lowers the GAUGE, DET, DETRATIO, CLOVERDET, CLOVERDETRATIO and
+CLOVERTRLOG monomials, the rational monomials (NDRAT, NDCLOVERRAT, RAT,
+CLOVERRAT and their *COR corrections) and the polynomial NDPOLY on one
+device, with every measurement but SFCOUPLING (ONLINE, PIONNORM,
+GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH), the force
+monitor, ReversibilityCheck and native or ILDG checkpoints, and the (t, y)
+domain decomposition of NrTProcs x NrYProcs (a slab mesh on one device,
+which `cli.hmc` builds with `parallel.mesh_from_procs` and `build_hmc`
+carries by `HMCConfig.mesh` into every solving monomial; NDPOLY takes none)
+— and raises `NotImplementedError`, naming the feature, for the rest: the
+SFGAUGE monomial and the SFCOUPLING measurement.  NrXProcs / NrZProcs > 1
+and a lattice that does not split into even slabs raise the reference's
+`ValueError` where the mesh is built.  `check_invert_ported` does the same
+for the inverter's operators (ported: TMWILSON, WILSON, CLOVER, DBTMWILSON,
+DBCLOVER; stout and source smearing are carried), rejects a solver name the
 inverter does not know, and raises for any Nr*Procs > 1: the reference's
 `cli/invert.py` builds no mesh.  Nothing is skipped silently.
 """
@@ -35,6 +36,7 @@ from tmlqcd_tpu_torch.hmc import (
     HMCConfig,
     IntegratorConfig,
     Level,
+    NDPolyMonomial,
     NDRatCorMonomial,
     NDRatMonomial,
     RatCorMonomial,
@@ -196,9 +198,10 @@ def _not_ported(what: str):
 
 def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mesh=None):
     """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO,
-    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, and the rational NDRAT,
-    NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections); `mesh` goes
-    to every monomial that solves."""
+    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, the rational NDRAT,
+    NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections, and the
+    polynomial NDPOLY); `mesh` goes to every monomial that solves but
+    NDPOLY, which runs on the whole lattice."""
     ty = spec.type.upper()
     common = dict(
         timescale=spec.timescale,
@@ -214,6 +217,11 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
     def params(two_kappa_mu, c_sw=0.0):
         return DiracParams(kappa=spec.kappa, mu=_mu(two_kappa_mu, spec.kappa), c_sw=c_sw,
                            theta=tuple(spec.theta))
+
+    def nd_params():
+        return NDParams(kappa=spec.kappa, mubar=_mu(spec.two_kappa_mubar, spec.kappa),
+                        epsbar=_mu(spec.two_kappa_epsbar, spec.kappa), c_sw=spec.csw,
+                        theta=tuple(spec.theta))
 
     if ty == "GAUGE":
         return GaugeMonomial(lat=lat, beta=beta, c1=c1, timescale=spec.timescale)
@@ -237,14 +245,17 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
             lat=lat, params=DiracParams(kappa=spec.kappa, mu=_mu(spec.two_kappa_mu, spec.kappa),
                                         c_sw=spec.csw),
             timescale=spec.timescale, name=spec.name or "clovertrlog")
+    if ty == "NDPOLY":
+        return NDPolyMonomial(lat=lat, params=nd_params(), degree=max(spec.rat_order, 32),
+                              s_min=spec.stilde_min, s_max=spec.stilde_max,
+                              timescale=spec.timescale,
+                              heatbath_tol=float(spec.acceptance_precision) ** 0.5,
+                              maxiter=spec.max_solver_iterations, name=spec.name or "ndpoly")
     rational = dict(order=spec.rat_order, s_min=spec.stilde_min, s_max=spec.stilde_max,
                     name=spec.name or ty.lower(), **common)
     if ty in ("NDRAT", "NDCLOVERRAT", "NDRATCOR", "NDCLOVERRATCOR"):
         cls = NDRatCorMonomial if ty.endswith("COR") else NDRatMonomial
-        return cls(lat=lat, params=NDParams(kappa=spec.kappa,
-                                            mubar=_mu(spec.two_kappa_mubar, spec.kappa),
-                                            epsbar=_mu(spec.two_kappa_epsbar, spec.kappa),
-                                            c_sw=spec.csw, theta=tuple(spec.theta)), **rational)
+        return cls(lat=lat, params=nd_params(), **rational)
     if ty in ("RAT", "CLOVERRAT", "RATCOR", "CLOVERRATCOR"):
         cls = RatCorMonomial if ty.endswith("COR") else RatMonomial
         return cls(lat=lat, params=params(0.0, spec.csw), **rational)
@@ -273,13 +284,9 @@ def check_ported(cfg: RunConfig) -> None:
 def check_invert_ported(cfg: RunConfig) -> None:
     """Raise for every inverter feature this slice of the port does not
     carry: operators other than TMWILSON / WILSON / CLOVER / DBTMWILSON /
-    DBCLOVER, stout and source smearing, domain decomposition; and for a
-    solver name outside `inverter.SOLVERS` (ValueError)."""
+    DBCLOVER, domain decomposition; and for a solver name outside
+    `inverter.SOLVERS` (ValueError)."""
     _check_one_device(cfg)
-    if cfg.use_stout_smearing and cfg.stout_iterations > 0:
-        raise _not_ported("UseStoutSmearing")
-    if cfg.use_source_smearing:
-        raise _not_ported("UseSourceSmearing")
     for op in cfg.operators:
         if op.type.upper() not in PORTED_OPERATORS:
             raise _not_ported(f"operator type {op.type!r}")

@@ -60,22 +60,24 @@
 // block stages the upcast links once for its columns; K2 reads f32 links.
 // It moves 288 B (18-real) or 192 B (12-real) of gauge per site instead of
 // 576 or 384.  With re and im V elements apart (the f32 copy's layout) a
-// warp's link load moved 64 B and K1-B reached 77.5 % of copy bandwidth at
-// 32^3x64; with them side by side it moves a 128-byte line, and K1-B
-// reached 88.2 % (H100, chip_smoke.py).  Two sites per thread on paired
-// loads, the other way to whole lines, took 144 registers (3 blocks per SM)
-// and reached 71.0 %: occupancy, not load width, then bound it.
+// warp's link load moved 64 B; with them side by side it moves a 128-byte
+// line, and K1-B came closer to copy bandwidth at 32^3x64.  Two sites per
+// thread on paired loads, the other way to whole lines, took 144 registers
+// (3 blocks per SM) and was slower than either: occupancy, not load width,
+// then bound it (chip_smoke.py's phase 3; the measured shares, with the
+// card and its power limit, are in PERF.md section 6).
 //
 // Bound: memory.  1320 flops per site against 576 B (18-real) or 384 B
 // (12-real) of gauge, 96 B per spinor read (8 neighbour reads of which the
 // caches absorb most) and 96 B written; the mhat epilogue reads one more
 // spinor.  At ~1.7-2.3 flop/B it sits far below the card's ridge point, so
 // the only lever is bytes.  K1 relies on L1/L2 for neighbour reuse and
-// reaches 86-92 % of copy bandwidth at 32^3x64 (H100, chip_smoke.py), so
+// comes close to copy bandwidth at 32^3x64 (chip_smoke.py's phase 3; the
+// shares, with the card and its power limit, are in PERF.md section 6), so
 // shared-memory tiling of the neighbours has little left to win there.  At
 // the main paths' 16^3x32 the kernel body sits within 1.2-1.5x of its bound
-// and the host set the time: 27-56 us of Python and launch per K1 call
-// against 12-36 us on the device.  K1-S answers that (below).
+// and the host set the time: more Python and launch per K1 call than time
+// on the device (PERF.md section 6).  K1-S answers that (below).
 //
 // K1-S: the two hops of Mhat(+-) or the four of Qhat_pm, each K1's per-site
 // work with its epilogue (mee_inv then mhat, or clov_inv then clov_mhat), as
@@ -302,12 +304,13 @@ struct SchurArgs {
 // to 144 (clover) registers, 3-4 blocks per SM, since the grid-stride loop
 // keeps the phase's descriptor and hoisted address arithmetic in registers
 // across its iterations.  528 resident blocks on 132 SMs cover 16^3x32's 512
-// in one pass of every phase.  Measured on an H100 with chip_smoke.py
-// (ptxas for sm_90a), the alternatives were slower: capped at K1's 80
-// registers it spilled 144 B a thread; with the four phases written out
-// (four copies of the per-site code, constant-index descriptors) or the
-// site's work behind a call that is not inlined (a 296-byte stack frame), a
-// Qhat_pm took 1.3-1.5x longer at 16^3x32.
+// in one pass of every phase.  Timed with chip_smoke.py (PERF.md section 6
+// names the card and its power limit; ptxas for sm_90a), the alternatives
+// were slower: capped at K1's 80 registers it spilled 144 B a thread; with
+// the four phases written out (four copies of the per-site code,
+// constant-index descriptors) or the site's work behind a call that is not
+// inlined (a 296-byte stack frame), a Qhat_pm took 1.3-1.5x longer at
+// 16^3x32.
 constexpr int kSchurBlocksPerSM = 4;
 
 // One phase of K1-S: K1's per-site work with epilogue EPI on every site of
@@ -675,10 +678,11 @@ constexpr long long kRhsSlabBytes = 4ll << 20;
 // order a site's t-neighbours are one timeslice of the whole batch away,
 // R * X * M * 96 bytes; once that outgrows a few MB the t-hops start to
 // miss L2, and walking kRhsTin timeslices innermost keeps all but one in
-// kRhsTin of them one block apart.  Measured on an H100 with chip_smoke.py
-// (R = 12, 12-real, mhat, links not yet staged): 32^3 x 64, 19 MB per
-// timeslice, 2445 us in memory order and 2212 us in this order; 16^3 x 32,
-// 2.4 MB per timeslice, lies below kRhsSlabBytes and keeps memory order.
+// kRhsTin of them one block apart.  Timed with chip_smoke.py (R = 12,
+// 12-real, mhat, links not yet staged; PERF.md section 6 names the card and
+// its power limit): at 32^3 x 64, 19 MB per timeslice, this order was
+// faster than memory order; 16^3 x 32, 2.4 MB per timeslice, lies below
+// kRhsSlabBytes and keeps memory order.
 // Needs whole m-tiles and whole t-chunks; 1 is memory order.
 inline int rhs_t_inner(const Geo& g, int R) {
   const bool tiles = g.M % kRhsSites == 0 && g.T % kRhsTin == 0;

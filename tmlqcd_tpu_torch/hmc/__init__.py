@@ -9,6 +9,7 @@ from tmlqcd_tpu_torch.hmc.monomials import (  # noqa: F401
     DetRatioMonomial,
     GaugeMonomial,
 )
+from tmlqcd_tpu_torch.hmc.poly_monomials import NDPolyMonomial  # noqa: F401
 from tmlqcd_tpu_torch.hmc.rational_monomials import (  # noqa: F401
     NDRatCorMonomial,
     NDRatMonomial,

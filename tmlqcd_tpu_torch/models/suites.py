@@ -1,5 +1,5 @@
-"""Standard action suites (port of `tmlqcd_tpu/models/suites.py`: configs 1
-and 3; config 2, nf2_wilson, follows with the next slice)."""
+"""Standard action suites (port of `tmlqcd_tpu/models/suites.py`: the
+BASELINE configs 1-3)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from tmlqcd_tpu_torch.hmc import (
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
-__all__ = ["pure_gauge", "nf2_twisted_mass_hasenbusch"]
+__all__ = ["pure_gauge", "nf2_wilson", "nf2_twisted_mass_hasenbusch"]
 
 
 def pure_gauge(lat: Lattice, beta: float, c1: float = 0.0, tau: float = 1.0,
@@ -26,6 +26,23 @@ def pure_gauge(lat: Lattice, beta: float, c1: float = 0.0, tau: float = 1.0,
         integrator=IntegratorConfig(tau=tau, levels=(Level("2mn", steps),)),
     )
 
+
+def nf2_wilson(lat: Lattice, beta: float, kappa: float, tau: float = 1.0, gauge_steps: int = 3,
+               fermion_steps: int = 8, acc_tol: float = 1e-9, force_tol: float = 1e-8,
+               maxiter: int = 2000) -> HMCConfig:
+    """Config 2: two degenerate Wilson flavours (mu = 0), the even/odd
+    preconditioned pseudofermion on the coarse timescale, the gauge on the
+    fine one (BeginMonomial DET + GAUGE)."""
+    return HMCConfig(
+        lat=lat,
+        monomials=(
+            GaugeMonomial(lat=lat, beta=beta, timescale=0),
+            DetMonomial(lat=lat, params=DiracParams(kappa=kappa, mu=0.0), timescale=1,
+                        acc_tol=acc_tol, force_tol=force_tol, maxiter=maxiter),
+        ),
+        integrator=IntegratorConfig(
+            tau=tau, levels=(Level("2mn", gauge_steps), Level("2mn", fermion_steps))),
+    )
 
 def nf2_twisted_mass_hasenbusch(
     lat: Lattice,

@@ -164,32 +164,13 @@ def sw_apply(sw: torch.Tensor, psi: torch.Tensor, mutld: float,
     return torch.stack(rows)
 
 
-def _inv3(m: torch.Tensor):
-    """Closed-form 3x3 inverse (adjugate / det) on the leading axes; returns
-    (inverse, det)."""
-    a, b, c = m[0, 0], m[0, 1], m[0, 2]
-    d, e, f = m[1, 0], m[1, 1], m[1, 2]
-    g, h, i = m[2, 0], m[2, 1], m[2, 2]
-    co_a = e * i - f * h
-    co_b = -(d * i - f * g)
-    co_c = d * h - e * g
-    det = a * co_a + b * co_b + c * co_c
-    inv_det = 1.0 / det
-    rows = [
-        [co_a, -(b * i - c * h), (b * f - c * e)],
-        [co_b, (a * i - c * g), -(a * f - c * d)],
-        [co_c, -(a * h - b * g), (a * e - b * d)],
-    ]
-    return torch.stack([torch.stack([x * inv_det for x in r]) for r in rows]), det
-
-
 def _schur_inv_apply(p, q, r, s, v0, v1):
     """Solve [[P, Q], [R, S]] [x0; x1] = [v0; v1] through the Schur
     complement of P; v0, v1 colour vectors [3, ...].  Returns (x0, x1, det)
     with det = det(P) det(S - R P^-1 Q)."""
-    pinv, detp = _inv3(p)
+    pinv, detp = su3.inv3(p)
     rpinv = su3.mul(r, pinv)
-    stinv, dets = _inv3(s - su3.mul(rpinv, q))
+    stinv, dets = su3.inv3(s - su3.mul(rpinv, q))
     x1 = su3.matvec(stinv, v1 - su3.matvec(rpinv, v0))
     x0 = su3.matvec(pinv, v0 - su3.matvec(q, x1))
     return x0, x1, detp * dets
@@ -216,8 +197,8 @@ def sw_logdet(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.Tenso
     total = torch.zeros((), dtype=torch.float64, device=sw.device)
     for b, _, pm in _CHIRALITIES:
         p, q, r, s = _block66(sw[b], pm * imu)
-        pinv, detp = _inv3(p)
-        _, dets = _inv3(s - su3.mul(su3.mul(r, pinv), q))
+        pinv, detp = su3.inv3(p)
+        _, dets = su3.inv3(s - su3.mul(su3.mul(r, pinv), q))
         total = total + torch.sum(torch.log((detp * dets).abs().double() ** 2))
     return total
 
@@ -272,9 +253,9 @@ def mee_inv_blocks(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.
     rows = []
     for b, _, pm in _CHIRALITIES:
         p, q, r, s = _block66(sw[b], pm * 1j * sign * mutld)
-        pinv, _ = _inv3(p)
+        pinv, _ = su3.inv3(p)
         rp = su3.mul(r, pinv)  # R P^-1
-        sti, _ = _inv3(s - su3.mul(rp, q))
+        sti, _ = su3.inv3(s - su3.mul(rp, q))
         qi = -su3.mul(su3.mul(pinv, q), sti)
         ri = -su3.mul(sti, rp)
         pi = pinv - su3.mul(qi, rp)
@@ -308,9 +289,9 @@ def _blk_mul(a, b):
 
 def _blk_inv(p, q, r, s):
     """Inverse of a 6x6 in 2x2-of-3x3 block form through the Schur complement."""
-    pinv, _ = _inv3(p)
+    pinv, _ = su3.inv3(p)
     rp = su3.mul(r, pinv)
-    sti, _ = _inv3(s - su3.mul(rp, q))
+    sti, _ = su3.inv3(s - su3.mul(rp, q))
     qi = -su3.mul(su3.mul(pinv, q), sti)
     ri = -su3.mul(sti, rp)
     return pinv - su3.mul(qi, rp), qi, ri, sti
@@ -365,8 +346,8 @@ def sw_logdet_nd(sw, mubar_t: float, epsbar_t: float) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float64, device=sw.device)
     for b, _, _ in _CHIRALITIES:
         p2, q2, r2, s2 = _d_blocks(sw[b], mubar_t, epsbar_t)
-        pinv, detp = _inv3(p2)
-        _, dets = _inv3(s2 - su3.mul(su3.mul(r2, pinv), q2))
+        pinv, detp = su3.inv3(p2)
+        _, dets = su3.inv3(s2 - su3.mul(su3.mul(r2, pinv), q2))
         total = total + torch.sum(torch.log((detp * dets).abs().double()))
     return total
 

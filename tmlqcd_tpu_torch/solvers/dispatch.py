@@ -6,14 +6,15 @@ rgmixedcg, bicgstab, cgs, fgmres / gmres, gcr, mr, and dfl / dflfgmres /
 dflgcr (FGMRES / GCR preconditioned by the deflation V-cycle; they need
 `deflation_setup=`).  The mixed solvers take their low operator as
 `matvec_lo=` (none: the high operator serves both levels).  Additional
-backends register with `register_solver`.
+backends register with `register_solver`.  `solve_mms` is the multishift
+seam (reference: solve_mms_tm / solve_mms_nd) on `cg_multishift`.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-__all__ = ["solve_degenerate", "register_solver", "SOLVERS"]
+__all__ = ["solve_degenerate", "solve_mms", "register_solver", "SOLVERS"]
 
 
 def _cg(matvec, b, tol, maxiter, **kw):
@@ -123,3 +124,13 @@ def solve_degenerate(matvec, b, solver: str = "cg", tol: float = 1e-10,
     except KeyError:
         raise ValueError(f"unknown solver {solver!r}; have {sorted(SOLVERS)}") from None
     return fn(matvec, b, tol, maxiter, **kw)
+
+
+def solve_mms(matvec, b, shifts, tol: float = 1e-10, maxiter: int = 5000):
+    """(x [n_shifts, ...], iterations, base-system |r|^2) of the shifted
+    systems (A + shift_k) x_k = b, by one multishift CG (reference:
+    solve_mms_tm / solve_mms_nd)."""
+    from tmlqcd_tpu_torch.solvers.multishift import cg_multishift
+
+    r = cg_multishift(matvec, b, shifts, tol=tol, maxiter=maxiter)
+    return r.x, r.iterations, r.residual_sq

@@ -21,6 +21,8 @@ __all__ = [
     "ta_project",
     "expm_ta",
     "project_su3",
+    "inv3",
+    "project_su3_polar",
     "random_momenta",
     "kinetic_energy",
     "random_su3",
@@ -85,6 +87,43 @@ def project_su3(m: torch.Tensor) -> torch.Tensor:
     u2 = torch.stack([u0[(j + 1) % 3] * u1[(j + 2) % 3] - u0[(j + 2) % 3] * u1[(j + 1) % 3]
                       for j in range(3)])
     return torch.stack([u0, u1, torch.conj_physical(u2)], dim=0)
+
+
+def inv3(m: torch.Tensor):
+    """Closed-form 3x3 inverse (adjugate / det) on the leading axes; returns
+    (inverse, det)."""
+    a, b, c = m[0, 0], m[0, 1], m[0, 2]
+    d, e, f = m[1, 0], m[1, 1], m[1, 2]
+    g, h, i = m[2, 0], m[2, 1], m[2, 2]
+    co_a = e * i - f * h
+    co_b = -(d * i - f * g)
+    co_c = d * h - e * g
+    det = a * co_a + b * co_b + c * co_c
+    inv_det = 1.0 / det
+    rows = [
+        [co_a, -(b * i - c * h), (b * f - c * e)],
+        [co_b, (a * i - c * g), -(a * f - c * d)],
+        [co_c, -(a * h - b * g), (a * e - b * d)],
+    ]
+    return torch.stack([torch.stack([x * inv_det for x in r]) for r in rows]), det
+
+
+def project_su3_polar(m: torch.Tensor, iters: int = 9) -> torch.Tensor:
+    """Gauge-covariant projection onto SU(3): the unitary polar factor
+    W = m (m^+ m)^{-1/2} by the Newton iteration X <- (X + (X^+)^{-1}) / 2
+    after a Frobenius pre-scaling, then the determinant phase rotated out,
+    W exp(-i angle(det W) / 3) (the principal branch of the cube root, as the
+    reference takes it).  Unlike `project_su3` (Gram-Schmidt) it satisfies
+    P(g m h^+) = g P(m) h^+, which link smearing needs."""
+    n = torch.sqrt(torch.sum(m.real**2 + m.imag**2, dim=(0, 1)) / 3.0)
+    x = m / n
+    for _ in range(iters):
+        x = 0.5 * (x + inv3(adj(x))[0])
+    det = (x[0, 0] * (x[1, 1] * x[2, 2] - x[1, 2] * x[2, 1])
+           - x[0, 1] * (x[1, 0] * x[2, 2] - x[1, 2] * x[2, 0])
+           + x[0, 2] * (x[1, 0] * x[2, 1] - x[1, 1] * x[2, 0]))
+    phase = torch.angle(det) / 3.0
+    return x * torch.complex(torch.cos(phase), -torch.sin(phase)).to(x.dtype)
 
 
 def random_momenta(gen: torch.Generator, batch_shape: tuple,
