@@ -33,7 +33,10 @@ result lines):
    Q_nd^2 in one cooperative launch) against the K1-R-D launches and torch
    diagonals it replaces (bit for bit on the twisted-mass doublet, within
    1e-6 of max on the clover doublet) and against its plain version, 12-
-   and 18-real, at 16^3x32, 32^3x64 and 10x6x14x6.
+   and 18-real, at 16^3x32, 32^3x64 and 10x6x14x6.  The overlap's Q_W on
+   K1 (two launches, the mhat epilogue on both parities) against gamma5
+   d_full, each parity and the whole field, and one Q_W^2 on K1 against two
+   plain Q_W, at 16^3x32 and 10x6x14x6.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
    sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
    of K1, K1-B beside f32 K1 (mhat + g5 and clov_mhat + g5), kernel and
@@ -60,7 +63,10 @@ result lines):
    draws; |ddH| against its bound; then the twisted-mass and the clover
    trajectory again with Solver = mixedcg (the low operator on K1-B); then
    the twisted-mass, clover and NDRAT trajectories again with every solve on
-   the slab kernels of a (2,2) mesh, |dH(mesh) - dH(no mesh)| printed.
+   the slab kernels of a (2,2) mesh, |dH(mesh) - dH(no mesh)| printed; and
+   hmc4's SFGAUGE action at 8^4 from the classical background (pure gauge:
+   the card against the CPU, the frozen links bit-equal on both).  The CPU
+   halves run beside the card halves in worker processes.
 5. main path 1: `tmlqcd_tpu_torch.cli.hmc.main` on a 16^3x32 input derived
    from sample-input/hmc2-nf2-tm-hasenbusch.input (3 trajectories, the ONLINE
    measurement on the third, an ILDG checkpoint read back), with the kernel
@@ -133,10 +139,26 @@ result lines):
 16. the other entry points: `cli.offline_measurement.main` on phase 9's
    checkpoint (GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH,
    every file read back, the flow equal to phase 9's), `cli.benchmark.main`
-   at 16^3x32 (K1 within 1.5x of phase 3's, Qhat_pm on K1-S) and an
-   `api.Session` on phase 5's checkpoint (plaquette equal to its
+   at 16^3x32 (1000 calls; K1 within 1.5x of K1 timed by phase 3's method
+   just before, Qhat_pm on K1-S) and an `api.Session` on phase 5's
+   checkpoint (plaquette equal to its
    output.data, one point column inverted with its residual checked, the
    native checksum route in use).
+17. main path 12: `cli.invert.main` with an OVERLAP operator (m 0.1, s 0.4,
+   degree 128, 8 modes) on phase 5's checkpoint stout-smeared as path 11
+   smears it: 2 point columns with SUMR, then 1 with CGNE, every Q_W on K1;
+   the setup line (seconds, Lanczos steps, sign_err, ev_resid), iterations
+   and seconds per column, each column's true residual with D_ov on the
+   plain route, SUMR against CGNE, the Ginsparg-Wilson defect (and a
+   planted fault that must exceed its limit), D_ov on K1
+   against the plain route within a bound derived from the degree, K1
+   launches equal to the count the iterations predict, and the device's
+   idle share over the first iterations of one profiled SUMR column.
+18. main path 13: `cli.hmc.main` on sample-input/hmc4-sf-coupling.input as
+   shipped but 20 trajectories (of 100): 6^4, cold start, SFGAUGE,
+   SFCOUPLING every trajectory; finite dH, acceptance > 0, the frozen links bit-equal after
+   every trajectory, sf_coupling.data's rows, s/trajectory; no kernel
+   launches (pure gauge).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
@@ -144,6 +166,7 @@ line is the JSON result object.  No JAX is imported.
     python3 chip_smoke.py --k1-split          # phases 1, 2 and phase 3's split
     python3 chip_smoke.py --nd-split          # K1-SD's and KH's checks and splits
     python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 5-9 alone
+    python3 chip_smoke.py --special           # the Q_W checks, the SF parity, paths 12, 13
 
 `--e2e` prints s/trajectory of paths 1, 3, 5, 8 and 9, path 6's and path
 7's seconds per operator and solver as one JSON line; `--root DIR` takes the package from another
@@ -1609,6 +1632,22 @@ EndMonomial
 """
 
 
+# hmc4's action at 8^4 (SFGAUGE, beta 8, 10 steps of 2MN), from the
+# classical background at eta = 0 (a hot start at beta 8 is far from it)
+SF_PARITY_INPUT = """L = 8
+T = 8
+beta = 8.0
+tau = 1.0
+BeginMonomial SFGAUGE
+  Eta = 0.0
+  Nu = 0.0
+  Ct = 1.0
+  Timescale = 0
+  IntegrationSteps = 10
+EndMonomial
+"""
+
+
 # The stopping tolerance of the parity trajectories with a mixed solver:
 # |r| <= 1e-7 |b| (precision 1e-14) for twisted mass and 3e-7 for clover,
 # just above where the true residual of f32 fields floors; below it the
@@ -1636,21 +1675,26 @@ def _with_mesh(cfg, mesh):
         dataclasses.replace(m, mesh=mesh) if hasattr(m, "mesh") else m for m in cfg.monomials))
 
 
-def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False,
-                 solver=None, mesh_shape=None, dh_whole=None):
-    """One trajectory on the kernel path and on the plain path with the same
-    draws; returns (|ddH|, dH of the kernel path).  `solver` (mixedcg): the
-    fermion monomials solve with it, at MIXED_TOL (MIXED_TOL_CLOVER), and the
-    kernel path runs the trajectory with CG at the same tolerance as well,
-    for |dH(solver) - dH(cg)|.  `mesh_shape`: every solve on the slab
-    kernels of that (t, y) mesh; `dh_whole`, the kernel path's dH without a
-    mesh, is printed beside it."""
-    import torch
+# Phase 4's points (keyword arguments of `phase_parity`) in the order they
+# run on the card.  Their CPU halves take ~190 s one after another, each
+# mostly on one core at 8^4, so they run beside the card halves in
+# PARITY_WORKERS processes of PARITY_THREADS threads each, the slowest first
+PARITY_POINTS = ({}, {"clover": True}, {"ndrat": True}, {"solver": "mixedcg"},
+                 {"clover": True, "solver": "mixedcg"}, {"mesh_shape": (2, 2)},
+                 {"clover": True, "mesh_shape": (2, 2)}, {"ndrat": True, "mesh_shape": (2, 2)},
+                 {"sf": True})
+PARITY_ORDER = (6, 1, 4, 7, 2, 5, 3, 0, 8)  # the CPU halves by their time, longest first
+PARITY_WORKERS = 4
+PARITY_THREADS = 2
 
-    from tmlqcd_tpu_torch import parallel
 
-    from tmlqcd_tpu_torch import rng, su3
-    from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory
+def _parity_setup(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False,
+                  solver=None, mesh_shape=None, sf=False):
+    """The configuration, the runs and the draws of one parity point, made
+    on the host from fixed keys (the same in every process)."""
+    import types
+
+    from tmlqcd_tpu_torch import parallel, rng, su3
     from tmlqcd_tpu_torch.lattice import Lattice
     from tmlqcd_tpu_torch.models.suites import nf2_twisted_mass_hasenbusch
 
@@ -1665,12 +1709,12 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
                 f.read(), dims=dims, steps={"GAUGE": "1", "CLOVERDET": "1", "CLOVERDETRATIO": "2"},
                 precisions=(prec, prec))))
         bound, tag = DDH_BOUND_CLOVER, "clover "
-    elif ndrat:
+    elif ndrat or sf:
         from tmlqcd_tpu_torch.config import build_hmc
         from tmlqcd_tpu_torch.config_tmlqcd import parse_input
 
-        cfg = build_hmc(parse_input(NDRAT_PARITY_INPUT))
-        bound, tag = DDH_BOUND_NDRAT, "ndrat "
+        cfg = build_hmc(parse_input(SF_PARITY_INPUT if sf else NDRAT_PARITY_INPUT))
+        bound, tag = (DDH_BOUND, "sf ") if sf else (DDH_BOUND_NDRAT, "ndrat ")
     else:
         tol = 1e-10 if solver is None else MIXED_TOL
         cfg = nf2_twisted_mass_hasenbusch(lat, beta=5.3, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
@@ -1686,8 +1730,15 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
         tag += f"{solver} "
         runs = [(dev, _with_solver(cfg, solver)) for dev in devs] + [("cg", cfg)]
     key = rng.Key(2024)
-    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    if sf:
+        from tmlqcd_tpu_torch.ops.sf import sf_classical_background
+
+        _check(cfg.momenta_mask is not None, "SFGAUGE lowered without the momenta mask")
+        u = sf_classical_background(lat, 0.0)
+    else:
+        u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
     p = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+
     def eta_shape(m):
         if hasattr(m, "_eta_shape"):  # the rational monomials (a doublet for ND)
             return m._eta_shape()
@@ -1696,25 +1747,90 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
     etas = [None if eta_shape(m) is None else rng.normal_spinor(key.fold(2, i), eta_shape(m), "cpu")
             for i, m in enumerate(cfg.monomials)]
     uni = rng.uniform(key.fold(3), "cpu")
+    return types.SimpleNamespace(lat=lat, runs=runs, tag=tag, bound=bound, key=key, u=u, p=p,
+                                 etas=etas, uni=uni, sf=sf, devs=devs)
+
+
+def _parity_traj(s, c, dev):
+    """One trajectory of a parity point on `dev` -> (stats, frozen links
+    unchanged (True unless SF), seconds)."""
+    import torch
+
+    from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory
+
+    d = Draws(s.p.to(dev), [e if e is None else e.to(dev) for e in s.etas], s.uni)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u_out, st = hmc_trajectory(c, s.u.to(dev), s.key, draws=d)
+    frozen = not s.sf or bool(torch.equal(u_out[:, :, 1:4, 0].cpu(), s.u[:, :, 1:4, 0]))
+    return st, frozen, time.perf_counter() - t0
+
+
+def _plain_half(kw: dict):
+    """A worker process's job: the CPU half of the parity point `kw`."""
+    import torch
+
+    torch.set_num_threads(PARITY_THREADS)
+    s = _parity_setup(**kw)
+    st, frozen, sec = _parity_traj(s, dict(s.runs)["cpu"], "cpu")
+    return tuple(st), frozen, sec
+
+
+@contextlib.contextmanager
+def _plain_halves():
+    """The CPU halves of PARITY_POINTS submitted to worker processes (spawned:
+    the card is never touched there), longest first; yields their futures
+    in PARITY_POINTS order.  The workers are stopped on the way out, also
+    when a check fails."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        PARITY_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futs = {i: pool.submit(_plain_half, PARITY_POINTS[i]) for i in PARITY_ORDER}
+        yield [futs[i] for i in range(len(PARITY_POINTS))]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=False,
+                 solver=None, mesh_shape=None, dh_whole=None, sf=False, cpu_half=None):
+    """One trajectory on the kernel path and on the plain path with the same
+    draws; returns (|ddH|, dH of the kernel path).  `sf`: hmc4's SFGAUGE
+    action (pure gauge, no kernel: the card against the CPU) from the
+    classical background, the frozen links checked bit-equal on both.  `solver` (mixedcg): the
+    fermion monomials solve with it, at MIXED_TOL (MIXED_TOL_CLOVER), and the
+    kernel path runs the trajectory with CG at the same tolerance as well,
+    for |dH(solver) - dH(cg)|.  `mesh_shape`: every solve on the slab
+    kernels of that (t, y) mesh; `dh_whole`, the kernel path's dH without a
+    mesh, is printed beside it.  `cpu_half`: a future of `_plain_half` for
+    this point, whose result stands for the run on devs[1]."""
+    from tmlqcd_tpu_torch.hmc import TrajectoryStats
+
+    s = _parity_setup(dims, devs, clover, ndrat, solver, mesh_shape, sf)
+    tag, lat = s.tag, s.lat
     res = {}
-    for name, c in runs:
+    for name, c in s.runs:
         dev = devs[0] if name == "cg" else name
-        d = Draws(p.to(dev), [e if e is None else e.to(dev) for e in etas], uni)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            _, st = hmc_trajectory(c, u.to(dev), key, draws=d)
+        if cpu_half is not None and name == devs[1]:
+            st, frozen, sec = cpu_half.result()
+            st, where = TrajectoryStats(*st), " in a worker process"
+        else:
+            (st, frozen, sec), where = _parity_traj(s, c, dev), ""
         res[name] = st
+        _check(frozen, f"sf parity on {dev}: the frozen links moved")
         _say(f"[parity] {tag if name != 'cg' else ''}{lat.dims} trajectory on {dev}"
              f"{' with CG' if name == 'cg' else ''}: dH {st.delta_h:+.9e} plaq "
              f"{st.plaquette:.12f} acc_iters {st.acc_iterations} force_iters "
-             f"{st.force_iterations} ({time.perf_counter() - t0:.1f} s)")
+             f"{st.force_iterations} ({sec:.1f} s{where})")
     kern, plain = res[devs[0]], res[devs[1]]
     ddh = abs(kern.delta_h - plain.delta_h)
     dplaq = abs(kern.plaquette - plain.plaquette)
-    _say(f"[parity] {tag}|ddH| kernel vs plain {ddh:.3e} (bound {bound:.0e}), "
+    _say(f"[parity] {tag}|ddH| kernel vs plain {ddh:.3e} (bound {s.bound:.0e}), "
          f"|dplaq| {dplaq:.3e}")
     _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
-    _check(ddh <= bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {bound:.0e}")
+    _check(ddh <= s.bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {s.bound:.0e}")
     if solver is not None:
         tol = MIXED_TOL_CLOVER if clover else MIXED_TOL
         _say(f"[parity] {tag}|dH({solver}) - dH(cg)| on the kernel path at tol {tol:.0e}: "
@@ -3251,17 +3367,24 @@ EndMeasurement
 """
 
 
+# calls the benchmark CLI times (its default is 100) and the K1 it is held to
+BENCH_APPS = 1000
+
+
 def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: float):
     """`cli.offline_measurement.main` on phase 9's checkpoint (every file
     read back, the flow against phase 9's own), `cli.benchmark.main` at
-    16^3x32 (K1 within 1.5x of phase 3's), and an `api.Session` round trip
+    16^3x32 (K1 within 1.5x of K1 timed by phase 3's method just before), and
+    an `api.Session` round trip
     on phase 5's checkpoint (plaquette, one inverted point column, the
     native checksum route)."""
     import torch
 
     from tmlqcd_tpu_torch import api, native
     from tmlqcd_tpu_torch.cli import benchmark, offline_measurement
+    from tmlqcd_tpu_torch.lattice import Lattice
     from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
     from tmlqcd_tpu_torch.ops.wilson import DiracParams, d_full
 
     total = {}
@@ -3301,25 +3424,39 @@ def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: flo
          f"equals phase 9's within {dev:.1e}; polyakov {rows['polyakov.data']}; oriented "
          f"plaquettes {op}; field strength (E_plaq, E_clover, Q) {rows['field_strength.data']}")
 
-    # the benchmark CLI at 16^3x32: K1 and one Qhat_pm (K1-S)
-    rc, log, counts, wall = _run_cli(benchmark, ["--dims", "16", "16", "16", "32"])
+    # the benchmark CLI at 16^3x32: K1 and one Qhat_pm (K1-S).  K1's loop is
+    # host-bound (~25 us of wrapper a call), and the card's host is shared:
+    # the time of 100 calls swings by 2x within seconds and drifts over
+    # minutes.  So the CLI times BENCH_APPS calls, and its K1 is held to K1
+    # timed by phase 3's method on phase 3's fields just before it, not to
+    # phase 3's reading of minutes ago (printed beside)
+    lat16 = Lattice((32, 16, 16, 16))
+    params, _, fg12, psi, psi_o, _, _ = _fields(lat16, "cuda", 12)
+    epi = ("mhat", params.mutld, 1.0, params.kappa ** 2, True)
+    k1_now = _time_ms(lambda: dc.hopping_split(fg12.ug_odd, psi, 1, lat16, epi=epi,
+                                               gcomp=fg12.gcomp, **_epi_kw(epi, psi_o, None)),
+                      BENCH_APPS)
+    del fg12, psi, psi_o
+    rc, log, counts, wall = _run_cli(benchmark, ["--dims", "16", "16", "16", "32",
+                                                 "--apps", str(BENCH_APPS)])
     add(counts)
     _check(rc == 0, f"cli.benchmark returned {rc}")
     res = json.loads(log.strip().splitlines()[-1])
     k1, qpm = res["K1"], res["Qhat_pm"]
     _check(res["route"] == "cuda" and res["card"] != "not read" and counts["K1"] > 0
-           and counts["K1-S"] > 0, f"benchmark {res}, launches {counts}")
-    _check(k1_ms / 1.5 <= k1["ms"] <= 1.5 * k1_ms,
-           f"benchmark K1 {k1['ms']:.4f} ms against phase 3's {k1_ms:.4f} ms")
+           and counts["K1-S"] > 0 and res["apps"] == BENCH_APPS,
+           f"benchmark {res}, launches {counts}")
+    _check(k1_now / 1.5 <= k1["ms"] <= 1.5 * k1_now,
+           f"benchmark K1 {k1['ms']:.4f} ms against phase 3's method just before, "
+           f"{k1_now:.4f} ms (phase 3: {k1_ms:.4f} ms)")
     _check_no_plain(counts)
     _say(f"[benchmark] {res['card']}: K1 {k1['ms'] * 1e3:.1f} us ({k1['gflops']:.1f} GF/s, "
-         f"{k1['bound_share']:.1%} of its bound {k1['bound_ms'] * 1e3:.1f} us; phase 3 "
-         f"{k1_ms * 1e3:.1f} us); Qhat_pm (K1-S) {qpm['ms'] * 1e3:.1f} us ({qpm['gflops']:.1f} "
+         f"{k1['bound_share']:.1%} of its bound {k1['bound_ms'] * 1e3:.1f} us; phase 3's method "
+         f"just before {k1_now * 1e3:.1f} us, phase 3 {k1_ms * 1e3:.1f} us; {BENCH_APPS} calls "
+         f"each); Qhat_pm (K1-S) {qpm['ms'] * 1e3:.1f} us ({qpm['gflops']:.1f} "
          f"GF/s, {qpm['bound_share']:.1%} of its bound {qpm['bound_ms'] * 1e3:.1f} us)")
 
     # the embedding API
-    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
-
     inp = os.path.join(workdir, "invert.input")
     dc.reset_counters()
     t0 = time.perf_counter()
@@ -3349,6 +3486,343 @@ def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: flo
          f"{ref_plaq:.12f}); one point column |M x - b| / |b| {res:.3e}; {wall:.2f} s; "
          f"checksum route {route}; launches K1-S {counts['K1-S']}, K1 {counts['K1']}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the overlap's Q_W on K1
+# ---------------------------------------------------------------------------
+
+# The overlap operator of path 12: rho = 1 + s = 1.4, kappa = 1/(8 - 2 rho)
+OVERLAP_RHO = 1.4
+
+
+def phase_qw_kernels(lats, dev="cuda"):
+    """The overlap's Q_W = gamma5 D_W(-rho) on K1 (`ops/overlap.qw_split`:
+    one launch per parity with the mhat epilogue at mutld 0, k2 = kappa and
+    gamma5, psi_o the same-parity half) against the plain route gamma5
+    `d_full`: each parity half and the whole field, then one Q_W^2 on K1
+    against two plain Q_W.  Returns (largest max|d|, largest relative
+    deviation of one Q_W)."""
+    from tmlqcd_tpu_torch import rng, su3
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import overlap as ov
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+
+    worst, worst_rel = 0.0, 0.0
+    params = ov.OverlapParams(rho=OVERLAP_RHO, m=0.1)
+    kappa = params.kernel.kappa
+    for lat in lats:
+        u = su3.random_su3(rng.generator(rng.Key(31), dev), (4,) + lat.site_shape)
+        fg = wf.make_fast_gauge(u, params.kernel, lat)
+        psi = rng.normal_spinor(rng.Key(32), (4, 3) + lat.site_shape, dev)
+        x = ov.to_pair(psi, lat)
+        n0 = dc.hopping_split.launches
+        y = ov.qw_split(fg, x, kappa, lat)
+        _sync(dev)
+        _check(dc.hopping_split.launches == n0 + 2, "Q_W on K1 is not two K1 launches")
+        ref = ov.qw_plain(u, psi, params, lat)
+        ref_pair = ov.to_pair(ref, lat)
+        tag = "x".join(map(str, lat.dims))
+        for p in (0, 1):
+            err, rel = _rel_err(y[p], ref_pair[p])
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            _say(f"[check] Q_W on K1 {tag} parity {p}: max|d| {err:.3e} (rel {rel:.2e})")
+            _check(rel <= KERNEL_RTOL, f"Q_W on K1 {tag} parity {p} off by {rel:.3e}")
+        err, rel = _rel_err(ov.from_pair(y, lat), ref)
+        _check(rel <= KERNEL_RTOL, f"Q_W on K1 {tag} (whole field) off by {rel:.3e}")
+        y2 = ov.qw_split(fg, y, kappa, lat)
+        ref2 = ov.qw_plain(u, ref, params, lat)
+        _sync(dev)
+        err, rel = _rel_err(ov.from_pair(y2, lat), ref2)
+        worst = max(worst, err)
+        _say(f"[check] Q_W^2 on K1 (4 launches) {tag} against two plain Q_W: max|d| {err:.3e} "
+             f"(rel {rel:.2e})")
+        _check(rel <= KERNEL_RTOL, f"Q_W^2 on K1 {tag} off by {rel:.3e}")
+    return worst, worst_rel
+
+
+# ---------------------------------------------------------------------------
+# phase 17: main path 12, overlap propagators
+# ---------------------------------------------------------------------------
+
+# Path 2's operator point cut to the overlap: m = 0.1, s = 0.4 (rho = 1.4),
+# a degree-128 sign with 8 deflated modes on path 2's checkpoint, stout-
+# smeared as path 11 smears it.  OVERLAP_PREC is SolverPrecision (|r|^2, the
+# solvers stop at |r| <= sqrt(prec) |b|).
+OVERLAP_PREC = "1e-10"
+# The Ginsparg-Wilson defect |{g5, D} psi - D g5 D psi / rho| / |psi| at
+# m = 0.  The reference's bound 10 (sign_err + ev_resid) + 1e-6 assumes
+# converged modes: at 16^3x32 its 64 Lanczos steps leave ev_resid ~0.44, so
+# that bound (~4.4) lies above any reading.  The limit is set from readings
+# instead: the sound operator reads ~7e-2 here on an H100; a sign scaled by
+# GW_FAULT gives rho (1 - GW_FAULT^2) = 0.27 for an exact sign (its defect
+# is that multiple of g5), and every run reads that planted fault too
+GW_LIMIT = 0.2
+GW_FAULT = 0.9
+OVERLAP_MAXITER = 1000
+OVERLAP_PROFILED = 20
+OVERLAP_INPUT = """L = 16
+T = 32
+UseStoutSmearing = yes
+StoutRho = 0.1
+StoutNoIterations = 3
+BeginOperator OVERLAP
+  m = 0.1
+  s = 0.4
+  DegreeOfSignFunction = 128
+  NoEigenvalues = 8
+  Solver = {solver}
+  SolverPrecision = {prec}
+  MaxSolverIterations = {maxiter}
+EndOperator
+"""
+
+
+def phase_overlap(workdir: str, conf: str, eps_q: float):
+    """Main path 12: `cli.invert` with an OVERLAP operator on phase 5's
+    checkpoint, stout-smeared (rho 0.1 x 3): 2 point columns with SUMR, then
+    1 with CGNE, every Q_W on K1.  Checks each column's true residual with
+    D_ov on the plain route (gamma5 d_full; CGNE's bound times the
+    condition number 2 rho / m), SUMR against CGNE, the Ginsparg-Wilson
+    defect beside a planted fault, D_ov on K1 against the plain route within a bound derived from
+    the degree, and the K1 launches against the count the iterations
+    predict; the first OVERLAP_PROFILED iterations of one SUMR column
+    profiled for the device's idle share.  Returns (launch counts of the
+    two runs, seconds per SUMR column)."""
+    import numpy as np
+    import torch
+
+    from tmlqcd_tpu_torch import rng
+    from tmlqcd_tpu_torch.cli import invert as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.meas.sources import point_source
+    from tmlqcd_tpu_torch.ops import overlap as ov
+
+    setups = {}
+    real_make = ov.make_overlap
+
+    counts, cols, secs, iters = {}, {}, {}, {}
+    prec = float(OVERLAP_PREC)
+    tol = prec ** 0.5
+    for solver, ncol in (("sumr", 2), ("cgne", 1)):
+        path = os.path.join(workdir, f"overlap-{solver}.input")
+        with open(path, "w") as f:
+            f.write(OVERLAP_INPUT.format(solver=solver, prec=OVERLAP_PREC,
+                                         maxiter=OVERLAP_MAXITER))
+        op = read_input(path).operators[0]
+        _check((op.type, op.overlap_m, op.overlap_s, op.sign_degree, op.sign_n_ev, op.solver)
+               == ("OVERLAP", 0.1, 0.4, 128, 8, solver),
+               "the overlap input was not read as intended")
+        out_dir = os.path.join(workdir, f"prop-overlap-{solver}")
+        def keep(*a, solver=solver, **k):
+            setups[solver] = real_make(*a, **k)
+            return setups[solver]
+
+        rc, log, c, wall = _run_cli(cli, ["-f", path, "-c", conf, "--format", "npz",
+                                          "--columns", str(ncol), "-o", out_dir],
+                                    patches=[(ov, "make_overlap", keep)])
+        _check(rc == 0, f"cli.invert (OVERLAP, {solver}) returned {rc}")
+        m = re.search(r"overlap setup \(8 modes, degree 128, sign err (\S+), ev resid (\S+), "
+                      r"(\d+) Lanczos steps\) built in (\S+)s", log)
+        _check(m is not None, "cli.invert did not print the overlap setup line")
+        runs = re.findall(rf"\(OVERLAP, {solver}\) source \(s=\d,c=\d\): (\d+) iters, "
+                          r"\|r\|\^2=(\S+), (\S+)s", log)
+        _check(len(runs) == ncol, f"{len(runs)} {solver} columns reported, expected {ncol}")
+        iters[solver] = [int(r[0]) for r in runs]
+        secs[solver] = [float(r[2]) for r in runs]
+        _check(all(0 < i < OVERLAP_MAXITER for i in iters[solver]),
+               f"{solver} did not converge within {OVERLAP_MAXITER} iterations: {iters[solver]}")
+        counts[solver] = c
+        _check_no_plain(c)
+        setup = setups[solver]
+        # K1 launches: the Lanczos steps (Q_W^2, 4 each) and the Ritz signs
+        # (Q_W, 2 each), then per sign application 4 (degree + 1) + 2; SUMR
+        # takes one sign per iteration, CGNE 2 per iteration and 3 more (D^+ b
+        # and the start residual b - D^+ D x0)
+        per_sign = ov.k1_launches_per_sign(setup.params.degree)
+        n_signs = (sum(iters[solver]) if solver == "sumr"
+                   else sum(2 * i + 3 for i in iters[solver]))
+        predicted = 4 * setup.lanczos_steps + 2 * setup.params.n_ev + per_sign * n_signs
+        _say(f"[overlap] {solver}: setup {float(m.group(4)):.3f} s, {setup.lanczos_steps} "
+             f"Lanczos steps, sign_err {setup.sign_err:.3e}, ev_resid {setup.ev_resid:.3e}, "
+             f"[lo^2, hi^2] = [{setup.lo2:.4e}, {setup.hi2:.4e}]; iterations {iters[solver]}, "
+             f"seconds per column {secs[solver]}; K1 launches {c['K1']} (predicted "
+             f"4 x {setup.lanczos_steps} + 2 x {setup.params.n_ev} + {per_sign} x {n_signs} = "
+             f"{predicted}); cli.invert {wall:.1f} s wall")
+        _check(c["K1"] == predicted, f"K1 launches {c['K1']} != predicted {predicted}")
+        with np.load(os.path.join(out_dir, "propagator.00.000003.npz")) as z:
+            cols[solver] = torch.as_tensor(z["propagator"], device="cuda")
+    setup = setups["sumr"]
+    lat = setup.lat
+    p = setup.params
+    _say(f"[overlap] the two runs' setups: lo^2 {setup.lo2:.6e} / {setups['cgne'].lo2:.6e}, "
+         f"the same coefficients: {setup.coeffs == setups['cgne'].coeffs}")
+    # true residuals with D_ov on the plain route (gamma5 d_full), each on
+    # the setup its run built.  SUMR minimises |b - D x| itself: bound tol.
+    # CGNE stops at |D^+ r| <= tol |D^+ b|, so |r| / |b| <= kappa tol with
+    # kappa = sigma_max / sigma_min of D_ov; for a unitary gamma5 sign the
+    # eigenvalues of the normal D_ov lie on the circle of centre rho + m/2
+    # and radius rho - m/2, so kappa <= 2 rho / m
+    kappa = 2.0 * p.rho / p.m
+    bounds = {"sumr": tol, "cgne": kappa * tol}
+    resid = {}
+    for solver, x in cols.items():
+        for i in range(x.shape[0]):
+            b = point_source(lat, 0, i, (0, 0, 0, 0), device="cuda")
+            r = float(torch.linalg.vector_norm(ov.dov_psi(setups[solver], x[i], plain=True) - b))
+            resid[(solver, i)] = r
+            _say(f"[overlap] {solver} column {i}: |D_ov x - b| / |b| = {r:.3e} (plain route; "
+                 f"bound {bounds[solver]:.3e}, tolerance {tol:.0e}"
+                 f"{', times kappa <= 2 rho / m = %.0f' % kappa if solver == 'cgne' else ''})")
+            _check(r <= bounds[solver], f"{solver} column {i}: true residual {r:.3e} > "
+                   f"{bounds[solver]:.3e}")
+    # the two solutions of column 0, each from its own run's setup: for one
+    # operator x_s - x_c = D^-1 (r_c - r_s), so |x_s - x_c| / |x| <= kappa
+    # (|r_s| + |r_c|) / |b| with the true residuals just read; two setups
+    # that differ break it
+    diff = float(torch.linalg.vector_norm(cols["sumr"][0] - cols["cgne"][0])
+                 / torch.linalg.vector_norm(cols["cgne"][0]))
+    agree = kappa * (resid[("sumr", 0)] + resid[("cgne", 0)])
+    _say(f"[overlap] SUMR against CGNE, column 0: {diff:.3e} relative = {diff / tol:.2f} tol "
+         f"(bound kappa (|r_sumr| + |r_cgne|) / |b| = {agree:.3e} = {agree / tol:.1f} tol)")
+    _check(diff <= agree, f"SUMR and CGNE differ by {diff:.3e} > {agree:.3e}")
+    # Ginsparg-Wilson defect against GW_LIMIT, and the same with a planted
+    # fault (the sign scaled by GW_FAULT), which must exceed it
+    psi = rng.normal_spinor(rng.Key(77), (4, 3) + lat.site_shape, "cuda")
+    gw = ov.gw_defect(setup, psi)
+    real_sign = ov.sign_q
+    ov.sign_q = lambda *a, **k: GW_FAULT * real_sign(*a, **k)
+    try:
+        gw_fault = ov.gw_defect(setup, psi)
+    finally:
+        ov.sign_q = real_sign
+    ref_bound = 10.0 * (setup.sign_err + setup.ev_resid) + 1e-6
+    _say(f"[overlap] Ginsparg-Wilson defect {gw:.3e} (limit {GW_LIMIT}); with the sign scaled "
+         f"by {GW_FAULT}: {gw_fault:.3e} (rho (1 - {GW_FAULT}^2) = "
+         f"{p.rho * (1.0 - GW_FAULT ** 2):.3f} for an exact sign); the reference's 10 (sign_err "
+         f"+ ev_resid) + 1e-6 = {ref_bound:.3e} at ev_resid {setup.ev_resid:.3e}")
+    _check(gw <= GW_LIMIT, f"GW defect {gw:.3e} > {GW_LIMIT}")
+    _check(gw_fault > GW_LIMIT, f"the GW check does not catch a sign scaled by {GW_FAULT}: "
+           f"{gw_fault:.3e} <= {GW_LIMIT}")
+    # D_ov on K1 against the plain route: per Q_W the routes differ by at
+    # most eps_q relative (phase 2's Q_W check, floored at 2^-23); to first
+    # order the Clenshaw sum propagates an error made at step k by at most
+    # (k + 1) (the Chebyshev polynomials of the second kind on [-1, 1]), so
+    # |sign_K1 - sign_plain| <= 2 eps_q sum_k (k + 1) |c_k| sqrt(hi^2) |psi|
+    # (two Q_W per step, the final Q_W bounded by sqrt(hi^2)), scaled by
+    # (rho - m/2) for D_ov
+    eps_q = max(eps_q, 2.0 ** -23)
+    ck = np.abs(np.asarray(setup.coeffs))
+    amp = float(np.sum((np.arange(len(ck)) + 1) * ck)) * setup.hi2 ** 0.5
+    bound = 2.0 * eps_q * amp * (p.rho - 0.5 * p.m)
+    d_k1 = ov.dov_psi(setup, psi)
+    d_plain = ov.dov_psi(setup, psi, plain=True)
+    dev_rel = float(torch.linalg.vector_norm(d_k1 - d_plain) / torch.linalg.vector_norm(psi))
+    _say(f"[overlap] D_ov on K1 against the plain route: |d| / |psi| = {dev_rel:.3e}; bound "
+         f"2 eps_q sum_k (k+1)|c_k| sqrt(hi^2) (rho - m/2) = 2 x {eps_q:.2e} x "
+         f"{amp:.4e} x {p.rho - 0.5 * p.m:.2f} = {bound:.3e} (degree {p.degree})")
+    _check(dev_rel <= bound, f"D_ov on K1 off the plain route by {dev_rel:.3e} > {bound:.3e}")
+    # one SUMR column profiled (device activity only), its first
+    # OVERLAP_PROFILED iterations: every iteration is the same sign function
+    # and ~1200 device ops, and a whole column would give the profiler
+    # several hundred thousand to sort
+    b = point_source(lat, 0, 0, (0, 0, 0, 0), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ov.invert_overlap(setup, b, tol=tol, maxiter=OVERLAP_PROFILED, solver="sumr")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ov.invert_overlap(setup, b, tol=tol, maxiter=OVERLAP_PROFILED, solver="sumr")
+        torch.cuda.synchronize()
+    _say_profile(f"overlap SUMR column, its first {OVERLAP_PROFILED} iterations", wall, prof,
+                 {"K1": "hopping_kernel"})
+    del prof
+    return counts, secs["sumr"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: main path 13, the Schrödinger functional (hmc4)
+# ---------------------------------------------------------------------------
+
+SAMPLE_SF = os.path.join(HERE, "sample-input", "hmc4-sf-coupling.input")
+# hmc4's Measurements cut from 100 to 20: from the cold start dH is ~2.6 and
+# the configuration stays cold until a trajectory is accepted (~7 % each),
+# which the input's seed gives at trajectory 8; 5 of the first 20 accept
+SF_SHIPPED, SF_TRAJECTORIES = 100, 20
+
+
+def phase_hmc_sf(workdir: str):
+    """Main path 13: `cli.hmc` on sample-input/hmc4-sf-coupling.input as
+    shipped (6^4, cold start, beta 8, SFGAUGE, SFCOUPLING every trajectory)
+    but for Measurements, cut to SF_TRAJECTORIES.  Checks: finite dH,
+    acceptance > 0, the frozen t = 0 spatial links bit-equal to the start
+    after every trajectory, sf_coupling.data with one row per trajectory,
+    finite dS/deta and k equal to sf_coupling_normalization.  Pure gauge: no
+    kernel runs (the reference runs no Pallas here either).  Returns
+    (launch counts, s/trajectory)."""
+    import torch
+
+    from tmlqcd_tpu_torch import hmc as hmc_pkg
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.ops.sf import sf_coupling_normalization
+
+    cfg = read_input(SAMPLE_SF)
+    _check(cfg.lat.dims == (6, 6, 6, 6) and cfg.start_condition == "cold"
+           and cfg.measurements == SF_SHIPPED
+           and [m.type for m in cfg.monomials] == ["SFGAUGE"]
+           and [m.type for m in cfg.meas] == ["SFCOUPLING"], "hmc4 was not read as shipped")
+    with open(SAMPLE_SF) as f:
+        text = re.sub(r"(?m)^Measurements = \d+$", f"Measurements = {SF_TRAJECTORIES}", f.read())
+    path = os.path.join(workdir, "hmc4-sf-coupling.input")
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = read_input(path)
+    _check(cfg.measurements == SF_TRAJECTORIES, "hmc4's Measurements were not cut")
+    frozen = []
+    real = hmc_pkg.hmc_trajectory
+
+    def watched(c, u, key, *a, **k):
+        if not frozen:
+            frozen.append(u[:, :, 1:4, 0].clone())
+        out = real(c, u, key, *a, **k)
+        frozen.append(bool(torch.equal(out[0][:, :, 1:4, 0], frozen[0])))
+        return out
+
+    run_dir = os.path.join(workdir, "run-sf")
+    rc, log, counts, wall = _run_cli(cli, ["-f", path, "-o", run_dir],
+                                     patches=[(hmc_pkg, "hmc_trajectory", watched)])
+    _check(rc == 0, f"cli.hmc (hmc4) returned {rc}")
+    _check(len(frozen) == SF_TRAJECTORIES + 1 and all(frozen[1:]),
+           f"the frozen t = 0 spatial links moved: {frozen[1:]}")
+    rows = _output_rows(run_dir)
+    _check(len(rows) == SF_TRAJECTORIES, f"{len(rows)} rows in output.data")
+    dh = [float(r[3]) for r in rows]
+    acc = [int(r[5]) for r in rows]
+    s_traj = [float(r[6]) for r in rows]
+    _check(all(math.isfinite(v) for v in dh) and sum(acc) > 0,
+           f"hmc4: dH {dh}, accepted {acc}")
+    with open(os.path.join(run_dir, "sf_coupling.data")) as f:
+        sfrows = [ln.split() for ln in f if ln.strip()]
+    k = sf_coupling_normalization(cfg.lat, cfg.meas[0].ct)
+    _check(len(sfrows) == SF_TRAJECTORIES, f"{len(sfrows)} rows in sf_coupling.data")
+    ds = [float(r[1]) for r in sfrows]
+    _check(all(math.isfinite(v) for v in ds)
+           and all(abs(float(r[2]) - k) <= 1e-9 * k for r in sfrows),
+           f"sf_coupling.data: dS/deta {ds}, k {[r[2] for r in sfrows]} against {k}")
+    _check(not any(v for key, v in counts.items() if key.startswith("K")),
+           f"a kernel launched on the pure-gauge SF path: {counts}")
+    mean = sum(s_traj) / len(s_traj)
+    late = ds[len(ds) // 2:]
+    _say(f"[sf] cli.hmc hmc4 as shipped but {SF_TRAJECTORIES} trajectories exit {rc}, "
+         f"{wall:.1f} s wall; s/trajectory mean {mean:.4f}, first {s_traj[:3]}, min "
+         f"{min(s_traj):.3f}, max {max(s_traj):.3f}; dH first {dh[:3]}, last {dh[-3:]}; "
+         f"acceptance {sum(acc)}/{len(acc)}, the first at trajectory {acc.index(1)}; frozen "
+         f"links bit-equal after every trajectory; <dS/deta> over the last half "
+         f"{sum(late) / len(late):.6e}; k {k:.10e}")
+    return counts, s_traj
 
 
 def _e2e(label: str) -> None:
@@ -3409,6 +3883,22 @@ def main() -> int:
             print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
             return 1
         return 0
+    if "--special" in args:
+        # the special operators alone: the Q_W checks (phase 2), the SF
+        # parity trajectory (phase 4), path 1 for its checkpoint, then paths
+        # 12 and 13; no result lines
+        try:
+            phase_card()
+            _, qw_rel = phase_qw_kernels((Lattice((32, 16, 16, 16)), Lattice((10, 6, 14, 6))))
+            phase_parity(sf=True)
+            with tempfile.TemporaryDirectory() as workdir:
+                _, _, conf = phase_main_path(workdir)
+                phase_overlap(workdir, conf, qw_rel)
+                phase_hmc_sf(workdir)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+            return 1
+        return 0
     if "--k1-split" in args or "--e2e" in args:
         # the kernel checks and K1's device / host split alone (phases 1, 2
         # and phase 3's split), or main paths 1, 3, 7 and 8 alone; neither
@@ -3443,20 +3933,22 @@ def main() -> int:
         # 32^3x64: the grid-stride loop wraps; 10x6x14x6: V = 2520, no whole block
         worst["K1-S"] = phase_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
         worst["K1-SD"] = phase_nd_schur_kernels((lat16, lat32, Lattice((10, 6, 14, 6))))
+        # the overlap's Q_W on K1 (mhat on both parities) against gamma5 d_full
+        qw_worst, qw_rel = phase_qw_kernels((lat16, Lattice((10, 6, 14, 6))))
+        worst["K1"] = max(worst["K1"], qw_worst)
         done("2 kernel checks")
         rows, bw = phase_timings(lat16, lat32)
         rows.update(phase_shard_timings(lat16, lat32, bw))
         split = phase_k1_split(lat16, lat32, bw)
         nd_rows = phase_nd_shard_split(lat16, lat32, bw)
         done("3 timings")
-        _, dh_tm = phase_parity()
-        _, dh_clover = phase_parity(clover=True)
-        _, dh_ndrat = phase_parity(ndrat=True)
-        phase_parity(solver="mixedcg")
-        phase_parity(clover=True, solver="mixedcg")
-        phase_parity(mesh_shape=(2, 2), dh_whole=dh_tm)
-        phase_parity(clover=True, mesh_shape=(2, 2), dh_whole=dh_clover)
-        phase_parity(ndrat=True, mesh_shape=(2, 2), dh_whole=dh_ndrat)
+        with _plain_halves() as halves:
+            dh = []
+            for kw, half in zip(PARITY_POINTS, halves):
+                # a mesh point prints its dH beside the same point's without one
+                whole = dh[PARITY_POINTS.index({k: v for k, v in kw.items() if k != "mesh_shape"})
+                           ] if "mesh_shape" in kw else None
+                dh.append(phase_parity(**kw, dh_whole=whole, cpu_half=half)[1])
         done("4 parity trajectories")
         with tempfile.TemporaryDirectory() as workdir:
             hmc_counts, hmc_secs, conf = phase_main_path(workdir)
@@ -3509,6 +4001,10 @@ def main() -> int:
             off_counts = phase_offline_benchmark_api(
                 workdir, nconf, conf, rows[(tag16, "12-real", "mhat+g5")][0])
             done("16 offline measurement, benchmark, api")
+            ov_counts, _ = phase_overlap(workdir, conf, qw_rel)
+            done("17 main path 12")
+            sf_counts, _ = phase_hmc_sf(workdir)
+            done("18 main path 13")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3521,7 +4017,10 @@ def main() -> int:
              "launches_invert_solvers": sinv_counts, "launches_hmc_mixed": mhmc_counts,
              "launches_hmc_mesh": mesh_counts, "launches_hmc_ndpoly": poly_counts,
              "launches_invert_smeared": smear_counts,
-             "launches_offline_benchmark_api": off_counts}
+             "launches_offline_benchmark_api": off_counts,
+             "launches_invert_overlap": {k: ov_counts["sumr"][k] + ov_counts["cgne"][k]
+                                         for k in ov_counts["sumr"]},
+             "launches_hmc_sf": sf_counts}
 
     def entry(name, replaces, key, row, source=src, device_ms=None):
         ms, plain_ms, bound_ms, bound_by = row[:4]

@@ -775,3 +775,24 @@ def test_batched_inversion_runs_the_multirhs_slabs(cuda, mesh_shape, overlap):
         res = torch.linalg.vector_norm(d_full(u, x[r], PARAMS, lat) - bs[r].to(cuda))
         assert float(res / torch.linalg.vector_norm(bs[r])) <= 1e-5
     assert float((x.cpu() - out["cpu"].x).abs().max()) <= 2e-5
+
+
+def test_overlap_qw_on_k1_matches_plain(cuda):
+    """The overlap's Q_W on K1 (two launches, the mhat epilogue on both
+    parities) against gamma5 d_full, and sign_q / D_ov on K1 against the
+    plain route on the card (degree 16, 2 modes, 4^4)."""
+    from tmlqcd_tpu_torch.ops import overlap as ov
+
+    lat = Lattice((4, 4, 4, 4))
+    gen = np.random.default_rng(7)
+    u = bridge.gauge_from_numpy(bridge.numpy_smooth_su3(gen, (4,) + lat.site_shape), lat, cuda)
+    psi = torch.as_tensor(bridge.numpy_spinor(gen, (4, 3) + lat.site_shape), device=cuda)
+    params = ov.OverlapParams(rho=1.4, m=0.1, degree=16, n_ev=2)
+    fg = wf.make_fast_gauge(u, params.kernel, lat)
+    n0 = dc.hopping_split.launches
+    y = ov.from_pair(ov.qw_split(fg, ov.to_pair(psi, lat), params.kernel.kappa, lat), lat)
+    assert dc.hopping_split.launches == n0 + 2
+    assert _close(y, ov.qw_plain(u, psi, params, lat))
+    s = ov.make_overlap(u, params, lat)
+    d_k1, d_plain = ov.dov_psi(s, psi), ov.dov_psi(s, psi, plain=True)
+    assert float(torch.linalg.vector_norm(d_k1 - d_plain) / torch.linalg.vector_norm(psi)) < 1e-5

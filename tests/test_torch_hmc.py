@@ -211,13 +211,21 @@ def test_hmc2_lowers_to_the_reference_monomials():
 
 
 @pytest.mark.parametrize("what, text", [
-    ("SFCOUPLING", "BeginMeasurement SFCOUPLING\n Frequency = 1\nEndMeasurement\n"),
-    ("SFGAUGE", "BeginMonomial SFGAUGE\nEndMonomial\n"),
+    ("measurement type 'SFCOUPLINGX'",
+     "BeginMeasurement SFCOUPLINGX\n Frequency = 1\nEndMeasurement\n"),
+    ("monomial type 'SFGAUGEX'", "BeginMonomial SFGAUGEX\nEndMonomial\n"),
 ])
 def test_unported_features_raise(what, text):
+    """Every monomial and measurement of the reference lowers now (SFGAUGE
+    and SFCOUPLING since slice 10: `test_ported_features_lower`); a type
+    that neither package knows raises ValueError naming it, as the
+    reference's `build_monomial` does for a monomial."""
     cfg = config_tmlqcd.parse_input(text)
-    with pytest.raises(NotImplementedError, match=f"(?i){what}.*not yet ported"):
+    with pytest.raises(ValueError, match=f"unknown {what}"):
         config.build_hmc(cfg)
+    if "monomial" in what:
+        with pytest.raises(ValueError, match=f"unknown {what}"):
+            jconfig.build_hmc(jconfig_tmlqcd.parse_input(text))
 
 
 @pytest.mark.parametrize("what, text", [
@@ -228,6 +236,8 @@ def test_unported_features_raise(what, text):
     ("ORIENTEDPLAQUETTES", "BeginMeasurement ORIENTEDPLAQUETTES\n Frequency = 1\nEndMeasurement\n"),
     ("POLYAKOV", "BeginMeasurement POLYAKOV\n Frequency = 1\nEndMeasurement\n"),
     ("GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\nEndMeasurement\n"),
+    ("SFCOUPLING", "BeginMeasurement SFCOUPLING\n Frequency = 1\nEndMeasurement\n"),
+    ("SFGAUGE", "BeginMonomial SFGAUGE\n Eta = 0.15\nEndMonomial\n"),
 ])
 def test_ported_features_lower(what, text):
     """What earlier slices refused now lowers: NDPOLY to the reference's
@@ -243,6 +253,12 @@ def test_ported_features_lower(what, text):
             assert getattr(mo, field) == getattr(mr, field)
         assert dataclasses.asdict(mo.params) == dataclasses.asdict(mr.params)
         assert mo.degree == 40 and mo.params.c_sw == 1.0 and mo.coeffs.shape == (41,)
+    elif what == "SFGAUGE":
+        # the SF monomial and its momenta mask (tests/test_torch_sf.py runs them)
+        mo = out.monomials[0]
+        assert type(mo).__name__ == "SFGaugeMonomial" and mo.eta == 0.15
+        assert float(out.momenta_mask[1:4, 0].abs().sum()) == 0.0
+        assert float(out.momenta_mask[0].min()) == 1.0
     else:
         assert [m.type for m in cfg.meas] == [what] and out.monomials[0].name == "gauge"
 

@@ -41,6 +41,8 @@ _MESH_PATH = ("parallel", "ops.dslash_cuda", "ops.wilson_fast", "cli.hmc")
 _GAUGE_OBS_PATH = ("meas.gauge_obs", "meas.gradient_flow", "meas.smearing", "solvers.chebyshev",
                    "hmc.poly_monomials", "hmc.reweight", "cli.offline_measurement",
                    "cli.benchmark", "api", "models.suites")
+# the special operators: overlap with Lanczos and SUMR, the Schrödinger functional
+_SPECIAL_PATH = ("ops.overlap", "ops.sf", "solvers.lanczos", "solvers.sumr")
 
 
 def test_port_imports_no_jax():
@@ -50,10 +52,10 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, bad, names = res.stdout.strip().split(" ", 2)
-    assert int(count) >= 44  # every slice module was imported
+    assert int(count) >= 48  # every slice module was imported
     assert bad == "[]", bad
     for name in (_INVERTER_PATH + _DOUBLET_PATH + _SOLVERS_PATH + _MESH_PATH
-                 + _GAUGE_OBS_PATH):
+                 + _GAUGE_OBS_PATH + _SPECIAL_PATH):
         assert f"tmlqcd_tpu_torch.{name}" in names.split()
 
 
@@ -66,7 +68,7 @@ def test_port_sources_name_no_jax_import():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "tmlqcd_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 45
+    assert len(paths) >= 49
     for path in paths:
         with open(path) as f:
             assert not pat.search(f.read()), path

@@ -267,14 +267,14 @@ def test_cli_invert_matches_reference_cli(tmp_path, fields, monkeypatch):
 @pytest.mark.parametrize("what, text", [
     ("NrYProcs", "NrYProcs = 2\nBeginOperator DBTMWILSON\n kappa = 0.13\nEndOperator\n"),
     ("NrZProcs", "NrZProcs = 2\nBeginOperator DBCLOVER\n kappa = 0.13\nEndOperator\n"),
-    ("OVERLAP", "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
+    ("NrTProcs", "NrTProcs = 2\nBeginOperator OVERLAP\n m = 0.1\nEndOperator\n"),
     ("NrXProcs", "NrXProcs = 2\nBeginOperator CLOVER\n kappa = 0.13\n CSW = 1.5\nEndOperator\n"),
     # a carried solver or smearing option does not hide an unported feature beside it
-    ("OVERLAP", "UseStoutSmearing = yes\nBeginOperator CLOVER\n kappa = 0.13\n"
-                " CSW = 1.5\n Solver = dfl\nEndOperator\nBeginOperator OVERLAP\n kappa = 0.13\n"
-                "EndOperator\n"),
-    ("OVERLAP", "BeginOperator TMWILSON\n kappa = 0.13\n Solver = mixedcg\nEndOperator\n"
-                "BeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
+    ("NrYProcs", "NrYProcs = 2\nUseStoutSmearing = yes\nBeginOperator CLOVER\n kappa = 0.13\n"
+                 " CSW = 1.5\n Solver = dfl\nEndOperator\nBeginOperator OVERLAP\n m = 0.1\n"
+                 "EndOperator\n"),
+    ("NrZProcs", "NrZProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = mixedcg\n"
+                 "EndOperator\nBeginOperator OVERLAP\n m = 0.1\nEndOperator\n"),
     ("NrTProcs", "NrTProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = fastmixed\n"
                  "EndOperator\n"),
     ("NrXProcs", "UseSourceSmearing = yes\nNrXProcs = 2\nBeginOperator TMWILSON\n"
@@ -283,7 +283,8 @@ def test_cli_invert_matches_reference_cli(tmp_path, fields, monkeypatch):
                  "EndOperator\n"),
     ("NrYProcs", "NrYProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\n Solver = increigcg\n"
                  "EndOperator\n"),
-    ("OVERLAP", "UseStoutSmearing = yes\nBeginOperator OVERLAP\n kappa = 0.13\nEndOperator\n"),
+    ("NrXProcs", "NrXProcs = 2\nUseStoutSmearing = yes\nBeginOperator OVERLAP\n m = 0.1\n"
+                 "EndOperator\n"),
     ("NrZProcs", "UseSourceSmearing = yes\nNrZProcs = 2\nBeginOperator TMWILSON\n"
                  " kappa = 0.13\nEndOperator\n"),
     ("NrTProcs", "NrTProcs = 2\nBeginOperator TMWILSON\n kappa = 0.13\nEndOperator\n"),
@@ -295,6 +296,15 @@ def test_unported_inverter_options_raise(what, text):
 
 
 def test_ported_inverter_options_pass():
+    # OVERLAP takes any solver name (sumr, cgne; anything else runs sumr);
+    # tests/test_torch_overlap.py runs it
+    for solver in ("sumr", "cgne", "cg", "bogus"):
+        config.check_invert_ported(config_tmlqcd.parse_input(
+            f"UseStoutSmearing = yes\nBeginOperator OVERLAP\n m = 0.1\n Solver = {solver}\n"
+            "EndOperator\n"))
+    with pytest.raises(ValueError, match="unknown operator type 'NOSUCH'"):
+        config.check_invert_ported(config_tmlqcd.parse_input(
+            "BeginOperator NOSUCH\n kappa = 0.13\nEndOperator\n"))
     for op in ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER"):
         for solver in ("cg", "fastcg"):
             for csw in ("", " CSW = 1.0\n"):

@@ -191,12 +191,15 @@ def test_onlinemeas_file_matches_reference(gauge, online_pair):
     assert all(len(c[3]) == len("1.234567890123e-01") for c in out)  # %.12e
 
 
-@pytest.mark.parametrize("ty", ["SFCOUPLING"])
+@pytest.mark.parametrize("ty", ["SFCOUPLINGX"])
 def test_unported_measurements_raise(tmp_path, gauge, ty):
+    """Every measurement type of the reference runs now (SFCOUPLING since
+    slice 10: tests/test_torch_sf.py); a type that neither package knows
+    raises ValueError naming it, in the runner and before the run starts."""
     cfg = config_tmlqcd.parse_input(f"L = 4\nT = 4\nBeginMeasurement {ty}\nEndMeasurement\n")
-    with pytest.raises(NotImplementedError, match=f"{ty}.*not yet ported"):
+    with pytest.raises(ValueError, match=f"unknown measurement type '{ty}'"):
         runner.run_measurements(cfg, gauge[1], LAT, 0, str(tmp_path), rng.Key(1))
-    with pytest.raises(NotImplementedError, match=f"{ty}.*not yet ported"):
+    with pytest.raises(ValueError, match=f"unknown measurement type '{ty}'"):
         config.build_hmc(cfg)
 
 

@@ -15,6 +15,9 @@ numpy arrays in the shared layouts:
                         block fields + epsbar_t
     NDParams / RationalApprox: plain dataclasses, rebuilt field by field
     chrono    fields [n, ...field] + count
+    OverlapSetup        gauge + evecs complex64 [n_ev, 4, 3, T, X, Y*Z],
+                        ev_signs [n_ev], coeffs, lo2, hi2, ev_resid and the
+                        OverlapParams fields; K1's gauge copy is rebuilt
 
 `numpy_su3` and `numpy_spinor` draw test inputs from a numpy Generator, so
 both packages can be fed the same fields without either one's RNG.
@@ -28,6 +31,7 @@ import torch
 from tmlqcd_tpu_torch.inverter import InvertResult
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+from tmlqcd_tpu_torch.ops.overlap import OverlapParams, OverlapSetup
 from tmlqcd_tpu_torch.ops.wilson_fast import FastClover, FastCloverND, FastGauge
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory
 from tmlqcd_tpu_torch.solvers.rational import RationalApprox
@@ -36,7 +40,8 @@ __all__ = ["gauge_from_numpy", "spinor_from_numpy", "sources_from_numpy",
            "split_from_numpy", "fast_gauge_from_numpy", "clover_blocks_from_numpy",
            "fast_clover_from_numpy", "fast_clover_to_numpy", "chrono_from_numpy",
            "invert_result_from_numpy", "to_numpy", "numpy_su3", "numpy_spinor",
-           "doublet_from_numpy", "nd_params_from", "rational_from", "fast_clover_nd_from_numpy"]
+           "doublet_from_numpy", "nd_params_from", "rational_from", "fast_clover_nd_from_numpy",
+           "overlap_params_from", "overlap_setup_from_numpy", "numpy_smooth_su3"]
 
 
 def _as(arr, dtype: torch.dtype, shape_tail: tuple, device) -> torch.Tensor:
@@ -129,6 +134,31 @@ def fast_clover_nd_from_numpy(fg: FastGauge, moo_u, moo_d, minv_a, minv_b, minv_
                         float(epsbar_t))
 
 
+def overlap_params_from(ref) -> OverlapParams:
+    """The reference's OverlapParams (any object with its fields) -> the
+    port's."""
+    return OverlapParams(rho=float(ref.rho), m=float(ref.m), degree=int(ref.degree),
+                         n_ev=int(ref.n_ev), lanczos_steps=ref.lanczos_steps,
+                         theta=tuple(float(t) for t in ref.theta))
+
+
+def overlap_setup_from_numpy(u, evecs, ev_signs, coeffs, lo2: float, hi2: float, params,
+                             lat: Lattice, ev_resid: float = 0.0, device="cpu") -> OverlapSetup:
+    """The reference's OverlapSetup carried across as numpy (the gauge, the
+    Ritz vectors and signs, the Chebyshev data) -> the port's, with K1's
+    gauge copy built from the gauge as `make_overlap` builds it."""
+    from tmlqcd_tpu_torch.ops.wilson_fast import make_fast_gauge
+
+    p = overlap_params_from(params)
+    ut = gauge_from_numpy(u, lat, device)
+    ev = _as(evecs, torch.complex64, (4, 3) + lat.site_shape, device) if np.size(evecs) else \
+        torch.zeros((0, 4, 3) + lat.site_shape, dtype=torch.complex64, device=device)
+    return OverlapSetup(u=ut, fg=make_fast_gauge(ut, p.kernel, lat), evecs=ev,
+                        ev_signs=torch.as_tensor(np.array(ev_signs), device=device).float(),
+                        coeffs=tuple(float(c) for c in np.asarray(coeffs)), lo2=float(lo2),
+                        hi2=float(hi2), params=p, lat=lat, ev_resid=float(ev_resid))
+
+
 def chrono_from_numpy(fields, count: int, device="cpu") -> ChronoHistory:
     f = torch.as_tensor(np.array(fields), device=device)
     return ChronoHistory(f.to(torch.complex64 if f.is_complex() else torch.float32), int(count))
@@ -147,6 +177,20 @@ def numpy_su3(gen: np.random.Generator, batch_shape: tuple) -> np.ndarray:
     d = np.diagonal(r, axis1=1, axis2=2)
     q = q * (d / np.abs(d))[:, None, :]
     q = q / np.linalg.det(q)[:, None, None] ** (1.0 / 3.0)
+    return np.moveaxis(q, 0, -1).reshape((3, 3) + tuple(batch_shape)).astype(np.complex64)
+
+
+def numpy_smooth_su3(gen: np.random.Generator, batch_shape: tuple,
+                     scale: float = 0.3) -> np.ndarray:
+    """Weakly fluctuating SU(3) matrices exp(i scale H), H a traceless
+    hermitian gaussian [3, 3, *batch_shape] complex64: keeps the Wilson
+    kernel gapped, so that small Chebyshev degrees approximate its sign."""
+    n = int(np.prod(batch_shape))
+    a = gen.standard_normal((n, 3, 3)) + 1j * gen.standard_normal((n, 3, 3))
+    h = 0.5 * (a + np.conj(np.swapaxes(a, 1, 2)))
+    h -= (np.trace(h, axis1=1, axis2=2) / 3.0)[:, None, None] * np.eye(3)
+    lam, v = np.linalg.eigh(h)
+    q = (v * np.exp(1j * scale * lam)[:, None, :]) @ np.conj(np.swapaxes(v, 1, 2))
     return np.moveaxis(q, 0, -1).reshape((3, 3) + tuple(batch_shape)).astype(np.complex64)
 
 

@@ -8,7 +8,7 @@ solve on the slab kernels) -> start configuration
 monomials (`hmc/validate.py`, a warning when spec(Q^2) leaves [StildeMin,
 StildeMax]) -> trajectory loop writing output.data and printing one line
 per trajectory, with the force monitor every 10 trajectories at DebugLevel
->= 2, the configured measurements (every type but SFCOUPLING) and the
+>= 2, the configured measurements (SFCOUPLING included) and the
 ReversibilityCheck -> native or ILDG checkpoints every NSave and at the end.
 
 Usage:

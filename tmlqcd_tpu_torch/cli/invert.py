@@ -27,12 +27,20 @@ With UseStoutSmearing the gauge field is stout-smeared (StoutRho,
 StoutNoIterations) before any operator or gauge copy is built, so every
 kernel sees the smeared links; with UseSourceSmearing each source gets
 JacobiIterations Jacobi sweeps (JacobiKappa) on the APE-smeared spatial
-links (APEAlpha, APEIterations) of that same gauge field.  OVERLAP raises
-`NotImplementedError` naming itself.
+links (APEAlpha, APEIterations) of that same gauge field.  OVERLAP (m, s,
+DegreeOfSignFunction, NoEigenvalues) builds the sign function's setup once
+per gauge (`ops.overlap.make_overlap` with rho = 1 + s: Lanczos low modes
+and the Chebyshev coefficients, every Q_W on K1), prints it, and solves the
+columns one by one on the full lattice with `Solver = sumr` or `cgne`
+(anything else runs sumr, as in the reference).
 
 Usage:
     python -m tmlqcd_tpu_torch.cli.invert -f sample.input -c conf.000010.npz \
-        [--source point|z2] [--timeslice 0] [--format lime|npz] [-o outdir] [--cpu]
+        [--source point|z2] [--timeslice 0] [--columns N] [--format lime|npz] [-o outdir]
+        [--cpu]
+
+`--columns N` inverts the first N of a point source's 12 spin-colour
+columns (all 12 by default).
 
 Without --cpu the run needs a CUDA device and raises if there is none; with
 --cpu it runs the plain PyTorch versions of the kernels on the CPU.
@@ -59,6 +67,8 @@ def main(argv=None):
                     help="overrides the input file's SourceType")
     ap.add_argument("--timeslice", type=int, default=None,
                     help="overrides the input file's SourceTimeslice")
+    ap.add_argument("--columns", type=int, default=12,
+                    help="invert the first N spin-colour columns of a point source")
     ap.add_argument("--seed", type=int, default=171)
     ap.add_argument("--format", default="lime", choices=["lime", "npz"],
                     help="propagator output: SciDAC LIME records or npz")
@@ -89,6 +99,7 @@ def main(argv=None):
     from tmlqcd_tpu_torch.io.propagator import write_propagator
     from tmlqcd_tpu_torch.meas.smearing import ape_smear_spatial, jacobi_smear, stout_smear
     from tmlqcd_tpu_torch.meas.sources import point_source, z2_timeslice_source
+    from tmlqcd_tpu_torch.ops import overlap as ov
     from tmlqcd_tpu_torch.ops.ndoublet import NDParams
     from tmlqcd_tpu_torch.ops.wilson import DiracParams
     from tmlqcd_tpu_torch.utils import to_host
@@ -133,11 +144,13 @@ def main(argv=None):
         params = DiracParams(kappa=op.kappa, mu=mu, c_sw=op.csw, theta=tuple(op.theta))
         is_clover = op.type.upper() == "CLOVER"
         is_doublet = op.type.upper() in ("DBTMWILSON", "DBCLOVER")
+        is_overlap = op.type.upper() == "OVERLAP"
         inv = invert_clover_eo if is_clover else invert_eo
         tol = float(op.precision) ** 0.5
         solver = op.solver.lower()
         inv_kw = {"solver": solver}
-        if solver in ("dflfgmres", "dflgcr", "dfl") and not (is_clover or is_doublet):
+        if solver in ("dflfgmres", "dflgcr", "dfl") and not (is_clover or is_doublet
+                                                             or is_overlap):
             # the MG setup: once per gauge and operator, reused by every column
             sync()
             t0 = time.perf_counter()
@@ -151,7 +164,7 @@ def main(argv=None):
         ts = args.timeslice if args.timeslice is not None else cfg.source_timeslice
         if src_kind == "point":
             sources = [(s, c, point_source(lat, s, c, (ts, 0, 0, 0), device=device))
-                       for s in range(4) for c in range(3)]
+                       for s in range(4) for c in range(3)][:max(args.columns, 1)]
         else:
             sources = [(0, 0, z2_timeslice_source(lat, ts, rng.Key(args.seed), device=device))]
         if cfg.use_source_smearing:
@@ -195,7 +208,33 @@ def main(argv=None):
             continue
 
         sol = np.zeros((len(sources), 4, 3) + lat.site_shape, np.complex64)
-        if solver == "increigcg" and not is_clover:
+        if is_overlap:
+            # the sign function's setup once per gauge, then full-lattice
+            # solves column by column (no even/odd Schur complement)
+            sync()
+            t0 = time.perf_counter()
+            ov_params = ov.OverlapParams(rho=1.0 + op.overlap_s, m=op.overlap_m,
+                                         degree=op.sign_degree, n_ev=op.sign_n_ev,
+                                         theta=tuple(op.theta))
+            ov_setup = ov.make_overlap(u, ov_params, lat)
+            sync()
+            print(f"[invert] op {iop}: overlap setup ({op.sign_n_ev} modes, degree "
+                  f"{op.sign_degree}, sign err {ov_setup.sign_err:.2e}, ev resid "
+                  f"{ov_setup.ev_resid:.2e}, {ov_setup.lanczos_steps} Lanczos steps) built in "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            ov_solver = solver if solver in ("sumr", "cgne") else "sumr"
+            for i, (s, c, src) in enumerate(sources):
+                sync()
+                t0 = time.perf_counter()
+                res = ov.invert_overlap(ov_setup, src, tol=tol, maxiter=op.max_solver_iterations,
+                                        solver=ov_solver)
+                sync()
+                dt = time.perf_counter() - t0
+                sol[i] = to_host(res.x)
+                print(f"[invert] op {iop} ({op.type}, {ov_solver}) source (s={s},c={c}): "
+                      f"{res.iterations} iters, |r|^2={float(res.residual_sq):.3e}, {dt:.3f}s",
+                      flush=True)
+        elif solver == "increigcg" and not is_clover:
             # sequential columns, each deflated by the low modes the earlier
             # ones harvested
             sync()

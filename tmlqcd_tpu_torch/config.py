@@ -2,23 +2,25 @@
 
 Port of `tmlqcd_tpu/config.py`.  The dataclasses carry the reference's full
 input schema, so every tmLQCD input the reference accepts parses here too.
-`build_hmc` lowers the GAUGE, DET, DETRATIO, CLOVERDET, CLOVERDETRATIO and
-CLOVERTRLOG monomials, the rational monomials (NDRAT, NDCLOVERRAT, RAT,
-CLOVERRAT and their *COR corrections) and the polynomial NDPOLY on one
-device, with every measurement but SFCOUPLING (ONLINE, PIONNORM,
-GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH), the force
-monitor, ReversibilityCheck and native or ILDG checkpoints, and the (t, y)
-domain decomposition of NrTProcs x NrYProcs (a slab mesh on one device,
-which `cli.hmc` builds with `parallel.mesh_from_procs` and `build_hmc`
-carries by `HMCConfig.mesh` into every solving monomial; NDPOLY takes none)
-— and raises `NotImplementedError`, naming the feature, for the rest: the
-SFGAUGE monomial and the SFCOUPLING measurement.  NrXProcs / NrZProcs > 1
-and a lattice that does not split into even slabs raise the reference's
-`ValueError` where the mesh is built.  `check_invert_ported` does the same
-for the inverter's operators (ported: TMWILSON, WILSON, CLOVER, DBTMWILSON,
-DBCLOVER; stout and source smearing are carried), rejects a solver name the
-inverter does not know, and raises for any Nr*Procs > 1: the reference's
-`cli/invert.py` builds no mesh.  Nothing is skipped silently.
+`build_hmc` lowers every monomial the reference lowers — GAUGE, SFGAUGE
+(with the Schrödinger functional's momenta mask on `HMCConfig`), DET,
+DETRATIO, CLOVERDET, CLOVERDETRATIO and CLOVERTRLOG, the rational monomials
+(NDRAT, NDCLOVERRAT, RAT, CLOVERRAT and their *COR corrections) and the
+polynomial NDPOLY — on one device, with every measurement (ONLINE,
+PIONNORM, GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH,
+SFCOUPLING), the force monitor, ReversibilityCheck and native or ILDG
+checkpoints, and the (t, y) domain decomposition of NrTProcs x NrYProcs (a
+slab mesh on one device, which `cli.hmc` builds with
+`parallel.mesh_from_procs` and `build_hmc` carries by `HMCConfig.mesh` into
+every solving monomial; NDPOLY and SFGAUGE take none).  A mesh over more
+than one device raises `NotImplementedError` where it is built (ROADMAP
+S15b); NrXProcs / NrZProcs > 1 and a lattice that does not split into even
+slabs raise the reference's `ValueError`.  `check_invert_ported` does the
+same for the inverter's operators (TMWILSON, WILSON, CLOVER, DBTMWILSON,
+DBCLOVER and OVERLAP; stout and source smearing are carried), rejects a
+solver name the inverter does not know, and raises for any Nr*Procs > 1:
+the reference's `cli/invert.py` builds no mesh.  Nothing is skipped
+silently.
 """
 
 from __future__ import annotations
@@ -41,11 +43,13 @@ from tmlqcd_tpu_torch.hmc import (
     NDRatMonomial,
     RatCorMonomial,
     RatMonomial,
+    SFGaugeMonomial,
 )
 from tmlqcd_tpu_torch.inverter import check_solver
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.meas.runner import PORTED as PORTED_MEASUREMENTS
 from tmlqcd_tpu_torch.ops.ndoublet import NDParams
+from tmlqcd_tpu_torch.ops.sf import sf_momenta_mask
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
 __all__ = [
@@ -60,7 +64,7 @@ __all__ = [
     "check_invert_ported",
 ]
 
-PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER")
+PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER", "OVERLAP")
 GAUGE_ACTIONS = {"wilson": 0.0, "tlsym": -1.0 / 12.0, "iwasaki": -0.331, "dbw2": -1.4088}
 
 
@@ -197,8 +201,8 @@ def _not_ported(what: str):
 
 
 def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mesh=None):
-    """Lower one MonomialSpec to a monomial object (GAUGE, DET, DETRATIO,
-    CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, the rational NDRAT,
+    """Lower one MonomialSpec to a monomial object (GAUGE, SFGAUGE, DET,
+    DETRATIO, CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, the rational NDRAT,
     NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections, and the
     polynomial NDPOLY); `mesh` goes to every monomial that solves but
     NDPOLY, which runs on the whole lattice."""
@@ -225,6 +229,9 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
 
     if ty == "GAUGE":
         return GaugeMonomial(lat=lat, beta=beta, c1=c1, timescale=spec.timescale)
+    if ty == "SFGAUGE":
+        return SFGaugeMonomial(lat=lat, beta=beta, eta=spec.eta, nu=spec.nu, ct=spec.ct,
+                               timescale=spec.timescale, name=spec.name or "sfgauge")
     if ty == "DET":
         return DetMonomial(lat=lat, params=params(spec.two_kappa_mu),
                            name=spec.name or "det", **det_common)
@@ -259,7 +266,7 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
     if ty in ("RAT", "CLOVERRAT", "RATCOR", "CLOVERRATCOR"):
         cls = RatCorMonomial if ty.endswith("COR") else RatMonomial
         return cls(lat=lat, params=params(0.0, spec.csw), **rational)
-    raise _not_ported(f"monomial type {spec.type!r}")
+    raise ValueError(f"unknown monomial type {spec.type!r}")
 
 
 def _check_one_device(cfg: RunConfig) -> None:
@@ -271,10 +278,11 @@ def _check_one_device(cfg: RunConfig) -> None:
 
 
 def check_ported(cfg: RunConfig) -> None:
-    """Raise for every run feature this slice of the port does not carry."""
+    """Raise for a measurement type, checkpoint format or gauge action
+    that neither package knows (ValueError), before the run starts."""
     for m in cfg.meas:
         if m.type.upper() not in PORTED_MEASUREMENTS:
-            raise _not_ported(f"measurement type {m.type!r}")
+            raise ValueError(f"unknown measurement type {m.type!r}")
     if cfg.checkpoint_format not in ("native", "ildg"):
         raise ValueError(f"unknown checkpoint format {cfg.checkpoint_format!r}")
     if cfg.gauge_action.lower() not in GAUGE_ACTIONS:
@@ -282,19 +290,23 @@ def check_ported(cfg: RunConfig) -> None:
 
 
 def check_invert_ported(cfg: RunConfig) -> None:
-    """Raise for every inverter feature this slice of the port does not
-    carry: operators other than TMWILSON / WILSON / CLOVER / DBTMWILSON /
-    DBCLOVER, domain decomposition; and for a solver name outside
-    `inverter.SOLVERS` (ValueError)."""
+    """Raise for domain decomposition in the inverter (NotImplementedError:
+    the reference's inverter builds no mesh), and for an operator type other
+    than TMWILSON / WILSON / CLOVER / DBTMWILSON / DBCLOVER / OVERLAP or a
+    solver name outside `inverter.SOLVERS` (ValueError).  OVERLAP takes any
+    solver name: `sumr` and `cgne` run as named, anything else runs `sumr`,
+    as in the reference."""
     _check_one_device(cfg)
     for op in cfg.operators:
         if op.type.upper() not in PORTED_OPERATORS:
-            raise _not_ported(f"operator type {op.type!r}")
-        check_solver(op.solver)
+            raise ValueError(f"unknown operator type {op.type!r}")
+        if op.type.upper() != "OVERLAP":
+            check_solver(op.solver)
 
 
 def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
-    """RunConfig -> executable HMCConfig (raises for what is not ported).
+    """RunConfig -> executable HMCConfig (raises for what neither package
+    knows).
     `mesh` (a `parallel.Mesh`, or None for none) is carried to every solving
     monomial; `cli.hmc` builds it from NrTProcs x NrYProcs."""
     check_ported(cfg)
@@ -307,4 +319,9 @@ def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
         if m.timescale >= len(integ.levels):
             raise ValueError(f"monomial {m.name} timescale {m.timescale} >= "
                              f"{len(integ.levels)} levels")
-    return HMCConfig(lat=lat, monomials=monomials, integrator=integ, mesh=mesh)
+    mask = None
+    if any(s.type.upper() == "SFGAUGE" for s in specs):
+        # the Dirichlet-frozen spatial links at t = 0 carry no momentum
+        mask = sf_momenta_mask(lat)
+    return HMCConfig(lat=lat, monomials=monomials, integrator=integ, mesh=mesh,
+                     momenta_mask=mask)

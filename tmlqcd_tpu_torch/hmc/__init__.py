@@ -8,6 +8,7 @@ from tmlqcd_tpu_torch.hmc.monomials import (  # noqa: F401
     DetMonomial,
     DetRatioMonomial,
     GaugeMonomial,
+    SFGaugeMonomial,
 )
 from tmlqcd_tpu_torch.hmc.poly_monomials import NDPolyMonomial  # noqa: F401
 from tmlqcd_tpu_torch.hmc.rational_monomials import (  # noqa: F401

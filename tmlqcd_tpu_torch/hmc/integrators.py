@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from tmlqcd_tpu_torch import su3
 
@@ -119,13 +120,19 @@ def _expand_schedule(cfg: IntegratorConfig, timescales) -> tuple:
     return np.stack(kick_rows), np.asarray(drift_dts)
 
 
-def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None):
+def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None,
+              freeze_mask=None):
     """Run one MD trajectory of length cfg.tau.
 
     `chrono` (optional): per-monomial ChronoHistory (or None) entries; kicks
     then call `force_chrono` so every force solve starts from the
     chronological guess, and the return is (u', p', chrono',
-    force_iterations[n_monomials]).  Without it the return is (u', p')."""
+    force_iterations[n_monomials]).  Without it the return is (u', p').
+
+    `freeze_mask` (optional, [4,T,X,Y*Z] 0/1): the links where it is 0 are
+    the Schrödinger functional's frozen dofs; each drift restores them bit
+    for bit after the SU(3) projection (the masked momenta keep them fixed
+    up to the projection's rounding, the restore removes even that)."""
     for m in monomials:
         if m.timescale >= len(cfg.levels):
             raise ValueError(f"monomial {m.name} on timescale {m.timescale} but only "
@@ -135,6 +142,7 @@ def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None):
     # f32 coefficients, as the reference rounds them
     kc = kick_rows.astype(np.float32)
     dd = drift_dts.astype(np.float32)
+    frozen = None if freeze_mask is None else freeze_mask.to(u.device) == 0.0
     ch = list(chrono) if chrono is not None else [None] * nm
     its = [0] * nm
     for row, dt in zip(kc, dd):
@@ -157,7 +165,8 @@ def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None):
         if f is not None:
             p = p + 0.5 * f
         if dt != 0.0:
-            u = su3.project_su3(su3.mul(su3.expm_ta(float(dt) * p), u))
+            unew = su3.project_su3(su3.mul(su3.expm_ta(float(dt) * p), u))
+            u = unew if frozen is None else torch.where(frozen, u, unew)
     if chrono is not None:
         return u, p, tuple(ch), its
     return u, p

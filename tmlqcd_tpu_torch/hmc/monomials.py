@@ -1,5 +1,6 @@
 """Monomials of the Nf=2 twisted-mass and twisted-clover Hasenbusch
-actions: GAUGE, DET, DETRATIO, CLOVERDET, CLOVERTRLOG and CLOVERDETRATIO.
+actions: GAUGE, SFGAUGE (the Schrödinger-functional gauge action), DET,
+DETRATIO, CLOVERDET, CLOVERTRLOG and CLOVERDETRATIO.
 
 Port of the main-path parts of `tmlqcd_tpu/hmc/monomials.py`.  Each monomial
 exposes
@@ -67,12 +68,14 @@ from tmlqcd_tpu_torch.ops.gauge_action import (
     ta_force_from_grad,
     torch_grad_to_jax,
 )
+from tmlqcd_tpu_torch.ops.sf import sf_gauge_action
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers import dispatch
 from tmlqcd_tpu_torch.solvers.chrono import ChronoHistory, chrono_guess, chrono_init, chrono_push
 
-__all__ = ["GaugeMonomial", "DetMonomial", "DetRatioMonomial", "CloverDetMonomial",
-           "CloverTrlogMonomial", "CloverDetRatioMonomial", "SolveOut", "eo_spinor_shape"]
+__all__ = ["GaugeMonomial", "SFGaugeMonomial", "DetMonomial", "DetRatioMonomial",
+           "CloverDetMonomial", "CloverTrlogMonomial", "CloverDetRatioMonomial", "SolveOut",
+           "eo_spinor_shape"]
 
 
 def eo_spinor_shape(lat: Lattice) -> tuple:
@@ -161,6 +164,39 @@ class GaugeMonomial:
 
     def force(self, u, aux):
         return gauge_force(u, self.beta, self.lat, self.c1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SFGaugeMonomial:
+    """Schrödinger-functional Wilson gauge action: Dirichlet boundaries in
+    time with the abelian background W(eta, nu) frozen at x0 = 0 and T
+    (reference: sf_gauge_monomial.c).  The force is the autograd gradient of
+    the SF action, exactly zero on the frozen links because they never enter
+    it; pair it with `HMCConfig.momenta_mask = ops.sf.sf_momenta_mask(lat)`
+    so that the drift keeps the frozen links fixed too."""
+
+    lat: Lattice
+    beta: float
+    eta: float = 0.0
+    nu: float = 0.0
+    ct: float = 1.0
+    timescale: int = 0
+    name: str = "sfgauge"
+
+    def _s(self, u):
+        return sf_gauge_action(u, self.beta, self.lat, self.eta, self.nu, self.ct)
+
+    def heatbath(self, u, key, eta=None):
+        return None, self._s(u)
+
+    def action_info(self, u, aux, hist=None):
+        return self._s(u), 0
+
+    def force(self, u, aux):
+        with torch.enable_grad():
+            uu = u.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._s(uu), uu)
+        return ta_force_from_grad(u, torch_grad_to_jax(g))
 
 
 @dataclasses.dataclass(frozen=True)

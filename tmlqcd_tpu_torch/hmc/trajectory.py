@@ -27,12 +27,16 @@ __all__ = ["HMCConfig", "Draws", "TrajectoryStats", "hmc_trajectory", "chrono_st
 class HMCConfig:
     """Lattice + action (monomial tuple) + integrator, and the (t, y) slab
     mesh (`parallel.Mesh`) that the solving monomials were built with, or
-    None."""
+    None.  `momenta_mask` (optional [4,T,X,Y*Z] 0/1, the Schrödinger
+    functional's `ops.sf.sf_momenta_mask`) is multiplied into the momenta
+    after the heatbath and freezes the links where it is 0 at every drift;
+    None = all links dynamical."""
 
     lat: object
     monomials: tuple
     integrator: IntegratorConfig
     mesh: object = None
+    momenta_mask: object = None
 
 
 class Draws(NamedTuple):
@@ -65,13 +69,19 @@ def chrono_states(cfg: HMCConfig, device) -> tuple:
                  for m in cfg.monomials)
 
 
+def _masked(cfg: HMCConfig, p: torch.Tensor) -> torch.Tensor:
+    """The momenta with the frozen dofs zeroed (no kinetic term, no drift)."""
+    return p if cfg.momenta_mask is None else p * cfg.momenta_mask.to(p.device)
+
+
 def hmc_trajectory(cfg: HMCConfig, u: torch.Tensor, key: rng.Key, chrono=None,
                    draws: Draws | None = None):
     """(U, key) -> (U', TrajectoryStats), or (U', stats, chrono') when the
     caller carries `chrono` across trajectories (reset to empty on reject)."""
     device = u.device
     k_mom, k_pf, k_acc = key.fold(0), key.fold(1), key.fold(2)
-    p = draws.momenta if draws is not None else rng.random_momenta(k_mom, u.shape[2:], device)
+    p = _masked(cfg, draws.momenta if draws is not None
+                else rng.random_momenta(k_mom, u.shape[2:], device))
 
     aux_list = []
     s_old = torch.zeros((), dtype=torch.float64, device=device)
@@ -84,7 +94,7 @@ def hmc_trajectory(cfg: HMCConfig, u: torch.Tensor, key: rng.Key, chrono=None,
 
     ch0 = chrono_states(cfg, device) if chrono is None else chrono
     u_new, p_new, ch, force_iters = integrate(cfg.integrator, cfg.monomials, aux_list, u, p,
-                                              chrono=ch0)
+                                              chrono=ch0, freeze_mask=cfg.momenta_mask)
 
     s_new = torch.zeros((), dtype=torch.float64, device=device)
     iters = []
@@ -123,7 +133,8 @@ def reversibility_check(cfg: HMCConfig, u: torch.Tensor, key: rng.Key,
     and 1; the uniform is not used)."""
     device = u.device
     k_mom, k_pf = key.fold(0), key.fold(1)
-    p = draws.momenta if draws is not None else rng.random_momenta(k_mom, u.shape[2:], device)
+    p = _masked(cfg, draws.momenta if draws is not None
+                else rng.random_momenta(k_mom, u.shape[2:], device))
     aux_list = []
     s_old = torch.zeros((), dtype=torch.float64, device=device)
     for i, m in enumerate(cfg.monomials):
@@ -132,8 +143,10 @@ def reversibility_check(cfg: HMCConfig, u: torch.Tensor, key: rng.Key,
         s_old = s_old + s0
     h_old = su3.kinetic_energy(p) + s_old
 
-    u1, p1 = integrate(cfg.integrator, cfg.monomials, aux_list, u, p)
-    u2, p2 = integrate(cfg.integrator, cfg.monomials, aux_list, u1, -p1)
+    u1, p1 = integrate(cfg.integrator, cfg.monomials, aux_list, u, p,
+                       freeze_mask=cfg.momenta_mask)
+    u2, p2 = integrate(cfg.integrator, cfg.monomials, aux_list, u1, -p1,
+                       freeze_mask=cfg.momenta_mask)
 
     s_back = torch.zeros((), dtype=torch.float64, device=device)
     for i, m in enumerate(cfg.monomials):

@@ -2,10 +2,10 @@
 `frequency` trajectories.
 
 Port of `tmlqcd_tpu/meas/runner.py`: ONLINE, PIONNORM, GRADIENTFLOW,
-POLYAKOV, ORIENTEDPLAQUETTES and FIELDSTRENGTH, each writing the reference's
-file in its columns and formats.  SFCOUPLING raises `NotImplementedError`
-naming itself (see `config.check_ported`, which refuses it before the run
-starts).
+POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH and SFCOUPLING, each writing the
+reference's file in its columns and formats.  A type that neither package
+knows raises `ValueError` naming itself (`config.check_ported` refuses it
+before the run starts), where the reference skips it without a word.
 """
 
 from __future__ import annotations
@@ -21,20 +21,21 @@ from tmlqcd_tpu_torch.meas.gauge_obs import (
     polyakov_loop,
 )
 from tmlqcd_tpu_torch.meas.gradient_flow import wilson_flow
+from tmlqcd_tpu_torch.ops.sf import sf_observables
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.utils import to_host
 
 __all__ = ["run_measurements", "PORTED"]
 
 PORTED = ("ONLINE", "PIONNORM", "GRADIENTFLOW", "POLYAKOV", "ORIENTEDPLAQUETTES",
-          "FIELDSTRENGTH")
+          "FIELDSTRENGTH", "SFCOUPLING")
 
 
 def run_measurements(cfg, u, lat: Lattice, traj: int, run_dir: str, key: rng.Key,
                      draws: dict | None = None) -> None:
     """cfg: RunConfig; writes onlinemeas.NNNNNN, pionnorm.NNNNNN and
-    gradflow.NNNNNN, and appends to polyakov.data, oriented_plaquettes.data
-    and field_strength.data.
+    gradflow.NNNNNN, and appends to polyakov.data, oriented_plaquettes.data,
+    field_strength.data and sf_coupling.data.
 
     Each solving measurement draws from `key` folded with the trajectory and
     7000 + its index.  `draws` maps a measurement's index to keyword
@@ -44,8 +45,7 @@ def run_measurements(cfg, u, lat: Lattice, traj: int, run_dir: str, key: rng.Key
     for i, m in enumerate(cfg.meas):
         ty = m.type.upper()
         if ty not in PORTED:
-            raise NotImplementedError(
-                f"measurement type {m.type!r} is not yet ported to tmlqcd_tpu_torch")
+            raise ValueError(f"unknown measurement type {m.type!r}")
         if m.frequency <= 0 or (traj + 1) % m.frequency != 0:
             continue
         if ty in ("ONLINE", "PIONNORM"):
@@ -80,6 +80,12 @@ def run_measurements(cfg, u, lat: Lattice, traj: int, run_dir: str, key: rng.Key
             op = to_host(oriented_plaquettes(u, lat))
             with open(os.path.join(run_dir, "oriented_plaquettes.data"), "a") as f:
                 f.write(f"{traj:08d} " + " ".join(f"{v:.10f}" for v in op) + "\n")
+        elif ty == "SFCOUPLING":
+            obs = sf_observables(u, cfg.beta, lat, m.eta, m.nu, m.ct)
+            with open(os.path.join(run_dir, "sf_coupling.data"), "a") as f:
+                # columns: traj dS/deta k S_sf (gbar^2 = k / <dS/deta>)
+                f.write(f"{traj:08d} {float(obs['dS_deta']):+.10e} {float(obs['k']):.10e} "
+                        f"{float(obs['action']):.10e}\n")
         else:  # FIELDSTRENGTH
             ep, ec, q = field_strength_observables(u, lat)
             with open(os.path.join(run_dir, "field_strength.data"), "a") as f:

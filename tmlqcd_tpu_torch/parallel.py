@@ -10,8 +10,10 @@ reference's 8 virtual CPU devices).  Fields stay whole, in the global
 layout; `ops/dslash_cuda.hopping_shard` runs the slab kernels over all slabs
 in one launch per variant and moves the halos by device-local copies.  A
 mesh over more than one device is not ported yet (ROADMAP S15b: transport
-between cards through torch.distributed / NCCL), and neither are the
-reference's vmapped independent chains (`chain_init`, `parallel_chains`).
+between cards through torch.distributed / NCCL).  The reference's
+independent chains (`chain_init`, `parallel_chains`, vmapped there) run one
+after another on the one device here; spreading them over cards is S15b
+too.
 
 The mesh is a value passed by keyword from `HMCConfig` down to the solve
 seams (monomials, inverter); there is no module-level active mesh.
@@ -38,6 +40,8 @@ __all__ = [
     "mesh_from_procs",
     "auto_shape",
     "auto_mesh",
+    "chain_init",
+    "parallel_chains",
     "gather_to_host",
     "place_from_host",
     "load_gauge_sharded",
@@ -256,3 +260,27 @@ def join_slabs(slabs, lat: Lattice, mesh: Mesh) -> torch.Tensor:
     """The inverse of `split_slabs`: slabs in (i, j) order -> the field."""
     rows = [torch.cat(list(slabs[i * mesh.y:(i + 1) * mesh.y]), dim=-1) for i in range(mesh.t)]
     return torch.cat(rows, dim=-3)
+
+
+def chain_init(n_chains: int, make_u, key) -> torch.Tensor:
+    """Stack n independent starts along a leading chain axis: chain c is
+    `make_u(key.fold(c))` (an `rng.Key` per chain)."""
+    return torch.stack([make_u(key.fold(c)) for c in range(n_chains)])
+
+
+def parallel_chains(cfg, u_stack: torch.Tensor, keys, draws=None):
+    """One trajectory on every chain: `hmc_trajectory(cfg, u_stack[c],
+    keys[c])` (with `draws[c]` injected where given) in a loop on the one
+    device, the reference's vmapped chains (BASELINE config 5's parallel HMC
+    streams).  Returns (u' [C, ...gauge], stats): the TrajectoryStats fields
+    stacked over the chains as numpy arrays.  Chains on several cards are
+    ROADMAP S15b."""
+    from tmlqcd_tpu_torch.hmc.trajectory import TrajectoryStats, hmc_trajectory
+
+    outs, stats = [], []
+    for c in range(u_stack.shape[0]):
+        u_c, st = hmc_trajectory(cfg, u_stack[c], keys[c],
+                                 draws=None if draws is None else draws[c])
+        outs.append(u_c)
+        stats.append(st)
+    return torch.stack(outs), TrajectoryStats(*(np.asarray(f) for f in zip(*stats)))
