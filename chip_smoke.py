@@ -63,7 +63,10 @@ result lines):
    draws; |ddH| against its bound; then the twisted-mass and the clover
    trajectory again with Solver = mixedcg (the low operator on K1-B); then
    the twisted-mass, clover and NDRAT trajectories again with every solve on
-   the slab kernels of a (2,2) mesh, |dH(mesh) - dH(no mesh)| printed; and
+   the slab kernels of a (2,2) mesh, each against its plain half and, on
+   the card, against the same point without a mesh within the bound
+   10 eps_f32 (|H_old| + |H_new|) / sqrt(32 V) of
+   tests/test_torch_shard_hmc.py; and
    hmc4's SFGAUGE action at 8^4 from the classical background (pure gauge:
    the card against the CPU, the frozen links bit-equal on both).  The CPU
    halves run beside the card halves in worker processes.
@@ -160,6 +163,29 @@ result lines):
    every trajectory, sf_coupling.data's rows, s/trajectory; no kernel
    launches (pure gauge).
 
+19. main path 14: the distributed HMC, one process per slab.  First the
+   kernels of a rank at 16^3x32 on (2,2) and (4,2) and at hmc5's 4^3x8 on
+   (4,2) (T_loc 16, 8, 2) on the one card: the
+   field cut into slabs, KH-P on each (against the torch exchange, element
+   for element), the faces handed to the neighbours by device copies (a
+   loopback of this check only), K3-I, K4 and K3-I+K4 per slab against
+   their plain version and joined bit for bit against K1, K2-S per slab
+   against its plain version and joined bit for bit against K2; loop,
+   device and plain time and the bound of each on a slab of (4,2); the
+   draws of a trajectory and a hot start by timeslice against one draw.
+   Then 8 spawned processes on the card (tests/dist_ranks.py: a file store,
+   built kernels, faces through pinned host memory over gloo): in each,
+   `hopping_rank` (KH-P, the exchange and the slab kernel it picks) once
+   per route at 16^3x32 and 4^3x8 against the same call on host copies
+   (its plain route), then `cli.hmc.main(... --distributed --backend gloo)`:
+   hmc5-multichip as shipped against phase 13's one-process run (dH within
+   a derived bound, plaquettes, acceptance and iterations equal), then its
+   action at 16^3x32 on 4 x 2 ranks for 1 trajectory; the launches summed
+   over the ranks (KH-P, K3-I+K4 at T_loc 2, K3-I and K4 at T_loc 8, K2-S;
+   no K1, K1-S, K1-SD, K2 or KH), s/trajectory and ms per exchange.  With
+   two or more cards the same over NCCL, else the line "nccl between cards:
+   not run, 1 card".
+
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
 
@@ -167,6 +193,7 @@ line is the JSON result object.  No JAX is imported.
     python3 chip_smoke.py --nd-split          # K1-SD's and KH's checks and splits
     python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 5-9 alone
     python3 chip_smoke.py --special           # the Q_W checks, the SF parity, paths 12, 13
+    python3 chip_smoke.py --distributed       # phase 19 alone (path 14), no result lines
 
 `--e2e` prints s/trajectory of paths 1, 3, 5, 8 and 9, path 6's and path
 7's seconds per operator and solver as one JSON line; `--root DIR` takes the package from another
@@ -1804,8 +1831,9 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
     kernel path runs the trajectory with CG at the same tolerance as well,
     for |dH(solver) - dH(cg)|.  `mesh_shape`: every solve on the slab
     kernels of that (t, y) mesh; `dh_whole`, the kernel path's dH without a
-    mesh, is printed beside it.  `cpu_half`: a future of `_plain_half` for
-    this point, whose result stands for the run on devs[1]."""
+    mesh, is held to the kernel path's dH on the mesh within `_mesh_bound`.
+    `cpu_half`: a future of `_plain_half` for this point, whose result
+    stands for the run on devs[1]."""
     from tmlqcd_tpu_torch.hmc import TrajectoryStats
 
     s = _parity_setup(dims, devs, clover, ndrat, solver, mesh_shape, sf)
@@ -1813,7 +1841,7 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
     res = {}
     for name, c in s.runs:
         dev = devs[0] if name == "cg" else name
-        if cpu_half is not None and name == devs[1]:
+        if cpu_half is not None and name == devs[-1]:
             st, frozen, sec = cpu_half.result()
             st, where = TrajectoryStats(*st), " in a worker process"
         else:
@@ -1824,12 +1852,13 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
              f"{' with CG' if name == 'cg' else ''}: dH {st.delta_h:+.9e} plaq "
              f"{st.plaquette:.12f} acc_iters {st.acc_iterations} force_iters "
              f"{st.force_iterations} ({sec:.1f} s{where})")
-    kern, plain = res[devs[0]], res[devs[1]]
+    kern = res[devs[0]]
+    _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
+    plain = res[devs[1]]
     ddh = abs(kern.delta_h - plain.delta_h)
     dplaq = abs(kern.plaquette - plain.plaquette)
     _say(f"[parity] {tag}|ddH| kernel vs plain {ddh:.3e} (bound {s.bound:.0e}), "
          f"|dplaq| {dplaq:.3e}")
-    _check(math.isfinite(kern.delta_h), "kernel-path dH is not finite")
     _check(ddh <= s.bound, f"{tag}kernel vs plain |ddH| {ddh:.3e} > {s.bound:.0e}")
     if solver is not None:
         tol = MIXED_TOL_CLOVER if clover else MIXED_TOL
@@ -1840,9 +1869,19 @@ def phase_parity(dims=(8, 8, 8, 8), devs=("cuda", "cpu"), clover=False, ndrat=Fa
                f"ndrat multishift iterations kernel {kern.acc_iterations} plain "
                f"{plain.acc_iterations}")
     if dh_whole is not None:
-        _say(f"[parity] {tag}|dH(mesh) - dH(no mesh)| on the kernel path: "
-             f"{abs(kern.delta_h - dh_whole):.3e}")
+        dmesh, mbound = abs(kern.delta_h - dh_whole), _mesh_bound(kern, lat)
+        _say(f"[parity] {tag}|dH(mesh) - dH(no mesh)| on the kernel path: {dmesh:.3e} (bound "
+             f"{mbound:.3e})")
+        _check(dmesh <= mbound, f"{tag}mesh vs no mesh |ddH| {dmesh:.3e} > {mbound:.3e}")
     return ddh, kern.delta_h
+
+
+def _mesh_bound(st, lat) -> float:
+    """|dH(mesh) - dH(no mesh)| of one f32 trajectory, derived in
+    tests/test_torch_shard_hmc.py: the two runs round other f32 values, so
+    H, an f64 sum of N = 8 x 4 x V terms, moves by ~eps |H| / sqrt(N); the
+    bound is 10x that (a wrong halo moves dH by O(1))."""
+    return 10 * 2.0 ** -24 * (abs(st.h_old) + abs(st.h_new)) / math.sqrt(8 * 4 * lat.volume)
 
 
 # ---------------------------------------------------------------------------
@@ -1946,6 +1985,13 @@ def _read_counts(dc) -> dict:
     nd = getattr(dc, "hopping_schur_nd", None)
     nd_plain = getattr(dc, "hopping_schur_nd_plain", None)
     kh = getattr(dc, "halo_pack", None)
+    # the kernels of a rank (absent from a tree before them, run with --root);
+    # a rank's slab launches also count in hopping_slab_split's names
+    rank = getattr(dc, "hopping_rank", None)
+    rank = rank.launches if rank else {}
+    faces = getattr(dc, "halo_faces", None)
+    k2s = getattr(dc, "hopping_ug_vjp_slab", None)
+    k2s_plain = getattr(dc, "hopping_ug_vjp_slab_plain", None)
     return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
             "K1-S": schur.launches if schur else 0, "K1-S hops": schur.hops if schur else 0,
             "K1-S clover hops": schur.clover_hops if schur else 0,
@@ -1956,8 +2002,13 @@ def _read_counts(dc) -> dict:
             "K1-R-D": dc.hopping_split_rhs.doublet_launches,
             "K1-B": dc.hopping_split.bf16_launches,
             "K1-RB": dc.hopping_split_rhs.bf16_launches,
-            "K3": slab["K3"], "K3-I": slab["K3-I"], "K4": slab["K4"], "K1-T": slab["K1-T"],
-            "K3-I+K4": slab.get("K3-I+K4", 0),
+            "K3": slab["K3"] - rank.get("K3", 0), "K3-I": slab["K3-I"] - rank.get("K3-I", 0),
+            "K4": slab["K4"] - rank.get("K4", 0), "K1-T": slab["K1-T"] - rank.get("K1-T", 0),
+            "K3-I+K4": slab.get("K3-I+K4", 0) - rank.get("K3-I+K4", 0),
+            "KH-P": faces.launches if faces else 0, "K3-I rank": rank.get("K3-I", 0),
+            "K4 rank": rank.get("K4", 0), "K3-I+K4 rank": rank.get("K3-I+K4", 0),
+            "K2-S": k2s.launches if k2s else 0,
+            "K2-S plain": k2s_plain.calls if k2s_plain else 0,
             "K1-SD": nd.launches if nd else 0, "K1-SD hops": nd.hops if nd else 0,
             "K1-SD clover": nd.clover_launches if nd else 0,
             "KH": kh.launches if kh else 0,
@@ -3825,6 +3876,406 @@ def phase_hmc_sf(workdir: str):
     return counts, s_traj
 
 
+# ---------------------------------------------------------------------------
+# phase 19: main path 14, the distributed HMC (one process per slab)
+# ---------------------------------------------------------------------------
+
+# the rank kernels' checks: (lattice, (t, y) mesh): 16^3x32 at T_loc 16 and
+# 8, and hmc5's 4^3x8 on (4, 2) at T_loc 2, the shape path 14's hmc5 run
+# gives them
+DIST_CASES = (((32, 16, 16, 16), (2, 2)), ((32, 16, 16, 16), (4, 2)), ((8, 4, 4, 4), (4, 2)))
+# the ranks' run: its processes and their join
+DIST_TIMEOUT = 600.0
+
+
+def _dist_ranks():
+    """tests/dist_ranks.py (the spawned ranks, the faces' loopback), shared
+    with the port's tests; its directory joins sys.path, which the spawned
+    ranks inherit."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import dist_ranks
+
+    return dist_ranks
+
+
+def phase_draws(dims=(32, 16, 16, 16)) -> dict:
+    """The draws of a trajectory and of a hot start at 16^3x32 on the card:
+    by timeslice (`lat=`, the decomposition-independent draws every HMC
+    path takes) against one draw of the whole field (the route without
+    `lat`, which every path took before the draws were keyed by timeslice)
+    -> {draw: (ms by timeslice, ms in one draw)}."""
+    from tmlqcd_tpu_torch import rng, su3
+    from tmlqcd_tpu_torch.lattice import Lattice
+
+    lat, key = Lattice(dims), rng.Key(5)
+    spinor = (4, 3) + lat.eo_site_shape
+    cases = {
+        "momenta": (lambda: rng.random_momenta(key, (4,) + lat.site_shape, "cuda", lat=lat),
+                    lambda: rng.random_momenta(key, (4,) + lat.site_shape, "cuda")),
+        "pseudofermion": (lambda: rng.normal_spinor(key, spinor, "cuda", lat=lat),
+                          lambda: rng.normal_spinor(key, spinor, "cuda")),
+        "hot start": (lambda: rng.random_su3_field(key, lat, "cuda"),
+                      lambda: su3.random_su3(rng.generator(key, "cuda"), (4,) + lat.site_shape)),
+    }
+    rows = {name: (_time_ms(rows_fn, 10), _time_ms(one_fn, 10))
+            for name, (rows_fn, one_fn) in cases.items()}
+    _say(f"[time] draws at {lat.dims}, by timeslice ({lat.dims[0]} generators) against one draw: "
+         + "; ".join(f"{k} {a:.3f} ms against {b:.3f} ms" for k, (a, b) in rows.items()))
+    return rows
+
+
+def _k2s_model(loc, yhalo: bool) -> tuple[int, int]:
+    """(bytes, flops) of one K2-S launch on a slab: g and psi read once (96 B
+    a site each), 576 B written a site, the t and y halos read once."""
+    t, x, _, _ = loc.dims
+    sites = t * x * loc.m
+    halo = 2 * x * loc.m + (2 * t * x * loc.zh if yhalo else 0)
+    return sites * (96 + 96 + 576) + 96 * halo, FLOPS_SITE_K2 * sites
+
+
+def phase_rank_kernels():
+    """The kernels of a rank on the one card, for each of DIST_CASES: the
+    field cut into slabs, KH-P on each against its plain version (the
+    torch exchange at one slab, element for element), the faces handed to
+    the neighbours by device copies, then K3-I and K4 per slab against their
+    plain version (1e-5 of max(1, max|plain|)) and joined bit for bit
+    against K1 on the whole lattice; K3-I+K4 (T_loc < 4 on a rank runs it)
+    the same (at T_loc 2 there is no interior: K4 covers every row); K2-S
+    per slab on the received faces against its plain version and joined bit
+    for bit against K2 on the whole lattice.  Then, on slab 0 of (4,2) at
+    16^3x32, each kernel's loop and device time, its plain version's and
+    its bound."""
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.lattice import Lattice
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    loopback = _dist_ranks().loopback
+    worst = {k: 0.0 for k in ("KH-P", "K3-I rank", "K4 rank", "K3-I+K4 rank", "K2-S")}
+    n_hops = n_exact = 0
+    timed = {}
+    for dims, shape in DIST_CASES:
+        lat = Lattice(dims)
+        params, fg18, fg12, psi, psi_o, g, _ = _fields(lat, "cuda", 35)
+        mesh = parallel.Mesh(*shape, device="cuda")
+        loc = Lattice(mesh.local(lat).dims)
+        one = parallel.Mesh(1, 1, device="cuda")
+
+        def cut(f, mesh=mesh):
+            return [s.contiguous() for s in parallel.split_slabs(f, lat, mesh)]
+
+        for hs in (True, False):
+            xs, faces = cut(psi), []
+            for x in xs:
+                n0 = dc.halo_faces.launches
+                mh_f, th_f = dc.halo_faces(x, loc, None, hs)
+                _check(dc.halo_faces.launches == n0 + 1, "KH-P launch not counted")
+                ref_mh = dc._y_halos(x, loc, one, hs, None, faces=True)
+                ref_th = dc._t_halos(x, loc, one, hs, None)
+                _sync("cuda")
+                worst["KH-P"] = max(worst["KH-P"], float((th_f - ref_th).abs().max()),
+                                    float((mh_f - ref_mh).abs().max()))
+                _check(torch.equal(mh_f, ref_mh) and torch.equal(th_f, ref_th),
+                       f"KH-P mesh {shape} halfspinor {hs} differs from the torch exchange")
+                faces.append((mh_f, th_f))
+            halos = loopback(faces, shape)
+            variants = ((("K3-I rank", "int", {}),) if loc.dims[0] >= 4 else ())
+            for (gname, fg), p in ((("12-real", fg12), 0), (("12-real", fg12), 1),
+                                   (("18-real", fg18), 1)):
+                ug = fg.ug_even if p == 0 else fg.ug_odd
+                ugs = cut(ug)
+                split_out, all_out = [], []
+                for r, x in enumerate(xs):
+                    th, mh = halos[r]
+                    res = {"K3-I rank": torch.zeros_like(x)}
+                    for name, variant, extra in variants + (("K4 rank", "bnd", {"th": th}),
+                                                            ("K3-I+K4 rank", "all", {"th": th})):
+                        outs = []
+                        for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain):
+                            out = torch.zeros_like(x)
+                            fn(ugs[r], x, p, loc, one, variant, out, mh=mh, gcomp=fg.gcomp,
+                               **extra)
+                            outs.append(out)
+                        _sync("cuda")
+                        err, rel = _rel_err(*outs)
+                        worst[name] = max(worst[name], err)
+                        _check(rel <= KERNEL_RTOL, f"{name} mesh {shape} slab {r} {gname} p={p} "
+                                                   f"off its plain version by {rel:.3e}")
+                        res[name] = outs[0]
+                    t_loc = loc.dims[0]
+                    joined = res["K3-I rank"].clone()
+                    for row in (0, t_loc - 1):
+                        joined[..., row, :, :] = res["K4 rank"][..., row, :, :]
+                    split_out.append(joined)
+                    all_out.append(res["K3-I+K4 rank"])
+                whole = _whole_hop(dc, fg, psi, p, lat, None)
+                _sync("cuda")
+                for outs in (split_out, all_out):
+                    got = parallel.join_slabs(outs, None, mesh)
+                    n_hops += 1
+                    n_exact += bool(torch.equal(got, whole))
+            # K2-S on the received faces, against its plain version and K2
+            gs = cut(g)
+            for p in (0, 1):
+                got = []
+                for r, x in enumerate(xs):
+                    th, mh = halos[r]
+                    n0 = dc.hopping_ug_vjp_slab.launches
+                    out = dc.hopping_ug_vjp_slab(gs[r], x, p, loc, th, mh)
+                    _check(dc.hopping_ug_vjp_slab.launches == n0 + 1, "K2-S launch not counted")
+                    ref = dc.hopping_ug_vjp_slab_plain(gs[r], x, p, loc, th, mh)
+                    _sync("cuda")
+                    err, rel = _rel_err(out, ref)
+                    worst["K2-S"] = max(worst["K2-S"], err)
+                    _check(rel <= KERNEL_RTOL, f"K2-S mesh {shape} slab {r} p={p} off its plain "
+                                               f"version by {rel:.3e}")
+                    got.append(out)
+                whole = dc.hopping_ug_vjp(g, psi, p, lat)
+                _sync("cuda")
+                n_hops += 1
+                n_exact += bool(torch.equal(parallel.join_slabs(got, None, mesh), whole))
+        _say(f"[check] rank kernels, {lat.dims} on mesh {shape} (T_loc {loc.dims[0]}): KH-P "
+             f"equal to the torch exchange; max|d| "
+             f"vs plain K3-I {worst['K3-I rank']:.3e}, K4 {worst['K4 rank']:.3e}, K3-I+K4 "
+             f"{worst['K3-I+K4 rank']:.3e}, K2-S {worst['K2-S']:.3e}")
+        if (dims, shape) == DIST_CASES[1]:
+            timed = dict(mesh=mesh, loc=loc, one=one, x=xs[0], halos=halos[0],
+                         ug=cut(fg12.ug_odd)[0],
+                         gc=fg12.gcomp, g=gs[0])
+    _say(f"[check] joined rank kernels vs K1 / K2 on the whole lattice: {n_exact} of {n_hops} "
+         f"bit for bit")
+    _check(n_exact == n_hops, f"{n_hops - n_exact} joined rank hops differ from K1 / K2 in "
+                              f"their bits")
+    # loop, device and plain time of each kernel on slab 0 of (4,2)
+    x, (th, mh), ug, gc, loc, one = (timed[k] for k in ("x", "halos", "ug", "gc", "loc", "one"))
+    out = torch.empty_like(x)
+    slab = {"int": "K3-I rank", "bnd": "K4 rank", "all": "K3-I+K4 rank"}
+    cases = {"KH-P": (lambda: dc.halo_faces(x, loc), lambda: (dc._y_halos(
+                 x, loc, one, True, None, faces=True), dc._t_halos(x, loc, one, True, None)),
+                 "halo_kernel", (192 * (2 * loc.dims[1] * loc.m
+                                        + 2 * loc.dims[0] * loc.dims[1] * loc.zh), 0)),
+             "K2-S": (lambda: dc.hopping_ug_vjp_slab(timed["g"], x, 1, loc, th, mh),
+                      lambda: dc.hopping_ug_vjp_slab_plain(timed["g"], x, 1, loc, th, mh),
+                      "ug_vjp_slab_kernel", _k2s_model(loc, True))}
+    for variant, name in slab.items():
+        kw = {"th": th} if variant != "int" else {}
+        cases[name] = (lambda v=variant, kw=kw: dc.hopping_slab_split(ug, x, 1, loc, one, v, out,
+                                                                      mh=mh, gcomp=gc, **kw),
+                       lambda v=variant, kw=kw: dc.hopping_slab_split_plain(
+                           ug, x, 1, loc, one, v, out, mh=mh, gcomp=gc, **kw),
+                       "slab_kernel", _slab_model(loc, one, variant, 384))
+    rows = {}
+    for name, (fn, plain, sub, (nbytes, flops)) in cases.items():
+        ms = _time_ms(fn, 200)
+        dev_ms, seen = _device_ms(fn, 50, sub)
+        pms = _time_ms(plain, 10)
+        bound = _bound_ms(nbytes, flops)
+        rows[name] = (ms, pms, *bound, dev_ms)
+        _say(f"[time] {name:13s} 16^3x32 slab of (4,2) [{loc.dims}]: loop {ms * 1e3:8.1f} us, "
+             f"device {dev_ms * 1e3:8.1f} us ({seen} kernels seen), bound {bound[0] * 1e3:.1f} "
+             f"us by {bound[1]} ({nbytes / 1e6:.3f} MB), plain {pms * 1e3:9.1f} us")
+    return worst, rows
+
+
+# hopping_rank's routes, (halfspinor, overlap): K3-I then K4 (K3-I+K4 below
+# T_loc 4) beside the exchange, the same with full-spinor faces, and K3 on
+# the extended slab
+RANK_ROUTES = ((True, True), (False, True), (True, False))
+
+
+def _rank_hop_check(mesh) -> dict:
+    """On this rank of `mesh` (4 x 2 ranks): `dslash_cuda.hopping_rank`, the
+    composite of KH-P, `comm.exchange` and the slab kernel the mesh picks,
+    once per route of RANK_ROUTES at 16^3x32 (T_loc 8) and at hmc5's 4^3x8
+    (T_loc 2), on card tensors against the same call on host copies (the
+    plain route: the torch faces, the exchange, hopping_slab_split_plain)
+    -> {route: relative max|d|}."""
+    import torch
+
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.lattice import Lattice
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    errs = {}
+    for dims in ((32, 16, 16, 16), (8, 4, 4, 4)):
+        lat = Lattice(dims)
+        _, _, fg12, psi, _, _, _ = _fields(lat, "cuda", 36)
+        loc = mesh.local(lat)
+        r = mesh.rank
+        for hs, ov in RANK_ROUTES:
+            m = dataclasses.replace(mesh, halfspinor=hs, overlap=ov)
+            for p in (0, 1):
+                ug = parallel.split_slabs(fg12.ug_even if p == 0 else fg12.ug_odd, lat, mesh)[r]
+                x = parallel.split_slabs(psi, lat, mesh)[r].contiguous()
+                ug = ug.contiguous()
+                got = dc.hopping_rank(ug, x, p, loc, m, fg12.gcomp)
+                ref = dc.hopping_rank(ug.cpu(), x.cpu(), p, loc, m, fg12.gcomp)
+                rel = float((got.cpu() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+                key = f"{dims[3]}^3x{dims[0]} T_loc {loc.dims[0]} halfspinor {hs} overlap {ov}"
+                errs[key] = max(errs.get(key, 0.0), rel)
+    return errs
+
+
+def _dist_job(rank: int, jobs, backend: str, hop_check: bool) -> dict:
+    """One rank of phase 19's runs (its group joined by tests/dist_ranks.py,
+    rank r on card r mod the cards): with `hop_check`, `_rank_hop_check`; then
+    `cli.hmc.main(argv + --distributed)` for each job, the launch counters
+    zeroed just before and read just after; its counts, the exchange
+    statistics and the wall time."""
+    from tmlqcd_tpu_torch import comm, parallel
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    dc.kernel_library()  # built before the ranks started: loaded
+    result = {"rank": rank, "runs": [],
+              "hop_check": _rank_hop_check(parallel.make_mesh((4, 2))) if hop_check else None}
+    for argv in jobs:
+        dc.reset_counters()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(list(argv) + ["--distributed", "--backend", backend])
+        wall = time.perf_counter() - t0
+        result["runs"].append({"rc": rc, "wall": wall, "counts": _read_counts(dc),
+                               "comm": comm.stats()})
+    return result
+
+
+def _run_ranks(world: int, backend: str, jobs, out_dir: str, hop_check: bool = False) -> list:
+    """`world` spawned ranks of `_dist_job` on the card(s) -> their results."""
+    dist_ranks = _dist_ranks()
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        results = dist_ranks.run_ranks(_dist_job, world, out_dir, jobs, backend, hop_check,
+                                       timeout=DIST_TIMEOUT, cpu=False, backend=backend)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"the ranks failed: {exc}") from None
+    for r, res in enumerate(results):
+        _check(all(run["rc"] == 0 for run in res["runs"]), f"rank {r}: cli.hmc returned "
+                                                            f"{[run['rc'] for run in res['runs']]}")
+    return results
+
+
+def _sum_counts(results, run: int) -> dict:
+    total = {}
+    for res in results:
+        for k, v in res["runs"][run]["counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_distributed(workdir: str, one_dir: str | None = None):
+    """Main path 14: `cli.hmc --distributed` in 8 spawned processes on the
+    one card with backend gloo (the ranks run the card's kernels; the faces
+    travel through pinned host memory), after `_rank_hop_check` in each:
+    hmc5-multichip as shipped (4 x 2 slabs of 4^3x8, T_loc 2: KH-P and
+    K3-I+K4 on a rank) against the one-process mesh run of the same input
+    (`one_dir`, phase 13's, else run here), then its action at 16^3x32 on
+    4 x 2 ranks for 1 trajectory (T_loc 8: KH-P, K3-I, K4), K2-S in every
+    force; no K1, K1-S, K1-SD, K2 or KH launch in the ranks.  Then NCCL
+    between cards where there are two or more, else the line that says it
+    was not run."""
+    import torch
+
+    from tmlqcd_tpu_torch.cli import hmc as cli
+
+    if one_dir is None:
+        one_dir = os.path.join(workdir, "run-one-hmc5")
+        rc, _, _, _ = _run_cli(cli, ["-f", SAMPLE_MESH, "-o", one_dir])
+        _check(rc == 0, f"cli.hmc (hmc5, one process) returned {rc}")
+    with open(SAMPLE_MESH) as f:
+        text = f.read()
+    big = os.path.join(workdir, "dist-16x32.input")
+    with open(big, "w") as f:
+        f.write(mesh_smoke_input(text, L=16, T=32, Measurements=1, NSave=1, NrTProcs=4,
+                                 NrYProcs=2))
+    dist_dir, big_dir = os.path.join(workdir, "run-dist-hmc5"), os.path.join(workdir,
+                                                                               "run-dist-16x32")
+    jobs = [["-f", SAMPLE_MESH, "-o", dist_dir], ["-f", big, "-o", big_dir]]
+    t0 = time.perf_counter()
+    results = _run_ranks(8, "gloo", jobs, os.path.join(workdir, "ranks-gloo"), hop_check=True)
+    wall = time.perf_counter() - t0
+    hop = {k: max(res["hop_check"][k] for res in results) for k in results[0]["hop_check"]}
+    _say("[check] hopping_rank on 8 ranks (gloo) against its plain route on host copies, "
+         "relative max|d| over the ranks and both parities: "
+         + "; ".join(f"{k} {v:.3e}" for k, v in hop.items()))
+    _check(all(v <= KERNEL_RTOL for v in hop.values()),
+           f"hopping_rank off its plain route: {hop}")
+    counts5, counts16 = _sum_counts(results, 0), _sum_counts(results, 1)
+    total = {k: counts5[k] + counts16[k] for k in counts5}
+    _say(f"[main-dist] 8 ranks (gloo) on {torch.cuda.device_count()} card(s): {wall:.1f} s wall "
+         f"for the hopping_rank check and both runs (the ranks' start included); launches "
+         f"summed over the ranks: hmc5 "
+         + ", ".join(f"{k} {v}" for k, v in counts5.items() if v) + "; 16^3x32 "
+         + ", ".join(f"{k} {v}" for k, v in counts16.items() if v))
+    _check_no_plain(total)
+    for what, c in (("hmc5", counts5), ("16^3x32", counts16)):
+        _check(all(c[k] == 0 for k in ("K1", "K1-R", "K1-S", "K1-SD", "K2", "KH", "K1-R-D")),
+               f"{what} on ranks: a whole-lattice kernel launched: {c}")
+        _check(c["KH-P"] > 0 and c["K2-S"] > 0, f"{what} on ranks: KH-P / K2-S did not run: {c}")
+    _check(counts5["K3-I+K4 rank"] > 0, f"hmc5 on ranks (T_loc 2): K3-I+K4 did not run {counts5}")
+    _check(counts16["K3-I rank"] > 0 and counts16["K4 rank"] > 0
+           and counts16["K3-I rank"] == counts16["K4 rank"],
+           f"16^3x32 on ranks (T_loc 8): K3-I / K4 did not run in pairs: {counts16}")
+    rows, one = _output_rows(dist_dir), _output_rows(one_dir)
+    _check(len(rows) == len(one) == 4, f"output.data rows: {len(rows)} on ranks, {len(one)} one")
+    vol = 8 * 4 ** 3
+    h = 16 * vol + 6 * 5.3 * vol + 6 * vol  # |H| from above, as tests/test_torch_dist.py
+    bound = 10 * 2.0 ** -24 * 2 * h / math.sqrt(8 * 4 * vol)
+    ddh = [abs(float(d[3]) - float(o[3])) for d, o in zip(rows, one)]
+    # the acceptance solves' iterations (columns 8 on): the ranks' heatbath
+    # and force surrogates run the sharded operators (the diagonals in
+    # torch) where one process runs K1 and K1-S (the diagonals in the
+    # kernel), so the two runs solve right-hand sides equal to f32 rounding;
+    # CG's residual falls by a factor ~0.3-0.8 an iteration, so a
+    # perturbation that small moves the iteration where it crosses the
+    # stopping threshold by at most one (a wrong operator moves it by many)
+    for d, o in zip(rows, one):
+        _check(math.isfinite(float(d[3])) and d[0] == o[0] and d[5] == o[5]
+               and len(d) == len(o) and all(abs(int(a) - int(b)) <= 1
+                                            for a, b in zip(d[7:], o[7:])),
+               f"hmc5 on ranks against one process: {d} vs {o}")
+        _check(abs(float(d[1]) - float(o[1])) <= 1e-5, f"plaquette {d[1]} vs {o[1]}")
+    _check(max(ddh) <= bound, f"|ddH| {max(ddh):.3e} above its bound {bound:.3e}")
+    n_equal = sum(d[7:] == o[7:] for d, o in zip(rows, one))
+    big_rows = _output_rows(big_dir)
+    _check(len(big_rows) == 1 and math.isfinite(float(big_rows[0][3]))
+           and 0.0 < float(big_rows[0][1]) < 1.0, f"16^3x32 on ranks: {big_rows}")
+    st5, st16 = results[0]["runs"][0]["comm"], results[0]["runs"][1]["comm"]
+    _say(f"[main-dist] hmc5 on 8 ranks: s/trajectory {[float(c[6]) for c in rows]} (one process "
+         f"{[float(c[6]) for c in one]}), |ddH| {[f'{v:.2e}' for v in ddh]} (bound "
+         f"{bound:.2e}), plaquettes equal to 1e-5, acceptance iterations equal in {n_equal} of "
+         f"{len(rows)} rows (within one in all); rank 0: {st5['exchanges']} "
+         f"exchanges, {st5['seconds'] / max(st5['exchanges'], 1) * 1e3:.3f} ms each (gloo through "
+         f"host memory, not NCCL), {st5['bytes'] / 1e6:.2f} MB sent")
+    _say(f"[main-dist] 16^3x32 on 8 ranks: s/trajectory {float(big_rows[0][6])}, dH "
+         f"{float(big_rows[0][3]):+.4e}, acceptance iterations {big_rows[0][8]}; rank 0: "
+         f"{st16['exchanges']} exchanges, {st16['seconds'] / max(st16['exchanges'], 1) * 1e3:.3f} "
+         f"ms each (gloo through host memory, not NCCL), {st16['bytes'] / 1e6:.2f} MB sent")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        small = os.path.join(workdir, "dist-nccl.input")
+        with open(small, "w") as f:
+            f.write(mesh_smoke_input(text, NrTProcs=world // 2 if world == 4 else 2,
+                                     NrYProcs=2 if world == 4 else 1))
+        t0 = time.perf_counter()
+        nres = _run_ranks(world, "nccl", [["-f", small, "-o", os.path.join(workdir, "run-nccl")]],
+                          os.path.join(workdir, "ranks-nccl"))
+        nrows = _output_rows(os.path.join(workdir, "run-nccl"))
+        stn = nres[0]["runs"][0]["comm"]
+        _check(len(nrows) == 4 and all(math.isfinite(float(c[3])) for c in nrows),
+               f"nccl run: {nrows}")
+        _say(f"[main-dist] nccl between cards: {world} ranks on {world} cards, "
+             f"{time.perf_counter() - t0:.1f} s wall, s/trajectory {[float(c[6]) for c in nrows]}, "
+             f"{stn['seconds'] / max(stn['exchanges'], 1) * 1e3:.3f} ms per exchange")
+    else:
+        _say("nccl between cards: not run, 1 card")
+    return total, [float(c[6]) for c in rows]
+
+
 def _e2e(label: str) -> None:
     """Main paths 1, 3, 5, 6, 7, 8 and 9 alone (`--e2e`): s/trajectory of
     paths 1, 3, 5 and 8, path 6's seconds per operator (12 columns each),
@@ -3899,6 +4350,18 @@ def main() -> int:
             print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
             return 1
         return 0
+    if "--distributed" in args:
+        # phase 19 alone: the rank kernels and main path 14
+        try:
+            phase_card()
+            phase_rank_kernels()
+            phase_draws()
+            with tempfile.TemporaryDirectory() as workdir:
+                phase_distributed(workdir)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
+            return 1
+        return 0
     if "--k1-split" in args or "--e2e" in args:
         # the kernel checks and K1's device / host split alone (phases 1, 2
         # and phase 3's split), or main paths 1, 3, 7 and 8 alone; neither
@@ -3945,7 +4408,7 @@ def main() -> int:
         with _plain_halves() as halves:
             dh = []
             for kw, half in zip(PARITY_POINTS, halves):
-                # a mesh point prints its dH beside the same point's without one
+                # a mesh point is held to the same point's dH without one
                 whole = dh[PARITY_POINTS.index({k: v for k, v in kw.items() if k != "mesh_shape"})
                            ] if "mesh_shape" in kw else None
                 dh.append(phase_parity(**kw, dh_whole=whole, cpu_half=half)[1])
@@ -4005,6 +4468,12 @@ def main() -> int:
             done("17 main path 12")
             sf_counts, _ = phase_hmc_sf(workdir)
             done("18 main path 13")
+            rank_worst, rank_rows = phase_rank_kernels()
+            worst.update(rank_worst)
+            phase_draws()
+            done("19 rank kernels")
+            dist_counts, _ = phase_distributed(workdir, os.path.join(workdir, "run-mesh-hmc5"))
+            done("19 main path 14")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -4020,7 +4489,7 @@ def main() -> int:
              "launches_offline_benchmark_api": off_counts,
              "launches_invert_overlap": {k: ov_counts["sumr"][k] + ov_counts["cgne"][k]
                                          for k in ov_counts["sumr"]},
-             "launches_hmc_sf": sf_counts}
+             "launches_hmc_sf": sf_counts, "launches_hmc_distributed": dist_counts}
 
     def entry(name, replaces, key, row, source=src, device_ms=None):
         ms, plain_ms, bound_ms, bound_by = row[:4]
@@ -4091,6 +4560,20 @@ def main() -> int:
         entry("halo_pack (KH)", "tmlqcd_tpu/ops/dslash_pallas.py:1413 (the halo exchange of "
               "hopping_pallas_shard :1345)", "KH", kh_row[:4], slab_src, device_ms=kh_row[4]),
     ]
+    # the kernels of a rank: times on a slab of (4,2) at 16^3x32
+    for name, key, replaces in (
+            ("halo_faces (KH-P)", "KH-P", "tmlqcd_tpu/ops/dslash_pallas.py:1413 (the send side "
+             "of `_exchange`, hopping_pallas_shard :1345, on a rank)"),
+            ("hopping_rank int (K3-I on a rank)", "K3-I rank",
+             "tmlqcd_tpu/ops/dslash_pallas.py:1267 (on a rank)"),
+            ("hopping_rank bnd (K4 on a rank)", "K4 rank",
+             "tmlqcd_tpu/ops/dslash_pallas.py:1307 (on a rank)"),
+            ("hopping_rank all rows (K3-I+K4 on a rank)", "K3-I+K4 rank",
+             "tmlqcd_tpu/ops/dslash_pallas.py:1267 and :1307 in one launch (on a rank)"),
+            ("hopping_ug_vjp_slab (K2-S)", "K2-S",
+             "tmlqcd_tpu/ops/dslash_pallas.py:1489 (K2 on a rank's slab)")):
+        row = rank_rows[key]
+        kernels.append(entry(name, replaces, key, row[:4], slab_src, device_ms=row[4]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -796,3 +796,64 @@ def test_overlap_qw_on_k1_matches_plain(cuda):
     s = ov.make_overlap(u, params, lat)
     d_k1, d_plain = ov.dov_psi(s, psi), ov.dov_psi(s, psi, plain=True)
     assert float(torch.linalg.vector_norm(d_k1 - d_plain) / torch.linalg.vector_norm(psi)) < 1e-5
+
+
+@pytest.mark.parametrize("dims, shape", [((16, 8, 8, 8), (2, 2)), ((16, 8, 8, 8), (4, 2)),
+                                         ((8, 4, 4, 4), (4, 2))])
+def test_rank_kernels_match_plain_and_whole_lattice(cuda, dims, shape):
+    """The kernels of one rank, each slab of the (t, y) mesh in turn on the
+    one card: KH-P (`halo_faces`) equal to the torch exchange at one slab;
+    the faces handed over by device copies; K3-I and K4 (and K3-I+K4) on
+    the received faces within RTOL of their plain version and, joined, bit
+    for bit K1 on the whole lattice; K2-S within RTOL of its plain version
+    and, joined, bit for bit K2.  At hmc5's 4^3x8 on (4, 2) (T_loc 2) there
+    is no interior: K4 covers every row, and equals K3-I+K4."""
+    from dist_ranks import loopback
+
+    from tmlqcd_tpu_torch import parallel
+
+    lat = Lattice(dims)
+    mesh = parallel.Mesh(*shape, device=cuda)
+    loc, one = Lattice(mesh.local(lat).dims), parallel.Mesh(1, 1, device=cuda)
+    u = su3.random_su3(rng.generator(rng.Key(41), cuda), (4,) + lat.site_shape)
+    fg = wf.make_fast_gauge(u, PARAMS, lat)
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    psi, g = (torch.randn((2, 4, 3) + lat.eo_site_shape, generator=gen, device=cuda)
+              for _ in range(2))
+    cut = lambda f: [s.contiguous() for s in parallel.split_slabs(f, lat, mesh)]  # noqa: E731
+    xs, gs = cut(psi), cut(g)
+    dc.reset_counters()
+    faces = [dc.halo_faces(x, loc) for x in xs]
+    assert dc.halo_faces.launches == len(xs)
+    for x, (mh, th) in zip(xs, faces):
+        assert torch.equal(mh, dc._y_halos(x, loc, one, True, None, faces=True))
+        assert torch.equal(th, dc._t_halos(x, loc, one, True, None))
+    halos = loopback(faces, shape)
+    variants = (("int", {}),) if loc.dims[0] >= 4 else ()
+    for p in (0, 1):
+        ugs = cut(fg.ug_even if p == 0 else fg.ug_odd)
+        joined, vjp = [], []
+        for r, x in enumerate(xs):
+            th, mh = halos[r]
+            out = {"int": torch.zeros_like(x)}
+            for variant, extra in variants + (("bnd", {"th": th}), ("all", {"th": th})):
+                o = torch.zeros_like(x)
+                dc.hopping_slab_split(ugs[r], x, p, loc, one, variant, o, mh=mh, gcomp=fg.gcomp,
+                                      **extra)
+                ref = dc.hopping_slab_split_plain(ugs[r], x, p, loc, one, variant,
+                                                  torch.zeros_like(x), mh=mh, gcomp=fg.gcomp,
+                                                  **extra)
+                assert _close(o, ref), variant
+                out[variant] = o
+            rows = out["int"].clone()
+            for row in (0, loc.dims[0] - 1):
+                rows[..., row, :, :] = out["bnd"][..., row, :, :]
+            assert torch.equal(rows, out["all"])
+            joined.append(rows)
+            k2s = dc.hopping_ug_vjp_slab(gs[r], x, p, loc, th, mh)
+            assert _close(k2s, dc.hopping_ug_vjp_slab_plain(gs[r], x, p, loc, th, mh))
+            vjp.append(k2s)
+        whole = dc.hopping_split(fg.ug_even if p == 0 else fg.ug_odd, psi, p, lat, gcomp=fg.gcomp)
+        assert torch.equal(parallel.join_slabs(joined, None, mesh), whole)
+        assert torch.equal(parallel.join_slabs(vjp, None, mesh), dc.hopping_ug_vjp(g, psi, p, lat))
+    assert dc.hopping_ug_vjp_slab.launches == 2 * len(xs)

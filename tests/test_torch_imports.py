@@ -35,8 +35,8 @@ _DOUBLET_PATH = ("ops.ndoublet", "solvers.multishift", "solvers.rational", "solv
 # the modules of the remaining solvers
 _SOLVERS_PATH = ("solvers.mixed_cg", "solvers.krylov", "solvers.bicgstab", "solvers.cgs",
                  "solvers.deflation", "solvers.eigcg", "solvers.dispatch")
-# the domain decomposition
-_MESH_PATH = ("parallel", "ops.dslash_cuda", "ops.wilson_fast", "cli.hmc")
+# the domain decomposition, and its transport between ranks
+_MESH_PATH = ("parallel", "ops.dslash_cuda", "ops.wilson_fast", "cli.hmc", "comm")
 # the gauge observables, the flow, PHMC, smearing and the remaining drivers
 _GAUGE_OBS_PATH = ("meas.gauge_obs", "meas.gradient_flow", "meas.smearing", "solvers.chebyshev",
                    "hmc.poly_monomials", "hmc.reweight", "cli.offline_measurement",

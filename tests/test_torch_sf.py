@@ -184,6 +184,44 @@ def test_masked_trajectory_matches_reference():
     assert float(np.max(np.abs(u_md.numpy() - u0))) > 1e-3  # the links did move
 
 
+def test_masked_trajectory_complex64_matches_reference():
+    """The masked trajectory of the test above in complex64 in both
+    packages (beta = 8, as hmc4), the reference's complex64 momenta and
+    uniform injected.  The MD endpoints agree to f32 rounding (5e-7), but
+    dH does not to 1e-5: both evaluate H ~ 3.4e3 from f32 links and momenta
+    whose roundings differ from step to step, and over the n = 12 steps of
+    2MN each step's rounding (relative eps = 2^-24 of every term of H) can
+    shift H_new by up to eps (|H_old| + |H_new|) in the same direction.  The
+    bound is n eps (|H_old| + |H_new|) ~ 4.9e-3; measured 7.1e-4 to 8.1e-4
+    (reference seeds 5-7, the port's dH lower each time).  The card's
+    1.28e-3 at 8^4 against the CPU sits under the same bound there
+    (H ~ 5.4e4: 7.7e-2), so it is f32 link evolution, not the card's route."""
+    beta, n_md = 8.0, 12
+    mono_ref = JSFGaugeMonomial(lat=JL, beta=beta, eta=0.1)
+    integ_ref = JIntegratorConfig(tau=1.0, levels=(JLevel("2mn", n_md),))
+    mask_ref = jsf.sf_momenta_mask(JL)
+    cfg_ref = JHMCConfig(JL, (mono_ref,), integ_ref, momenta_mask=mask_ref)
+    u0 = np.array(jsf.sf_classical_background(JL, 0.1, dtype=jnp.complex64))
+
+    def reference(u, key):
+        u_out, st = j_hmc_trajectory(cfg_ref, u, key)
+        k_mom, _, k_acc = jax.random.split(key, 3)
+        return u_out, st, jsu3.random_momenta(k_mom, u.shape[2:], u.dtype), jrng.uniform(k_acc)
+
+    u_ref, st_ref, mom, uni = jax.jit(reference)(jnp.asarray(u0), jax.random.key(5))
+    mask = sf.sf_momenta_mask(LAT)
+    cfg = HMCConfig(LAT, (SFGaugeMonomial(lat=LAT, beta=beta, eta=0.1),),
+                    IntegratorConfig(tau=1.0, levels=(Level("2mn", n_md),)), momenta_mask=mask)
+    u_out, st = hmc_trajectory(cfg, torch.as_tensor(u0), rng.Key(0),
+                               draws=Draws(torch.as_tensor(np.array(mom)), [None], float(uni)))
+    assert u_out.dtype == torch.complex64
+    bound = n_md * 2.0 ** -24 * (abs(st.h_old) + abs(st.h_new))
+    assert abs(st.delta_h - float(st_ref.delta_h)) <= bound
+    assert st.accepted == bool(st_ref.accepted)
+    assert float(np.max(np.abs(u_out.numpy() - np.asarray(u_ref)))) <= 5e-6
+    np.testing.assert_array_equal(u_out.numpy()[:, :, 1:4, 0], u0[:, :, 1:4, 0])
+
+
 def test_hmc4_lowers_and_sfcoupling_writes_the_reference_columns(tmp_path):
     """hmc4 (cut to 4^4): SFGAUGE lowers to the reference's fields with the
     momenta mask set; SFCOUPLING writes sf_coupling.data in the reference's

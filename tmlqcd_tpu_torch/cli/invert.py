@@ -37,18 +37,24 @@ columns one by one on the full lattice with `Solver = sumr` or `cgne`
 Usage:
     python -m tmlqcd_tpu_torch.cli.invert -f sample.input -c conf.000010.npz \
         [--source point|z2] [--timeslice 0] [--columns N] [--format lime|npz] [-o outdir]
-        [--cpu]
+        [--cpu] [--distributed]
 
 `--columns N` inverts the first N of a point source's 12 spin-colour
 columns (all 12 by default).
 
 Without --cpu the run needs a CUDA device and raises if there is none; with
 --cpu it runs the plain PyTorch versions of the kernels on the CPU.
+
+--distributed, as the reference's: the processes join their group
+(`parallel.init_distributed`, started by torchrun); the inverter builds no
+mesh (Nr*Procs > 1 raises), so every rank runs the whole inversion and rank
+0 writes the propagators and the log.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -75,15 +81,39 @@ def main(argv=None):
     ap.add_argument("-o", "--output-dir", default=".")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU with the kernels' plain PyTorch versions")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group (torchrun); every rank inverts, rank 0 writes")
     args = ap.parse_args(argv)
 
+    if args.distributed:
+        # the reference's --distributed: the processes join, each runs the
+        # whole inversion (the inverter builds no mesh), rank 0 writes the
+        # files and the log; the others write into a scratch directory
+        import tempfile
+
+        import torch.distributed as dist
+
+        from tmlqcd_tpu_torch import parallel
+
+        device = parallel.init_distributed(cpu=args.cpu)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if rank == 0:
+            print(f"[invert] distributed: process {rank} of {world}", flush=True)
+            return _invert(args, device)
+        with tempfile.TemporaryDirectory() as scratch, open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            return _invert(argparse.Namespace(**{**vars(args), "output_dir": scratch}), device)
     if args.cpu:
         device = torch.device("cpu")
     else:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: run on a GPU, or pass --cpu for the plain path")
         device = torch.device("cuda", torch.cuda.current_device())
+    return _invert(args, device)
 
+
+def _invert(args, device) -> int:
+    """The inversion of `main` on `device`."""
     from tmlqcd_tpu_torch import rng
     from tmlqcd_tpu_torch.config import check_invert_ported
     from tmlqcd_tpu_torch.config_tmlqcd import read_input

@@ -12,10 +12,15 @@ SFCOUPLING), the force monitor, ReversibilityCheck and native or ILDG
 checkpoints, and the (t, y) domain decomposition of NrTProcs x NrYProcs (a
 slab mesh on one device, which `cli.hmc` builds with
 `parallel.mesh_from_procs` and `build_hmc` carries by `HMCConfig.mesh` into
-every solving monomial; NDPOLY and SFGAUGE take none).  A mesh over more
-than one device raises `NotImplementedError` where it is built (ROADMAP
-S15b); NrXProcs / NrZProcs > 1 and a lattice that does not split into even
-slabs raise the reference's `ValueError`.  `check_invert_ported` does the
+every solving monomial; NDPOLY and SFGAUGE take none).  A mesh over the
+ranks of a process group (`cli.hmc --distributed`, one process per slab)
+lowers the action onto the rank's slab (`mesh.local(lat)`); there the
+monomials and measurements not yet ported to slabs raise
+`NotImplementedError` before the run starts (ROADMAP queue 1: NDPOLY, the
+Schrödinger functional, every measurement).  Several devices in one process
+raise `NotImplementedError` where the mesh is built; NrXProcs / NrZProcs > 1
+and a lattice that does not split into even slabs raise the reference's
+`ValueError`.  `check_invert_ported` does the
 same for the inverter's operators (TMWILSON, WILSON, CLOVER, DBTMWILSON,
 DBCLOVER and OVERLAP; stout and source smearing are carried), rejects a
 solver name the inverter does not know, and raises for any Nr*Procs > 1:
@@ -62,6 +67,7 @@ __all__ = [
     "build_hmc",
     "check_ported",
     "check_invert_ported",
+    "check_distributed_ported",
 ]
 
 PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER", "OVERLAP")
@@ -304,13 +310,36 @@ def check_invert_ported(cfg: RunConfig) -> None:
             check_solver(op.solver)
 
 
+# on the ranks of a distributed mesh: the monomial types and the
+# measurements not yet ported to slabs (ROADMAP queue 1)
+_NOT_ON_RANKS = ("NDPOLY", "SFGAUGE")
+
+
+def check_distributed_ported(cfg: RunConfig) -> None:
+    """Raise NotImplementedError for what a distributed run (one process per
+    slab) does not run yet: NDPOLY, the Schrödinger functional and every
+    measurement."""
+    for s in cfg.monomials:
+        if s.type.upper() in _NOT_ON_RANKS:
+            raise NotImplementedError(f"monomial {s.type} on a distributed mesh is not yet ported "
+                                      "to tmlqcd_tpu_torch (ROADMAP queue 1)")
+    for m in cfg.meas:
+        raise NotImplementedError(f"measurement {m.type} on a distributed mesh is not yet "
+                                  "ported to tmlqcd_tpu_torch (ROADMAP queue 1)")
+
+
 def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
     """RunConfig -> executable HMCConfig (raises for what neither package
     knows).
     `mesh` (a `parallel.Mesh`, or None for none) is carried to every solving
-    monomial; `cli.hmc` builds it from NrTProcs x NrYProcs."""
+    monomial; `cli.hmc` builds it from NrTProcs x NrYProcs.  On a
+    distributed mesh the action is built on the rank's slab (`lat` of the
+    result: `mesh.local(cfg.lat)`)."""
     check_ported(cfg)
     lat = cfg.lat
+    if mesh is not None and mesh.distributed:
+        check_distributed_ported(cfg)
+        lat = mesh.local(lat)
     c1 = GAUGE_ACTIONS[cfg.gauge_action.lower()]
     specs = cfg.monomials or (MonomialSpec(type="GAUGE"),)
     monomials = tuple(build_monomial(s, lat, cfg.beta, c1, mesh) for s in specs)

@@ -56,6 +56,17 @@
 // Bound: memory, as K1: per output site G bytes of gauge (576 / 384 f32, 288
 // / 192 bf16) plus, per column, 96 B written and 96 B of psi read once, plus
 // the halo buffers (96 B per halo site).  1320 flops per site and column.
+//
+// On one rank of a distributed mesh (one process per slab) the same kernels
+// run on the rank's own slab as a mesh of one slab (T = T_loc, tsh = msh =
+// 1): KH-P is KH there with a y halo buffer at msh == 1, so it writes the
+// slab's four send faces (its th rows are the two t faces: at one slab row
+// the halo below row 0 is the slab's own last timeslice, projected for the
+// t-1 hop, which is what the rank above needs); K3-I and K4 read the
+// received faces through the same buffer (mh non-null: the y hops read it
+// instead of wrapping).  K2-S (`ug_vjp_slab_kernel`, below) is K2
+// (hopping.cu's `ug_vjp_kernel`) on such a slab, its neighbours read by
+// `slab_neighbours` from the slab and the received faces.
 
 #include "hopping_common.cuh"
 
@@ -408,6 +419,81 @@ int slab_kernel_info(K kern, int block, int* info) {
   return (int)cudaGetLastError();
 }
 
+// K2-S: d Re<g, H_{p,q} psi> / d ug[p] on a rank's slab (one slab row
+// and column, kAll geometry), the neighbours across the slab's t and y
+// edges from the halos the forward hop received.  The arithmetic is K2's:
+// ghat = W^+ g, h = W^+ nbr, F[i][j] = sum_a ghat[a][i] conj(h[a][j]); a
+// half-spinor halo 0.5 W h gives W^+ back exactly, so the result equals K2
+// on the whole lattice.  One thread per site, its 8 x 9 link cotangents
+// written without atomics.  Bound: memory (96 B of g, 8 neighbour reads of
+// 96 B mostly cached, 576 B written per site).
+template <int D>
+__device__ __forceinline__ void vjp_slab_dir(const Nb& nb, long long V, long long site,
+                                             const float (&g_r)[4][3], const float (&g_i)[4][3],
+                                             float* __restrict__ out) {
+  float nr[4][3], ni[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      nr[s][c] = __ldg(nb.p + (s * 3 + c) * nb.st.comp + nb.i);
+      ni[s][c] = __ldg(nb.p + nb.st.im + (s * 3 + c) * nb.st.comp + nb.i);
+    }
+  float ghr[2][3], ghi[2][3], hr[2][3], hi[2][3];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ghr[a][c] = g_r[a][c]; ghi[a][c] = g_i[a][c];
+      hr[a][c] = nr[a][c];   hi[a][c] = ni[a][c];
+#pragma unroll
+      for (int s = 2; s < 4; ++s) {
+        cadd(wconj(wcode(D, s, a)), g_r[s][c], g_i[s][c], ghr[a][c], ghi[a][c]);
+        cadd(wconj(wcode(D, s, a)), nr[s][c], ni[s][c], hr[a][c], hi[a][c]);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float fr = 0.f, fi = 0.f;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        fr += ghr[a][i] * hr[a][j] + ghi[a][i] * hi[a][j];
+        fi += ghi[a][i] * hr[a][j] - ghr[a][i] * hi[a][j];
+      }
+      out[(((0 * 8 + D) * 3 + i) * 3 + j) * V + site] = fr;
+      out[(((1 * 8 + D) * 3 + i) * 3 + j) * V + site] = fi;
+    }
+}
+
+__global__ void __launch_bounds__(128)
+ug_vjp_slab_kernel(const float* __restrict__ g, SlabArgs a, float* __restrict__ out) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int i, tl, x, m;
+  long long site;
+  if (!slab_site(a.g, n, i, tl, x, m, site)) return;
+  const long long V = (long long)a.g.T * a.g.X * a.g.M;
+  Nb nb[8];
+  slab_neighbours(a, i, tl, x, m, 0, nb);
+  float g_r[4][3], g_i[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      g_r[s][c] = __ldg(g + (s * 3 + c) * V + site);
+      g_i[s][c] = __ldg(g + (12 + s * 3 + c) * V + site);
+    }
+  vjp_slab_dir<0>(nb[0], V, site, g_r, g_i, out);
+  vjp_slab_dir<1>(nb[1], V, site, g_r, g_i, out);
+  vjp_slab_dir<2>(nb[2], V, site, g_r, g_i, out);
+  vjp_slab_dir<3>(nb[3], V, site, g_r, g_i, out);
+  vjp_slab_dir<4>(nb[4], V, site, g_r, g_i, out);
+  vjp_slab_dir<5>(nb[5], V, site, g_r, g_i, out);
+  vjp_slab_dir<6>(nb[6], V, site, g_r, g_i, out);
+  vjp_slab_dir<7>(nb[7], V, site, g_r, g_i, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -515,6 +601,25 @@ int tm_shard_hop(const float* psi, long long psi_im, long long psi_comp, long lo
              SlabGeo{T, X, M, zh, p, tsh, msh, tl, ml, kAll, T}, Corr{}, R};
   fill_corr(a.corr, comp, corr16);
   launch_slab_any(a, ug, comp, gbf16, s);
+  return (int)cudaGetLastError();
+}
+
+// K2-S on one rank's slab [T X M] (contiguous fields): g, psi [2][4][3][V];
+// th [2][4][3][2][X M] (row 0 the halo below, row 1 above); mh
+// [2][4][3][2 T][X zh] or null (one y slab: the y hops wrap); out
+// [2][8][3][3][V].  Returns cudaGetLastError() after the launch; an invalid
+// argument returns cudaErrorInvalidValue.
+int tm_ug_vjp_slab(const float* g, const float* psi, const float* th, const float* mh,
+                   float* out, int T, int X, int M, int zh, int p, void* stream) {
+  int tl = 0, ml = 0;
+  if (!slab_geometry(T, X, M, zh, p, 1, 1, tl, ml) || g == nullptr || psi == nullptr ||
+      th == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long V = (long long)T * X * M;
+  const long long tv = 2ll * X * M, yv = 2ll * T * X * zh;
+  SlabArgs a{Fld{psi, 12 * V, V, 0}, Fld{th, 12 * tv, tv, 0}, Fld{mh, 12 * yv, yv, 0},
+             nullptr, 0, 0, 0, SlabGeo{T, X, M, zh, p, 1, 1, tl, ml, kAll, T}, Corr{}, 0};
+  ug_vjp_slab_kernel<<<(unsigned)((V + 127) / 128), 128, 0, (cudaStream_t)stream>>>(g, a, out);
   return (int)cudaGetLastError();
 }
 

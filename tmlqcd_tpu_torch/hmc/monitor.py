@@ -10,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from tmlqcd_tpu_torch import rng
+from tmlqcd_tpu_torch.comm import global_max, global_sum
 
 __all__ = ["ForceStats", "monitor_forces"]
 
@@ -27,13 +28,13 @@ def monitor_forces(cfg, u: torch.Tensor, key: rng.Key, etas=None) -> list[ForceS
     heatbaths (purpose 5000 + monomial index) and report aggregate norms.
     `etas` injects one heatbath draw per monomial instead."""
     out = []
-    n_links = 4 * u.shape[-3] * u.shape[-2] * u.shape[-1]
+    n_links = 4 * cfg.lat.global_volume
     for i, m in enumerate(cfg.monomials):
         aux, _ = m.heatbath(u, key.fold(5000 + i), None if etas is None else etas[i])
         f = m.force(u, aux)
         fro_sq = torch.sum(f.real ** 2 + f.imag ** 2, dim=(0, 1))  # per link
-        norm_sq = float(torch.sum(fro_sq.double()))
+        norm_sq = float(global_sum(torch.sum(fro_sq.double())))
         out.append(ForceStats(name=m.name, timescale=m.timescale, norm_sq=norm_sq,
-                              max_abs=float(torch.sqrt(torch.max(fro_sq))),
+                              max_abs=float(torch.sqrt(global_max(torch.max(fro_sq)))),
                               rms=float((norm_sq / n_links) ** 0.5)))
     return out

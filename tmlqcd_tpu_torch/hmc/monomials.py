@@ -48,7 +48,10 @@ kernels K3-I and K4), as the reference routes its solves under an active
 mesh.  The heatbath's Qhat, the y = Qhat_+ x of a force and the force
 surrogates stay on the whole-lattice kernels (K1, and K1 / K2 through
 `HoppingDiff`): the reference takes jnp autodiff for the surrogates under a
-mesh, a GSPMD choice; on one device the fields stay whole.
+mesh, a GSPMD choice; on one device the fields stay whole.  On a
+distributed mesh (one process per slab) `lat` is the rank's slab and there
+is no whole lattice: those operators take their sharded forms too, and the
+surrogates run the rank hop forward and K2-S backward (`wilson_fast`).
 """
 
 from __future__ import annotations
@@ -142,7 +145,7 @@ def _force_from_surrogate(u_leaf: torch.Tensor, surrogate: torch.Tensor) -> torc
 
 def _eta2(key, lat: Lattice, u: torch.Tensor, eta) -> torch.Tensor:
     if eta is None:
-        eta = rng.normal_spinor(key, eo_spinor_shape(lat), u.device)
+        eta = rng.normal_spinor(key, eo_spinor_shape(lat), u.device, lat=lat)
     return wf.to_split(eta)
 
 

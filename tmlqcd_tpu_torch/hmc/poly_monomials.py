@@ -90,7 +90,7 @@ class NDPolyMonomial:
     def heatbath_info(self, u, key, eta=None):
         """(phi2, S_0, CG iterations of the P^2 solve)."""
         if eta is None:
-            eta = rng.normal_spinor(key, self._eta_shape(), u.device)
+            eta = rng.normal_spinor(key, self._eta_shape(), u.device, lat=self.lat)
         eta2 = wf.to_split(eta)
         q2 = self._ops(u, False).a
         res = cg(lambda x2: self._poly_on(q2, self._poly_on(q2, x2)), self._poly_on(q2, eta2),

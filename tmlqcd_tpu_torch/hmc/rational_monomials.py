@@ -35,7 +35,8 @@ operators (`q_nd_sq_fast_shard`, `q_nd_sq_clover_fast_shard`: the doublet on
 the multi-RHS slab kernels with flavour as the R axis; `q_hat_pm_fast_shard`,
 `q_hat_pm_clover_fast_shard` for RAT), as the reference routes its
 multishift solves (reference :103-118, :301-316); Q, the y_j and the
-surrogates stay on the whole-lattice kernels.  PyTorch's gradient with respect
+surrogates stay on the whole-lattice kernels, except on a distributed mesh,
+where everything runs on the rank's slab (`wilson_fast`).  PyTorch's gradient with respect
 to the complex gauge is the conjugate of the reference's convention, hence
 `torch_grad_to_jax` before `ta_force_from_grad` (`_force_from_surrogate`).
 """
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from tmlqcd_tpu_torch import rng
+from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.hmc.monomials import _CloverState, _force_from_surrogate, eo_spinor_shape
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops import clover as cl
@@ -183,7 +185,7 @@ class _RationalBase:
         rat = self.rat
         alpha, gamma, beta_n, rho_lead = rat.heatbath_parts()
         if eta is None:
-            eta = rng.normal_spinor(key, self._eta_shape(), u.device)
+            eta = rng.normal_spinor(key, self._eta_shape(), u.device, lat=self.lat)
         eta2 = wf.to_split(eta)
         ops = self._ops(u, False)
         # x_l = (Q^2 + alpha_l^2)^{-1} eta; the shifts alpha^2 are the numerator roots
@@ -197,7 +199,7 @@ class _RationalBase:
     def action_info(self, u, phi2, hist=None):
         rat = self.rat
         xs, iters = self._mms_info(self._ops(u, False), phi2, rat.sigma, self.acc_tol)
-        dots = (xs.double() * phi2.double()).flatten(1).sum(dim=1)
+        dots = global_sum((xs.double() * phi2.double()).flatten(1).sum(dim=1))
         rho = torch.as_tensor(rat.rho, dtype=torch.float64, device=dots.device)
         return torch.dot(rho, dots), iters
 
@@ -334,7 +336,7 @@ class _RatCorMixin:
 
     def heatbath(self, u, key, eta=None):
         if eta is None:
-            eta = rng.normal_spinor(key, self._eta_shape(), u.device)
+            eta = rng.normal_spinor(key, self._eta_shape(), u.device, lat=self.lat)
         eta2 = wf.to_split(eta)
         phi2, _ = _apply_z_pow(self, self._ops(u, False), eta2, +0.25, self.n_terms, self.acc_tol)
         return phi2, wf.dot_re_f64_split(eta2, eta2)
@@ -387,7 +389,8 @@ def ndrat_correction_samples(mono: NDRatMonomial, u, key: rng.Key, n_samples: in
 
         samples = []
         for i in range(n_samples):
-            eta2 = wf.to_split(rng.normal_spinor(key.fold(i), mono._eta_shape(), u.device))
+            eta2 = wf.to_split(rng.normal_spinor(key.fold(i), mono._eta_shape(), u.device,
+                                                     lat=mono.lat))
             # R_hi^{-1} eta by CG on R_hi (hermitian positive, well conditioned)
             w2 = cg(lambda x: apply_rat(hi, x), eta2, tol=mono.acc_tol, maxiter=mono.maxiter).x
             m_eta = apply_rat(lo, w2)

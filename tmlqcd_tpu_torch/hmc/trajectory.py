@@ -16,6 +16,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from tmlqcd_tpu_torch import rng, su3
+from tmlqcd_tpu_torch.comm import global_max
 from tmlqcd_tpu_torch.hmc.integrators import IntegratorConfig, integrate
 from tmlqcd_tpu_torch.ops.gauge_action import plaquette
 
@@ -81,7 +82,7 @@ def hmc_trajectory(cfg: HMCConfig, u: torch.Tensor, key: rng.Key, chrono=None,
     device = u.device
     k_mom, k_pf, k_acc = key.fold(0), key.fold(1), key.fold(2)
     p = _masked(cfg, draws.momenta if draws is not None
-                else rng.random_momenta(k_mom, u.shape[2:], device))
+                else rng.random_momenta(k_mom, u.shape[2:], device, lat=cfg.lat))
 
     aux_list = []
     s_old = torch.zeros((), dtype=torch.float64, device=device)
@@ -134,7 +135,7 @@ def reversibility_check(cfg: HMCConfig, u: torch.Tensor, key: rng.Key,
     device = u.device
     k_mom, k_pf = key.fold(0), key.fold(1)
     p = _masked(cfg, draws.momenta if draws is not None
-                else rng.random_momenta(k_mom, u.shape[2:], device))
+                else rng.random_momenta(k_mom, u.shape[2:], device, lat=cfg.lat))
     aux_list = []
     s_old = torch.zeros((), dtype=torch.float64, device=device)
     for i, m in enumerate(cfg.monomials):
@@ -152,4 +153,4 @@ def reversibility_check(cfg: HMCConfig, u: torch.Tensor, key: rng.Key,
     for i, m in enumerate(cfg.monomials):
         s_back = s_back + m.action_info(u2, aux_list[i])[0]
     h_back = su3.kinetic_energy(p2) + s_back
-    return float(torch.abs(h_back - h_old)), float(torch.max(torch.abs(u2 - u)))
+    return float(torch.abs(h_back - h_old)), float(global_max(torch.max(torch.abs(u2 - u))))

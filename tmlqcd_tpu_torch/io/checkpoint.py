@@ -7,6 +7,12 @@ Port of `tmlqcd_tpu/io/checkpoint.py`: the same npz keys (`gauge` complex
 tmp+rename atomic writes and pruning to the newest `keep` configurations —
 so a file written by either package reads in the other.  The RNG state is
 (seed, trajectory counter), as in the reference.
+
+On the ranks of a distributed run every rank calls `save_checkpoint` with
+its slab and the slab's lattice: the slabs are gathered over the
+lattice's mesh (`parallel.gather_to_host`) and rank 0 writes, as the
+reference writes from process 0 after its all-gather; the read places each
+rank's slab (`parallel.load_gauge_sharded`).
 """
 
 from __future__ import annotations
@@ -29,13 +35,23 @@ _COUNTER_FILE = "nstore_counter"
 def save_checkpoint(run_dir: str, u, trajectory: int, seed: int, lat: Lattice,
                     fmt: str = "native", keep: int = 2, precision: int = 64, **meta) -> str:
     """Write conf.{trajectory:06d}(.npz|.lime) + nstore_counter atomically and
-    prune to the newest `keep` configurations."""
+    prune to the newest `keep` configurations.  With a slab's `lat` (a
+    distributed run) `u` is this rank's slab; every rank calls it, rank 0
+    writes the gathered field and every rank returns the path."""
     if fmt not in ("native", "ildg"):
         raise ValueError(f"unknown checkpoint format {fmt!r}")
+    name = f"conf.{trajectory:06d}." + ("npz" if fmt == "native" else "lime")
+    mesh = lat.mesh
+    if mesh is not None:
+        from tmlqcd_tpu_torch.parallel import gather_to_host
+
+        arr, lat = gather_to_host(u, mesh), Lattice(lat.global_dims)
+        if mesh.rank != 0:
+            return os.path.join(run_dir, name)
+    else:
+        arr = to_host(u)
     os.makedirs(run_dir, exist_ok=True)
-    arr = to_host(u)
     if fmt == "native":
-        name = f"conf.{trajectory:06d}.npz"
         tmp = os.path.join(run_dir, name + ".tmp")
         with open(tmp, "wb") as f:
             np.savez(f, gauge=arr, trajectory=np.int64(trajectory), seed=np.int64(seed),
@@ -44,7 +60,6 @@ def save_checkpoint(run_dir: str, u, trajectory: int, seed: int, lat: Lattice,
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(run_dir, name))
     else:
-        name = f"conf.{trajectory:06d}.lime"
         ildg.write_gauge_field(os.path.join(run_dir, name), arr, lat, trajectory=trajectory,
                                precision=precision, **meta)
 

@@ -14,6 +14,14 @@ flat site m = y*(Z/2) + k, the value at z = 2k + s with slot
 s = (t+x+y+p) % 2.  Shifts in t/x/y map parity p <-> 1-p at the same k (plain
 rolls; a roll by Z/2 on the flat axis for y); shifts in z select between k and
 k+-1 with a wrap inside the y-block (two rolls + masks, see `hop_packed`).
+
+One rank's slab of a distributed run is a `Lattice` of the slab's dims that
+carries its `parallel.Mesh` (`mesh.local(lat)`): the shapes are the slab's,
+`global_dims` / `global_volume` the whole lattice's, and every shift along
+t or y crosses ranks through `comm.dist_roll` while that mesh is the
+process's decomposition (`comm.require`; the z wrap stays inside a
+y-row, so inside the slab; the masks read local coordinates, which give the
+global parity since T_loc and Y_loc are even).
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from tmlqcd_tpu_torch.comm import dist_roll, require
 
 __all__ = [
     "Lattice",
@@ -44,19 +54,47 @@ _AXT, _AXX, _AXM = -3, -2, -1
 
 @dataclasses.dataclass(frozen=True)
 class Lattice:
-    """Static lattice metadata; dims = (T, X, Y, Z), Z even."""
+    """Static lattice metadata; dims = (T, X, Y, Z), Z even.  `mesh`: the
+    distributed `parallel.Mesh` whose (t, y) slab of the lattice this is,
+    or None for a whole lattice; a slab is made only while its mesh is the
+    process's decomposition (`comm.require`)."""
 
     dims: tuple[int, int, int, int]
+    mesh: object = None
 
     def __post_init__(self):
         if len(self.dims) != 4:
             raise ValueError(f"dims must be (T,X,Y,Z), got {self.dims}")
         if self.dims[3] % 2 != 0:
             raise ValueError("Z extent must be even for even/odd packing")
+        if self.mesh is not None:
+            require(self.mesh)
 
     @property
     def volume(self) -> int:
+        """Sites held here (the slab's on a rank)."""
         return int(np.prod(self.dims))
+
+    @property
+    def global_dims(self) -> tuple[int, int, int, int]:
+        """The whole lattice's (T, X, Y, Z): lengths with a physical meaning
+        (boundary phases, normalisations) read these."""
+        if self.mesh is None:
+            return self.dims
+        t, x, y, z = self.dims
+        return (t * self.mesh.t, x, y * self.mesh.y, z)
+
+    @property
+    def global_volume(self) -> int:
+        return int(np.prod(self.global_dims))
+
+    @property
+    def offset(self) -> tuple[int, int]:
+        """(t, y) of the slab's first site in the whole lattice."""
+        if self.mesh is None:
+            return (0, 0)
+        i, j = self.mesh.coords
+        return (i * self.dims[0], j * self.dims[2])
 
     @property
     def zh(self) -> int:
@@ -134,15 +172,24 @@ def _mask(mask_fn, lat: Lattice, arg, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _roll(f: torch.Tensor, shift: int, dim: int, lat: Lattice) -> torch.Tensor:
+    """torch.roll of the whole field along T (`dim` -3) or along whole
+    y-rows of M (-1): across the ranks on a distributed slab."""
+    if lat.mesh is None:
+        return torch.roll(f, shift, dim)
+    require(lat.mesh)
+    return dist_roll(f, shift, dim, "t" if dim == _AXT else "y", lat.mesh)
+
+
 def shift_full(f: torch.Tensor, mu: int, d: int, lat: Lattice) -> torch.Tensor:
     """Value at x + d*mu_hat of a full-lattice field [..., T, X, Y*Z]
     (periodic wrap); d=+1 reads the forward neighbour."""
     if mu == 0:
-        return torch.roll(f, -d, _AXT)
+        return _roll(f, -d, _AXT, lat)
     if mu == 1:
         return torch.roll(f, -d, _AXX)
     if mu == 2:
-        return torch.roll(f, -d * lat.dims[3], _AXM)
+        return _roll(f, -d * lat.dims[3], _AXM, lat)
     z = lat.dims[3]
     if d == +1:
         edge = _mask(_z_edge_mask_full, lat, True, f)
@@ -155,11 +202,11 @@ def hop_packed(f_q: torch.Tensor, p: int, mu: int, d: int, lat: Lattice) -> torc
     """For each parity-p site x, the value of the parity-(1-p) field `f_q`
     [..., T, X, Y*Z/2] at x + d*mu_hat."""
     if mu == 0:
-        return torch.roll(f_q, -d, _AXT)
+        return _roll(f_q, -d, _AXT, lat)
     if mu == 1:
         return torch.roll(f_q, -d, _AXX)
     if mu == 2:
-        return torch.roll(f_q, -d * lat.zh, _AXM)
+        return _roll(f_q, -d * lat.zh, _AXM, lat)
     # z-hop: the slot s = (t+x+y+p) % 2 of the destination site decides
     # whether the neighbour sits at the same k or at k +- 1 (wrapping inside
     # the y-block)

@@ -32,6 +32,7 @@ import torch
 
 from tmlqcd_tpu_torch import su3
 from tmlqcd_tpu_torch.gamma import SIGMA_MUNU, apply_gamma5
+from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, eo_pack, shift_full
 from tmlqcd_tpu_torch.ops.wilson import DiracParams, dslash_packed
 
@@ -200,7 +201,7 @@ def sw_logdet(sw: torch.Tensor, mutld: float, sign: float = +1.0) -> torch.Tenso
         pinv, detp = su3.inv3(p)
         _, dets = su3.inv3(s - su3.mul(su3.mul(r, pinv), q))
         total = total + torch.sum(torch.log((detp * dets).abs().double() ** 2))
-    return total
+    return global_sum(total)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +350,7 @@ def sw_logdet_nd(sw, mubar_t: float, epsbar_t: float) -> torch.Tensor:
         pinv, detp = su3.inv3(p2)
         _, dets = su3.inv3(s2 - su3.mul(su3.mul(r2, pinv), q2))
         total = total + torch.sum(torch.log((detp * dets).abs().double()))
-    return total
+    return global_sum(total)
 
 
 def m_hat_nd_clover(ueo, sw_e, sw_o, chi_o, params, lat: Lattice, phases, sign: float = +1.0):

@@ -92,6 +92,20 @@ Port of the main-path parts of `tmlqcd_tpu/ops/dslash_pallas.py`:
   `hopping_tshard` replaces `hopping_pallas_tshard` (:1065) on K1-T.  Both
   equal K1 on the whole lattice: the slab kernels run K1's per-site sum on
   the same neighbour values.
+* On one rank of a distributed mesh (one process per slab, `parallel`),
+  `hopping_rank` is `hopping_pallas_shard` with its `_exchange` (:1413)
+  taken literally: KH-P (`halo_faces`, KH on the rank's own slab: at mesh
+  (1, 1) its t rows are the two t faces, and the y faces are written with
+  one local y slab) packs the four send faces, `comm.exchange` moves them
+  between the ranks, K3-I (`_build_shard_int` :1267) runs the interior
+  rows while the t faces travel and K4 (`_build_shard_bnd` :1307) the
+  surface rows from the received faces; without the overlap K3 runs on the
+  slab with its received t faces concatenated.  The result equals K1 on the
+  whole lattice bit for bit, row for row.
+* `hopping_ug_vjp_slab` (K2-S) is K2 on a rank's slab, its t and y
+  neighbours at the slab's edge read from the faces the forward hop
+  received (kept by `HoppingDiff`), so the backward exchanges nothing for
+  it; the reference takes jnp autodiff under a mesh.
 
 Routing: the device of the tensors decides.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor takes the plain version.  There is no
@@ -112,7 +126,9 @@ gauge and with an R axis; the sharded hop counts its launches there too.
 `hopping_schur_nd.launches` counts K1-SD's launches, `.hops` the doublet
 hops they ran and `.clover_launches` those on the clover doublet;
 `halo_pack.launches` counts KH's and `halo_pack.plain_calls` the calls
-its plain version (the torch exchange) served.
+its plain version (the torch exchange) served; `halo_faces.launches` counts
+KH-P's, `hopping_rank.launches` the rank's slab launches by name (K3-I, K4,
+K3-I+K4, K3, K1-T) and `hopping_ug_vjp_slab.launches` K2-S's.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/`, one
 nvcc process per source, into a shared library with a plain C interface,
@@ -123,6 +139,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -134,6 +151,7 @@ import threading
 import numpy as np
 import torch
 
+from tmlqcd_tpu_torch import comm
 from tmlqcd_tpu_torch.gamma import GAMMA, apply_gamma5, gamma5_split
 from tmlqcd_tpu_torch.lattice import Lattice, hop_packed
 from tmlqcd_tpu_torch.ops import split_diag as sd
@@ -164,7 +182,11 @@ __all__ = [
     "schur_nd_kernel_info",
     "slab_kernel_info",
     "halo_pack",
+    "halo_faces",
     "hopping_shard",
+    "hopping_rank",
+    "hopping_ug_vjp_slab",
+    "hopping_ug_vjp_slab_plain",
     "hopping_ug_vjp",
     "hopping_ug_vjp_plain",
     "HoppingDiff",
@@ -246,7 +268,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
 
     The library is named by a hash of the sources and flags, compiled into
     `csrc/build/` and moved into place atomically, so concurrent processes
-    and stale builds cannot mix.  `verbose=True` adds `-Xptxas -v` and
+    and stale builds cannot mix; a file lock makes the ranks of one host
+    wait for the first build instead of running nvcc each.  `verbose=True` adds `-Xptxas -v` and
     prints nvcc's report (registers, spills) on first build."""
     global _lib_handle
     with _lib_lock:
@@ -258,7 +281,11 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
                 h.update(f.read())
         so = os.path.join(_BUILD, f"libtmlqcd_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
-            _build(so, verbose)
+            os.makedirs(_BUILD, exist_ok=True)
+            with open(os.path.join(_BUILD, ".build.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(so):
+                    _build(so, verbose)
         lib = ctypes.CDLL(so)
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.tm_hopping.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, f, f, vp,
@@ -290,6 +317,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         lib.tm_hopping_schur_nd_info.restype = i
         lib.tm_slab_info.argtypes = [i, vp]
         lib.tm_slab_info.restype = i
+        lib.tm_ug_vjp_slab.argtypes = [vp] * 5 + [i] * 5 + [vp]
+        lib.tm_ug_vjp_slab.restype = i
         _lib_handle = lib
         return lib
 
@@ -1263,13 +1292,15 @@ def _send(x: torch.Tensor, shift: int, dim: int, d: int, ax: int, halfspinor: bo
 
 
 def _y_halos(psi: torch.Tensor, lat: Lattice, mesh, halfspinor: bool = True,
-             r_axis: int | None = None) -> torch.Tensor | None:
+             r_axis: int | None = None, faces: bool = False) -> torch.Tensor | None:
     """The y exchange: mh [.., 2 T, X, msh zh] of `hopping_slab_split`.  Each
     slab column's last y-row goes up to column j+1 (projected for the y-1
     hop, direction 5), its first y-row down to j-1 (direction 4).  None with
     one y slab: the y hops then wrap inside the slab (the reference copies
-    the slab's own rows into its halos; the values are the same)."""
-    if mesh.y == 1:
+    the slab's own rows into its halos; the values are the same) — unless
+    `faces`: then with one y slab mh holds the slab's own two y faces, the
+    ones a rank sends to its y neighbours."""
+    if mesh.y == 1 and not faces:
         return None
     ml, zh = mesh.local(lat).m, lat.zh
     v = psi.unflatten(-1, (mesh.y, ml))
@@ -1450,7 +1481,10 @@ def hopping_shard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
     no assembly step.  psi_q [2,4,3,T,X,M], or with an R
     axis at `r_axis` (3: a batch; 1: a flavour doublet); ug_p and gcomp as
     for K1 (f32 or bf16).  The result equals `hopping_split` /
-    `hopping_split_rhs` on the whole lattice."""
+    `hopping_split_rhs` on the whole lattice.  On a distributed mesh `lat`
+    is the rank's slab and the hop is `hopping_rank`."""
+    if mesh.distributed:
+        return hopping_rank(ug_p, psi_q, p, lat, mesh, gcomp, r_axis)
     if not mesh.overlap:
         mh = _y_halos(psi_q, lat, mesh, mesh.halfspinor, r_axis)
         return hopping_slab_split(ug_p, _t_halos(psi_q, lat, mesh, mesh.halfspinor, r_axis,
@@ -1474,6 +1508,129 @@ def hopping_tshard(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice
     if mesh.y != 1:
         raise ValueError(f"hopping_tshard decomposes t only: the mesh has {mesh.y} y slabs")
     return hopping_shard(ug_p, psi_q, p, lat, dataclasses.replace(mesh, overlap=False), gcomp)
+
+
+# ---------------------------------------------------------------------------
+# the hop on one rank of a distributed mesh: KH-P, the exchange, K3-I / K4
+# ---------------------------------------------------------------------------
+
+
+def _one_slab(device):
+    """The one-slab mesh the rank's kernels run on: its own slab, halos in
+    buffers of their own."""
+    from tmlqcd_tpu_torch.parallel import Mesh
+
+    return Mesh(1, 1, device)
+
+
+def halo_faces(psi: torch.Tensor, lat: Lattice, r_axis: int | None = None,
+               halfspinor: bool = True, y_faces: bool = True) -> tuple:
+    """KH-P: KH on one rank's slab (`lat`: the slab's own lattice, without a
+    mesh), the four faces it sends in one launch: th [.., 2, X, M] (row 0
+    the slab's last timeslice projected for the t-1 hop, for the rank above;
+    row 1 its first, for the rank below) and, with `y_faces`, mh [.., 2
+    T_loc, X, zh] (rows 0 .. T_loc-1 the last y-row for the y neighbour
+    above, the rest the first y-row for the one below), else None.  At mesh
+    (1, 1) these are KH's own halos: the kernel is KH with one slab and a y
+    halo buffer at one y slab (the slab kernel reads such a buffer instead
+    of wrapping).  Half-spinor faces (0.5 W h) with `halfspinor`.  Its plain
+    version, on CPU tensors, is the torch exchange at one slab."""
+    nrhs = _check_halo_field(psi, lat, r_axis)
+    one = _one_slab(psi.device)
+    one.local(lat)  # raises unless T_loc and Y_loc are even
+    if psi.device.type == "cpu":
+        return (_y_halos(psi, lat, one, halfspinor, r_axis, faces=y_faces),
+                _t_halos(psi, lat, one, halfspinor, r_axis))
+    if psi.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi.device}")
+    pre = _spinor_prefix(r_axis, nrhs)
+    t, x, _, _ = lat.dims
+    mh = (torch.empty(pre + (2 * t, x, lat.zh), dtype=psi.dtype, device=psi.device)
+          if y_faces else None)
+    th = torch.empty(pre + (2, x, lat.m), dtype=psi.dtype, device=psi.device)
+
+    def fld(f):
+        return (None, 0, 0, 0) if f is None else (f.data_ptr(),) + _field_strides(f, r_axis)
+
+    lib = kernel_library()
+    with torch.cuda.device(psi.device):
+        rc = lib.tm_halo_pack(*fld(psi), *fld(mh), *fld(th), t, x, lat.m, lat.zh, 1, 1,
+                              int(halfspinor), nrhs or 0,
+                              torch.cuda.current_stream(psi.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"face kernel (KH-P) launch failed: CUDA error {rc}")
+    halo_faces.launches += 1
+    return mh, th
+
+
+halo_faces.launches = 0
+
+
+def _rank_slab(ug_p, psi, p, loc, variant, out, th, mh, gcomp, r_axis):
+    """One slab launch on the rank's own slab, counted by name in
+    `hopping_rank.launches` where it launches a kernel."""
+    hopping_slab_split(ug_p, psi, p, loc, _one_slab(psi.device), variant, out, th=th, mh=mh,
+                       gcomp=gcomp, r_axis=r_axis)
+    if psi.device.type == "cuda":
+        name = _SLAB_NAMES.get(variant, "K3" if mh is not None else "K1-T")
+        hopping_rank.launches[name] += 1
+    return out
+
+
+def hopping_rank(ug_p: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice, mesh,
+                 gcomp: tuple | None = None, r_axis: int | None = None,
+                 keep_halos: bool = False):
+    """H_{p,q} psi on this rank's slab of the distributed `mesh`: the port
+    of `hopping_pallas_shard` (dslash_pallas.py:1345) with its `_exchange`.
+
+    KH-P packs the faces (`halo_faces`); `comm.exchange` posts them, t faces
+    to the t neighbours and y faces to the y neighbours (none along an axis
+    of one slab: the slab's own faces are then its halos, the y hops wrap);
+    with `mesh.overlap` K3-I runs the interior rows (T_loc >= 4) once the y
+    faces are in, while the t faces travel, and K4 the surface rows after
+    them; below T_loc = 4 there is no interior, and one launch over every
+    row (K3-I+K4) runs after the exchange.  Without the overlap K3 (K1-T
+    with one y slab) runs on the slab with its received t faces
+    concatenated.  psi_q [2,4,3,T_loc,X,m_loc], or with an R axis at
+    `r_axis`; ug_p the slab's gauge copy (f32 or bf16, gcomp as for K1).
+    Every rank of the mesh calls it together.  Returns the hop, or with
+    `keep_halos` (hop, th, mh): the received halos, which K2-S reads."""
+    loc = Lattice(lat.dims)
+    mh_f, th_f = halo_faces(psi_q, loc, r_axis, mesh.halfspinor, y_faces=mesh.y > 1)
+    faces = []
+    if mesh.t > 1:
+        up, down = mesh.neighbour("t", +1), mesh.neighbour("t", -1)
+        faces += [(th_f.select(-3, 0), up, down), (th_f.select(-3, 1), down, up)]
+    if mesh.y > 1:
+        up, down = mesh.neighbour("y", +1), mesh.neighbour("y", -1)
+        t_loc = loc.dims[0]
+        faces += [(mh_f.narrow(-3, 0, t_loc), up, down), (mh_f.narrow(-3, t_loc, t_loc), down, up)]
+    pend = comm.exchange(faces, mesh) if faces else None
+    ky = 2 if mesh.t > 1 else 0
+
+    def t_halos():
+        return th_f if mesh.t == 1 else torch.stack([pend.wait(0), pend.wait(1)], dim=-3)
+
+    def y_halos():
+        return None if mesh.y == 1 else torch.cat([pend.wait(ky), pend.wait(ky + 1)], dim=-3)
+
+    out = torch.empty_like(psi_q)
+    if not mesh.overlap:
+        th, mh = t_halos(), y_halos()
+        ext = torch.cat([th.narrow(-3, 0, 1), psi_q, th.narrow(-3, 1, 1)], dim=-3)
+        _rank_slab(ug_p, ext, p, loc, "ext", out, None, mh, gcomp, r_axis)
+    elif loc.dims[0] >= 4:
+        mh = y_halos()
+        _rank_slab(ug_p, psi_q, p, loc, "int", out, None, mh, gcomp, r_axis)
+        th = t_halos()
+        _rank_slab(ug_p, psi_q, p, loc, "bnd", out, th, mh, gcomp, r_axis)
+    else:
+        th, mh = t_halos(), y_halos()
+        _rank_slab(ug_p, psi_q, p, loc, "all", out, th, mh, gcomp, r_axis)
+    return (out, th, mh) if keep_halos else out
+
+
+hopping_rank.launches = {"K3": 0, "K3-I": 0, "K4": 0, "K1-T": 0, "K3-I+K4": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1534,6 +1691,75 @@ def hopping_ug_vjp_plain(g2: torch.Tensor, psi_q: torch.Tensor, p: int,
 hopping_ug_vjp_plain.calls = 0
 
 
+def _check_slab_halos(psi_q: torch.Tensor, lat: Lattice, th, mh) -> None:
+    t, x, _, _ = lat.dims
+    need = [("th", th, (2, 4, 3, 2, x, lat.m))]
+    if mh is not None:
+        need.append(("mh", mh, (2, 4, 3, 2 * t, x, lat.zh)))
+    _check_tensors(need, psi_q.device)
+
+
+def hopping_ug_vjp_slab(g2: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
+                        th: torch.Tensor, mh: torch.Tensor | None) -> torch.Tensor:
+    """K2-S: K2 on one rank's slab (`lat`: the slab's own lattice).  The t
+    neighbours of rows 0 and T_loc-1 come from `th` [2,4,3,2,X,M] (row 0
+    below, row 1 above) and the y neighbours of the slab's first and last
+    y-row from `mh` [2,4,3,2 T_loc,X,zh] (None: one y slab, the y hops wrap):
+    the halos the forward hop on the same psi received (`hopping_rank` with
+    `keep_halos`), so nothing is exchanged again.  A half-spinor halo 0.5 W h
+    gives W^+ back exactly, so the result equals K2 on the whole lattice,
+    row for row.  g2, psi_q [2,4,3,T_loc,X,m_loc] f32 -> [2,8,3,3,..]."""
+    shape = (2, 4, 3) + lat.eo_site_shape
+    _check_tensors([("g2", g2, shape), ("psi_q", psi_q, shape)], psi_q.device)
+    _check_slab_halos(psi_q, lat, th, mh)
+    if psi_q.device.type == "cpu":
+        return hopping_ug_vjp_slab_plain(g2, psi_q, p, lat, th, mh)
+    if psi_q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {psi_q.device}")
+    lib = kernel_library()
+    out = torch.empty((2, 8, 3, 3) + lat.eo_site_shape, dtype=torch.float32, device=psi_q.device)
+    t, x, _, _ = lat.dims
+    with torch.cuda.device(psi_q.device):
+        rc = lib.tm_ug_vjp_slab(g2.data_ptr(), psi_q.data_ptr(), th.data_ptr(),
+                                None if mh is None else mh.data_ptr(), out.data_ptr(), t, x,
+                                lat.m, lat.zh, int(p),
+                                torch.cuda.current_stream(psi_q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"slab gauge-cotangent kernel (K2-S) launch failed: CUDA error {rc}")
+    hopping_ug_vjp_slab.launches += 1
+    return out
+
+
+hopping_ug_vjp_slab.launches = 0
+
+
+def hopping_ug_vjp_slab_plain(g2: torch.Tensor, psi_q: torch.Tensor, p: int, lat: Lattice,
+                              th: torch.Tensor, mh: torch.Tensor | None) -> torch.Tensor:
+    """Plain PyTorch version of K2-S: `hopping_ug_vjp_plain`'s arithmetic on
+    the slab, the neighbours across its t and y edges taken from the halos."""
+    hopping_ug_vjp_slab_plain.calls += 1
+    g = merge_c(g2)
+    psi = merge_c(psi_q)
+    cth = merge_c(th)
+    cmh = None if mh is None else merge_c(mh)
+    t, zh, ml = lat.dims[0], lat.zh, lat.m
+    out = []
+    for d in range(8):
+        mu, fb = d // 2, d % 2
+        nbr = hop_packed(psi, p, mu, +1 if fb == 0 else -1, lat).clone()
+        if mu == 0:
+            nbr[..., t - 1 if fb == 0 else 0, :, :] = cth[..., 1 - fb, :, :]
+        elif mu == 2 and cmh is not None:
+            cols = slice(ml - zh, ml) if fb == 0 else slice(0, zh)
+            nbr[..., cols] = cmh[..., t:, :, :] if fb == 0 else cmh[..., :t, :, :]
+        pn = torch.conj_physical(spin_apply(hop_projector(mu, fb, psi), nbr))
+        out.append(sum(g[s][:, None] * pn[s][None, :] for s in range(4)))
+    return split_c(torch.stack(out))
+
+
+hopping_ug_vjp_slab_plain.calls = 0
+
+
 def reset_counters() -> None:
     """Zero every launch and call counter of this module."""
     hopping_split.launches = 0
@@ -1552,6 +1778,10 @@ def reset_counters() -> None:
     hopping_schur_nd.hops = 0
     hopping_schur_nd.clover_launches = 0
     halo_pack.launches = 0
+    halo_faces.launches = 0
+    hopping_ug_vjp_slab.launches = 0
+    for name in hopping_rank.launches:
+        hopping_rank.launches[name] = 0
     for name in hopping_slab_split.launches:
         hopping_slab_split.launches[name] = 0
     hopping_slab_split.bf16_launches = 0
@@ -1563,6 +1793,7 @@ def reset_counters() -> None:
     hopping_slab_split_plain.calls = 0
     hopping_schur_nd_plain.calls = 0
     halo_pack.plain_calls = 0
+    hopping_ug_vjp_slab_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1576,22 +1807,36 @@ class HoppingDiff(torch.autograd.Function):
     forward: K1 (epilogue none, 18-real).  backward: K2 for d ug_p and the
     adjoint identity H^+ = g5 H_{q,p} g5 on K1 for d psi_q; ug_q only
     parameterises the adjoint and receives no gradient (reference:
-    `hopping_diff`, dslash_pallas.py:1608-1641)."""
+    `hopping_diff`, dslash_pallas.py:1608-1641).  On a rank's slab (`lat`
+    carries a distributed mesh) the forward is `hopping_rank`, whose
+    received halos the backward's K2-S reads, and the adjoint another
+    `hopping_rank`."""
 
     @staticmethod
     def forward(ctx, ug_p, ug_q, psi_q, p: int, lat: Lattice):
-        ctx.save_for_backward(ug_q, psi_q)
         ctx.p = p
         ctx.lat = lat
+        if lat.mesh is not None:
+            out, th, mh = hopping_rank(ug_p, psi_q, p, lat, lat.mesh, keep_halos=True)
+            ctx.save_for_backward(ug_q, psi_q, th, mh)
+            return out
+        ctx.save_for_backward(ug_q, psi_q)
         return hopping_split(ug_p, psi_q, p, lat)
 
     @staticmethod
     def backward(ctx, g2):
-        ug_q, psi_q = ctx.saved_tensors
+        ug_q, psi_q, *halos = ctx.saved_tensors
         g2 = g2.contiguous()
         p, lat = ctx.p, ctx.lat
-        dug = hopping_ug_vjp(g2, psi_q, p, lat) if ctx.needs_input_grad[0] else None
-        dpsi = None
+        dug = dpsi = None
+        if lat.mesh is not None:
+            if ctx.needs_input_grad[0]:
+                dug = hopping_ug_vjp_slab(g2, psi_q, p, Lattice(lat.dims), *halos)
+            if ctx.needs_input_grad[2]:
+                dpsi = gamma5_split(hopping_rank(ug_q, gamma5_split(g2), 1 - p, lat, lat.mesh))
+            return dug, None, dpsi, None, None
+        if ctx.needs_input_grad[0]:
+            dug = hopping_ug_vjp(g2, psi_q, p, lat)
         if ctx.needs_input_grad[2]:
             dpsi = gamma5_split(hopping_split(ug_q, gamma5_split(g2), 1 - p, lat))
         return dug, None, dpsi, None, None

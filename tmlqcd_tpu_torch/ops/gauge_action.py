@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from tmlqcd_tpu_torch import su3
+from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.lattice import Lattice, shift_full
 
 __all__ = [
@@ -55,7 +56,7 @@ def _plaq_sum(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
     for mu in range(4):
         for nu in range(mu + 1, 4):
             acc = acc + torch.sum(su3.re_trace(plaquette_field(u, mu, nu, lat)).double())
-    return acc
+    return global_sum(acc)
 
 
 def _rect_sum(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
@@ -64,25 +65,25 @@ def _rect_sum(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
         for nu in range(4):
             if nu != mu:
                 acc = acc + torch.sum(su3.re_trace(rectangle_field(u, mu, nu, lat)).double())
-    return acc
+    return global_sum(acc)
 
 
 def plaquette(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
     """Average plaquette <Re tr P / 3> (f64 accumulation)."""
-    return _plaq_sum(u, lat) / (6.0 * 3.0 * lat.volume)
+    return _plaq_sum(u, lat) / (6.0 * 3.0 * lat.global_volume)
 
 
 def rectangle(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
     """Average 1x2 rectangle <Re tr R / 3> over the 12 oriented planes."""
-    return _rect_sum(u, lat) / (12.0 * 3.0 * lat.volume)
+    return _rect_sum(u, lat) / (12.0 * 3.0 * lat.global_volume)
 
 
 def gauge_action(u: torch.Tensor, beta: float, lat: Lattice, c1: float = 0.0) -> torch.Tensor:
     """S_g[U], per-site traces upcast to f64 before the volume sum."""
     c0 = 1.0 - 8.0 * c1
-    s = c0 * (6.0 * lat.volume - _plaq_sum(u, lat) / 3.0)
+    s = c0 * (6.0 * lat.global_volume - _plaq_sum(u, lat) / 3.0)
     if c1 != 0.0:
-        s = s + c1 * (12.0 * lat.volume - _rect_sum(u, lat) / 3.0)
+        s = s + c1 * (12.0 * lat.global_volume - _rect_sum(u, lat) / 3.0)
     return beta * s
 
 
@@ -127,7 +128,7 @@ def gauge_force(u: torch.Tensor, beta: float, lat: Lattice, c1: float = 0.0) -> 
     if c1 != 0.0:
         with torch.enable_grad():
             uu = u.detach().requires_grad_(True)
-            s = beta * c1 * (12.0 * lat.volume - _rect_sum(uu, lat) / 3.0)
+            s = beta * c1 * (12.0 * lat.global_volume - _rect_sum(uu, lat) / 3.0)
             (g,) = torch.autograd.grad(s, uu)
         f = f + ta_force_from_grad(u, torch_grad_to_jax(g))
     return f

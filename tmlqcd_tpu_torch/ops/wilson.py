@@ -60,7 +60,7 @@ class DiracParams:
 def boundary_phases(params: DiracParams, lat: Lattice) -> np.ndarray:
     """Per-direction hopping phases exp(i pi theta_mu / L_mu) (numpy c128)."""
     return np.array(
-        [np.exp(1j * np.pi * params.theta[mu] / lat.dims[mu]) for mu in range(4)],
+        [np.exp(1j * np.pi * params.theta[mu] / lat.global_dims[mu]) for mu in range(4)],
         dtype=np.complex128,
     )
 

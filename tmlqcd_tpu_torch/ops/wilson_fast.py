@@ -42,6 +42,14 @@ mass, clover blocks, the doublet's flavour mixing) are applied outside the
 kernels, as in the reference's `_m_hat_clover_fast_shard`: the slab kernels
 carry no epilogue.  The results equal the unsharded operators'.
 
+On one rank of a distributed run (`lat` a slab's lattice that carries its
+`parallel.Mesh`) there is no whole lattice: every operator above — the
+heatbath's Q, the Schur prologue and epilogue, the y = Qhat_+ x of a force,
+the doublet's Q_nd — takes its sharded form on that mesh (the hop is
+`dslash_cuda.hopping_rank`: KH-P, the exchange, K3-I / K4), and
+`HoppingDiff` runs the rank hop forward and K2-S backward.  The whole-lattice
+kernels K1, K1-S and K1-SD never run there.
+
 Layout: psi [2, 4, 3, T, X, M] f32; gauge as FastGauge (pre-gathered split
 links of both parities, phases folded).  A batch of R right-hand sides is
 [2, 4, 3, R, T, X, M] (`to_split_rhs`); the operators take it with an explicit
@@ -56,6 +64,7 @@ import dataclasses
 
 import torch
 
+from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.gamma import gamma5_split
 from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice, pack_gauge_eo
 from tmlqcd_tpu_torch.ops import clover as cl
@@ -183,7 +192,13 @@ def from_split_rhs(psi2: torch.Tensor) -> torch.Tensor:
 def hop_fast(fg: FastGauge, psi2: torch.Tensor, p: int, lat: Lattice, epi: tuple = ("none",),
              psi_o=None, r_axis: int | None = None, blocks=None) -> torch.Tensor:
     """epilogue(H_{p,1-p} psi2) on parity-p sites: K1, or K1-R when `r_axis`
-    names the batch axis of psi2."""
+    names the batch axis of psi2 (on a rank's slab the rank hop, epilogue
+    none)."""
+    if lat.mesh is not None:
+        if epi != ("none",):
+            raise NotImplementedError("a fused epilogue on a rank's slab is not ported: the "
+                                      "sharded operators apply their diagonals outside the hop")
+        return hop_shard(fg, psi2, p, lat, lat.mesh, r_axis)
     ug = fg.ug_even if p == EVEN else fg.ug_odd
     if r_axis is None:
         return dc.hopping_split(ug, psi2, p, lat, epi=epi, psi_o=psi_o, gcomp=fg.gcomp,
@@ -206,6 +221,8 @@ def m_hat_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams, lat: La
     diagonal and the Mee psi - k^2 H tmp assembly (plus the optional gamma5
     of Qhat) fused into their epilogues, in one K1-S launch.  With `r_axis`
     set, psi2_o is a batch along that axis and the two hops are K1-R calls."""
+    if lat.mesh is not None:
+        return m_hat_fast_shard(fg, psi2_o, params, lat, lat.mesh, sign, g5, r_axis)
     stage = _tm_stage(params, sign, g5)
     if r_axis is None:
         return dc.hopping_schur(fg.ug_even, fg.ug_odd, psi2_o, lat, (stage,), fg.gcomp)
@@ -222,6 +239,8 @@ def q_hat_pm_fast(fg: FastGauge, psi2_o: torch.Tensor, params: DiracParams,
                   lat: Lattice, r_axis: int | None = None) -> torch.Tensor:
     """Qhat_pm on split fields — the CG operator: its four hops in one K1-S
     launch, or four K1-R calls on a batch along `r_axis`."""
+    if lat.mesh is not None:
+        return q_hat_pm_fast_shard(fg, psi2_o, params, lat, lat.mesh, r_axis)
     if r_axis is None:
         return dc.hopping_schur(fg.ug_even, fg.ug_odd, psi2_o, lat,
                                 (_tm_stage(params, +1.0, True), _tm_stage(params, -1.0, True)),
@@ -266,8 +285,9 @@ def q_hat_diff(ug_e: torch.Tensor, ug_o: torch.Tensor, psi2_o: torch.Tensor,
 
 
 def dot_re_f64_split(a2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Re<a, b> of split arrays = an f64-accumulated real dot."""
-    return torch.sum(a2.double() * b2.double())
+    """Re<a, b> of split arrays = an f64-accumulated real dot (over the
+    ranks of a distributed run, differentiable)."""
+    return global_sum(torch.sum(a2.double() * b2.double()))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +388,8 @@ def m_hat_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracParams,
     M_ee(+-)^{-1} H_eo psi: the two hops with both block applications fused
     into their epilogues, in one K1-S launch (two K1-R calls with
     `r_axis`)."""
+    if lat.mesh is not None:
+        return _m_hat_clover_fast_shard(fc, psi2_o, params, lat, lat.mesh, sign, g5, r_axis)
     stage = _clover_stage(fc, params, sign, g5)
     if r_axis is None:
         return dc.hopping_schur(fc.fg.ug_even, fc.fg.ug_odd, psi2_o, lat, (stage,), fc.fg.gcomp)
@@ -385,6 +407,8 @@ def q_hat_pm_clover_fast(fc: FastClover, psi2_o: torch.Tensor, params: DiracPara
                          lat: Lattice, r_axis: int | None = None) -> torch.Tensor:
     """Qsw_pm on split fields — the CG operator: its four hops in one K1-S
     launch, or four K1-R calls on a batch along `r_axis`."""
+    if lat.mesh is not None:
+        return q_hat_pm_clover_fast_shard(fc, psi2_o, params, lat, lat.mesh, r_axis)
     if r_axis is None:
         return dc.hopping_schur(fc.fg.ug_even, fc.fg.ug_odd, psi2_o, lat,
                                 (_clover_stage(fc, params, +1.0, True),
@@ -450,6 +474,8 @@ def _nd_stage(params, fc: FastCloverND | None = None) -> tuple:
 def q_nd_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
     """Q_nd = gamma5 tau1 Mhat_nd on split doublets [2, 2, 4, 3, T, X, M]
     in one K1-SD launch; params: `ops.ndoublet.NDParams`."""
+    if lat.mesh is not None:
+        return q_nd_fast_shard(fg, chi2, params, lat, lat.mesh)
     return dc.hopping_schur_nd(fg.ug_even, fg.ug_odd, chi2.contiguous(), lat, _nd_stage(params),
                                fg.gcomp)
 
@@ -457,6 +483,8 @@ def q_nd_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.
 def q_nd_sq_fast(fg: FastGauge, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
     """Q_nd^2: the multishift-CG operator of the NDRAT monomial, its four
     hops in one K1-SD launch."""
+    if lat.mesh is not None:
+        return q_nd_sq_fast_shard(fg, chi2, params, lat, lat.mesh)
     return dc.hopping_schur_nd(fg.ug_even, fg.ug_odd, chi2.contiguous(), lat, _nd_stage(params),
                                fg.gcomp, square=True)
 
@@ -535,6 +563,8 @@ def make_fast_clover_nd(u: torch.Tensor, params, lat: Lattice) -> FastCloverND:
 def q_nd_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice) -> torch.Tensor:
     """Q_nd^sw = gamma5 tau1 Mhat_nd^sw on split doublets in one K1-SD
     launch, the flavour-2x2 clover blocks applied in its epilogues."""
+    if lat.mesh is not None:
+        return q_nd_clover_fast_shard(fc, chi2, params, lat, lat.mesh)
     return dc.hopping_schur_nd(fc.fg.ug_even, fc.fg.ug_odd, chi2.contiguous(), lat,
                                _nd_stage(params, fc), fc.fg.gcomp)
 
@@ -542,6 +572,8 @@ def q_nd_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params, lat: Lattice)
 def q_nd_sq_clover_fast(fc: FastCloverND, chi2: torch.Tensor, params,
                         lat: Lattice) -> torch.Tensor:
     """(Q_nd^sw)^2, its four hops in one K1-SD launch."""
+    if lat.mesh is not None:
+        return q_nd_sq_clover_fast_shard(fc, chi2, params, lat, lat.mesh)
     return dc.hopping_schur_nd(fc.fg.ug_even, fc.fg.ug_odd, chi2.contiguous(), lat,
                                _nd_stage(params, fc), fc.fg.gcomp, square=True)
 

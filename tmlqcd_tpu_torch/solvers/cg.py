@@ -5,6 +5,9 @@ Port of `tmlqcd_tpu/solvers/cg.py` (`cg`, `cg_rhs`, `cg_info`).  The reference's
 residual on the host each iteration.  Dot products accumulate in f64 while
 the fields stay f32 (or complex64); stopping is |r|^2 <= tol^2 |b|^2
 (rel_prec) or |r|^2 <= tol^2, so the iteration count matches the reference.
+On the ranks of a distributed run every dot and norm is a global sum
+(`comm.global_sum`), so every rank takes the same branch of every stopping
+test; the multishift and mixed solvers reduce through the same functions.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from tmlqcd_tpu_torch.comm import global_sum
 
 __all__ = ["cg", "cg_rhs", "cg_info", "CGResult"]
 
@@ -28,12 +33,12 @@ def _real(v: torch.Tensor) -> torch.Tensor:
 
 def _norm_sq(v: torch.Tensor) -> torch.Tensor:
     """|v|^2 with f64 accumulation (complex or split-real fields)."""
-    return torch.sum(_real(v).double() ** 2)
+    return global_sum(torch.sum(_real(v).double() ** 2))
 
 
 def _dot_re(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Re<a, b> with f64 accumulation."""
-    return torch.sum(_real(a).double() * _real(b).double())
+    return global_sum(torch.sum(_real(a).double() * _real(b).double()))
 
 
 def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
@@ -81,10 +86,10 @@ def cg_rhs(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor, rhs_
     fdtype = b.dtype
 
     def nsq(v):
-        return torch.sum(v.double() ** 2, dim=axes)
+        return global_sum(torch.sum(v.double() ** 2, dim=axes))
 
     def dot_re(a, c):
-        return torch.sum(a.double() * c.double(), dim=axes)
+        return global_sum(torch.sum(a.double() * c.double(), dim=axes))
 
     x = torch.zeros_like(b) if x0 is None else x0
     b_sq = nsq(b)

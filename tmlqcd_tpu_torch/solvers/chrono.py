@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from tmlqcd_tpu_torch.comm import global_sum
+
 __all__ = ["ChronoHistory", "chrono_init", "chrono_guess", "chrono_push"]
 
 
@@ -31,7 +33,7 @@ def _rdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Re<a, b>, f64-accumulated, for complex and split-real fields."""
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
-    return torch.sum(a.double() * b.double())
+    return global_sum(torch.sum(a.double() * b.double()))
 
 
 def _solve_spd_small(g: torch.Tensor, r: torch.Tensor, n: int) -> torch.Tensor:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from tmlqcd_tpu_torch.comm import global_max, global_sum
+
 __all__ = [
     "adj",
     "mul",
@@ -24,6 +26,7 @@ __all__ = [
     "inv3",
     "project_su3_polar",
     "random_momenta",
+    "momenta_from_gaussian",
     "kinetic_energy",
     "random_su3",
     "unitarity_defect",
@@ -135,15 +138,22 @@ def random_momenta(gen: torch.Generator, batch_shape: tuple,
     s = 0.7071067811865476
     re = torch.randn(shape, generator=gen, dtype=rdtype, device=gen.device) * s
     im = torch.randn(shape, generator=gen, dtype=rdtype, device=gen.device) * s
-    m = torch.complex(re, im)
+    return momenta_from_gaussian(torch.complex(re, im))
+
+
+def momenta_from_gaussian(m: torch.Tensor) -> torch.Tensor:
+    """The su(3) momenta of `random_momenta` from its complex gaussian
+    matrices m [3, 3, ...] (<|m_ij|^2> = 1): i times the traceless hermitian
+    part."""
     h = 0.5 * (m + adj(m))
     h = h - (trace(h) / 3.0) * _eye_like(h)
     return torch.complex(-h.imag, h.real)
 
 
 def kinetic_energy(p: torch.Tensor) -> torch.Tensor:
-    """sum_links tr(H^2) = sum |P_ij|^2, f64-accumulated."""
-    return torch.sum(p.real.double() ** 2 + p.imag.double() ** 2)
+    """sum_links tr(H^2) = sum |P_ij|^2, f64-accumulated (over the ranks of
+    a distributed run)."""
+    return global_sum(torch.sum(p.real.double() ** 2 + p.imag.double() ** 2))
 
 
 def random_su3(gen: torch.Generator, batch_shape: tuple, dtype=torch.complex64) -> torch.Tensor:
@@ -154,4 +164,4 @@ def random_su3(gen: torch.Generator, batch_shape: tuple, dtype=torch.complex64) 
 def unitarity_defect(u: torch.Tensor) -> torch.Tensor:
     """max_sites ||U^+U - 1||_F."""
     d = mul(adj(u), u) - _eye_like(u)
-    return torch.sqrt(torch.max(torch.sum(d.real**2 + d.imag**2, dim=(0, 1))))
+    return torch.sqrt(global_max(torch.max(torch.sum(d.real**2 + d.imag**2, dim=(0, 1)))))
