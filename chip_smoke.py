@@ -171,7 +171,9 @@ result lines):
    loopback of this check only), K3-I, K4 and K3-I+K4 per slab against
    their plain version and joined bit for bit against K1, K2-S per slab
    against its plain version and joined bit for bit against K2; loop,
-   device and plain time and the bound of each on a slab of (4,2); the
+   device and plain time and the bound of each on a slab of (4,2) of
+   16^3x32 (16,384 sites) and of 32^3x64 (262,144 sites; the device time
+   counts the kernel's own launches only); the
    draws of a trajectory and a hot start by timeslice against one draw.
    Then 8 spawned processes on the card (tests/dist_ranks.py: a file store,
    built kernels, faces through pinned host memory over gloo): in each,
@@ -186,6 +188,24 @@ result lines):
    two or more cards the same over NCCL, else the line "nccl between cards:
    not run, 1 card".
 
+20. main path 15: the measurements, NDPOLY and the Schrödinger functional
+   on the ranks.  8 spawned processes on the card (gloo) run three jobs:
+   (a) hmc2 at 16^3x32 on 4 x 2 ranks, 1 trajectory with ONLINE and
+   PIONNORM (rank 0 writes the files), against the same input in one
+   process (dH, acceptance, iterations within one) and the correlators
+   against one process measuring the ranks' checkpoint within a bound
+   derived from the solves' stopping test; (b) hmc5's action at 16^3x32
+   with GRADIENTFLOW (10 steps of 0.02), POLYAKOV along t and y,
+   ORIENTEDPLAQUETTES and FIELDSTRENGTH, every file to 1e-10 relative of
+   one process on the ranks' checkpoint; (c) GAUGE + NDPOLY (degree 32) at
+   hmc5's 4^3x8, 1 trajectory against one process (dH within a derived
+   bound, the interval check equal on every rank, no K1-SD or K1 on the
+   ranks, a rank's peak memory).  Then (d) hmc4 as shipped on 3 ranks
+   along t (T_loc 2), 4 of its 100 trajectories against one process: the
+   frozen links bit-equal after each, dH within n eps_f32 (|H_old| +
+   |H_new|), k the closed form.  Each job's s/trajectory, exchanges, ms per
+   exchange and launches summed over the ranks.
+
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON result object.  No JAX is imported.
 
@@ -193,7 +213,7 @@ line is the JSON result object.  No JAX is imported.
     python3 chip_smoke.py --nd-split          # K1-SD's and KH's checks and splits
     python3 chip_smoke.py --e2e [--root DIR]  # main paths 1, 3, 5-9 alone
     python3 chip_smoke.py --special           # the Q_W checks, the SF parity, paths 12, 13
-    python3 chip_smoke.py --distributed       # phase 19 alone (path 14), no result lines
+    python3 chip_smoke.py --distributed       # phases 19 and 20 alone (paths 14, 15), no result lines
 
 `--e2e` prints s/trajectory of paths 1, 3, 5, 8 and 9, path 6's and path
 7's seconds per operator and solver as one JSON line; `--root DIR` takes the package from another
@@ -204,6 +224,7 @@ the result lines.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -229,6 +250,8 @@ SAMPLE_MESH = os.path.join(HERE, "sample-input", "hmc5-multichip.input")
 # on the CPU comparison of the plain versions with the reference); an
 # indexing or sign error is O(1).  1e-5 leaves a 100x margin to rounding.
 KERNEL_RTOL = 1e-5
+# f32's unit roundoff, the derived bounds' unit
+EPS_F32 = 2.0 ** -24
 # |dH(kernel path) - dH(plain path)| at 8^4: the port's plain path and the
 # JAX reference differ by 4.1e-5 at 4^4 and 3.0e-4 at 8^4 (CPU runs of this
 # trajectory with the same draws: f32 fields, f64 sums, |H| ~ 2.4e5); the
@@ -917,25 +940,77 @@ def _host_ms(fn, n: int) -> float:
     return host
 
 
-def _device_ms(fn, n: int, sub: str) -> tuple[float, int]:
-    """Device time per call of the kernels whose name holds `sub`, summed
-    from torch.profiler's device intervals over n calls, and the number of
-    such kernels it saw (0: the profiler reported no device time, nan)."""
+def _is_kernel(name: str, kernel: str) -> bool:
+    """Whether a device event's name is the kernel function `kernel`, in its
+    mangled form (`<len><name>` after `_Z`, as `_Z11slab_kernelIfEv..`) or
+    demangled (`void slab_kernel<float>(..)`): `slab_kernel` is not
+    `ug_vjp_slab_kernel`."""
+    return (f"{len(kernel)}{kernel}" in name
+            or re.search(rf"(?<![A-Za-z0-9_]){re.escape(kernel)}(?![A-Za-z0-9_])", name)
+            is not None)
+
+
+# torch.profiler may report fewer of a kernel's launches than were made
+# (late in a long process 5 of 50; a session of one call none): a kernel's
+# device time is the mean over the launches it did report, published only
+# from at least MIN_SEEN of them, gathered over at most PROFILE_SESSIONS
+# sessions
+MIN_SEEN = 10
+PROFILE_SESSIONS = 8
+
+
+def _device_events(fn, n: int, match) -> list:
+    """The durations (us) of the device intervals whose name `match`es in
+    one torch.profiler session of n calls."""
     import torch
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and sub in ev.name:
-            total += float(ev.time_range.end - ev.time_range.start)
-            count += 1
-    return (total / n / 1e3 if count else float("nan")), count
+    return [float(ev.time_range.end - ev.time_range.start) for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and match(ev.name)]
+
+
+def _device_ms(fn, n: int, sub: str, per_call: int | None = 1) -> tuple[float, int, int]:
+    """Device time per call of the intervals `sub` names: a kernel
+    function's name (ending in `_kernel`) that function alone
+    (`_is_kernel`: `slab_kernel` is not `ug_vjp_slab_kernel`), any other
+    `sub` by substring ("" every interval, copies included).  With
+    `per_call` launches a call: the mean over the launches torch.profiler
+    reported, times per_call, from sessions of n calls until it reported
+    MIN_SEEN; a session reporting more than were made fails, and so do
+    PROFILE_SESSIONS with fewer than MIN_SEEN.  With per_call None (a torch
+    composite whose count a call is not known): the sum per call of a
+    session whose count equals the previous session's (a session that
+    dropped some differs), at least one a call.  -> (ms, intervals seen,
+    intervals made or, per_call None, seen)."""
+    import torch
+
+    def match(name):
+        return _is_kernel(name, sub) if sub.endswith("_kernel") else sub in name
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen, made, last = [], 0, None
+    for _ in range(PROFILE_SESSIONS):
+        got = _device_events(fn, n, match)
+        if per_call is None:
+            if last is not None and len(got) == last >= n:
+                return sum(got) / n / 1e3, len(got), len(got)
+            last = len(got)
+            continue
+        _check(len(got) <= n * per_call, f"device time of {sub!r}: the profiler reported "
+                                          f"{len(got)} intervals for {n * per_call} made")
+        seen += got
+        made += n * per_call
+        if len(seen) >= MIN_SEEN:
+            return sum(seen) / len(seen) * per_call / 1e3, len(seen), made
+    _check(per_call is not None, f"device time of {sub!r}: no two of {PROFILE_SESSIONS} "
+                                 f"sessions of {n} calls reported the same intervals")
+    _check(False, f"device time of {sub!r}: the profiler reported {len(seen)} of {made} "
+                  f"launches, fewer than {MIN_SEEN}")
 
 
 def _graph_ms(fn, n: int) -> float:
@@ -1183,7 +1258,7 @@ def phase_k1_split(lat16, lat32, bw: float):
 
             loop = _time_ms(fn, n)
             host = _host_ms(fn, n)
-            dev, seen = _device_ms(fn, n, "hopping_kernel")
+            dev, seen, _ = _device_ms(fn, n, "hopping_kernel")
             graph = _graph_ms(fn, n)
             info = dc.kernel_info(epi, True, name == "K1-B")
             site_bytes, site_flops = _model(epi, gbytes)
@@ -1218,8 +1293,9 @@ def phase_k1_split(lat16, lat32, bw: float):
             times = {"K1 x 4": [], "K1-S": []}
             for label, fn in (("K1 x 4", by_k1), ("K1-S", by_k1s), ("K1-S", by_k1s),
                               ("K1 x 4", by_k1)):
+                per_call = 2 * len(stages) if label == "K1 x 4" else 1
                 times[label].append((_time_ms(fn, n), _host_ms(fn, n),
-                                     _device_ms(fn, n, "hopping_")[0]))
+                                     _device_ms(fn, n, "hopping_", per_call)[0]))
             nbytes = sum(_model(epi, gbytes)[0] for st in stages for epi in st[:2]) * sites
             flops = sum(_model(epi, gbytes)[1] for st in stages for epi in st[:2]) * sites
             bound = _bound_ms(nbytes, flops)
@@ -1429,11 +1505,12 @@ def _nd_by_k1rd(dc, wf, op, chi, params, lat, clover: bool, square: bool):
     return chi
 
 
-def _split3(fn, n: int) -> tuple:
+def _split3(fn, n: int, sub: str = "", per_call: int | None = None) -> tuple:
     """(wrapper loop, host, device) ms per call: CUDA events around a loop
-    of calls, the host's clock around the enqueue alone, and the sum of
-    every device interval torch.profiler saw (kernels and copies)."""
-    return _time_ms(fn, n), _host_ms(fn, n), _device_ms(fn, n, "")[0]
+    of calls, the host's clock around the enqueue alone, and the device
+    time of `sub`'s intervals (`_device_ms`; by default every interval,
+    kernels and copies, of a torch composite)."""
+    return _time_ms(fn, n), _host_ms(fn, n), _device_ms(fn, n, sub, per_call)[0]
 
 
 def _fmt_us(v) -> str:
@@ -1480,8 +1557,9 @@ def phase_nd_shard_split(lat16, lat32, bw: float):
             times = {}
             turns = [("composed", composed), ("K1-SD", new), ("K1-SD", new),
                      ("composed", composed)]
-            for label, f in turns:
-                times.setdefault(label, []).append(_split3(f, n))
+            for label, f in turns:  # K1-SD: one launch a call
+                named = ("hopping_schur_nd", 1) if label == "K1-SD" else ()
+                times.setdefault(label, []).append(_split3(f, n, *named))
             bound = _bound_ms(site_bytes * sites, 0.0)
             best = {k: tuple(min(r[i] for r in v) for i in range(3)) for k, v in times.items()}
             rows[(tag, name)] = dict(bound=bound[0], bound_by=bound[1],
@@ -1512,8 +1590,9 @@ def phase_nd_shard_split(lat16, lat32, bw: float):
                                                 gcomp=gc),
             "KH": lambda: dc.halo_pack(psi, lat, mesh),
         }
+        named = {"K3-I": ("slab_kernel", 1), "K4": ("slab_kernel", 1), "KH": ("halo_kernel", 1)}
         for name, fn in pieces.items():
-            rows[(tag, "shard " + name)] = _split3(fn, n)
+            rows[(tag, "shard " + name)] = _split3(fn, n, *named.get(name, ()))
 
         def glue_hop():
             return _shard_by_glue(dc, ug, psi, 1, lat, mesh, gc, None)
@@ -1580,7 +1659,7 @@ def phase_nd_shard_split(lat16, lat32, bw: float):
             "7 K2": (lambda: dc.hopping_ug_vjp(g, psi, 0, lat), "ug_vjp_kernel"),
         }
         for name, (fn, sub) in solo.items():
-            dev, seen = _device_ms(fn, n, sub)
+            dev, seen, _ = _device_ms(fn, n, sub)
             rows[(tag, "device " + name)] = dev
             _say(f"[device] {name} {tag}: {dev * 1e3:.1f} us device ({seen} kernels profiled)")
         del params, fg12, psi, out, mh, th, psis, psis_o, blocks, chi, text, ext, g, sloppy
@@ -3425,7 +3504,8 @@ BENCH_APPS = 1000
 def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: float):
     """`cli.offline_measurement.main` on phase 9's checkpoint (every file
     read back, the flow against phase 9's own), `cli.benchmark.main` at
-    16^3x32 (K1 within 1.5x of K1 timed by phase 3's method just before), and
+    16^3x32 (K1 within 1.5x of K1 timed by phase 3's method just before, each
+    the least of `benchmark.LOOPS` loops), and
     an `api.Session` round trip
     on phase 5's checkpoint (plaquette, one inverted point column, the
     native checksum route)."""
@@ -3478,15 +3558,18 @@ def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: flo
     # the benchmark CLI at 16^3x32: K1 and one Qhat_pm (K1-S).  K1's loop is
     # host-bound (~25 us of wrapper a call), and the card's host is shared:
     # the time of 100 calls swings by 2x within seconds and drifts over
-    # minutes.  So the CLI times BENCH_APPS calls, and its K1 is held to K1
-    # timed by phase 3's method on phase 3's fields just before it, not to
-    # phase 3's reading of minutes ago (printed beside)
+    # minutes, and one loop of 1000 read 1.53x another seconds apart.  So the
+    # CLI reports the least of `benchmark.LOOPS` loops of BENCH_APPS calls,
+    # and its K1 is held to the least of as many loops of phase 3's method on
+    # phase 3's fields just before it, not to phase 3's reading of minutes
+    # ago (printed beside)
     lat16 = Lattice((32, 16, 16, 16))
     params, _, fg12, psi, psi_o, _, _ = _fields(lat16, "cuda", 12)
     epi = ("mhat", params.mutld, 1.0, params.kappa ** 2, True)
-    k1_now = _time_ms(lambda: dc.hopping_split(fg12.ug_odd, psi, 1, lat16, epi=epi,
-                                               gcomp=fg12.gcomp, **_epi_kw(epi, psi_o, None)),
-                      BENCH_APPS)
+    k1_now = min(_time_ms(lambda: dc.hopping_split(fg12.ug_odd, psi, 1, lat16, epi=epi,
+                                                   gcomp=fg12.gcomp,
+                                                   **_epi_kw(epi, psi_o, None)), BENCH_APPS)
+                 for _ in range(benchmark.LOOPS))
     del fg12, psi, psi_o
     rc, log, counts, wall = _run_cli(benchmark, ["--dims", "16", "16", "16", "32",
                                                  "--apps", str(BENCH_APPS)])
@@ -3503,8 +3586,8 @@ def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: flo
     _check_no_plain(counts)
     _say(f"[benchmark] {res['card']}: K1 {k1['ms'] * 1e3:.1f} us ({k1['gflops']:.1f} GF/s, "
          f"{k1['bound_share']:.1%} of its bound {k1['bound_ms'] * 1e3:.1f} us; phase 3's method "
-         f"just before {k1_now * 1e3:.1f} us, phase 3 {k1_ms * 1e3:.1f} us; {BENCH_APPS} calls "
-         f"each); Qhat_pm (K1-S) {qpm['ms'] * 1e3:.1f} us ({qpm['gflops']:.1f} "
+         f"just before {k1_now * 1e3:.1f} us, phase 3 {k1_ms * 1e3:.1f} us; the least of "
+         f"{benchmark.LOOPS} loops of {BENCH_APPS} calls each); Qhat_pm (K1-S) {qpm['ms'] * 1e3:.1f} us ({qpm['gflops']:.1f} "
          f"GF/s, {qpm['bound_share']:.1%} of its bound {qpm['bound_ms'] * 1e3:.1f} us)")
 
     # the embedding API
@@ -3936,7 +4019,9 @@ def _k2s_model(loc, yhalo: bool) -> tuple[int, int]:
 
 
 def phase_rank_kernels():
-    """The kernels of a rank on the one card, for each of DIST_CASES: the
+    """The kernels of a rank on the one card, for each of DIST_CASES and for
+    the one-flavour spinor and the flavour doublet (r_axis 1: KH-P and the
+    slab kernel's R>0 route, K1-R-D on the whole lattice): the
     field cut into slabs, KH-P on each against its plain version (the
     torch exchange at one slab, element for element), the faces handed to
     the neighbours by device copies, then K3-I and K4 per slab against their
@@ -3945,8 +4030,11 @@ def phase_rank_kernels():
     the same (at T_loc 2 there is no interior: K4 covers every row); K2-S
     per slab on the received faces against its plain version and joined bit
     for bit against K2 on the whole lattice.  Then, on slab 0 of (4,2) at
-    16^3x32, each kernel's loop and device time, its plain version's and
-    its bound."""
+    16^3x32 (16,384 sites) and on one slab of (4,2) at 32^3x64 (262,144
+    sites, where a launch is no longer at the launch floor), each kernel's
+    loop and device time, its plain version's and its bound
+    (`_rank_kernel_times`) -> (worst errors, the 16^3x32 rows, the 32^3x64
+    rows)."""
     import torch
 
     from tmlqcd_tpu_torch import parallel
@@ -3967,98 +4055,143 @@ def phase_rank_kernels():
         def cut(f, mesh=mesh):
             return [s.contiguous() for s in parallel.split_slabs(f, lat, mesh)]
 
-        for hs in (True, False):
-            xs, faces = cut(psi), []
-            for x in xs:
-                n0 = dc.halo_faces.launches
-                mh_f, th_f = dc.halo_faces(x, loc, None, hs)
-                _check(dc.halo_faces.launches == n0 + 1, "KH-P launch not counted")
-                ref_mh = dc._y_halos(x, loc, one, hs, None, faces=True)
-                ref_th = dc._t_halos(x, loc, one, hs, None)
-                _sync("cuda")
-                worst["KH-P"] = max(worst["KH-P"], float((th_f - ref_th).abs().max()),
-                                    float((mh_f - ref_mh).abs().max()))
-                _check(torch.equal(mh_f, ref_mh) and torch.equal(th_f, ref_th),
-                       f"KH-P mesh {shape} halfspinor {hs} differs from the torch exchange")
-                faces.append((mh_f, th_f))
-            halos = loopback(faces, shape)
-            variants = ((("K3-I rank", "int", {}),) if loc.dims[0] >= 4 else ())
-            for (gname, fg), p in ((("12-real", fg12), 0), (("12-real", fg12), 1),
-                                   (("18-real", fg18), 1)):
-                ug = fg.ug_even if p == 0 else fg.ug_odd
-                ugs = cut(ug)
-                split_out, all_out = [], []
-                for r, x in enumerate(xs):
-                    th, mh = halos[r]
-                    res = {"K3-I rank": torch.zeros_like(x)}
-                    for name, variant, extra in variants + (("K4 rank", "bnd", {"th": th}),
-                                                            ("K3-I+K4 rank", "all", {"th": th})):
-                        outs = []
-                        for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain):
-                            out = torch.zeros_like(x)
-                            fn(ugs[r], x, p, loc, one, variant, out, mh=mh, gcomp=fg.gcomp,
-                               **extra)
-                            outs.append(out)
-                        _sync("cuda")
-                        err, rel = _rel_err(*outs)
-                        worst[name] = max(worst[name], err)
-                        _check(rel <= KERNEL_RTOL, f"{name} mesh {shape} slab {r} {gname} p={p} "
-                                                   f"off its plain version by {rel:.3e}")
-                        res[name] = outs[0]
-                    t_loc = loc.dims[0]
-                    joined = res["K3-I rank"].clone()
-                    for row in (0, t_loc - 1):
-                        joined[..., row, :, :] = res["K4 rank"][..., row, :, :]
-                    split_out.append(joined)
-                    all_out.append(res["K3-I+K4 rank"])
-                whole = _whole_hop(dc, fg, psi, p, lat, None)
-                _sync("cuda")
-                for outs in (split_out, all_out):
-                    got = parallel.join_slabs(outs, None, mesh)
-                    n_hops += 1
-                    n_exact += bool(torch.equal(got, whole))
-            # K2-S on the received faces, against its plain version and K2
-            gs = cut(g)
-            for p in (0, 1):
-                got = []
-                for r, x in enumerate(xs):
-                    th, mh = halos[r]
-                    n0 = dc.hopping_ug_vjp_slab.launches
-                    out = dc.hopping_ug_vjp_slab(gs[r], x, p, loc, th, mh)
-                    _check(dc.hopping_ug_vjp_slab.launches == n0 + 1, "K2-S launch not counted")
-                    ref = dc.hopping_ug_vjp_slab_plain(gs[r], x, p, loc, th, mh)
+        # the one-flavour spinor, then the flavour doublet (R = 2 at r_axis 1,
+        # the slab kernel's R>0 route NDPOLY's operators take on the ranks)
+        for x_in, r_axis in ((psi, None), (torch.stack([psi, psi_o], dim=1), 1)):
+            for hs in (True, False):
+                xs, faces = cut(x_in), []
+                for x in xs:
+                    n0 = dc.halo_faces.launches
+                    mh_f, th_f = dc.halo_faces(x, loc, r_axis, hs)
+                    _check(dc.halo_faces.launches == n0 + 1, "KH-P launch not counted")
+                    ref_mh = dc._y_halos(x, loc, one, hs, r_axis, faces=True)
+                    ref_th = dc._t_halos(x, loc, one, hs, r_axis)
                     _sync("cuda")
-                    err, rel = _rel_err(out, ref)
-                    worst["K2-S"] = max(worst["K2-S"], err)
-                    _check(rel <= KERNEL_RTOL, f"K2-S mesh {shape} slab {r} p={p} off its plain "
-                                               f"version by {rel:.3e}")
-                    got.append(out)
-                whole = dc.hopping_ug_vjp(g, psi, p, lat)
-                _sync("cuda")
-                n_hops += 1
-                n_exact += bool(torch.equal(parallel.join_slabs(got, None, mesh), whole))
-        _say(f"[check] rank kernels, {lat.dims} on mesh {shape} (T_loc {loc.dims[0]}): KH-P "
-             f"equal to the torch exchange; max|d| "
+                    worst["KH-P"] = max(worst["KH-P"], float((th_f - ref_th).abs().max()),
+                                        float((mh_f - ref_mh).abs().max()))
+                    _check(torch.equal(mh_f, ref_mh) and torch.equal(th_f, ref_th),
+                           f"KH-P mesh {shape} R axis {r_axis} halfspinor {hs} differs from the "
+                           f"torch exchange")
+                    faces.append((mh_f, th_f))
+                halos = loopback(faces, shape)
+                variants = ((("K3-I rank", "int", {}),) if loc.dims[0] >= 4 else ())
+                for (gname, fg), p in ((("12-real", fg12), 0), (("12-real", fg12), 1),
+                                       (("18-real", fg18), 1)):
+                    ug = fg.ug_even if p == 0 else fg.ug_odd
+                    ugs = cut(ug)
+                    split_out, all_out = [], []
+                    for r, x in enumerate(xs):
+                        th, mh = halos[r]
+                        res = {"K3-I rank": torch.zeros_like(x)}
+                        bnd = (("K4 rank", "bnd", {"th": th}), ("K3-I+K4 rank", "all", {"th": th}))
+                        for name, variant, extra in variants + bnd:
+                            outs = []
+                            for fn in (dc.hopping_slab_split, dc.hopping_slab_split_plain):
+                                out = torch.zeros_like(x)
+                                fn(ugs[r], x, p, loc, one, variant, out, mh=mh, gcomp=fg.gcomp,
+                                   r_axis=r_axis, **extra)
+                                outs.append(out)
+                            _sync("cuda")
+                            err, rel = _rel_err(*outs)
+                            worst[name] = max(worst[name], err)
+                            _check(rel <= KERNEL_RTOL,
+                                   f"{name} mesh {shape} R axis {r_axis} slab {r} {gname} p={p} "
+                                   f"off its plain version by {rel:.3e}")
+                            res[name] = outs[0]
+                        t_loc = loc.dims[0]
+                        joined = res["K3-I rank"].clone()
+                        for row in (0, t_loc - 1):
+                            joined[..., row, :, :] = res["K4 rank"][..., row, :, :]
+                        split_out.append(joined)
+                        all_out.append(res["K3-I+K4 rank"])
+                    whole = _whole_hop(dc, fg, x_in, p, lat, r_axis)
+                    _sync("cuda")
+                    for outs in (split_out, all_out):
+                        got = parallel.join_slabs(outs, None, mesh)
+                        n_hops += 1
+                        n_exact += bool(torch.equal(got, whole))
+                if r_axis is not None:  # K2-S has no R axis
+                    continue
+                # K2-S on the received faces, against its plain version and K2
+                gs = cut(g)
+                for p in (0, 1):
+                    got = []
+                    for r, x in enumerate(xs):
+                        th, mh = halos[r]
+                        n0 = dc.hopping_ug_vjp_slab.launches
+                        out = dc.hopping_ug_vjp_slab(gs[r], x, p, loc, th, mh)
+                        _check(dc.hopping_ug_vjp_slab.launches == n0 + 1,
+                               "K2-S launch not counted")
+                        ref = dc.hopping_ug_vjp_slab_plain(gs[r], x, p, loc, th, mh)
+                        _sync("cuda")
+                        err, rel = _rel_err(out, ref)
+                        worst["K2-S"] = max(worst["K2-S"], err)
+                        _check(rel <= KERNEL_RTOL, f"K2-S mesh {shape} slab {r} p={p} off its "
+                                                   f"plain version by {rel:.3e}")
+                        got.append(out)
+                    whole = dc.hopping_ug_vjp(g, psi, p, lat)
+                    _sync("cuda")
+                    n_hops += 1
+                    n_exact += bool(torch.equal(parallel.join_slabs(got, None, mesh), whole))
+                if (dims, shape) == DIST_CASES[1]:
+                    timed = dict(loc=loc, one=one, x=xs[0], halos=halos[0],
+                                 ug=cut(fg12.ug_odd)[0], gc=fg12.gcomp, g=gs[0])
+        _say(f"[check] rank kernels, {lat.dims} on mesh {shape} (T_loc {loc.dims[0]}), one "
+             f"flavour and the doublet (r_axis 1): KH-P equal to the torch exchange; max|d| "
              f"vs plain K3-I {worst['K3-I rank']:.3e}, K4 {worst['K4 rank']:.3e}, K3-I+K4 "
              f"{worst['K3-I+K4 rank']:.3e}, K2-S {worst['K2-S']:.3e}")
-        if (dims, shape) == DIST_CASES[1]:
-            timed = dict(mesh=mesh, loc=loc, one=one, x=xs[0], halos=halos[0],
-                         ug=cut(fg12.ug_odd)[0],
-                         gc=fg12.gcomp, g=gs[0])
-    _say(f"[check] joined rank kernels vs K1 / K2 on the whole lattice: {n_exact} of {n_hops} "
-         f"bit for bit")
-    _check(n_exact == n_hops, f"{n_hops - n_exact} joined rank hops differ from K1 / K2 in "
-                              f"their bits")
-    # loop, device and plain time of each kernel on slab 0 of (4,2)
-    x, (th, mh), ug, gc, loc, one = (timed[k] for k in ("x", "halos", "ug", "gc", "loc", "one"))
+    _say(f"[check] joined rank kernels vs K1 / K1-R-D / K2 on the whole lattice: {n_exact} of "
+         f"{n_hops} bit for bit")
+    _check(n_exact == n_hops, f"{n_hops - n_exact} joined rank hops differ from K1 / K1-R-D / K2 "
+                              f"in their bits")
+    # loop, device and plain time of each kernel on slab 0 of (4,2) at
+    # 16^3x32, then on one slab of (4,2) at 32^3x64
+    rows = _rank_kernel_times(timed["x"], timed["halos"], timed["ug"], timed["gc"], timed["g"],
+                              timed["loc"], timed["one"], "16^3x32")
+    big = _rank_kernel_times(*_big_slab(), "32^3x64")
+    return worst, rows, big
+
+
+# one rank's slab of 32^3x64 on (4, 2): 16 x 32 x 16 x 32 = 262,144 sites
+BIG_SLAB = (16, 32, 16, 32)
+
+
+def _big_slab():
+    """The inputs of the rank kernels on BIG_SLAB: a random gauge copy,
+    spinor and cotangent on the slab, and the halos its own faces give when
+    handed round as if every neighbour were the slab itself (the values do
+    not matter for a time) -> (x, (th, mh), ug, gcomp, g, loc, one)."""
+    from tmlqcd_tpu_torch import parallel
+    from tmlqcd_tpu_torch.lattice import Lattice
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    loc = Lattice(BIG_SLAB)
+    _, _, fg12, x, _, g, _ = _fields(loc, "cuda", 37)
+    faces = dc.halo_faces(x, loc, None, True)
+    halos = _dist_ranks().loopback([faces, faces], (1, 2))[0]
+    return (x, halos, fg12.ug_odd, fg12.gcomp, g, loc,
+            parallel.Mesh(1, 1, device="cuda"))
+
+
+def _rank_kernel_times(x, halos, ug, gc, g, loc, one, tag: str) -> dict:
+    """Each rank kernel on one slab `loc` (odd parity, half-spinor faces):
+    loop time (CUDA events, 200 calls), device time (torch.profiler, 50
+    calls, the kernel's own launches only), its plain version's and its
+    bound by the byte model -> {name: (loop, plain, bound, bound by,
+    device)} in ms."""
+    import torch
+
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+
+    th, mh = halos
     out = torch.empty_like(x)
     slab = {"int": "K3-I rank", "bnd": "K4 rank", "all": "K3-I+K4 rank"}
     cases = {"KH-P": (lambda: dc.halo_faces(x, loc), lambda: (dc._y_halos(
                  x, loc, one, True, None, faces=True), dc._t_halos(x, loc, one, True, None)),
                  "halo_kernel", (192 * (2 * loc.dims[1] * loc.m
                                         + 2 * loc.dims[0] * loc.dims[1] * loc.zh), 0)),
-             "K2-S": (lambda: dc.hopping_ug_vjp_slab(timed["g"], x, 1, loc, th, mh),
-                      lambda: dc.hopping_ug_vjp_slab_plain(timed["g"], x, 1, loc, th, mh),
+             "K2-S": (lambda: dc.hopping_ug_vjp_slab(g, x, 1, loc, th, mh),
+                      lambda: dc.hopping_ug_vjp_slab_plain(g, x, 1, loc, th, mh),
                       "ug_vjp_slab_kernel", _k2s_model(loc, True))}
     for variant, name in slab.items():
         kw = {"th": th} if variant != "int" else {}
@@ -4070,14 +4203,16 @@ def phase_rank_kernels():
     rows = {}
     for name, (fn, plain, sub, (nbytes, flops)) in cases.items():
         ms = _time_ms(fn, 200)
-        dev_ms, seen = _device_ms(fn, 50, sub)
+        dev_ms, seen, made = _device_ms(fn, 50, sub)
         pms = _time_ms(plain, 10)
         bound = _bound_ms(nbytes, flops)
         rows[name] = (ms, pms, *bound, dev_ms)
-        _say(f"[time] {name:13s} 16^3x32 slab of (4,2) [{loc.dims}]: loop {ms * 1e3:8.1f} us, "
-             f"device {dev_ms * 1e3:8.1f} us ({seen} kernels seen), bound {bound[0] * 1e3:.1f} "
-             f"us by {bound[1]} ({nbytes / 1e6:.3f} MB), plain {pms * 1e3:9.1f} us")
-    return worst, rows
+        _say(f"[time] {name:13s} {tag} slab of (4,2) [{loc.dims}, {loc.volume} sites]: loop "
+             f"{ms * 1e3:8.1f} us, device {dev_ms * 1e3:8.1f} us (mean of the {seen} of its {made} "
+             f"launches the profiler saw), "
+             f"bound {bound[0] * 1e3:.2f} us by {bound[1]} ({nbytes / 1e6:.3f} MB, "
+             f"{bound[0] / dev_ms:.0%} of it by device time), plain {pms * 1e3:9.1f} us")
+    return rows
 
 
 # hopping_rank's routes, (halfspinor, overlap): K3-I then K4 (K3-I+K4 below
@@ -4090,56 +4225,107 @@ def _rank_hop_check(mesh) -> dict:
     """On this rank of `mesh` (4 x 2 ranks): `dslash_cuda.hopping_rank`, the
     composite of KH-P, `comm.exchange` and the slab kernel the mesh picks,
     once per route of RANK_ROUTES at 16^3x32 (T_loc 8) and at hmc5's 4^3x8
-    (T_loc 2), on card tensors against the same call on host copies (the
-    plain route: the torch faces, the exchange, hopping_slab_split_plain)
-    -> {route: relative max|d|}."""
+    (T_loc 2), on the one-flavour spinor and on the flavour doublet (r_axis
+    1, the slab kernel's R>0 route), on card tensors against the same call
+    on host copies (the plain route: the torch faces, the exchange,
+    hopping_slab_split_plain), and against this rank's slab of K1 / K1-R-D
+    on the whole lattice, bit for bit -> {"rel": {case: relative max|d|},
+    "unequal": [cases whose slab differs from K1 / K1-R-D]}."""
     import torch
 
     from tmlqcd_tpu_torch import parallel
     from tmlqcd_tpu_torch.lattice import Lattice
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
-    errs = {}
+    errs, unequal = {}, []
     for dims in ((32, 16, 16, 16), (8, 4, 4, 4)):
         lat = Lattice(dims)
-        _, _, fg12, psi, _, _, _ = _fields(lat, "cuda", 36)
+        _, _, fg12, psi, psi_o, _, _ = _fields(lat, "cuda", 36)
         loc = mesh.local(lat)
         r = mesh.rank
-        for hs, ov in RANK_ROUTES:
-            m = dataclasses.replace(mesh, halfspinor=hs, overlap=ov)
-            for p in (0, 1):
-                ug = parallel.split_slabs(fg12.ug_even if p == 0 else fg12.ug_odd, lat, mesh)[r]
-                x = parallel.split_slabs(psi, lat, mesh)[r].contiguous()
-                ug = ug.contiguous()
-                got = dc.hopping_rank(ug, x, p, loc, m, fg12.gcomp)
-                ref = dc.hopping_rank(ug.cpu(), x.cpu(), p, loc, m, fg12.gcomp)
-                rel = float((got.cpu() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
-                key = f"{dims[3]}^3x{dims[0]} T_loc {loc.dims[0]} halfspinor {hs} overlap {ov}"
-                errs[key] = max(errs.get(key, 0.0), rel)
-    return errs
+        for x_in, r_axis in ((psi, None), (torch.stack([psi, psi_o], dim=1), 1)):
+            x = parallel.split_slabs(x_in, lat, mesh)[r].contiguous()
+            for hs, ov in RANK_ROUTES:
+                m = dataclasses.replace(mesh, halfspinor=hs, overlap=ov)
+                key = (f"{dims[3]}^3x{dims[0]} T_loc {loc.dims[0]} R axis {r_axis} halfspinor {hs} "
+                       f"overlap {ov}")
+                for p in (0, 1):
+                    ugw = fg12.ug_even if p == 0 else fg12.ug_odd
+                    ug = parallel.split_slabs(ugw, lat, mesh)[r].contiguous()
+                    got = dc.hopping_rank(ug, x, p, loc, m, fg12.gcomp, r_axis=r_axis)
+                    ref = dc.hopping_rank(ug.cpu(), x.cpu(), p, loc, m, fg12.gcomp, r_axis=r_axis)
+                    rel = float((got.cpu() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+                    errs[key] = max(errs.get(key, 0.0), rel)
+                    whole = _whole_hop(dc, fg12, x_in, p, lat, r_axis)
+                    if not torch.equal(got, parallel.split_slabs(whole, lat, mesh)[r]):
+                        unequal.append(f"{key} p={p}")
+    return {"rel": errs, "unequal": unequal}
 
 
 def _dist_job(rank: int, jobs, backend: str, hop_check: bool) -> dict:
-    """One rank of phase 19's runs (its group joined by tests/dist_ranks.py,
-    rank r on card r mod the cards): with `hop_check`, `_rank_hop_check`; then
-    `cli.hmc.main(argv + --distributed)` for each job, the launch counters
-    zeroed just before and read just after; its counts, the exchange
-    statistics and the wall time."""
+    """One rank of phase 19's and 20's runs (its group joined by
+    tests/dist_ranks.py, rank r on card r mod the cards): with `hop_check`,
+    `_rank_hop_check`; then `cli.hmc.main(argv + --distributed)` for each
+    job, the launch counters zeroed just before and read just after; its
+    counts, the exchange statistics, the wall time, the interval check's
+    results on this rank, whether the SF's frozen links stayed bit-equal
+    after each trajectory (on the rank holding t = 0), each trajectory's
+    (H_old, H_new) and its peak device memory."""
     from tmlqcd_tpu_torch import comm, parallel
     from tmlqcd_tpu_torch.cli import hmc as cli
     from tmlqcd_tpu_torch.ops import dslash_cuda as dc
 
+    import torch
+
+    from tmlqcd_tpu_torch import hmc as hmc_pkg
+    from tmlqcd_tpu_torch.hmc import validate
+
     dc.kernel_library()  # built before the ranks started: loaded
     result = {"rank": rank, "runs": [],
               "hop_check": _rank_hop_check(parallel.make_mesh((4, 2))) if hop_check else None}
-    for argv in jobs:
-        dc.reset_counters()
-        comm.reset_stats()
-        t0 = time.perf_counter()
-        rc = cli.main(list(argv) + ["--distributed", "--backend", backend])
-        wall = time.perf_counter() - t0
-        result["runs"].append({"rc": rc, "wall": wall, "counts": _read_counts(dc),
-                               "comm": comm.stats()})
+    checked = []
+    real_check = validate.check_rational_intervals
+
+    def check(*a, **k):  # the interval check's results on this rank
+        out = real_check(*a, **k)
+        checked.append([tuple(c) for c in out])
+        return out
+
+    # with a momenta mask (the SF): whether the frozen t = 0 spatial links are
+    # bit-equal to the start after each trajectory, on the rank holding t = 0
+    frozen, energies = [], []
+    real_traj = hmc_pkg.hmc_trajectory
+
+    def watched(c, u, key, *a, **k):
+        out = real_traj(c, u, key, *a, **k)
+        energies.append((out[1].h_old, out[1].h_new))
+        if c.momenta_mask is not None and c.lat.offset[0] == 0:
+            if not frozen:
+                frozen.append(u[:, :, 1:4, 0].clone())
+            frozen.append(bool(torch.equal(out[0][:, :, 1:4, 0], frozen[0])))
+        return out
+
+    validate.check_rational_intervals = check
+    hmc_pkg.hmc_trajectory = watched
+    try:
+        for argv in jobs:
+            checked.clear()
+            frozen.clear()
+            energies.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dc.reset_counters()
+            comm.reset_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(list(argv) + ["--distributed", "--backend", backend])
+            wall = time.perf_counter() - t0
+            result["runs"].append({"rc": rc, "wall": wall, "counts": _read_counts(dc),
+                                   "comm": comm.stats(), "validate": list(checked),
+                                   "frozen": frozen[1:], "energies": list(energies),
+                                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        validate.check_rational_intervals = real_check
+        hmc_pkg.hmc_trajectory = real_traj
     return result
 
 
@@ -4197,12 +4383,19 @@ def phase_distributed(workdir: str, one_dir: str | None = None):
     t0 = time.perf_counter()
     results = _run_ranks(8, "gloo", jobs, os.path.join(workdir, "ranks-gloo"), hop_check=True)
     wall = time.perf_counter() - t0
-    hop = {k: max(res["hop_check"][k] for res in results) for k in results[0]["hop_check"]}
+    hop = {k: max(res["hop_check"]["rel"][k] for res in results)
+           for k in results[0]["hop_check"]["rel"]}
+    unequal = [f"rank {r}: {c}" for r, res in enumerate(results)
+               for c in res["hop_check"]["unequal"]]
     _say("[check] hopping_rank on 8 ranks (gloo) against its plain route on host copies, "
          "relative max|d| over the ranks and both parities: "
-         + "; ".join(f"{k} {v:.3e}" for k, v in hop.items()))
+         + "; ".join(f"{k} {v:.3e}" for k, v in hop.items())
+         + f"; each rank's slab against K1 / K1-R-D on the whole lattice: "
+           f"{len(hop) * 2 * len(results) - len(unequal)} of {len(hop) * 2 * len(results)} "
+           f"bit for bit")
     _check(all(v <= KERNEL_RTOL for v in hop.values()),
            f"hopping_rank off its plain route: {hop}")
+    _check(not unequal, f"hopping_rank differs from K1 / K1-R-D in its bits: {unequal}")
     counts5, counts16 = _sum_counts(results, 0), _sum_counts(results, 1)
     total = {k: counts5[k] + counts16[k] for k in counts5}
     _say(f"[main-dist] 8 ranks (gloo) on {torch.cuda.device_count()} card(s): {wall:.1f} s wall "
@@ -4274,6 +4467,406 @@ def phase_distributed(workdir: str, one_dir: str | None = None):
     else:
         _say("nccl between cards: not run, 1 card")
     return total, [float(c[6]) for c in rows]
+
+
+# ---------------------------------------------------------------------------
+# phase 20: main path 15, measurements, NDPOLY and the SF on the ranks
+# ---------------------------------------------------------------------------
+
+# the ranks' jobs: (a) hmc2 with ONLINE and PIONNORM at 16^3x32, (b) hmc5's
+# action at 16^3x32 with the gauge measurements, (c) GAUGE + NDPOLY at
+# hmc5's 4^3x8, all on 4 x 2 ranks; (d) hmc4 on 3 ranks along t
+MEAS_FLOW_STEPS = 10  # hmc3's GRADIENTFLOW, Steps cut from 50
+NDPOLY_TRAJECTORIES = 1  # cut from 2 for the time limit (~8000 exchanges a trajectory)
+SF_RANK_TRAJECTORIES = 4  # of hmc4's 100
+SF_RANKS = 3  # T_loc 2: the mesh refuses T = 6 on 2 ranks (T_loc 3 is odd)
+# the f32 true-residual floor of a CG solve, |b - A x| / |b|: 1.3e-7 at
+# most in the port's records (ROADMAP queue 3), with a margin of ~8
+R_FLOOR = 1e-6
+
+
+def _pionnorm_block(online: str) -> str:
+    """A PIONNORM block with the ONLINE block's operator and frequency."""
+    return re.sub(r"(?i)BeginMeasurement\s+ONLINE", "BeginMeasurement PIONNORM", online)
+
+
+def meas_smoke_inputs(workdir: str) -> dict:
+    """The four inputs of phase 20, written into `workdir` -> {job: path}."""
+    with open(SAMPLE) as f:
+        hmc2 = smoke_input(f.read())
+    hmc2 = re.sub(r"(?m)^(\s*)(Measurements|NSave|Frequency) = 3$", r"\1\2 = 1", hmc2)
+    online = re.search(r"(?ims)^BeginMeasurement\s+ONLINE.*?^EndMeasurement[^\n]*\n", hmc2)
+    _check(online is not None, "hmc2 holds no ONLINE block")
+    hmc2 += "NrTProcs = 4\nNrYProcs = 2\n" + _pionnorm_block(online.group(0))
+    with open(SAMPLE_MESH) as f:
+        hmc5 = f.read()
+    gauge = mesh_smoke_input(hmc5, L=16, T=32, Measurements=1, NSave=1)
+    gauge += (f"BeginMeasurement GRADIENTFLOW\n  Frequency = 1\n  StepSize = 0.02\n"
+              f"  Steps = {MEAS_FLOW_STEPS}\nEndMeasurement\n"
+              + "".join(f"BeginMeasurement POLYAKOV\n  Frequency = 1\n  Direction = {d}\n"
+                        "EndMeasurement\n" for d in (0, 2))
+              + "BeginMeasurement ORIENTEDPLAQUETTES\n  Frequency = 1\nEndMeasurement\n"
+              "BeginMeasurement FIELDSTRENGTH\n  Frequency = 1\nEndMeasurement\n")
+    # hmc3's doublet (path 10's NDPOLY: its kappa, 2Kappamubar, 2Kappaepsbar,
+    # interval and degree 32) in place of hmc5's DET, on DET's timescale with
+    # its integration steps and precision (the heatbath to |r| <= 1e-8 |b|,
+    # as path 10)
+    poly, n = re.subn(r"(?ims)^BeginMonomial\s+DET\b.*?^EndMonomial[^\n]*\n",
+                      "BeginMonomial NDPOLY\n  Timescale = 1\n  kappa = 0.1400645\n"
+                      "  2Kappamubar = 0.1315052\n  2Kappaepsbar = 0.1351419\n"
+                      "  StildeMin = 0.01\n  StildeMax = 4.7\n  AcceptancePrecision = 1e-16\n"
+                      "  MaxSolverIterations = 1000\n  IntegrationSteps = 2\nEndMonomial\n",
+                      mesh_smoke_input(hmc5, Measurements=NDPOLY_TRAJECTORIES,
+                                       NSave=NDPOLY_TRAJECTORIES))
+    _check(n == 1, "hmc5 holds no DET block to replace")
+    with open(SAMPLE_SF) as f:
+        sf = re.sub(r"(?m)^Measurements = \d+$", f"Measurements = {SF_RANK_TRAJECTORIES}",
+                    f.read())
+    sf = re.sub(r"(?m)^NSave = \d+$", "NSave = 1", sf) + f"NrTProcs = {SF_RANKS}\n"
+    paths = {}
+    for name, text in (("hmc2", hmc2), ("gauge", gauge), ("ndpoly", poly), ("sf", sf)):
+        paths[name] = os.path.join(workdir, f"meas-{name}.input")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    return paths
+
+
+def _meas_rows(path: str) -> list:
+    with open(path) as f:
+        return [[float(v) for v in ln.split()] for ln in f if ln.strip() and ln[0] != "#"]
+
+
+def _qhat_bounds(conf: str, lat, params) -> tuple[float, float]:
+    """(lambda_min / 2, lambda_max * 2) of Qhat_pm on a checkpoint: the
+    port's inverse and power iterations in one process, padded by 2 for a
+    bound."""
+    import torch
+
+    from tmlqcd_tpu_torch import rng
+    from tmlqcd_tpu_torch.io.checkpoint import load_checkpoint
+    from tmlqcd_tpu_torch.ops import wilson_fast as wf
+    from tmlqcd_tpu_torch.solvers.eigen import lambda_max, lambda_min
+
+    arr, _, _ = load_checkpoint(conf, lat)
+    u = torch.as_tensor(arr, device="cuda").to(torch.complex64)
+    fg = wf.make_fast_gauge(u, params, lat)
+    mv = lambda x2: wf.q_hat_pm_fast(fg, x2, params, lat)  # noqa: E731
+    shape = (4, 3) + lat.eo_site_shape
+    with torch.no_grad():
+        lo = lambda_min(mv, shape, rng.Key(31), device="cuda", split=True)
+        hi = lambda_max(mv, shape, rng.Key(32), device="cuda", split=True)
+    return lo / 2.0, hi * 2.0
+
+
+def _correlator_bound(cpp, kappa: float, tol: float, b_sq: float, vs: int,
+                      lam: tuple[float, float]) -> float:
+    """|C(t) - C'(t)| of two solves of one system M psi = b that each met
+    CG's stopping test (the normal equations' residual at most r = max(tol,
+    R_FLOOR) of its right-hand side), C = sum over a timeslice of a bilinear
+    of psi with a unitary spin matrix, normalised by the spatial volume vs:
+    |dx_o| <= 2 r |rhs| / lambda_min(Qhat_pm), |rhs| <= sqrt(lambda_max)
+    (1 + 16 kappa) |b| (|H| <= 16), |dx_e| <= 16 kappa |dx_o|, and |dC| <=
+    (2 |psi| + |dpsi|) |dpsi| / vs, |psi|^2 = vs sum_t C_PP(t)."""
+    r = max(tol, R_FLOOR)
+    rhs = math.sqrt(lam[1]) * (1 + 16 * kappa) * math.sqrt(b_sq)
+    dpsi = (1 + 16 * kappa) * 2 * r * rhs / lam[0]
+    psi = math.sqrt(vs * sum(cpp))
+    return (2 * psi + dpsi) * dpsi / vs
+
+
+def _check_rank_kernels(c: dict, what: str, t_loc: int) -> None:
+    """A path on ranks ran the rank kernels (K3-I and K4 in pairs at T_loc
+    >= 4, K3-I+K4 below) and no whole-lattice kernel."""
+    _check(all(c[k] == 0 for k in ("K1", "K1-R", "K1-S", "K1-SD", "K2", "KH", "K1-R-D")),
+           f"{what} on ranks: a whole-lattice kernel launched: {c}")
+    _check(c["KH-P"] > 0 and c["K2-S"] > 0, f"{what} on ranks: KH-P / K2-S did not run: {c}")
+    if t_loc >= 4:
+        _check(c["K3-I rank"] > 0 and c["K3-I rank"] == c["K4 rank"],
+               f"{what} on ranks (T_loc {t_loc}): K3-I / K4 did not run in pairs: {c}")
+    else:
+        _check(c["K3-I+K4 rank"] > 0, f"{what} on ranks (T_loc {t_loc}): K3-I+K4 did not run")
+
+
+def _say_ranks(tag: str, rows: list, st: dict, counts: dict) -> None:
+    _say(f"[main-dist-meas] {tag}: s/trajectory {[r[6] for r in rows]}; rank 0: "
+         f"{st['exchanges']} exchanges, {st['seconds'] / max(st['exchanges'], 1) * 1e3:.3f} ms "
+         f"each (gloo through host memory), {st['bytes'] / 1e6:.2f} MB sent; launches summed "
+         f"over the ranks: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+def _ds_deta_bound(cfg, n_traj: int) -> float:
+    """|d(dS/deta)| of two runs of the SF input `cfg` whose links differ by
+    f32 rounding alone: each of the 2 n link updates of a 2MN trajectory
+    (n steps) rounds every entry (|U_ij| <= 1) at eps_f32 in each run, so
+    after n_traj trajectories the links differ by d <= 4 n n_traj eps_f32
+    an entry, a product of three links by 3 sqrt(3) d <= 6 d.  dS/deta =
+    -(beta c_t / 3) sum over k = 1..3 and the vs sites of the two boundary
+    timeslices of Re tr(P dW^+/deta), with P such a product and dW/deta
+    diagonal, |dW_jj/deta| = |dphi_j/deta| / L; so |d(dS/deta)| <= beta c_t
+    vs 6 d (sum_j |dphi_j/deta| + |dphi'_j/deta|) / L."""
+    m = cfg.meas[0]
+    t_ext, el = cfg.lat.dims[0], cfg.lat.dims[1]
+    vs = cfg.lat.volume // t_ext
+    d = 4 * cfg.integrator.steps[0] * n_traj * EPS_F32
+    dphi = 2 * (1 + abs(m.nu - 0.5) + abs(m.nu + 0.5))
+    return cfg.beta * m.ct * vs * 6 * d * dphi / el
+
+
+def _meas_abc(workdir: str, inputs: dict, cfgs: dict, runs: dict, res8: list, counts: dict,
+              stats: dict, secs: dict) -> None:
+    """Phase 20's checks of (a)-(c) against one process (see
+    `phase_distributed_meas`); fills secs[job] with s/trajectory."""
+    import numpy as np
+
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.cli import offline_measurement as offline
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams
+
+    # (a) hmc2 with ONLINE and PIONNORM
+    one = os.path.join(workdir, "run-one-hmc2")
+    rc, _, one_counts, _ = _run_cli(cli, ["-f", inputs["hmc2"], "-o", one])
+    _check(rc == 0, f"cli.hmc (hmc2, one process) returned {rc}")
+    rows, orows = _output_rows(runs["hmc2"]), _output_rows(one)
+    _check(len(rows) == len(orows) == 1, f"hmc2 output.data: {rows} vs {orows}")
+    d, o = rows[0], orows[0]
+    lat2 = cfgs["hmc2"].lat
+    vol, t_ext = lat2.volume, lat2.dims[0]
+    h = 16 * vol + 6 * 5.3 * vol + 2 * 6 * vol  # |H| from above: momenta, gauge, 2 pseudofermions
+    bound = 10 * 2.0 ** -24 * 2 * h / math.sqrt(8 * 4 * vol)
+    _check(math.isfinite(float(d[3])) and abs(float(d[3]) - float(o[3])) <= bound
+           and d[5] == o[5] and abs(float(d[1]) - float(o[1])) <= 1e-5
+           and all(abs(int(a) - int(b)) <= 1 for a, b in zip(d[7:], o[7:])),
+           f"hmc2 on ranks against one process: {d} vs {o} (dH bound {bound:.2e})")
+    _check_rank_kernels(counts["hmc2"], "hmc2", 8)
+    offl = os.path.join(workdir, "offline-hmc2")
+    rc, _, _, _ = _run_cli(offline, ["-f", inputs["hmc2"], "-c",
+                                     os.path.join(runs["hmc2"], "conf.000001.npz"), "-o", offl])
+    _check(rc == 0, f"cli.offline_measurement (hmc2) returned {rc}")
+    m = cfgs["hmc2"].meas[0]
+    params = DiracParams(kappa=m.kappa, mu=m.two_kappa_mu / (2 * m.kappa))
+    lam = _qhat_bounds(os.path.join(runs["hmc2"], "conf.000001.npz"), cfgs["hmc2"].lat, params)
+    vs = vol // t_ext
+    # (file, its C columns, its width, |b|^2: a Z2 wall or a Z2 volume)
+    for name, cols, width, b_sq in (("onlinemeas.000000", (3, 4), 5, 12 * vs),
+                                    ("pionnorm.000000", (1,), 2, 12 * vol)):
+        got, want = (np.array(_meas_rows(os.path.join(x, name))) for x in (runs["hmc2"], offl))
+        _check(got.shape == want.shape == (t_ext, width), f"{name}: {got.shape}")
+        cb = _correlator_bound(list(want[:, cols[0]]), m.kappa, float(m.precision) ** 0.5,
+                               b_sq, vs, lam)
+        diff = float(np.max(np.abs(got[:, list(cols)] - want[:, list(cols)])))
+        rel = float(np.max(np.abs(got[:, cols[0]] - want[:, cols[0]]) / np.abs(want[:, cols[0]])))
+        _check(diff <= cb and bool(np.all(got[:, cols[0]] > 0)),
+               f"{name} on ranks against one process: max|dC| {diff:.3e} above its bound "
+               f"{cb:.3e}, or C_PP <= 0")
+        _say(f"[main-dist-meas] (a) {name}: {t_ext} timeslices from rank 0, C_PP(0) "
+             f"{got[0, cols[0]]:.6e}; against one process on the ranks' checkpoint max|dC| "
+             f"{diff:.3e} (bound {cb:.3e} from the stopping test, spec(Qhat_pm) within "
+             f"[{lam[0]:.3e}, {lam[1]:.3e}]), C_PP relative {rel:.3e}")
+    secs["hmc2"] = float(d[6])
+    _say_ranks("(a) hmc2 16^3x32 on 4 x 2 ranks", [[float(v) for v in d]], stats["hmc2"],
+               counts["hmc2"])
+    _say(f"[main-dist-meas] (a) one process: s/trajectory {float(o[6])}, dH {float(o[3]):+.4e} "
+         f"against {float(d[3]):+.4e} on the ranks (bound {bound:.2e}), acceptance iterations "
+         f"{o[7:]} against {d[7:]}")
+
+    # (b) the gauge measurements
+    rows = _output_rows(runs["gauge"])
+    _check(len(rows) == 1 and math.isfinite(float(rows[0][3])), f"(b) output.data {rows}")
+    _check_rank_kernels(counts["gauge"], "hmc5 at 16^3x32", 8)
+    offl = os.path.join(workdir, "offline-gauge")
+    rc, _, _, _ = _run_cli(offline, ["-f", inputs["gauge"], "-c",
+                                     os.path.join(runs["gauge"], "conf.000001.npz"), "-o", offl])
+    _check(rc == 0, f"cli.offline_measurement (gauge) returned {rc}")
+    names = ["field_strength.data", "gradflow.000000", "oriented_plaquettes.data",
+             "polyakov.data"]
+    _check(sorted(f for f in os.listdir(runs["gauge"]) if not f.startswith(("conf", "nstore",
+                                                                           "output")))
+           == names, f"(b) files on rank 0: {os.listdir(runs['gauge'])}")
+    worst = 0.0
+    for name in names[:3]:
+        got, want = (np.array(_meas_rows(os.path.join(x, name))) for x in (runs["gauge"], offl))
+        _check(got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}")
+        rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+        worst = max(worst, rel)
+        _check(rel <= 1e-10, f"{name} on ranks against one process: relative {rel:.3e}")
+    # the Polyakov lines: the ranks multiply their slabs' partial products,
+    # one process the slices in a row, so the two associate the N factors
+    # otherwise; each f32 3x3 product of unitary factors errs by <= 24
+    # eps_f32 in the spectral norm, which the unitary factors carry on
+    # unchanged, so each order is within 24 N eps_f32 of the exact line and
+    # |(1/3) tr| of the difference, and of its volume mean, within 48 N eps_f32
+    got, want = (np.array(_meas_rows(os.path.join(x, "polyakov.data")))
+                 for x in (runs["gauge"], offl))
+    _check(got.shape == want.shape == (2, 4) and list(got[:, 1]) == [0, 2],
+           f"polyakov.data: {got} vs {want}")
+    poly_d, poly_b = [], []
+    for g, w in zip(got, want):
+        poly_d.append(float(np.max(np.abs(g[2:] - w[2:]))))
+        poly_b.append(48 * cfgs["gauge"].lat.dims[int(g[1])] * EPS_F32)
+    _check(all(d <= b for d, b in zip(poly_d, poly_b)),
+           f"polyakov.data on ranks against one process: |d| {poly_d} above {poly_b}")
+    times, t2p, t2c = _read_gradflow(os.path.join(runs["gauge"], "gradflow.000000"))
+    e = [v / t ** 2 for t, v in zip(times, t2p)]
+    _check(len(times) == MEAS_FLOW_STEPS and all(b < a for a, b in zip(e, e[1:])),
+           f"(b) E_plaq along the flow: {e}")
+    secs["gauge"] = float(rows[0][6])
+    _say_ranks("(b) hmc5's action 16^3x32 with the gauge measurements on 4 x 2 ranks",
+               [[float(v) for v in rows[0]]], stats["gauge"], counts["gauge"])
+    _say(f"[main-dist-meas] (b) {', '.join(names)} from rank 0 against one process on the "
+         f"ranks' checkpoint: relative {worst:.3e} at most (the Polyakov lines |d| t "
+         f"{poly_d[0]:.3e}, y {poly_d[1]:.3e}, bounds 48 N eps_f32 {poly_b[0]:.3e}, "
+         f"{poly_b[1]:.3e}; values {[[float(v) for v in r[2:]] for r in got]}); {MEAS_FLOW_STEPS} flow "
+         f"steps, t^2 E_plaq {t2p[0]:.6e} -> {t2p[-1]:.6e}, E_plaq falling")
+
+    # (c) NDPOLY
+    one = os.path.join(workdir, "run-one-ndpoly")
+    rc, olog, one_nd, _ = _run_cli(cli, ["-f", inputs["ndpoly"], "-o", one])
+    _check(rc == 0, f"cli.hmc (ndpoly, one process) returned {rc}")
+    _check(one_nd["K1-SD"] > 0, f"NDPOLY in one process did not run K1-SD: {one_nd}")
+    rows, orows = _output_rows(runs["ndpoly"]), _output_rows(one)
+    _check(len(rows) == len(orows) == NDPOLY_TRAJECTORIES, f"(c) output.data {rows}")
+    vol = cfgs["ndpoly"].lat.volume
+    h = 16 * vol + 6 * 5.3 * vol + 12 * vol  # momenta, gauge, the doublet pseudofermion
+    bound = 10 * 2.0 ** -24 * 2 * h / math.sqrt(8 * 4 * vol)
+    ddh = [abs(float(a[3]) - float(b[3])) for a, b in zip(rows, orows)]
+    _check(all(math.isfinite(float(a[3])) for a in rows) and max(ddh) <= bound
+           and all(a[5] == b[5] for a, b in zip(rows, orows)),
+           f"(c) NDPOLY on ranks against one process: {rows} vs {orows} (bound {bound:.2e})")
+    checks = [res["runs"][2]["validate"] for res in res8]
+    _check(checks[0] and all(c == checks[0] for c in checks[1:]),
+           f"(c) the interval check differs between the ranks: {checks}")
+    c = counts["ndpoly"]
+    _check(c["K1-SD"] == 0 and c["K1"] == 0, f"(c) K1-SD / K1 launched on the ranks: {c}")
+    _check_rank_kernels(c, "NDPOLY", 2)
+    peak = max(res["runs"][2]["peak_gib"] for res in res8)
+    secs["ndpoly"] = [float(r[6]) for r in rows]
+    _say_ranks("(c) GAUGE + NDPOLY (degree 32) 4^3x8 on 4 x 2 ranks",
+               [[float(v) for v in r] for r in rows], stats["ndpoly"], c)
+    _say(f"[main-dist-meas] (c) |ddH| against one process {[f'{v:.2e}' for v in ddh]} (bound "
+         f"{bound:.2e}), acceptance equal; the interval check on all 8 ranks {checks[0]}; peak "
+         f"device memory of a rank {peak:.3f} GiB; one process {[float(r[6]) for r in orows]} "
+         f"s/trajectory on K1-SD ({one_nd['K1-SD']} launches)")
+
+
+def phase_distributed_meas(workdir: str):
+    """Main path 15: `cli.hmc --distributed` with the measurements, NDPOLY
+    and the Schrödinger functional on the ranks, 8 processes on the one card
+    (gloo), every job against one process:
+    (a) hmc2 at 16^3x32 on 4 x 2 ranks (T_loc 8), 1 trajectory with ONLINE
+        and PIONNORM: output.data against the same input in one process
+        (dH within phase 19's derived bound, acceptance equal, iterations
+        within one, plaquette to 1e-5), the correlators against one process
+        measuring the ranks' checkpoint (`cli.offline_measurement`, the same
+        key: the same source) within `_correlator_bound`, C_PP(t) > 0; KH-P,
+        K3-I, K4 and K2-S launched, no whole-lattice kernel;
+    (b) hmc5's action at 16^3x32 on 4 x 2 ranks with GRADIENTFLOW
+        (MEAS_FLOW_STEPS of 0.02), POLYAKOV along t and y,
+        ORIENTEDPLAQUETTES and FIELDSTRENGTH: every file against one
+        process measuring the ranks' checkpoint, 1e-10 relative (the
+        Polyakov lines, associated otherwise, within 48 N eps_f32), E_plaq
+        falling along the flow;
+    (c) GAUGE + NDPOLY (degree 32) at hmc5's 4^3x8 on 4 x 2 ranks
+        (T_loc 2), NDPOLY_TRAJECTORIES trajectories against the same input
+        in one process: dH within the derived bound, the interval check the
+        same on every rank, no K1-SD and no K1 in the ranks (one process
+        runs K1-SD), the peak device memory of a rank;
+    (d) hmc4 as shipped on SF_RANKS ranks along t (T_loc 2) in a spawn of
+        its own, run beside the one-process runs of (a)-(c),
+        SF_RANK_TRAJECTORIES of its 100 trajectories against one process:
+        the frozen links bit-equal after each trajectory (a checkpoint
+        each), dH within n eps_f32 (|H_old| + |H_new|) of the ranks'
+        trajectory, sf_coupling.data's dS/deta within `_ds_deta_bound` and
+        its k the closed form.
+    Returns (launches summed over the jobs and the ranks, {job: s/trajectory})."""
+    import numpy as np
+    import torch
+
+    from tmlqcd_tpu_torch.cli import hmc as cli
+    from tmlqcd_tpu_torch.cli import offline_measurement as offline
+    from tmlqcd_tpu_torch.config_tmlqcd import read_input
+    from tmlqcd_tpu_torch.ops.sf import sf_coupling_normalization
+    from tmlqcd_tpu_torch.ops.wilson import DiracParams
+
+    inputs = meas_smoke_inputs(workdir)
+    cfgs = {k: read_input(v) for k, v in inputs.items()}
+    _check(cfgs["hmc2"].lat.dims == (32, 16, 16, 16) and cfgs["hmc2"].nr_procs[0] == 4
+           and [m.type for m in cfgs["hmc2"].meas] == ["ONLINE", "PIONNORM"]
+           and [m.type for m in cfgs["ndpoly"].monomials] == ["GAUGE", "NDPOLY"]
+           and cfgs["ndpoly"].lat.dims == (8, 4, 4, 4) and cfgs["sf"].lat.dims == (6, 6, 6, 6)
+           and cfgs["gauge"].lat.dims == (32, 16, 16, 16), "phase 20's inputs were not derived")
+    runs = {k: os.path.join(workdir, f"run-dist-{k}") for k in inputs}
+    jobs = [["-f", inputs[k], "-o", runs[k]] for k in ("hmc2", "gauge", "ndpoly")]
+    t0 = time.perf_counter()
+    res8 = _run_ranks(8, "gloo", jobs, os.path.join(workdir, "ranks-meas"))
+    wall8 = time.perf_counter() - t0
+    _say(f"[main-dist-meas] 8 ranks (gloo) on the one card: {wall8:.1f} s wall for (a)-(c), "
+         f"the ranks' start included")
+    counts = {name: _sum_counts(res8, k) for k, name in enumerate(("hmc2", "gauge", "ndpoly"))}
+    stats = {name: res8[0]["runs"][k]["comm"]
+             for k, name in enumerate(("hmc2", "gauge", "ndpoly"))}
+    secs = {}
+    # (d)'s ranks run beside this process's one-process runs and checks of
+    # (a)-(c), so their start costs no wall time of its own
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    sf_ranks = pool.submit(lambda: (_run_ranks(SF_RANKS, "gloo", [["-f", inputs["sf"], "-o",
+                                                                   runs["sf"]]],
+                                               os.path.join(workdir, "ranks-sf")),
+                                    time.perf_counter() - t0))
+    try:
+        _meas_abc(workdir, inputs, cfgs, runs, res8, counts, stats, secs)
+        res3, wall3 = sf_ranks.result()
+    finally:
+        pool.shutdown(wait=True)
+    counts["sf"] = _sum_counts(res3, 0)
+    stats["sf"] = res3[0]["runs"][0]["comm"]
+    _say(f"[main-dist-meas] {SF_RANKS} ranks (gloo) on the one card: {wall3:.1f} s wall for (d), "
+         f"the ranks' start included, beside the one-process runs of (a)-(c)")
+
+    # (d) the Schrödinger functional on ranks along t
+    one = os.path.join(workdir, "run-one-sf")
+    rc, _, _, _ = _run_cli(cli, ["-f", inputs["sf"], "-o", one])
+    _check(rc == 0, f"cli.hmc (hmc4, one process) returned {rc}")
+    rows, orows = _output_rows(runs["sf"]), _output_rows(one)
+    _check(len(rows) == len(orows) == SF_RANK_TRAJECTORIES, f"(d) output.data {rows}")
+    # dH: the bound of tests/test_torch_sf.py, n eps_f32 (|H_old| + |H_new|)
+    # of the ranks' own trajectories (each of the n MD steps rounds every
+    # term of H at eps_f32 relative, the two runs in another order)
+    n_steps = cfgs["sf"].integrator.steps[0]
+    energies = res3[0]["runs"][0]["energies"]
+    _check(len(energies) == SF_RANK_TRAJECTORIES, f"(d) energies of {len(energies)} trajectories")
+    bounds = [n_steps * EPS_F32 * (abs(h0) + abs(h1)) for h0, h1 in energies]
+    ddh = [abs(float(a[3]) - float(b[3])) for a, b in zip(rows, orows)]
+    _check(all(d <= b for d, b in zip(ddh, bounds)) and all(a[5] == b[5] for a, b in zip(rows, orows)),
+           f"(d) hmc4 on ranks against one process: {rows} vs {orows} (bounds {bounds})")
+    frozen = res3[0]["runs"][0]["frozen"]
+    _check(len(frozen) == SF_RANK_TRAJECTORIES and all(frozen),
+           f"(d) the frozen t = 0 spatial links moved on the rank holding them: {frozen}")
+    k_closed = sf_coupling_normalization(cfgs["sf"].lat, cfgs["sf"].meas[0].ct)
+    sfrows = _meas_rows(os.path.join(runs["sf"], "sf_coupling.data"))
+    osfrows = _meas_rows(os.path.join(one, "sf_coupling.data"))
+    _check(len(sfrows) == len(osfrows) == SF_RANK_TRAJECTORIES
+           and all(abs(r[2] - k_closed) <= 1e-9 * k_closed for r in sfrows),
+           f"(d) sf_coupling.data: {sfrows} (k {k_closed})")
+    ds_bound = _ds_deta_bound(cfgs["sf"], SF_RANK_TRAJECTORIES)
+    dds = [abs(r[1] - o[1]) for r, o in zip(sfrows, osfrows)]
+    _check(max(dds) <= ds_bound, f"(d) dS/deta on ranks {[r[1] for r in sfrows]} against one "
+                                 f"process {[o[1] for o in osfrows]}: above {ds_bound:.3e}")
+    secs["sf"] = [float(r[6]) for r in rows]
+    _say_ranks(f"(d) hmc4 6^4 on {SF_RANKS} ranks along t", [[float(v) for v in r] for r in rows],
+               stats["sf"], counts["sf"])
+    _say(f"[main-dist-meas] (d) |ddH| against one process {[f'{v:.2e}' for v in ddh]} (bounds "
+         f"{[f'{v:.2e}' for v in bounds]}: {n_steps} steps of eps_f32 (|H_old| + |H_new|) of "
+         f"each trajectory), acceptance equal, the frozen links bit-equal after each of "
+         f"{SF_RANK_TRAJECTORIES} trajectories; dS/deta {[r[1] for r in sfrows]} against one "
+         f"process {[r[1] for r in osfrows]}, |d| {max(dds):.3e} (bound {ds_bound:.3e}); k "
+         f"{k_closed:.10e}")
+    total = {}
+    for cnt in counts.values():
+        for key, value in cnt.items():
+            total[key] = total.get(key, 0) + value
+    _check_no_plain(total)
+    return total, secs
 
 
 def _e2e(label: str) -> None:
@@ -4351,13 +4944,14 @@ def main() -> int:
             return 1
         return 0
     if "--distributed" in args:
-        # phase 19 alone: the rank kernels and main path 14
+        # phases 19 and 20 alone: the rank kernels and main paths 14 and 15
         try:
             phase_card()
             phase_rank_kernels()
             phase_draws()
             with tempfile.TemporaryDirectory() as workdir:
                 phase_distributed(workdir)
+                phase_distributed_meas(workdir)
         except SmokeFailure as exc:
             print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
             return 1
@@ -4468,12 +5062,14 @@ def main() -> int:
             done("17 main path 12")
             sf_counts, _ = phase_hmc_sf(workdir)
             done("18 main path 13")
-            rank_worst, rank_rows = phase_rank_kernels()
+            rank_worst, rank_rows, rank_big = phase_rank_kernels()
             worst.update(rank_worst)
             phase_draws()
             done("19 rank kernels")
             dist_counts, _ = phase_distributed(workdir, os.path.join(workdir, "run-mesh-hmc5"))
             done("19 main path 14")
+            dmeas_counts, _ = phase_distributed_meas(workdir)
+            done("20 main path 15")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -4489,7 +5085,8 @@ def main() -> int:
              "launches_offline_benchmark_api": off_counts,
              "launches_invert_overlap": {k: ov_counts["sumr"][k] + ov_counts["cgne"][k]
                                          for k in ov_counts["sumr"]},
-             "launches_hmc_sf": sf_counts, "launches_hmc_distributed": dist_counts}
+             "launches_hmc_sf": sf_counts, "launches_hmc_distributed": dist_counts,
+             "launches_hmc_distributed_meas": dmeas_counts}
 
     def entry(name, replaces, key, row, source=src, device_ms=None):
         ms, plain_ms, bound_ms, bound_by = row[:4]
@@ -4572,8 +5169,10 @@ def main() -> int:
              "tmlqcd_tpu/ops/dslash_pallas.py:1267 and :1307 in one launch (on a rank)"),
             ("hopping_ug_vjp_slab (K2-S)", "K2-S",
              "tmlqcd_tpu/ops/dslash_pallas.py:1489 (K2 on a rank's slab)")):
-        row = rank_rows[key]
-        kernels.append(entry(name, replaces, key, row[:4], slab_src, device_ms=row[4]))
+        row, big = rank_rows[key], rank_big[key]
+        kernels.append(entry(name, replaces, key, row[:4], slab_src, device_ms=row[4])
+                       | {"ms_32x64_slab": big[0], "device_ms_32x64_slab": big[4],
+                          "plain_ms_32x64_slab": big[1], "bound_ms_32x64_slab": big[2]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

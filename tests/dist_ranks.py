@@ -14,7 +14,9 @@ import this module and the port only (no jax, no tmlqcd_tpu).
 
 The per-rank functions below build every field from a numpy seed on every
 rank (the whole lattice, the same numbers everywhere) and keep their own
-slab, so the parent can hold the joined slabs against the one-process port.
+slab, so the parent can hold the joined slabs against the one-process port
+(`observables`: the gauge observables, the flow, the SF observables and the
+correlator contractions on a rank, for the reference's checks).
 `loopback` hands the faces of the slabs of one card to their neighbours,
 for the checks of the rank kernels on a card.
 """
@@ -124,3 +126,32 @@ def join(slabs, shape) -> np.ndarray:
     t, y = shape
     rows = [np.concatenate(slabs[i * y:(i + 1) * y], axis=-1) for i in range(t)]
     return np.concatenate(rows, axis=-3)
+
+
+def observables(rank: int, shape, dims, seed: int, sf_args: dict, t0: int) -> dict:
+    """On this rank's slab of `shape`: the gauge observables, 2 flow steps,
+    the SF observables and the correlators of a propagator, all from numpy
+    seed `seed` on the lattice `dims` -> every rank's values of the whole
+    lattice and, gathered, the flowed links."""
+    from tmlqcd_tpu_torch import bridge, parallel
+    from tmlqcd_tpu_torch.lattice import Lattice
+    from tmlqcd_tpu_torch.meas import correlators, gauge_obs, gradient_flow
+    from tmlqcd_tpu_torch.ops import sf
+
+    lat = Lattice(tuple(dims))
+    mesh = parallel.make_mesh(tuple(shape), ["cpu"])
+    loc = mesh.local(lat)
+    gen = np.random.default_rng(seed)
+    u = torch.as_tensor(slab_of(np.ascontiguousarray(
+        bridge.numpy_su3(gen, (4,) + lat.site_shape)), mesh))
+    psi = torch.as_tensor(slab_of(bridge.numpy_spinor(gen, (4, 3) + lat.site_shape), mesh))
+    flow = gradient_flow.wilson_flow(u, loc, eps=0.02, n_steps=2)
+    obs = sf.sf_observables(u, lat=loc, **sf_args)
+    return {"polyakov": [complex(gauge_obs.polyakov_loop(u, loc, d)) for d in (0, 2)],
+            "plaquettes": gauge_obs.oriented_plaquettes(u, loc).numpy(),
+            "field_strength": [float(v) for v in gauge_obs.field_strength_observables(u, loc)],
+            "flow": (flow.t2e_plaq.numpy(), flow.t2e_clover.numpy(),
+                     parallel.gather_to_host(flow.v, mesh)),
+            "sf": (float(obs["action"]), float(obs["dS_deta"]), float(obs["k"])),
+            "correlators": (correlators.pion_correlator(psi, loc, t0).numpy(),
+                            correlators.pa_correlator(psi, loc, t0).numpy())}

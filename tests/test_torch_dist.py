@@ -21,7 +21,11 @@ Bounds, each stated where it is used:
 * chains over ranks equal the one-process loop bit for bit;
 * `cli.hmc --distributed` on hmc5-multichip.input as shipped, 8 ranks,
   against the one-process mesh run: dH within the bound derived below,
-  the plaquette to 1e-5, equal acceptance and iteration counts.
+  the plaquette to 1e-5, equal acceptance and iteration counts;
+* NDPOLY, SFGAUGE, ONLINE and GRADIENTFLOW lower through `build_hmc` on a
+  (2, 1) rank mesh and run, against one process to 1e-5 relative
+  (tests/test_torch_dist_meas.py holds every measurement, NDPOLY and the
+  Schrödinger functional on ranks to tighter bounds).
 """
 
 import dataclasses
@@ -110,6 +114,9 @@ def _rank_checks(rank, shape, run_dir):
                                     keep_halos=True)
         res[("vjp", hs, p)] = dc.hopping_ug_vjp_slab(g2, xs[None], p, Lattice(lat.dims), th,
                                                      mh).numpy()
+    if shape == (2, 1):
+        for what in LOWERED:
+            res[("lowered", what)] = _lowered(what, base, os.path.join(run_dir, f"{what}{rank}"))
     if shape != (2, 2):
         return res
     # the builders over the group's ranks: auto_mesh, mesh_from_procs, and a
@@ -186,6 +193,11 @@ def ranks(request, tmp_path_factory):
 @pytest.fixture(scope="module")
 def ranks22(tmp_path_factory):
     return _run((2, 2), tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def ranks21(tmp_path_factory):
+    return _run((2, 1), tmp_path_factory)
 
 
 def test_rank_slabs_coordinates_and_lattices(ranks):
@@ -420,22 +432,58 @@ def test_cli_invert_distributed_writes_from_rank_zero(tmp_path, capfd):
         np.testing.assert_array_equal(a["propagator"], b["propagator"])
 
 
-@pytest.mark.parametrize("what, text", [
-    ("monomial NDPOLY", "BeginMonomial NDPOLY\n kappa = 0.1\n 2Kappamubar = 0.1\n"
-                        " 2Kappaepsbar = 0.12\nEndMonomial\n"),
-    ("monomial SFGAUGE", "BeginMonomial SFGAUGE\n Eta = 0.15\nEndMonomial\n"),
-    ("measurement ONLINE", "BeginMeasurement ONLINE\n Frequency = 1\nEndMeasurement\n"),
-    ("measurement GRADIENTFLOW", "BeginMeasurement GRADIENTFLOW\n Frequency = 1\n"
-                                 "EndMeasurement\n"),
-])
-def test_unported_on_a_distributed_mesh_raise(what, text):
-    """What is not ported to slabs raises NotImplementedError naming it and
-    the queue before a distributed run starts (`cli.hmc --distributed`
-    lowers through `build_hmc`, which calls this check on such a mesh); the
-    same input lowers in one process."""
-    from tmlqcd_tpu_torch import config, config_tmlqcd
+LOWERED = {
+    "NDPOLY": "BeginMonomial NDPOLY\n kappa = 0.1\n 2Kappamubar = 0.1\n 2Kappaepsbar = 0.12\n"
+              "EndMonomial\n",
+    "SFGAUGE": "BeginMonomial SFGAUGE\n Eta = 0.15\nEndMonomial\n",
+    "ONLINE": "BeginMeasurement ONLINE\n Frequency = 1\n kappa = 0.13\n 2KappaMu = 0.026\n"
+              " SolverPrecision = 1e-12\n MaxSolverIterations = 300\nEndMeasurement\n",
+    "GRADIENTFLOW": "BeginMeasurement GRADIENTFLOW\n Frequency = 1\n Steps = 2\nEndMeasurement\n",
+}
 
-    cfg = config_tmlqcd.parse_input("L = 4\nT = 4\n" + text)
-    with pytest.raises(NotImplementedError, match=f"{what} on a distributed mesh.*queue 1"):
-        config.check_distributed_ported(cfg)
-    config.build_hmc(cfg)
+
+def _lowered(what, mesh, run_dir):
+    """`build_hmc` of LOWERED[what] (4^4; on (2, 1) ranks when `mesh` is
+    given) and one call of what it lowered: the monomial's action on a
+    fixed field, or the measurement through the runner -> a number per
+    value (the runner's file read back on the process that wrote it)."""
+    from tmlqcd_tpu_torch import config, config_tmlqcd
+    from tmlqcd_tpu_torch.meas.runner import run_measurements
+
+    cfg = config_tmlqcd.parse_input("L = 4\nT = 4\n" + LOWERED[what])
+    hmc = config.build_hmc(cfg, mesh=mesh)
+    lat = hmc.lat
+    cut = (lambda a: a) if mesh is None else (lambda a: slab_of(a, mesh))  # noqa: E731
+    u = torch.as_tensor(cut(np.ascontiguousarray(
+        bridge.numpy_su3(np.random.default_rng(64), (4,) + cfg.lat.site_shape))))
+    if what in ("NDPOLY", "SFGAUGE"):
+        mono = hmc.monomials[-1]
+        if what == "SFGAUGE":
+            return [float(mono.action_info(u, None)[0]),
+                    float(comm.global_sum(hmc.momenta_mask.sum()))]
+        phi = cut(bridge.numpy_spinor(np.random.default_rng(65),
+                                      (2, 2, 4, 3) + cfg.lat.eo_site_shape).real)
+        return [float(mono.action(u, torch.as_tensor(phi)))]
+    os.makedirs(run_dir, exist_ok=True)
+    run_measurements(cfg, u, lat, 0, run_dir, rng.Key(3))
+    if not comm.lead():
+        return sorted(os.listdir(run_dir))
+    (name,) = os.listdir(run_dir)
+    with open(os.path.join(run_dir, name)) as f:
+        return [float(v) for ln in f if not ln.startswith("#") for v in ln.split()]
+
+
+@pytest.mark.parametrize("what", sorted(LOWERED))
+def test_lowers_on_a_distributed_mesh(ranks21, tmp_path, what):
+    """What a distributed run refused before it was ported to slabs (NDPOLY,
+    the Schrödinger functional, the measurements) lowers through
+    `build_hmc` on a (2, 1) rank mesh and runs: each rank's action (the
+    whole lattice's, summed over the ranks) and rank 0's measurement file
+    against one process, 1e-5 relative of the largest value (f32 fields on
+    the sharded operators against the whole-lattice ones; the momenta mask
+    exactly); the other rank writes nothing."""
+    want = np.array(_lowered(what, None, str(tmp_path / what)))
+    got = [r[("lowered", what)] for r in ranks21]
+    assert got[1] in (got[0], [])  # an action on every rank; a file on rank 0 only
+    np.testing.assert_allclose(np.array(got[0]), want, rtol=0,
+                               atol=1e-5 * float(np.max(np.abs(want))))

@@ -5,10 +5,12 @@ Port of `tmlqcd_tpu/cli/benchmark.py`.  On the card, K1 is one hop on the
 odd sites with the fused twisted-mass epilogue (12-real f32 gauge copy,
 `mhat` + g5: the last hop of every Mhat) and Qhat_pm is one K1-S launch
 (its four hops), each timed with CUDA events around a loop of wrapper calls
-after 3 warm-up calls.  With --cpu the same calls run their plain PyTorch
-versions, timed on the host's clock.  The object holds, for each: the time
-per call, GF/s at 1320 flops per site and hop, the bytes per site of the
-traffic model (the gauge copy once, every spinor read or written once) and,
+after 3 warm-up calls, the least of LOOPS such loops: K1's loop is bound by
+the host's ~25 us of wrapper a call, and a loop that other work on a shared
+host slows reads up to 1.5x long.  With --cpu the same calls run their plain
+PyTorch versions, one loop timed on the host's clock.  The object holds, for
+each: the time per call, GF/s at 1320 flops per site and hop, the bytes per
+site of the traffic model (the gauge copy once, every spinor read or written once) and,
 on the card, the least time at the H100 SXM's published rates (3.35 TB/s,
 67 TF/s f32), the share of it reached, and the card's name and power limit
 as nvidia-smi gives them.
@@ -35,6 +37,8 @@ PEAK_F32_FLOPS_S = 67e12
 K1_BYTES = 384 + 3 * 96
 # Qhat_pm: per sign a `mee_inv` hop (no psi_o) and a `mhat` hop
 QPM_BYTES = 2 * ((384 + 2 * 96) + K1_BYTES)
+# timed loops on the card, of which the least is reported
+LOOPS = 3
 
 
 def _card() -> str:
@@ -57,12 +61,15 @@ def _time_ms(fn, n: int, cuda: bool) -> float:
         return (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / n
+    best = float("inf")
+    for _ in range(LOOPS):
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop) / n)
+    return best
 
 
 def _row(ms: float, sites: int, hops: int, site_bytes: int, cuda: bool) -> dict:

@@ -23,8 +23,13 @@ MPI model, one process per (t, y) slab.  Each process joins the group
 (`parallel.init_distributed`: the environment `torchrun` sets, nccl between
 cards, gloo with --cpu or --backend gloo) and holds its slab of every field
 (the mesh of NrTProcs x NrYProcs over the ranks, which must number exactly
-NrTProcs x NrYProcs); output.data, the checkpoints and stdout come from rank
-0.  On a host with cards:
+NrTProcs x NrYProcs).  Everything the one-process run runs runs on the
+ranks: every monomial (NDPOLY and the Schrödinger functional's SFGAUGE
+included), the interval check, the force monitor, ReversibilityCheck and
+every measurement (ONLINE, PIONNORM, GRADIENTFLOW, POLYAKOV,
+ORIENTEDPLAQUETTES, FIELDSTRENGTH, SFCOUPLING), each rank on its slab.
+output.data, the checkpoints, the measurement files (sf_coupling.data
+included) and stdout come from rank 0.  On a host with cards:
     torchrun --nproc-per-node 8 -m tmlqcd_tpu_torch.cli.hmc \
         -f sample-input/hmc5-multichip.input -o run5 --distributed
 
@@ -117,7 +122,7 @@ def main(argv=None):
     hmc = build_hmc(cfg, mesh=mesh)
     lat = hmc.lat  # the rank's slab on a distributed mesh
     distributed = mesh is not None and mesh.distributed
-    lead = not distributed or mesh.rank == 0  # writes files and stdout
+    lead = comm.lead()  # writes files and stdout
     if mesh is not None and lead:
         loc = mesh.local(cfg.lat)
         if distributed:

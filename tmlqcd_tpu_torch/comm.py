@@ -24,6 +24,10 @@ process group); the functions here move what crosses a slab boundary.
   * `dist_roll(x, shift, dim, axis, mesh)`: `torch.roll` along a sharded
     axis: the |shift| boundary slices go to the neighbour and the
     neighbour's arrive; backward is the opposite roll.
+  * `all_gather(x)`: every rank's `x` in rank order (the checkpoint's
+    slabs; the Polyakov line's partial products, which a sum cannot
+    combine); `lead()`: whether this process writes the files (rank 0, or
+    no decomposition).
 
 The slab decomposition of a process is process state, as tmLQCD's Cartesian
 communicator is, and it has one source: `activate`, which `parallel` calls
@@ -44,8 +48,8 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["activate", "active", "require", "suspended", "exchange", "global_sum", "global_max",
-           "dist_roll", "stats", "reset_stats"]
+__all__ = ["activate", "active", "require", "suspended", "lead", "exchange", "global_sum",
+           "global_max", "all_gather", "dist_roll", "stats", "reset_stats"]
 
 _ACTIVE = [None]
 # exchanges, their wall seconds (posting to the last wait), bytes sent
@@ -73,6 +77,13 @@ def require(mesh) -> None:
         raise RuntimeError(f"a slab of the mesh {mesh.t}x{mesh.y} (rank {mesh.rank}) is used "
                            f"while {'no mesh' if cur is None else f'{cur.t}x{cur.y}'} is this "
                            "process's decomposition (comm.activate)")
+
+
+def lead() -> bool:
+    """Whether this process writes a run's files and stdout: rank 0 of the
+    decomposition, or the one process without one."""
+    mesh = _ACTIVE[0]
+    return mesh is None or mesh.rank == 0
 
 
 @contextlib.contextmanager
@@ -198,6 +209,21 @@ def global_max(x: torch.Tensor) -> torch.Tensor:
     y = x.detach().clone() if mesh.backend == "nccl" else x.detach().cpu().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group)
     return y.to(x.device)
+
+
+def all_gather(x: torch.Tensor, mesh=None, device=None) -> list:
+    """Every rank's `x` (the same shape on every rank) in rank order over
+    `mesh` (default: the process's decomposition), on `device` (default:
+    that of `x`); [x] without a decomposition (not differentiable)."""
+    mesh = active() if mesh is None else mesh
+    if mesh is None:
+        return [x]
+    w = torch.view_as_real(x.detach()) if x.is_complex() else x.detach()
+    w = w.contiguous() if mesh.backend == "nccl" else w.cpu().contiguous()
+    bufs = [torch.empty_like(w) for _ in range(mesh.t * mesh.y)]
+    dist.all_gather(bufs, w, group=mesh.group)
+    device = x.device if device is None else device
+    return [(torch.view_as_complex(b) if x.is_complex() else b).to(device) for b in bufs]
 
 
 def _roll(x: torch.Tensor, shift: int, dim: int, axis: str, mesh) -> torch.Tensor:

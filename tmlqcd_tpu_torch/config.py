@@ -6,22 +6,20 @@ input schema, so every tmLQCD input the reference accepts parses here too.
 (with the Schrödinger functional's momenta mask on `HMCConfig`), DET,
 DETRATIO, CLOVERDET, CLOVERDETRATIO and CLOVERTRLOG, the rational monomials
 (NDRAT, NDCLOVERRAT, RAT, CLOVERRAT and their *COR corrections) and the
-polynomial NDPOLY — on one device, with every measurement (ONLINE,
-PIONNORM, GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH,
-SFCOUPLING), the force monitor, ReversibilityCheck and native or ILDG
-checkpoints, and the (t, y) domain decomposition of NrTProcs x NrYProcs (a
-slab mesh on one device, which `cli.hmc` builds with
-`parallel.mesh_from_procs` and `build_hmc` carries by `HMCConfig.mesh` into
-every solving monomial; NDPOLY and SFGAUGE take none).  A mesh over the
-ranks of a process group (`cli.hmc --distributed`, one process per slab)
-lowers the action onto the rank's slab (`mesh.local(lat)`); there the
-monomials and measurements not yet ported to slabs raise
-`NotImplementedError` before the run starts (ROADMAP queue 1: NDPOLY, the
-Schrödinger functional, every measurement).  Several devices in one process
-raise `NotImplementedError` where the mesh is built; NrXProcs / NrZProcs > 1
-and a lattice that does not split into even slabs raise the reference's
-`ValueError`.  `check_invert_ported` does the
-same for the inverter's operators (TMWILSON, WILSON, CLOVER, DBTMWILSON,
+polynomial NDPOLY — with every measurement (ONLINE, PIONNORM,
+GRADIENTFLOW, POLYAKOV, ORIENTEDPLAQUETTES, FIELDSTRENGTH, SFCOUPLING), the
+force monitor, ReversibilityCheck and native or ILDG checkpoints, and the
+(t, y) domain decomposition of NrTProcs x NrYProcs: a slab mesh on one
+device, which `cli.hmc` builds with `parallel.mesh_from_procs` and
+`build_hmc` carries by `HMCConfig.mesh` into every solving monomial
+(NDPOLY and SFGAUGE take none there), or a mesh over the ranks of a process
+group (`cli.hmc --distributed`, one process per slab), which lowers the
+whole action onto the rank's slab (`mesh.local(lat)`, the momenta mask the
+slab's share) and on which every monomial and every measurement runs.
+Several devices in one process raise `NotImplementedError` where the mesh
+is built; NrXProcs / NrZProcs > 1 and a lattice that does not split into
+even slabs raise the reference's `ValueError`.  `check_invert_ported`
+checks the inverter's operators (TMWILSON, WILSON, CLOVER, DBTMWILSON,
 DBCLOVER and OVERLAP; stout and source smearing are carried), rejects a
 solver name the inverter does not know, and raises for any Nr*Procs > 1:
 the reference's `cli/invert.py` builds no mesh.  Nothing is skipped
@@ -67,7 +65,6 @@ __all__ = [
     "build_hmc",
     "check_ported",
     "check_invert_ported",
-    "check_distributed_ported",
 ]
 
 PORTED_OPERATORS = ("TMWILSON", "WILSON", "CLOVER", "DBTMWILSON", "DBCLOVER", "OVERLAP")
@@ -211,7 +208,8 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
     DETRATIO, CLOVERDET, CLOVERDETRATIO, CLOVERTRLOG, the rational NDRAT,
     NDCLOVERRAT, RAT, CLOVERRAT with their *COR corrections, and the
     polynomial NDPOLY); `mesh` goes to every monomial that solves but
-    NDPOLY, which runs on the whole lattice."""
+    NDPOLY, which runs on the whole lattice in one process and takes the
+    mesh only over ranks (there its operators are the slab's)."""
     ty = spec.type.upper()
     common = dict(
         timescale=spec.timescale,
@@ -263,7 +261,8 @@ def build_monomial(spec: MonomialSpec, lat: Lattice, beta: float, c1: float, mes
                               s_min=spec.stilde_min, s_max=spec.stilde_max,
                               timescale=spec.timescale,
                               heatbath_tol=float(spec.acceptance_precision) ** 0.5,
-                              maxiter=spec.max_solver_iterations, name=spec.name or "ndpoly")
+                              maxiter=spec.max_solver_iterations, name=spec.name or "ndpoly",
+                              mesh=mesh if mesh is not None and mesh.distributed else None)
     rational = dict(order=spec.rat_order, s_min=spec.stilde_min, s_max=spec.stilde_max,
                     name=spec.name or ty.lower(), **common)
     if ty in ("NDRAT", "NDCLOVERRAT", "NDRATCOR", "NDCLOVERRATCOR"):
@@ -310,24 +309,6 @@ def check_invert_ported(cfg: RunConfig) -> None:
             check_solver(op.solver)
 
 
-# on the ranks of a distributed mesh: the monomial types and the
-# measurements not yet ported to slabs (ROADMAP queue 1)
-_NOT_ON_RANKS = ("NDPOLY", "SFGAUGE")
-
-
-def check_distributed_ported(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for what a distributed run (one process per
-    slab) does not run yet: NDPOLY, the Schrödinger functional and every
-    measurement."""
-    for s in cfg.monomials:
-        if s.type.upper() in _NOT_ON_RANKS:
-            raise NotImplementedError(f"monomial {s.type} on a distributed mesh is not yet ported "
-                                      "to tmlqcd_tpu_torch (ROADMAP queue 1)")
-    for m in cfg.meas:
-        raise NotImplementedError(f"measurement {m.type} on a distributed mesh is not yet "
-                                  "ported to tmlqcd_tpu_torch (ROADMAP queue 1)")
-
-
 def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
     """RunConfig -> executable HMCConfig (raises for what neither package
     knows).
@@ -338,7 +319,6 @@ def build_hmc(cfg: RunConfig, mesh=None) -> HMCConfig:
     check_ported(cfg)
     lat = cfg.lat
     if mesh is not None and mesh.distributed:
-        check_distributed_ported(cfg)
         lat = mesh.local(lat)
     c1 = GAUGE_ACTIONS[cfg.gauge_action.lower()]
     specs = cfg.monomials or (MonomialSpec(type="GAUGE"),)

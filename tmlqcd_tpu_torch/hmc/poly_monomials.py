@@ -22,9 +22,15 @@ the heatbath and the action every Q_nd^2 is one K1-SD launch
 The force's Clenshaw runs `q_nd_diff` twice per Q_nd^2 (K1 forward, K2 and
 the adjoint K1 backward, through `HoppingDiff`), or `q_nd_clover_diff` with
 clover, where the reference takes jnp autodiff of its complex operator.
-The monomial takes no mesh: the whole lattice runs on the one card even when
-`cli.hmc` builds a slab mesh for the other monomials (the reference falls
-back to its jnp operator under a mesh).
+In one process the monomial takes no mesh: the whole lattice runs on the
+one card even when `cli.hmc` builds a slab mesh for the other monomials (the
+reference falls back to its jnp operator under a mesh).  On one rank of a
+distributed run (`mesh` over a process group, `lat` the rank's slab) there
+is no whole lattice: the heatbath's CG and the Clenshaw sums run the
+sharded doublet operators (`q_nd_sq_fast_shard` and its clover form: the
+rank hop with flavour as the R axis, the diagonals in torch), the force's
+Clenshaw `q_nd_diff` / `q_nd_clover_diff` on `HoppingDiff` (the rank hop
+forward, K2-S backward), every norm a sum over the ranks.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ class NDPolyMonomial:
     heatbath_tol: float = 1e-10
     maxiter: int = 1000
     name: str = "ndpoly"
+    mesh: object = None  # a distributed parallel.Mesh: the operators of the rank's slab
 
     @functools.cached_property
     def coeffs(self) -> np.ndarray:
@@ -77,7 +84,7 @@ class NDPolyMonomial:
         return (2, 4, 3) + self.lat.eo_site_shape
 
     def _ops(self, u: torch.Tensor, grad: bool) -> _NDOps:
-        return _NDOps(u, self.params, self.lat, grad)
+        return _NDOps(u, self.params, self.lat, grad, self.mesh)
 
     def _poly_on(self, q2, chi2: torch.Tensor) -> torch.Tensor:
         return chebyshev_apply(q2, self.coeffs, chi2, self.s_min, self.s_max)

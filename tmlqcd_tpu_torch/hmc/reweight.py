@@ -12,7 +12,10 @@ and a hermitian positive M,
 callers combine them as mean(exp(s)) and should look at their spread (the
 estimator degrades for large |log det|, as the reference's does).  The
 operators act on split f32 fields; on a CUDA gauge `mu_shift_reweighting`
-applies Qhat_pm as one K1-S launch, in the solve too.
+applies Qhat_pm as one K1-S launch, in the solve too.  Given the `lat` of
+the field the noise is drawn by timeslice, so it does not depend on the
+decomposition; on one rank's slab of a distributed run the operators are
+the slab's and every sum is a sum over the ranks (`dot_re_f64_split`).
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ __all__ = ["stochastic_logdet_samples", "mu_shift_reweighting"]
 
 def stochastic_logdet_samples(apply_m: Callable, shape: tuple, key: rng.Key,
                               n_samples: int = 12, device="cpu",
-                              etas: Sequence | None = None) -> torch.Tensor:
+                              etas: Sequence | None = None, lat: Lattice | None = None
+                              ) -> torch.Tensor:
     """[n] f64 samples s_i with det(M)^{-1} = E[exp(s_i)].  `apply_m` acts on
-    split fields; eta_i (complex, `shape`) is drawn from `key.fold(i)`, or
-    taken from `etas` (then n = len(etas))."""
+    split fields; eta_i (complex, `shape`) is drawn from `key.fold(i)` (by
+    timeslice of `lat` where given), or taken from `etas` (then n =
+    len(etas))."""
     if etas is None:
-        etas = [rng.normal_spinor(key.fold(i), shape, device) for i in range(n_samples)]
+        etas = [rng.normal_spinor(key.fold(i), shape, device, lat=lat) for i in range(n_samples)]
     out = []
     for eta in etas:
         eta2 = wf.to_split(eta)
@@ -61,4 +66,4 @@ def mu_shift_reweighting(u: torch.Tensor, params_old, params_new, lat: Lattice, 
                       maxiter=maxiter).x
 
         return stochastic_logdet_samples(apply_m, (4, 3) + lat.eo_site_shape, key, n_samples,
-                                         u.device, etas)
+                                         u.device, etas, lat)

@@ -9,6 +9,11 @@ eta at t0 and psi = M^{-1} eta,
 
 (gamma0 gamma5 is anti-hermitian, so the bilinear is purely imaginary and the
 correlator is its imaginary part).  The propagator is one `invert_eo` solve.
+
+On one rank's slab of a distributed run (`lat` carries the mesh) t0 and t
+are global: each slab's f64 per-timeslice sums sit at its t offset in a [T]
+vector that is summed over the ranks (`comm.global_sum`), the solve runs on
+the rank's slab kernels, and every rank returns the whole correlator.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from tmlqcd_tpu_torch import rng
+from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.gamma import GAMMA, GAMMA5
 from tmlqcd_tpu_torch.inverter import invert_eo
 from tmlqcd_tpu_torch.lattice import Lattice
@@ -27,11 +33,20 @@ __all__ = ["pion_correlator", "pa_correlator", "online_measurement", "effective_
            "pion_norm"]
 
 
+def _by_timeslice(dens: torch.Tensor, lat: Lattice, t0: int) -> torch.Tensor:
+    """The slab's per-timeslice sums [T_loc] -> the lattice's [T] (placed at
+    the slab's t offset, summed over the ranks), index 0 at timeslice t0."""
+    t_off, t_all = lat.offset[0], lat.global_dims[0]
+    if t_all != dens.shape[0]:
+        dens = torch.nn.functional.pad(dens, (t_off, t_all - t_off - dens.shape[0]))
+    return torch.roll(global_sum(dens), -t0)
+
+
 def pion_correlator(psi: torch.Tensor, lat: Lattice, t0: int = 0) -> torch.Tensor:
     """C_PP(t) [T] f64 from a propagator solve psi = M^{-1} eta, shifted so
     that index 0 is the source timeslice."""
     dens = torch.sum(psi.real.double() ** 2 + psi.imag.double() ** 2, dim=(0, 1, 3, 4))
-    return torch.roll(dens, -t0)
+    return _by_timeslice(dens, lat, t0)
 
 
 def pa_correlator(psi: torch.Tensor, lat: Lattice, t0: int = 0) -> torch.Tensor:
@@ -39,7 +54,7 @@ def pa_correlator(psi: torch.Tensor, lat: Lattice, t0: int = 0) -> torch.Tensor:
     g0g5 = torch.as_tensor(GAMMA[0] @ GAMMA5, dtype=psi.dtype, device=psi.device)
     gpsi = spin_apply(g0g5, psi)
     corr = torch.sum((torch.conj_physical(psi) * gpsi).imag.double(), dim=(0, 1, 3, 4))
-    return torch.roll(corr, -t0)
+    return _by_timeslice(corr, lat, t0)
 
 
 def online_measurement(u: torch.Tensor, params: DiracParams, lat: Lattice, key: rng.Key,
@@ -52,11 +67,11 @@ def online_measurement(u: torch.Tensor, params: DiracParams, lat: Lattice, key: 
     them from `key` (purposes 0 and 1); the parity tests feed the reference's
     draws this way."""
     if t0 is None:
-        t0 = rng.randint(key.fold(0), 0, lat.dims[0])
+        t0 = rng.randint(key.fold(0), 0, lat.global_dims[0])
     src = (source if source is not None
            else z2_timeslice_source(lat, t0, key.fold(1), device=u.device))
-    res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter)
-    norm = 1.0 / (lat.volume / lat.dims[0])
+    res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter, mesh=lat.mesh)
+    norm = 1.0 / _spatial_volume(lat)
     return pion_correlator(res.x, lat, t0) * norm, pa_correlator(res.x, lat, t0) * norm, t0
 
 
@@ -66,8 +81,12 @@ def pion_norm(u: torch.Tensor, params: DiracParams, lat: Lattice, key: rng.Key,
     """Per-timeslice pion norm from a volume Z2 source (the PIONNORM
     measurement): one solve, normalised by the spatial volume.  C(t) [T] f64."""
     src = source if source is not None else volume_source(lat, key, device=u.device)
-    res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter)
-    return pion_correlator(res.x, lat, 0) / (lat.volume / lat.dims[0])
+    res = invert_eo(u, src, params, lat, tol=tol, maxiter=maxiter, mesh=lat.mesh)
+    return pion_correlator(res.x, lat, 0) / _spatial_volume(lat)
+
+
+def _spatial_volume(lat: Lattice) -> int:
+    return lat.global_volume // lat.global_dims[0]
 
 
 def effective_mass(corr) -> np.ndarray:

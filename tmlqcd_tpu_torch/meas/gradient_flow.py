@@ -12,7 +12,10 @@ package's force convention (see `_z`).  RK3:
     V' = exp(3/4 Z2 - 8/9 Z1 + 17/36 Z0) W2,   Zi = eps Z(Wi)
 
 The reference's `lax.scan` over the steps is a Python loop; the energies of
-every step stay on the device until the flow ends.
+every step stay on the device until the flow ends.  On one rank's slab of a
+distributed run the flow's shifts cross the ranks (`lattice.shift_full`)
+and the energies are sums over the ranks (`comm.global_sum`) divided by the
+global volume.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from tmlqcd_tpu_torch import su3
+from tmlqcd_tpu_torch.comm import global_max, global_sum
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops.clover import field_strength
 from tmlqcd_tpu_torch.ops.gauge_action import gauge_force, plaquette_field
@@ -63,7 +67,7 @@ def energy_plaq(v: torch.Tensor, lat: Lattice) -> torch.Tensor:
     for mu in range(4):
         for nu in range(mu + 1, 4):
             acc = acc + torch.sum((3.0 - su3.re_trace(plaquette_field(v, mu, nu, lat))).double())
-    return 2.0 * acc / lat.volume
+    return 2.0 * global_sum(acc) / lat.global_volume
 
 
 def energy_clover(v: torch.Tensor, lat: Lattice) -> torch.Tensor:
@@ -72,7 +76,7 @@ def energy_clover(v: torch.Tensor, lat: Lattice) -> torch.Tensor:
     acc = torch.zeros((), dtype=torch.float64, device=v.device)
     for g in field_strength(v, lat):
         acc = acc + torch.sum(g.real.double() ** 2 + g.imag.double() ** 2)
-    return acc / lat.volume
+    return global_sum(acc) / lat.global_volume
 
 
 class FlowResult(NamedTuple):
@@ -130,7 +134,7 @@ def wilson_flow_adaptive(v: torch.Tensor, lat: Lattice, t_max: float, eps0: floa
         eps = min(eps, t_max - t)
         u1 = wilson_flow_step(v, eps, lat)
         u2 = wilson_flow_step(wilson_flow_step(v, eps / 2.0, lat), eps / 2.0, lat)
-        err = float(torch.max(torch.abs(u1 - u2)))
+        err = float(global_max(torch.max(torch.abs(u1 - u2))))
         if err < tol or eps <= 1e-6:
             v = u2
             t += eps

@@ -192,13 +192,20 @@ def from_split_rhs(psi2: torch.Tensor) -> torch.Tensor:
 def hop_fast(fg: FastGauge, psi2: torch.Tensor, p: int, lat: Lattice, epi: tuple = ("none",),
              psi_o=None, r_axis: int | None = None, blocks=None) -> torch.Tensor:
     """epilogue(H_{p,1-p} psi2) on parity-p sites: K1, or K1-R when `r_axis`
-    names the batch axis of psi2 (on a rank's slab the rank hop, epilogue
-    none)."""
+    names the batch axis of psi2.  On a rank's slab the rank hop, with the
+    diagonal epilogues (mee_inv, clov_inv: the Schur epilogue of the
+    inverter) applied after it, as the sharded operators apply theirs."""
     if lat.mesh is not None:
-        if epi != ("none",):
-            raise NotImplementedError("a fused epilogue on a rank's slab is not ported: the "
-                                      "sharded operators apply their diagonals outside the hop")
-        return hop_shard(fg, psi2, p, lat, lat.mesh, r_axis)
+        out = hop_shard(fg, psi2, p, lat, lat.mesh, r_axis)
+        if epi[0] == "mee_inv":
+            return mee_inv_split(out, epi[1], epi[2])
+        if epi[0] == "clov_inv":
+            return blocks_apply_flat(blocks, out, r_axis)
+        if epi[0] != "none":
+            raise NotImplementedError(f"the epilogue {epi[0]} on a rank's slab is not ported: "
+                                      "the sharded operators apply their diagonals outside "
+                                      "the hop")
+        return out
     ug = fg.ug_even if p == EVEN else fg.ug_odd
     if r_axis is None:
         return dc.hopping_split(ug, psi2, p, lat, epi=epi, psi_o=psi_o, gcomp=fg.gcomp,

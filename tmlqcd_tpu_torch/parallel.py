@@ -321,16 +321,6 @@ def auto_mesh(lat: Lattice, devices=None) -> Mesh | None:
     raise _several_devices(len(devices))
 
 
-def _gather_slabs(x: torch.Tensor, mesh: Mesh) -> list:
-    """Every rank's slab of `x` [..., T_loc, X, m_loc] on the host, in rank
-    order (an all-gather; the slabs have one shape)."""
-    w = torch.view_as_real(x.detach()) if x.is_complex() else x.detach()
-    w = w.contiguous() if mesh.backend == "nccl" else w.cpu().contiguous()
-    bufs = [torch.empty_like(w) for _ in range(mesh.t * mesh.y)]
-    dist.all_gather(bufs, w, group=mesh.group)
-    return [torch.view_as_complex(b.cpu()) if x.is_complex() else b.cpu() for b in bufs]
-
-
 def gather_to_host(x, mesh: Mesh | None = None) -> np.ndarray:
     """Field -> numpy on the host (the checkpoint writer's staging).  The
     slabs of a one-device mesh are views of one whole field, so this is a
@@ -343,7 +333,7 @@ def gather_to_host(x, mesh: Mesh | None = None) -> np.ndarray:
         return np.asarray(x)
     if mesh is None or not mesh.distributed or _process_count() == 1:
         return x.detach().cpu().numpy()
-    return join_slabs(_gather_slabs(x, mesh), None, mesh).numpy()
+    return join_slabs(comm.all_gather(x, mesh, "cpu"), None, mesh).numpy()
 
 
 def place_from_host(arr, mesh: Mesh, dtype=torch.complex64) -> torch.Tensor:

@@ -9,7 +9,7 @@ numbers for the same key; parity tests inject the reference's draws instead.
 
 Draws that do not depend on the decomposition: given the `lat` of the field
 (a whole lattice, or one rank's slab of a distributed run), `normal_spinor`,
-`random_momenta` and `random_su3_field` draw their gaussians timeslice by
+`z2_spinor`, `random_momenta` and `random_su3_field` draw timeslice by
 timeslice, each global timeslice t from its own generator `key.fold(t)`
 ([2, .., X, Y W] of the whole lattice's Y, W = Z/2 for a packed field and Z
 for a full one: one generator and one launch a timeslice), of which the
@@ -50,21 +50,30 @@ def generator(key: Key, device) -> torch.Generator:
     return gen
 
 
-def _gaussian_rows(key: Key, lat, shape: tuple, device, dtype) -> torch.Tensor:
-    """Complex gaussians (<|z|^2> = 1) of `shape` [.., T, X, W] (W = Y Z/2
-    packed or Y Z full, of `lat`'s slab), each global timeslice drawn as
-    [2, .., X, Y W / Y_loc] reals from `key.fold(t)`, the slab's y rows kept."""
+def _rows(key: Key, lat, shape: tuple, device, draw) -> torch.Tensor:
+    """A field of `shape` [.., T, X, W] (W = Y Z/2 packed or Y Z full, of
+    `lat`'s slab), each global timeslice t `draw(size, generator)` of size
+    [2, .., X, Y W / Y_loc] from `key.fold(t)`, the slab's y rows kept ->
+    [2, .., T, X, W]."""
     t_loc, x, y_loc, _ = lat.dims
     lead, w = tuple(shape[:-3]), shape[-1] // y_loc
     if tuple(shape[-3:-1]) != (t_loc, x) or shape[-1] % y_loc:
         raise ValueError(f"field shape {tuple(shape)} is not a field of the lattice {lat.dims}")
-    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
     t0, y0 = lat.offset
     y_all = lat.global_dims[2]
-    rows = [torch.randn((2,) + lead + (x, y_all * w), dtype=rdtype, device=device,
-                        generator=generator(key.fold(t0 + t), device))
+    rows = [draw((2,) + lead + (x, y_all * w), generator(key.fold(t0 + t), device))
             .narrow(-1, y0 * w, y_loc * w) for t in range(t_loc)]
-    g = torch.stack(rows, dim=-3) * 0.7071067811865476
+    return torch.stack(rows, dim=-3)
+
+
+def _rdtype(dtype):
+    return torch.float32 if dtype == torch.complex64 else torch.float64
+
+
+def _gaussian_rows(key: Key, lat, shape: tuple, device, dtype) -> torch.Tensor:
+    """Complex gaussians (<|z|^2> = 1) of `shape`, drawn by timeslice (`_rows`)."""
+    g = _rows(key, lat, shape, device, lambda size, gen: torch.randn(
+        size, dtype=_rdtype(dtype), device=device, generator=gen)) * 0.7071067811865476
     return torch.complex(g[0], g[1])
 
 
@@ -74,7 +83,7 @@ def normal_spinor(key: Key, shape: tuple, device, dtype=torch.complex64,
     with `lat`, drawn by timeslice (the module's note)."""
     if lat is not None:
         return _gaussian_rows(key, lat, shape, device, dtype)
-    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
+    rdtype = _rdtype(dtype)
     gen = generator(key, device)
     s = 0.7071067811865476
     re = torch.randn(shape, generator=gen, dtype=rdtype, device=device) * s
@@ -82,12 +91,16 @@ def normal_spinor(key: Key, shape: tuple, device, dtype=torch.complex64,
     return torch.complex(re, im)
 
 
-def z2_spinor(key: Key, shape: tuple, device, dtype=torch.complex64) -> torch.Tensor:
-    """Z2 x Z2 noise, components (+-1 +- i) / sqrt(2)."""
-    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
-    gen = generator(key, device)
-    bits = torch.randint(0, 2, (2,) + tuple(shape), generator=gen, device=device)
-    signs = (2 * bits - 1).to(rdtype) * 0.7071067811865476
+def z2_spinor(key: Key, shape: tuple, device, dtype=torch.complex64, lat=None) -> torch.Tensor:
+    """Z2 x Z2 noise, components (+-1 +- i) / sqrt(2); with `lat`, drawn by
+    timeslice (the module's note)."""
+    if lat is not None:
+        bits = _rows(key, lat, shape, device, lambda size, gen: torch.randint(
+            0, 2, size, generator=gen, device=device))
+    else:
+        bits = torch.randint(0, 2, (2,) + tuple(shape), generator=generator(key, device),
+                             device=device)
+    signs = (2 * bits - 1).to(_rdtype(dtype)) * 0.7071067811865476
     return torch.complex(signs[0], signs[1])
 
 
