@@ -4,9 +4,13 @@ against the port in one process.  Port only: the ranks and this file
 import no JAX.
 
 One function (`_measure`) runs on each rank of a mesh, on its slab, and in
-the parent on the whole lattice; the parent joins the ranks' slabs.  One
-spawn per mesh shape, (2, 2), (2, 1) and (1, 2), at 8 x 4^3.  Bounds, each
-stated where it is used:
+the parent on the whole lattice, while the ranks run; the parent joins the
+ranks' slabs.  One spawn per mesh shape at 8 x 4^3: (2, 1) here, with its
+10 tests; (2, 2) and (1, 2) in tests/test_torch_dist_meas_2x2.py and
+tests/test_torch_dist_meas_1x2.py, which collect the checks of this file on
+their ranks (a spawn with at most 8 users runs in a file of at most 8
+tests, which the test runner queues behind tests/test_multirhs.py).
+Bounds, each stated where it is used:
 * the Z2, gaussian and point sources do not depend on the decomposition
   (bit for bit: drawn by global timeslice);
 * ONLINE and PIONNORM through the runner, their source drawn from the key:
@@ -33,8 +37,8 @@ stated where it is used:
 """
 
 import dataclasses
-import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -63,7 +67,6 @@ torch.set_num_threads(1)
 
 DIMS = (8, 4, 4, 4)
 LAT = Lattice(DIMS)
-SHAPES = [(2, 2), (2, 1), (1, 2)]
 PARAMS = DiracParams(kappa=0.13, mu=0.1)
 ND = dict(kappa=0.15, mubar=0.15, epsbar=0.05)
 SF = dict(beta=6.0, eta=0.3, nu=0.1, ct=1.2)
@@ -198,7 +201,8 @@ def _cli(run_dir):
     """`cli.hmc --cpu` on CLI_INPUT (with --distributed on the ranks)."""
     from tmlqcd_tpu_torch.cli import hmc as cli_hmc
 
-    path = os.path.join(os.path.dirname(run_dir), "cli.input")
+    # one input file per process: the ranks write theirs at once
+    path = os.path.join(os.path.dirname(run_dir), f"cli{os.getpid()}.input")
     with open(path, "w") as f:
         f.write(CLI_INPUT)
     extra = ["--distributed"] if comm.active() is not None else []
@@ -217,41 +221,43 @@ def _rank_measure(rank, shape, run_dir):
     return out
 
 
-_RUNS: dict = {}
+_GROUPS: dict = {}
 
 
-def _ranks(shape, tmp_path_factory):
-    """One spawn of `_rank_measure` per mesh shape for the whole module ->
-    (the ranks' results, their directory)."""
-    if shape not in _RUNS:
+def _group(shape, tmp_path_factory):
+    """One spawn of `_rank_measure` per mesh shape for the whole module, and
+    the one process's side of its checks, computed here while the ranks run
+    -> (the ranks' results, the one process's, their directory).  The one
+    process's side: `_measure` on the whole lattice, NDPOLY on the
+    one-process mesh of the same shape (whose sharded hop the ranks' equals
+    bit for bit), and on (2, 1) the trajectories without a mesh and the
+    cli.hmc run."""
+    if shape not in _GROUPS:
         d = tmp_path_factory.mktemp(f"meas{shape[0]}x{shape[1]}")
-        # the join's deadline above the default: the (2, 1) ranks run ~30 s
-        # alone, 2-3x that beside a loaded suite
-        _RUNS[shape] = run_ranks(_rank_measure, shape[0] * shape[1], d, shape, str(d),
-                                 timeout=300.0), d
-    return _RUNS[shape]
+        with ThreadPoolExecutor(1) as pool:
+            # the join's deadline above the default: the (2, 1) ranks run
+            # ~30 s alone, 2-3x that beside a loaded suite
+            ranks = pool.submit(run_ranks, _rank_measure, shape[0] * shape[1], d, shape, str(d),
+                                timeout=300.0)
+            one = _measure(LAT, lambda a: a, str(d / "one"))
+            one.update(_ndpoly_checks(LAT, lambda a: a, parallel.Mesh(*shape, device="cpu")))
+            if shape == (2, 1):
+                one["traj"] = _trajectories(LAT, None)
+                one["cli"] = _cli(str(d / "cli-one"))
+            _GROUPS[shape] = ranks.result(), one, d
+    return _GROUPS[shape]
 
 
-@functools.lru_cache(maxsize=None)
-def _one_ndpoly(shape):
-    """NDPOLY in one process on the one-process mesh of `shape`."""
-    return _ndpoly_checks(LAT, lambda a: a, parallel.Mesh(*shape, device="cpu"))
+def _pair(shape, tmp_path_factory):
+    """The ranks' results and the one process's, their directory (twice:
+    the ranks' files and the one process's are both under it)."""
+    ranks, one, d = _group(shape, tmp_path_factory)
+    return shape, ranks, one, d, d
 
 
-@pytest.fixture(scope="module")
-def one(tmp_path_factory):
-    """The one process's results that do not depend on the mesh."""
-    d = tmp_path_factory.mktemp("one")
-    return _measure(LAT, lambda a: a, str(d / "one")), d
-
-
-@pytest.fixture(scope="module", params=SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def pair(request, tmp_path_factory, one):
-    """The ranks' results and the one process's (NDPOLY's on the
-    one-process mesh of the same shape), once per mesh shape."""
-    shape = request.param
-    ranks, d = _ranks(shape, tmp_path_factory)
-    return shape, ranks, {**one[0], **_one_ndpoly(shape)}, d, one[1]
+@pytest.fixture(scope="module", params=[(2, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def pair(request, tmp_path_factory):
+    return _pair(request.param, tmp_path_factory)
 
 
 def test_sources_do_not_depend_on_the_decomposition(pair):
@@ -339,19 +345,6 @@ def test_sf_action_slope_force_and_mask_on_ranks(pair):
     np.testing.assert_array_equal(join([r["sf"][4] for r in ranks], shape), bg)
 
 
-def test_ndpoly_heatbath_on_ranks(tmp_path_factory):
-    """The NDPOLY heatbath (CG on P^2) on the (2, 2) ranks' sharded doublet
-    operators against one process on the one-process (2, 2) mesh: as many
-    CG iterations, S_0 = |eta|^2 to 1e-12, phi to 1e-6 of max|phi|."""
-    shape = (2, 2)
-    ranks, _ = _ranks(shape, tmp_path_factory)
-    phi, s0, iters = _one_ndpoly(shape)["heatbath"]
-    got = [r["heatbath"] for r in ranks]
-    assert all(g[2] == iters for g in got) and 0 < iters < 500
-    assert all(abs(g[1] - s0) <= 1e-12 * s0 for g in got)
-    assert np.max(np.abs(join([g[0] for g in got], shape) - phi)) <= 1e-6 * np.max(np.abs(phi))
-
-
 @pytest.mark.parametrize("c_sw", [0.0, 1.2], ids=["tm", "clover"])
 def test_ndpoly_action_and_force_on_ranks(pair, c_sw):
     """NDPOLY's action and force on the same phi (the bounds in the module
@@ -375,8 +368,8 @@ def _ddh_bound(st) -> float:
 def pair_21(tmp_path_factory):
     """The (2, 1) ranks' trajectories and cli.hmc run beside the one
     process's."""
-    ranks, d = _ranks((2, 1), tmp_path_factory)
-    return ranks, _trajectories(LAT, None), _cli(str(d / "cli-one")), d
+    ranks, one, d = _group((2, 1), tmp_path_factory)
+    return ranks, one["traj"], one["cli"], d
 
 
 @pytest.mark.parametrize("action", ["ndpoly", "sf"])

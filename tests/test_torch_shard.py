@@ -19,7 +19,8 @@ Tolerances:
   1e-5, the bound of the port's other hop tests (f32 rounding of outputs
   of ~10 in another order);
 - one case against the reference's `hopping_pallas_shard` in interpret mode
-  on its 8-device rig: mesh (2,2), R = 3, both of its kernels; 1e-5.
+  on its 8-device rig (mesh (2,2), R = 3, both of its kernels; 1e-5) is in
+  tests/test_torch_shard_pallas.py.
 """
 
 import dataclasses
@@ -30,12 +31,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh as JMesh, NamedSharding, PartitionSpec as P
 
 from tmlqcd_tpu.lattice import Lattice as JLattice, pack_gauge_eo as jpack
-from tmlqcd_tpu.ops import dslash_pallas as jdp
 from tmlqcd_tpu.ops import wilson as jw
-from tmlqcd_tpu.ops import wilson_fast as jwf
 from tmlqcd_tpu_torch import bridge, parallel
 from tmlqcd_tpu_torch.lattice import EVEN, ODD, Lattice
 from tmlqcd_tpu_torch.ops import dslash_cuda as dc
@@ -63,8 +61,8 @@ def _quick_reference_compiles():
     jax.config.update("jax_disable_most_optimizations", False)
 
 
-@pytest.fixture(scope="module")
-def fields():
+def _data():
+    """The gauge copies and the inputs of the checks, from numpy seeds."""
     u = bridge.numpy_su3(np.random.default_rng(61), (4,) + JL.site_shape)
     gen = np.random.default_rng(62)
     psi = bridge.numpy_spinor(gen, (4, 3) + JL.eo_site_shape)
@@ -78,14 +76,20 @@ def fields():
     inputs = {None: wf.to_split(torch.as_tensor(psi)),
               3: wf.to_split_rhs(torch.as_tensor(cols)),
               1: wf.to_split(torch.as_tensor(chi))}
+    return dict(u=u, ut=ut, tp=tp, gauges=gauges, inputs=inputs, psi=psi, cols=cols, chi=chi)
+
+
+@pytest.fixture(scope="module")
+def fields():
+    f = _data()
     # the reference's jnp hop of every input column, both parities, in one
     # batch: [psi, cols 0..2, chi flavours 0..1]
-    batch = np.concatenate([psi[None], cols, chi])
+    batch = np.concatenate([f["psi"][None], f["cols"], f["chi"]])
     ph = jw.boundary_phases(jw.DiracParams(**PARAMS), JL)
-    ueo = jpack(jnp.asarray(u), JL)
+    ueo = jpack(jnp.asarray(f["u"]), JL)
     ref = {p: np.asarray(jax.jit(jax.vmap(lambda x, p=p: jw.dslash_packed(ueo, x, p, JL, ph)))(
         batch)) for p in (EVEN, ODD)}
-    return dict(u=u, ut=ut, tp=tp, gauges=gauges, inputs=inputs, ref=ref)
+    return dict(f, ref=ref)
 
 
 def _ref_of(ref_p: np.ndarray, r_axis) -> np.ndarray:
@@ -133,25 +137,6 @@ def test_shard_matches_whole_lattice_hop_and_reference(fields, shape, halfspinor
     assert dc.hopping_slab_split_plain.calls == 3 * 3 * 2
     assert dc.halo_pack.plain_calls == (3 * 3 * 2 if overlap else 0)
     assert sum(dc.hopping_slab_split.launches.values()) == 0
-
-
-def test_shard_matches_reference_pallas_interpret(fields):
-    """The reference's `hopping_pallas_shard` (interpret mode, its 8-device
-    rig) on mesh (2,2), R = 3 at r_axis 3, the default halfspinor and
-    overlap: T_loc = 4, so both its interior and its surface kernel run."""
-    fg = fields["gauges"]["18"]
-    jfg = jwf.make_fast_gauge(jnp.asarray(fields["u"]), jw.DiracParams(**PARAMS), JL,
-                              compress=False)
-    np.testing.assert_array_equal(np.asarray(jfg.ug_even), fg.ug_even.numpy())
-    x = fields["inputs"][3]
-    jmesh = JMesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("t", "m"))
-    spec = NamedSharding(jmesh, P(None, None, None, None, "t", None, "m"))
-    ug_s = jax.device_put(jfg.ug_even, spec)
-    x_s = jax.device_put(jnp.asarray(x.numpy()), spec)
-    ref = jax.jit(lambda a, b: jdp.hopping_pallas_shard(a, b, EVEN, JL, jmesh, t_axis="t",
-                                                        m_axis="m", interpret=True))(ug_s, x_s)
-    out = dc.hopping_shard(fg.ug_even, x, EVEN, LAT, parallel.Mesh(2, 2, "cpu"), r_axis=3)
-    assert _maxdiff(out, ref) < ATOL_REF
 
 
 @pytest.mark.parametrize("halfspinor", [True, False], ids=["half", "full"])
