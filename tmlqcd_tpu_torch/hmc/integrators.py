@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tmlqcd_tpu_torch import su3
+from tmlqcd_tpu_torch.utils import span
 
 __all__ = ["Level", "IntegratorConfig", "integrate"]
 
@@ -132,7 +133,10 @@ def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None,
     `freeze_mask` (optional, [4,T,X,Y*Z] 0/1): the links where it is 0 are
     the Schrödinger functional's frozen dofs; each drift restores them bit
     for bit after the SU(3) projection (the masked momenta keep them fixed
-    up to the projection's rounding, the restore removes even that)."""
+    up to the projection's rounding, the restore removes even that).
+
+    Under a profiler each force call is the span `tmlqcd.force.<monomial
+    name>` and each drift, restore included, `tmlqcd.drift` (`utils.span`)."""
     for m in monomials:
         if m.timescale >= len(cfg.levels):
             raise ValueError(f"monomial {m.name} on timescale {m.timescale} but only "
@@ -145,28 +149,31 @@ def integrate(cfg: IntegratorConfig, monomials, aux_list, u, p, chrono=None,
     frozen = None if freeze_mask is None else freeze_mask.to(u.device) == 0.0
     ch = list(chrono) if chrono is not None else [None] * nm
     its = [0] * nm
+    force_spans = [f"tmlqcd.force.{m.name}" for m in monomials]
     for row, dt in zip(kc, dd):
         f = None
         for i, m in enumerate(monomials):
             c = float(row[i])
             if c == 0.0:
                 continue
-            if ch[i] is not None and hasattr(m, "force_chrono"):
-                fi, ch[i], ki = m.force_chrono(u, aux_list[i], ch[i])
-                its[i] += int(ki)
-            elif hasattr(m, "force_info"):
-                # solver-backed forces without chrono (the multishift solves
-                # of the rational monomials start from zero)
-                fi, ki = m.force_info(u, aux_list[i])
-                its[i] += int(ki)
-            else:
-                fi = m.force(u, aux_list[i])
+            with span(force_spans[i]):
+                if ch[i] is not None and hasattr(m, "force_chrono"):
+                    fi, ch[i], ki = m.force_chrono(u, aux_list[i], ch[i])
+                    its[i] += int(ki)
+                elif hasattr(m, "force_info"):
+                    # solver-backed forces without chrono (the multishift
+                    # solves of the rational monomials start from zero)
+                    fi, ki = m.force_info(u, aux_list[i])
+                    its[i] += int(ki)
+                else:
+                    fi = m.force(u, aux_list[i])
             f = c * fi if f is None else f + c * fi
         if f is not None:
             p = p + 0.5 * f
         if dt != 0.0:
-            unew = su3.project_su3(su3.mul(su3.expm_ta(float(dt) * p), u))
-            u = unew if frozen is None else torch.where(frozen, u, unew)
+            with span("tmlqcd.drift"):
+                unew = su3.project_su3(su3.mul(su3.expm_ta(float(dt) * p), u))
+                u = unew if frozen is None else torch.where(frozen, u, unew)
     if chrono is not None:
         return u, p, tuple(ch), its
     return u, p

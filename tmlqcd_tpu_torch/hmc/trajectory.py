@@ -5,7 +5,9 @@ Port of `tmlqcd_tpu/hmc/trajectory.py`.  The Metropolis select, and the
 chrono reset on reject, are a plain `if`.  Random draws come from `rng.Key`
 purposes (0: momenta, 1: heatbaths, folded with 1000 + monomial index, 2:
 the Metropolis uniform); `draws=` injects them instead, which is how the
-parity tests feed the reference's draws to the port.
+parity tests feed the reference's draws to the port.  Under a profiler the
+three phases are the spans `tmlqcd.hmc.heatbath`, `tmlqcd.hmc.md` and
+`tmlqcd.hmc.accept` (`utils.span`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from tmlqcd_tpu_torch import rng, su3
 from tmlqcd_tpu_torch.comm import global_max
 from tmlqcd_tpu_torch.hmc.integrators import IntegratorConfig, integrate
 from tmlqcd_tpu_torch.ops.gauge_action import plaquette
+from tmlqcd_tpu_torch.utils import span
 
 __all__ = ["HMCConfig", "Draws", "TrajectoryStats", "hmc_trajectory", "chrono_states",
            "reversibility_check"]
@@ -81,46 +84,48 @@ def hmc_trajectory(cfg: HMCConfig, u: torch.Tensor, key: rng.Key, chrono=None,
     caller carries `chrono` across trajectories (reset to empty on reject)."""
     device = u.device
     k_mom, k_pf, k_acc = key.fold(0), key.fold(1), key.fold(2)
-    p = _masked(cfg, draws.momenta if draws is not None
-                else rng.random_momenta(k_mom, u.shape[2:], device, lat=cfg.lat))
-
-    aux_list = []
-    s_old = torch.zeros((), dtype=torch.float64, device=device)
-    for i, m in enumerate(cfg.monomials):
-        eta = draws.etas[i] if draws is not None else None
-        aux, s0 = m.heatbath(u, k_pf.fold(1000 + i), eta)
-        aux_list.append(aux)
-        s_old = s_old + s0
-    h_old = su3.kinetic_energy(p) + s_old
+    with span("tmlqcd.hmc.heatbath"):
+        p = _masked(cfg, draws.momenta if draws is not None
+                    else rng.random_momenta(k_mom, u.shape[2:], device, lat=cfg.lat))
+        aux_list = []
+        s_old = torch.zeros((), dtype=torch.float64, device=device)
+        for i, m in enumerate(cfg.monomials):
+            eta = draws.etas[i] if draws is not None else None
+            aux, s0 = m.heatbath(u, k_pf.fold(1000 + i), eta)
+            aux_list.append(aux)
+            s_old = s_old + s0
+        h_old = su3.kinetic_energy(p) + s_old
 
     ch0 = chrono_states(cfg, device) if chrono is None else chrono
-    u_new, p_new, ch, force_iters = integrate(cfg.integrator, cfg.monomials, aux_list, u, p,
-                                              chrono=ch0, freeze_mask=cfg.momenta_mask)
+    with span("tmlqcd.hmc.md"):
+        u_new, p_new, ch, force_iters = integrate(cfg.integrator, cfg.monomials, aux_list, u, p,
+                                                  chrono=ch0, freeze_mask=cfg.momenta_mask)
 
-    s_new = torch.zeros((), dtype=torch.float64, device=device)
-    iters = []
-    for i, m in enumerate(cfg.monomials):
-        s_i, it_i = m.action_info(u_new, aux_list[i], ch[i])
-        s_new = s_new + s_i
-        iters.append(int(it_i))
-    h_new = su3.kinetic_energy(p_new) + s_new
+    with span("tmlqcd.hmc.accept"):
+        s_new = torch.zeros((), dtype=torch.float64, device=device)
+        iters = []
+        for i, m in enumerate(cfg.monomials):
+            s_i, it_i = m.action_info(u_new, aux_list[i], ch[i])
+            s_new = s_new + s_i
+            iters.append(int(it_i))
+        h_new = su3.kinetic_energy(p_new) + s_new
 
-    dh = h_new - h_old
-    exp_mdh = torch.exp(-dh)
-    uni = draws.uniform if draws is not None else rng.uniform(k_acc, device)
-    accept = bool(torch.tensor(float(uni), dtype=torch.float32).double() < exp_mdh.cpu())
-    u_out = u_new if accept else u
+        dh = h_new - h_old
+        exp_mdh = torch.exp(-dh)
+        uni = draws.uniform if draws is not None else rng.uniform(k_acc, device)
+        accept = bool(torch.tensor(float(uni), dtype=torch.float32).double() < exp_mdh.cpu())
+        u_out = u_new if accept else u
 
-    stats = TrajectoryStats(
-        plaquette=float(plaquette(u_out, cfg.lat)),
-        delta_h=float(dh),
-        exp_mdh=float(exp_mdh),
-        accepted=accept,
-        h_old=float(h_old),
-        h_new=float(h_new),
-        acc_iterations=iters,
-        force_iterations=list(force_iters),
-    )
+        stats = TrajectoryStats(
+            plaquette=float(plaquette(u_out, cfg.lat)),
+            delta_h=float(dh),
+            exp_mdh=float(exp_mdh),
+            accepted=accept,
+            h_old=float(h_old),
+            h_new=float(h_new),
+            acc_iterations=iters,
+            force_iterations=list(force_iters),
+        )
     if chrono is not None:
         return u_out, stats, (ch if accept else chrono_states(cfg, device))
     return u_out, stats

@@ -52,6 +52,13 @@ the flavour-2x2 diagonal of `ops/ndoublet.py` (or its clover form) and the
 hermitian Q_nd = gamma5 tau1 Mhat_nd: Mhat x = bhat <=> Q_nd^2 x = Q_nd
 (gamma5 tau1 bhat).  Every hop of it is one multi-RHS kernel call with
 flavour as the R axis.
+
+Spans (`utils.span`, under a profiler) of `invert_eo`, `invert_clover_eo`
+and `invert_eo_rhs`: `tmlqcd.invert` over the call; inside it
+`tmlqcd.invert.pack` (even/odd split, split fields), `.prologue` (the fast
+gauge or clover set-up, bhat, and the CG's right-hand side, which a single
+twisted-mass source makes beside its solver), the solver's own spans
+(`solvers/cg.py`), `.epilogue` (x_e) and `.unpack`.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
 from tmlqcd_tpu_torch.solvers.cg import cg, cg_rhs
 from tmlqcd_tpu_torch.solvers.mixed_cg import mixed_cg
+from tmlqcd_tpu_torch.utils import span
 
 __all__ = ["InvertResult", "make_deflation_setup", "invert_eo", "invert_eo_increigcg",
            "invert_clover_eo", "invert_eo_rhs", "invert_doublet_eo", "SOLVERS",
@@ -161,22 +169,24 @@ def _schur_solve(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver="cg",
                  deflation_setup=None, mesh=None):
     """Steps 1-3 on split even/odd sources; r_axis None (one source, any
     solver) or 3 (a batch, batched CG)."""
-    fg = wf.make_fast_gauge(u, params, lat)
     kappa, mutld = float(params.kappa), float(params.mutld)
-
-    # bhat = b_o + kappa H_oe Mee^{-1} b_e
-    bhat = b_o2 + kappa * wf.hop_fast(fg, wf.mee_inv_split(b_e2, mutld, +1.0), ODD, lat,
-                                      r_axis=r_axis)
+    with span("tmlqcd.invert.prologue"):
+        fg = wf.make_fast_gauge(u, params, lat)
+        # bhat = b_o + kappa H_oe Mee^{-1} b_e
+        bhat = b_o2 + kappa * wf.hop_fast(fg, wf.mee_inv_split(b_e2, mutld, +1.0), ODD, lat,
+                                          r_axis=r_axis)
+        if r_axis is not None:
+            rhs = wf.q_hat_fast(fg, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
     if r_axis is None:
         res = _odd_solve(fg, bhat, params, lat, tol, maxiter, solver, deflation_setup, u, mesh)
     else:
-        rhs = wf.q_hat_fast(fg, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
         res = cg_rhs(wf.q_hat_pm_operator(fg, params, lat, mesh, r_axis), rhs,
                      rhs_axis=r_axis, tol=tol, maxiter=maxiter)
     # x_e = Mee^{-1} (b_e + kappa H_eo x_o): the diagonal is linear, so it is
     # applied to b_e on its own and fused into the hop's epilogue for x_o
-    x_e = wf.mee_inv_split(b_e2, mutld, +1.0) + kappa * wf.hop_fast(
-        fg, res.x, EVEN, lat, ("mee_inv", mutld, +1.0), r_axis=r_axis)
+    with span("tmlqcd.invert.epilogue"):
+        x_e = wf.mee_inv_split(b_e2, mutld, +1.0) + kappa * wf.hop_fast(
+            fg, res.x, EVEN, lat, ("mee_inv", mutld, +1.0), r_axis=r_axis)
     return x_e, res
 
 
@@ -187,13 +197,13 @@ def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver
     Qsw_- of the prologue carry their blocks in the clover epilogues.
     solver (one source): cg, fastcg, mixedcg (the same operator at both
     levels, as in the reference); any other runs CG."""
-    fc = wf.make_fast_clover(u, params, lat)
     kappa = float(params.kappa)
-    minv_be = wf.blocks_apply_flat(fc.mee_inv_p, b_e2, r_axis)
-
-    # bhat = b_o + kappa H_oe Mee^{-1} b_e
-    bhat = b_o2 + kappa * wf.hop_fast(fc.fg, minv_be, ODD, lat, r_axis=r_axis)
-    rhs = wf.q_hat_clover_fast(fc, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
+    with span("tmlqcd.invert.prologue"):
+        fc = wf.make_fast_clover(u, params, lat)
+        minv_be = wf.blocks_apply_flat(fc.mee_inv_p, b_e2, r_axis)
+        # bhat = b_o + kappa H_oe Mee^{-1} b_e
+        bhat = b_o2 + kappa * wf.hop_fast(fc.fg, minv_be, ODD, lat, r_axis=r_axis)
+        rhs = wf.q_hat_clover_fast(fc, gamma5_split(bhat), params, lat, -1.0, r_axis=r_axis)
     mv = wf.q_hat_pm_clover_operator(fc, params, lat, mesh, r_axis)
     if r_axis is None and solver == "mixedcg":
         mres = mixed_cg(mv, rhs, tol=tol, max_inner=maxiter)
@@ -206,8 +216,9 @@ def _schur_solve_clover(u, b_e2, b_o2, params, lat, tol, maxiter, r_axis, solver
         res = cg_rhs(mv, rhs, rhs_axis=r_axis, tol=tol, maxiter=maxiter)
     # x_e = Mee^{-1} (b_e + kappa H_eo x_o), the block inverse of the second
     # term fused into the hop
-    x_e = minv_be + kappa * wf.hop_fast(fc.fg, res.x, EVEN, lat, ("clov_inv",), r_axis=r_axis,
-                                        blocks=fc.mee_inv_p)
+    with span("tmlqcd.invert.epilogue"):
+        x_e = minv_be + kappa * wf.hop_fast(fc.fg, res.x, EVEN, lat, ("clov_inv",),
+                                            r_axis=r_axis, blocks=fc.mee_inv_p)
     return x_e, res
 
 
@@ -237,11 +248,13 @@ def invert_clover_eo(u: torch.Tensor, b: torch.Tensor, params: DiracParams, lat:
 
 def _invert_one(schur, u, b, params, lat, tol, maxiter, solver, **kw) -> InvertResult:
     check_solver(solver)
-    with torch.no_grad():
-        b_e, b_o = eo_pack(b, lat)
-        x_e2, res = schur(u, wf.to_split(b_e), wf.to_split(b_o), params, lat, tol, maxiter, None,
-                          solver.lower(), **kw)
-        x = eo_unpack(wf.from_split(x_e2), wf.from_split(res.x), lat)
+    with torch.no_grad(), span("tmlqcd.invert"):
+        with span("tmlqcd.invert.pack"):
+            b_e, b_o = eo_pack(b, lat)
+            b_e2, b_o2 = wf.to_split(b_e), wf.to_split(b_o)
+        x_e2, res = schur(u, b_e2, b_o2, params, lat, tol, maxiter, None, solver.lower(), **kw)
+        with span("tmlqcd.invert.unpack"):
+            x = eo_unpack(wf.from_split(x_e2), wf.from_split(res.x), lat)
     return InvertResult(x=x.to(b.dtype), iterations=res.iterations, residual_sq=res.residual_sq)
 
 
@@ -290,11 +303,13 @@ def invert_eo_rhs(u: torch.Tensor, bs: torch.Tensor, params: DiracParams, lat: L
     `iterations` the maximum over sides.  `mesh`: the batched CG on the
     multi-RHS slab kernels."""
     schur = _schur_solve_clover if params.c_sw != 0.0 else _schur_solve
-    with torch.no_grad():
-        b_e, b_o = eo_pack(bs, lat)
-        x_e2, res = schur(u, wf.to_split_rhs(b_e), wf.to_split_rhs(b_o), params, lat,
-                          tol, maxiter, 3, mesh=mesh)
-        x = eo_unpack(wf.from_split_rhs(x_e2), wf.from_split_rhs(res.x), lat)
+    with torch.no_grad(), span("tmlqcd.invert"):
+        with span("tmlqcd.invert.pack"):
+            b_e, b_o = eo_pack(bs, lat)
+            b_e2, b_o2 = wf.to_split_rhs(b_e), wf.to_split_rhs(b_o)
+        x_e2, res = schur(u, b_e2, b_o2, params, lat, tol, maxiter, 3, mesh=mesh)
+        with span("tmlqcd.invert.unpack"):
+            x = eo_unpack(wf.from_split_rhs(x_e2), wf.from_split_rhs(res.x), lat)
     return InvertResult(x=x.to(bs.dtype), iterations=res.iterations, residual_sq=res.residual_sq)
 
 
