@@ -36,7 +36,12 @@ result lines):
    and 18-real, at 16^3x32, 32^3x64 and 10x6x14x6.  The overlap's Q_W on
    K1 (two launches, the mhat epilogue on both parities) against gamma5
    d_full, each parity and the whole field, and one Q_W^2 on K1 against two
-   plain Q_W, at 16^3x32 and 10x6x14x6.
+   plain Q_W, at 16^3x32 and 10x6x14x6.  KG (the MD gauge force in one
+   launch) through `gauge_action.gauge_force` against its plain version,
+   Wilson and tlSym, at 16^3x32 and 24^3x48: one launch a call, no plain
+   call, its loop, device and plain times and its bound.  Every one-device
+   HMC path (5, 7, 9) then makes its gauge forces on KG alone, and path 14's
+   ranks on the plain version alone.
 3. timings: K1 at 16^3x32 and 32^3x64, K2 at 16^3x32, K1-R (R = 12) at both
    sizes beside 12 launches of K1, K1-R-D at both sizes beside 2 launches
    of K1, K1-B beside f32 K1 (mhat + g5 and clov_mhat + g5), kernel and
@@ -197,7 +202,9 @@ result lines):
    derived from the solves' stopping test; (b) hmc5's action at 16^3x32
    with GRADIENTFLOW (10 steps of 0.02), POLYAKOV along t and y,
    ORIENTEDPLAQUETTES and FIELDSTRENGTH, every file to 1e-10 relative of
-   one process on the ranks' checkpoint; (c) GAUGE + NDPOLY (degree 32) at
+   one process on the ranks' checkpoint with the flow's force on the plain
+   version (the ranks' route), and that process's flow on KG against it
+   within 30 KERNEL_RTOL; (c) GAUGE + NDPOLY (degree 32) at
    hmc5's 4^3x8, 1 trajectory against one process (dH within a derived
    bound, the interval check equal on every rank, no K1-SD or K1 on the
    ranks, a rank's peak memory).  Then (d) hmc4 as shipped on 3 ranks
@@ -2071,7 +2078,15 @@ def _read_counts(dc) -> dict:
     faces = getattr(dc, "halo_faces", None)
     k2s = getattr(dc, "hopping_ug_vjp_slab", None)
     k2s_plain = getattr(dc, "hopping_ug_vjp_slab_plain", None)
-    return {"K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
+    # KG and the calls its plain version served (absent from a tree before
+    # KG, run with --root; the plain force is the route of a mesh's slabs)
+    from tmlqcd_tpu_torch.ops import gauge_action
+
+    kg = getattr(dc, "gauge_force_cuda", None)
+    kg_plain = getattr(gauge_action, "gauge_force_plain", None)
+    return {"KG": kg.launches if kg else 0,
+            "plain gauge force": kg_plain.calls if kg_plain else 0,
+            "K1": dc.hopping_split.launches, "K1-R": dc.hopping_split_rhs.launches,
             "K1-S": schur.launches if schur else 0, "K1-S hops": schur.hops if schur else 0,
             "K1-S clover hops": schur.clover_hops if schur else 0,
             "K1-S bf16 hops": schur.bf16_hops if schur else 0,
@@ -2259,6 +2274,10 @@ def phase_main_path(workdir: str, clover: bool = False, nf211: bool = False):
     _say(f"[{tag}] acceptance-solve iterations per monomial and trajectory {acc}")
     _check(counts["K1"] > 0 and counts["K2"] > 0 and _schur_ran(dc, counts),
            f"a kernel was not launched: {counts}")
+    # every gauge force of the GAUGE monomial (and of the flow) is one KG launch
+    _check(counts["plain gauge force"] == 0
+           and (counts["KG"] > 0 or not hasattr(dc, "gauge_force_cuda")),
+           f"gauge force launches: {counts}")
     # only the ONLINE solve (twisted mass, no clover term) runs the Schur
     # operator without a clover epilogue on the clover path, beside the hops
     # of the force; every Mhat and Qhat_pm runs on K1-S
@@ -3630,6 +3649,71 @@ def phase_offline_benchmark_api(workdir: str, nconf: str, conf1: str, k1_ms: flo
 OVERLAP_RHO = 1.4
 
 
+# KG's SU(3) products a link (csrc/gauge_force.cu): 11 a side of a plane with
+# the rectangles (2 without), 6 sides, then U A; 216 flops a product
+KG_PRODUCTS = {True: 67, False: 13}
+FLOPS_SU3_MUL = 216
+# the gauge actions KG is checked and timed on: Wilson (the flow's, hmc2's)
+# and tlSym (b40.24's); c1 == 0 is the kernel's instance without rectangles
+KG_ACTIONS = (("Wilson", 0.0), ("tlSym", -1.0 / 12.0))
+
+
+def phase_gauge_force(lats, beta: float = 3.9):
+    """KG, the MD gauge force in one launch (`dslash_cuda.gauge_force_cuda`),
+    through `gauge_action.gauge_force` against its plain version
+    `gauge_force_plain` on the same card links (Haar-random), Wilson and
+    tlSym, at each lattice: within KERNEL_RTOL of max|plain|, one launch a
+    call and no plain call.  Then the loop time (CUDA events), the device
+    time (torch.profiler) and the plain version's time, with the bound from
+    the products the kernel computes (KG_PRODUCTS) and one read of the links
+    and one write of the force.  -> (largest max|d|, {(tag, action): (loop
+    ms, plain ms, bound ms, bound by, device ms)})."""
+    import torch
+
+    from tmlqcd_tpu_torch import rng, su3
+    from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+    from tmlqcd_tpu_torch.ops import gauge_action as ga
+
+    worst, rows = 0.0, {}
+    for lat in lats:
+        t, x, y, z = lat.dims
+        tag = f"{x}x{y}x{z}x{t}"
+        u = su3.random_su3(rng.generator(rng.Key(17), "cuda"), (4,) + lat.site_shape)
+        for name, c1 in KG_ACTIONS:
+            dc.reset_counters()
+            n_plain = ga.gauge_force_plain.calls
+            f = ga.gauge_force(u, beta, lat, c1)
+            _check(dc.gauge_force_cuda.launches == 1 and ga.gauge_force_plain.calls == n_plain,
+                   f"KG {name} {tag}: gauge_force made {dc.gauge_force_cuda.launches} launches "
+                   f"and {ga.gauge_force_plain.calls - n_plain} plain calls, expected 1 and 0")
+            ref = ga.gauge_force_plain(u, beta, lat, c1)
+            torch.cuda.synchronize()
+            err = float((f - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            worst = max(worst, err)
+            _say(f"[check] KG {name:6s} {tag}: max|d| {err:.3e} (rel {rel:.2e} of max|plain|)")
+            _check(rel <= KERNEL_RTOL, f"KG {name} {tag} off its plain version by {rel:.3e}")
+            del f, ref
+
+            def kernel(c1=c1):
+                return dc.gauge_force_cuda(u, beta, c1, lat)
+
+            n0 = dc.gauge_force_cuda.launches
+            ms = _time_ms(kernel, 20)
+            _check(dc.gauge_force_cuda.launches == n0 + 23, "KG: not one launch a call")
+            dev_ms, seen, made = _device_ms(kernel, 10, "gauge_force_kernel")
+            plain_ms = _time_ms(lambda c1=c1: ga.gauge_force_plain(u, beta, lat, c1), 3)
+            bound, by = _bound_ms(2 * u.numel() * u.element_size(),
+                                  KG_PRODUCTS[c1 != 0.0] * FLOPS_SU3_MUL * 4 * lat.volume)
+            rows[(tag, name)] = (ms, plain_ms, bound, by, dev_ms)
+            _say(f"[time] KG {name:6s} {tag}: loop {ms * 1e3:.1f} us, device {dev_ms * 1e3:.1f} us "
+                 f"({seen} of {made} launches seen), plain {plain_ms * 1e3:.1f} us, bound "
+                 f"{bound * 1e3:.1f} us by {by} ({bound / dev_ms:.1%} of it)")
+        del u
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
 def phase_qw_kernels(lats, dev="cuda"):
     """The overlap's Q_W = gamma5 D_W(-rho) on K1 (`ops/overlap.qw_split`:
     one launch per parity with the mhat epilogue at mutld 0, k2 = kappa and
@@ -4405,8 +4489,9 @@ def phase_distributed(workdir: str, one_dir: str | None = None):
          + ", ".join(f"{k} {v}" for k, v in counts16.items() if v))
     _check_no_plain(total)
     for what, c in (("hmc5", counts5), ("16^3x32", counts16)):
-        _check(all(c[k] == 0 for k in ("K1", "K1-R", "K1-S", "K1-SD", "K2", "KH", "K1-R-D")),
+        _check(all(c[k] == 0 for k in ("K1", "K1-R", "K1-S", "K1-SD", "K2", "KH", "K1-R-D", "KG")),
                f"{what} on ranks: a whole-lattice kernel launched: {c}")
+        _check(c["plain gauge force"] > 0, f"{what} on ranks: no plain gauge force ran: {c}")
         _check(c["KH-P"] > 0 and c["K2-S"] > 0, f"{what} on ranks: KH-P / K2-S did not run: {c}")
     _check(counts5["K3-I+K4 rank"] > 0, f"hmc5 on ranks (T_loc 2): K3-I+K4 did not run {counts5}")
     _check(counts16["K3-I rank"] > 0 and counts16["K4 rank"] > 0
@@ -4620,6 +4705,8 @@ def _meas_abc(workdir: str, inputs: dict, cfgs: dict, runs: dict, res8: list, co
 
     from tmlqcd_tpu_torch.cli import hmc as cli
     from tmlqcd_tpu_torch.cli import offline_measurement as offline
+    from tmlqcd_tpu_torch.meas import gradient_flow
+    from tmlqcd_tpu_torch.ops import gauge_action
     from tmlqcd_tpu_torch.ops.wilson import DiracParams
 
     # (a) hmc2 with ONLINE and PIONNORM
@@ -4673,10 +4760,32 @@ def _meas_abc(workdir: str, inputs: dict, cfgs: dict, runs: dict, res8: list, co
     rows = _output_rows(runs["gauge"])
     _check(len(rows) == 1 and math.isfinite(float(rows[0][3])), f"(b) output.data {rows}")
     _check_rank_kernels(counts["gauge"], "hmc5 at 16^3x32", 8)
+    # one process measures the ranks' checkpoint with the flow's force on the
+    # plain version, the route of the ranks' slabs: the same f32 arithmetic,
+    # so every file within 1e-10 (the Polyakov lines below); then on its own
+    # route, KG, whose flow is held to that one within MEAS_FLOW_STEPS x 3 x
+    # KERNEL_RTOL (three forces a step, each within KERNEL_RTOL of its plain
+    # version, phase 2; a wrong force moves t^2 E at O(1))
+    conf = os.path.join(runs["gauge"], "conf.000001.npz")
     offl = os.path.join(workdir, "offline-gauge")
-    rc, _, _, _ = _run_cli(offline, ["-f", inputs["gauge"], "-c",
-                                     os.path.join(runs["gauge"], "conf.000001.npz"), "-o", offl])
+    rc, _, pcounts, _ = _run_cli(offline, ["-f", inputs["gauge"], "-c", conf, "-o", offl],
+                                 patches=[(gradient_flow, "gauge_force",
+                                           gauge_action.gauge_force_plain)])
     _check(rc == 0, f"cli.offline_measurement (gauge) returned {rc}")
+    offk = os.path.join(workdir, "offline-gauge-kg")
+    rc, _, kcounts, _ = _run_cli(offline, ["-f", inputs["gauge"], "-c", conf, "-o", offk])
+    _check(rc == 0, f"cli.offline_measurement (gauge, KG) returned {rc}")
+    _check(pcounts["KG"] == 0 and pcounts["plain gauge force"] > 0
+           and kcounts["KG"] == pcounts["plain gauge force"] and kcounts["plain gauge force"] == 0,
+           f"(b) the flow's forces: plain route {pcounts}, KG route {kcounts}")
+    (_, kp, kc), (_, pp, pc) = (_read_gradflow(os.path.join(x, "gradflow.000000"))
+                                for x in (offk, offl))
+    kg_t2e, plain_t2e = np.array(kp + kc), np.array(pp + pc)
+    kg_rel = float(np.max(np.abs(kg_t2e - plain_t2e) / np.abs(plain_t2e)))
+    kg_bound = MEAS_FLOW_STEPS * 3 * KERNEL_RTOL
+    _say(f"[main-dist-meas] (b) the flow on KG ({kcounts['KG']} launches) against the plain "
+         f"route: t^2 E relative {kg_rel:.3e} (bound {kg_bound:.1e})")
+    _check(kg_rel <= kg_bound, f"(b) the flow on KG off the plain route by {kg_rel:.3e}")
     names = ["field_strength.data", "gradflow.000000", "oriented_plaquettes.data",
              "polyakov.data"]
     _check(sorted(f for f in os.listdir(runs["gauge"]) if not f.startswith(("conf", "nstore",
@@ -4762,9 +4871,11 @@ def phase_distributed_meas(workdir: str):
     (b) hmc5's action at 16^3x32 on 4 x 2 ranks with GRADIENTFLOW
         (MEAS_FLOW_STEPS of 0.02), POLYAKOV along t and y,
         ORIENTEDPLAQUETTES and FIELDSTRENGTH: every file against one
-        process measuring the ranks' checkpoint, 1e-10 relative (the
-        Polyakov lines, associated otherwise, within 48 N eps_f32), E_plaq
-        falling along the flow;
+        process measuring the ranks' checkpoint with the flow's force on the
+        plain version (the ranks' route), 1e-10 relative (the Polyakov
+        lines, associated otherwise, within 48 N eps_f32), E_plaq falling
+        along the flow; the same process's flow on KG against that one
+        within MEAS_FLOW_STEPS x 3 x KERNEL_RTOL;
     (c) GAUGE + NDPOLY (degree 32) at hmc5's 4^3x8 on 4 x 2 ranks
         (T_loc 2), NDPOLY_TRAJECTORIES trajectories against the same input
         in one process: dH within the derived bound, the interval check the
@@ -4993,6 +5104,8 @@ def main() -> int:
         # the overlap's Q_W on K1 (mhat on both parities) against gamma5 d_full
         qw_worst, qw_rel = phase_qw_kernels((lat16, Lattice((10, 6, 14, 6))))
         worst["K1"] = max(worst["K1"], qw_worst)
+        # KG at the main paths' shape and at the benchmark's 24^3x48
+        worst["KG"], kg_rows = phase_gauge_force((lat16, Lattice((48, 24, 24, 24))))
         done("2 kernel checks")
         rows, bw = phase_timings(lat16, lat32)
         rows.update(phase_shard_timings(lat16, lat32, bw))
@@ -5173,6 +5286,17 @@ def main() -> int:
         kernels.append(entry(name, replaces, key, row[:4], slab_src, device_ms=row[4])
                        | {"ms_32x64_slab": big[0], "device_ms_32x64_slab": big[4],
                           "plain_ms_32x64_slab": big[1], "bound_ms_32x64_slab": big[2]})
+    # KG: tlSym at 16^3x32 (b40.24's action at the main paths' shape), the
+    # Wilson instance and 24^3x48 beside it
+    kg16, kgw, kg24 = (kg_rows[("16x16x16x32", "tlSym")], kg_rows[("16x16x16x32", "Wilson")],
+                       kg_rows[("24x24x24x48", "tlSym")])
+    kernels.append(entry("gauge_force_cuda (KG)", "none: the reference's gauge force is plain jnp "
+                         "(tmlqcd_tpu/ops/gauge_action.py:156)", "KG", kg16[:4],
+                         "tmlqcd_tpu_torch/csrc/gauge_force.cu", device_ms=kg16[4])
+                   | {"c1": -1.0 / 12.0, "wilson_ms": kgw[0], "wilson_device_ms": kgw[4],
+                      "wilson_plain_ms": kgw[1], "wilson_bound_ms": kgw[2],
+                      "ms_24x48": kg24[0], "device_ms_24x48": kg24[4],
+                      "plain_ms_24x48": kg24[1], "bound_ms_24x48": kg24[2]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from tmlqcd_tpu_torch.hmc import Draws, hmc_trajectory
 from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.models.suites import nf2_twisted_mass_hasenbusch
 from tmlqcd_tpu_torch.ops import dslash_cuda as dc
+from tmlqcd_tpu_torch.ops import gauge_action as ga
 from tmlqcd_tpu_torch.ops import split_diag as sd
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
 from tmlqcd_tpu_torch.ops.wilson import DiracParams
@@ -241,6 +242,90 @@ def test_trajectory_kernel_path_matches_plain_path(cuda):
     for dev in (cuda, torch.device("cpu")):
         d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
         _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+    assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
+    assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
+    assert out["cuda"].acc_iterations == out["cpu"].acc_iterations
+
+
+# ---------------------------------------------------------------------------
+# the MD gauge force in one launch (KG)
+# ---------------------------------------------------------------------------
+
+
+def _links(dims, field, dev):
+    """Haar-random links (numpy's QR draw) or a smooth field near the unit
+    links (exp of 0.1 x Gaussian momenta, projected)."""
+    lat = Lattice(dims)
+    if field == "haar":
+        u = bridge.numpy_su3(np.random.default_rng(sum(dims)), (4,) + lat.site_shape)
+        return lat, bridge.gauge_from_numpy(u, lat, dev)
+    gen = torch.Generator(device=dev).manual_seed(sum(dims))
+    return lat, su3.project_su3(su3.expm_ta(0.1 * su3.random_momenta(gen, (4,) + lat.site_shape)))
+
+
+@pytest.mark.parametrize("dims", [(4, 6, 8, 10), (32, 16, 16, 16)], ids=["4x6x8x10", "16^3x32"])
+@pytest.mark.parametrize("c1", [0.0, -1.0 / 12.0, -0.331], ids=["wilson", "tlsym", "iwasaki"])
+@pytest.mark.parametrize("field", ["haar", "smooth"])
+def test_gauge_force_kernel_matches_plain_and_autograd(cuda, dims, c1, field):
+    """KG within RTOL of the plain staple force and of the autograd oracle;
+    through `gauge_action.gauge_force` one launch and no plain call.  On
+    4x6x8x10 every axis wraps at another extent, so a y / z slip of the
+    merged Y*Z axis shows."""
+    lat, u = _links(dims, field, cuda)
+    dc.reset_counters()
+    plain_calls = ga.gauge_force_plain.calls
+    f = ga.gauge_force(u, 5.3, lat, c1)
+    assert dc.gauge_force_cuda.launches == 1 and ga.gauge_force_plain.calls == plain_calls
+    torch.cuda.synchronize()
+    ref = ga.gauge_force_plain(u, 5.3, lat, c1)
+    assert _close(f, ref)
+    assert _close(f, ga.gauge_force_ad(u, 5.3, lat, c1))
+
+
+def test_gauge_force_kernel_wrapper_raises(cuda):
+    from tmlqcd_tpu_torch import parallel
+
+    lat, u = _links((4, 6, 8, 10), "haar", cuda)
+    u = u.contiguous()
+    slab = Lattice(lat.dims)
+    # a lattice that carries a mesh without a process group: the wrapper
+    # must refuse it before it reads anything else
+    object.__setattr__(slab, "mesh", parallel.Mesh(2, 1, device=cuda))
+    with pytest.raises(ValueError, match="whole lattice"):
+        dc.gauge_force_cuda(u, 5.3, -1.0 / 12.0, slab)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.gauge_force_cuda(u.transpose(0, 1), 5.3, 0.0, lat)
+    with pytest.raises(TypeError, match="complex64"):
+        dc.gauge_force_cuda(u.to(torch.complex128), 5.3, 0.0, lat)
+    with pytest.raises(ValueError):
+        dc.gauge_force_cuda(u.cpu(), 5.3, 0.0, lat)
+    with pytest.raises(ValueError, match="shape"):
+        dc.gauge_force_cuda(u[..., :8].contiguous(), 5.3, 0.0, lat)
+
+
+def test_tlsym_trajectory_kernel_path_matches_plain_path(cuda):
+    """The twisted-mass trajectory above with the tlSym gauge action: on
+    CUDA tensors its gauge force is KG (one launch an evaluation, no plain
+    call), on CPU tensors the plain staple force; same draws, same bounds."""
+    lat = Lattice((4, 4, 4, 4))
+    cfg = nf2_twisted_mass_hasenbusch(lat, beta=3.9, kappa=0.13, mu=0.01, mu_hasenbusch=0.1,
+                                      c1=-1.0 / 12.0, steps=(1, 1, 2), acc_tol=1e-10,
+                                      force_tol=1e-10)
+    key = rng.Key(9)
+    u = su3.random_su3(rng.generator(key.fold(0), "cpu"), (4,) + lat.site_shape)
+    mom = rng.random_momenta(key.fold(1), u.shape[2:], "cpu")
+    etas = [None] + [rng.normal_spinor(key.fold(2, i), (4, 3) + lat.eo_site_shape, "cpu")
+                     for i in (1, 2)]
+    out, launches = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        dc.reset_counters()
+        plain_calls = ga.gauge_force_plain.calls
+        d = Draws(mom.to(dev), [e if e is None else e.to(dev) for e in etas], 0.5)
+        _, out[dev.type] = hmc_trajectory(cfg, u.to(dev), key, draws=d)
+        launches[dev.type] = (dc.gauge_force_cuda.launches,
+                              ga.gauge_force_plain.calls - plain_calls)
+    assert launches["cuda"][0] == launches["cpu"][1] > 0 and launches["cuda"][1] == 0
+    assert launches["cpu"][0] == 0
     assert abs(out["cuda"].delta_h - out["cpu"].delta_h) <= 1e-3
     assert abs(out["cuda"].plaquette - out["cpu"].plaquette) <= 1e-6
     assert out["cuda"].acc_iterations == out["cpu"].acc_iterations

@@ -14,7 +14,8 @@ Tolerances, each stated where it is used:
   norms on f32 fields); solutions agree to 2e-6 (f32 rounding of O(1)
   entries over ~30 iterations).
 * gauge force: 1e-5 absolute on forces of O(1..10) — f32 operators, f64
-  sums.
+  sums; the staple force of each action 2e-6 of its largest entry (up to
+  ~80 for DBW2), the finite difference 1e-6 relative in complex128.
 """
 
 import importlib
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from test_torch_hmc import (  # noqa: F401  (fixtures, the autouse one too)
+    DIMS,
     JL,
     LAT,
     LIGHT,
@@ -35,11 +37,14 @@ from test_torch_hmc import (  # noqa: F401  (fixtures, the autouse one too)
     pseudofermion,
 )
 from tmlqcd_tpu.io import checkpoint as jckpt
+from tmlqcd_tpu.lattice import Lattice as JLattice
 from tmlqcd_tpu.lattice import pack_gauge_eo as j_pack
 from tmlqcd_tpu.ops import wilson as jw
 from tmlqcd_tpu.solvers import chrono as jchrono
 from tmlqcd_tpu.solvers.cg import cg as j_cg
-from tmlqcd_tpu_torch import bridge
+from tmlqcd_tpu_torch import bridge, su3
+from tmlqcd_tpu_torch.config import GAUGE_ACTIONS
+from tmlqcd_tpu_torch.lattice import Lattice
 from tmlqcd_tpu_torch.ops import gauge_action as ga
 from tmlqcd_tpu_torch.ops import wilson as w
 from tmlqcd_tpu_torch.ops import wilson_fast as wf
@@ -103,6 +108,38 @@ def test_gauge_force_and_action_match_reference(gauge, c1):
     assert abs(float(ga.plaquette(ut, LAT)) - float(plaq_ref)) < 1e-7
     assert abs(float(ga.rectangle(ut, LAT)) - float(rect_ref)) < 1e-7
 
+
+
+@pytest.mark.parametrize("dims", [DIMS, (4, 6, 8, 10)], ids=["4x4x4x4", "4x6x8x10"])
+def test_staple_gauge_force_matches_autograd_reference_and_finite_difference(dims):
+    """The staple force (`gauge_force_plain`, the kernel's arithmetic) for
+    each gauge action against the autograd oracle `gauge_force_ad` and the
+    reference's `gauge_force`, to 2e-6 of the largest entry (f32 sums of
+    O(beta c0) staples: ~2e-7 measured); on the uneven lattice every axis
+    wraps at another extent.  Then, in complex128, the force on one link
+    against the finite difference of `gauge_action` along a momentum on
+    that link alone (tlSym)."""
+    jl, lat = JLattice(dims), Lattice(dims)
+    u = bridge.numpy_su3(np.random.default_rng(23), (4,) + jl.site_shape)
+    ut = bridge.gauge_from_numpy(u, lat)
+    refs = jax.jit(lambda u: {name: jga.gauge_force(u, 5.3, jl, c1)
+                              for name, c1 in GAUGE_ACTIONS.items()})(u)
+    for name, c1 in GAUGE_ACTIONS.items():
+        f = ga.gauge_force_plain(ut, 5.3, lat, c1)
+        scale = float(f.abs().max())
+        assert _maxdiff(f, ga.gauge_force_ad(ut, 5.3, lat, c1)) < 2e-6 * scale, name
+        assert _maxdiff(f, refs[name]) < 2e-6 * scale, name
+
+    u128, c1 = ut.to(torch.complex128), GAUGE_ACTIONS["tlsym"]
+    h = np.random.default_rng(24).standard_normal((3, 3)) * (1 + 1j)
+    p = torch.zeros_like(u128)
+    p[:, :, 2, 1, 2, 5] = torch.as_tensor(h - h.conj().T - np.trace(h - h.conj().T) / 3 * np.eye(3))
+    eps = 1e-5
+    s = [float(ga.gauge_action(su3.mul(su3.expm_ta(e * p), u128), 5.3, lat, c1))
+         for e in (eps, -eps)]
+    fd = (s[0] - s[1]) / (2 * eps)
+    pred = float(torch.einsum("ij...,ji...->", ga.gauge_force_plain(u128, 5.3, lat, c1), p).real)
+    assert abs(fd - pred) < 1e-6 * abs(fd)
 
 
 def test_cli_runs_on_cpu_and_requires_cuda_otherwise(tmp_path):

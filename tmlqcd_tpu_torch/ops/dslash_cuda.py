@@ -128,7 +128,14 @@ hops they ran and `.clover_launches` those on the clover doublet;
 `halo_pack.launches` counts KH's and `halo_pack.plain_calls` the calls
 its plain version (the torch exchange) served; `halo_faces.launches` counts
 KH-P's, `hopping_rank.launches` the rank's slab launches by name (K3-I, K4,
-K3-I+K4, K3, K1-T) and `hopping_ug_vjp_slab.launches` K2-S's.
+K3-I+K4, K3, K1-T), `hopping_ug_vjp_slab.launches` K2-S's and
+`gauge_force_cuda.launches` KG's (`reset_counters` also zeroes
+`gauge_action.gauge_force_plain.calls`, the calls KG's plain version served).
+
+`gauge_force_cuda` (KG, `csrc/gauge_force.cu`) is the MD gauge force of the
+whole lattice in one launch: plaquette and rectangle staples, the TA
+projection fused.  It replaces no TPU kernel (the reference's force is plain
+jnp); its plain version is `gauge_action.gauge_force_plain`.
 
 The kernels are compiled at first use from `tmlqcd_tpu_torch/csrc/`, one
 nvcc process per source, into a shared library with a plain C interface,
@@ -196,6 +203,7 @@ __all__ = [
     "kernel_info",
     "schur_kernel_info",
     "rhs_kernel_info",
+    "gauge_force_cuda",
     "reset_counters",
 ]
 
@@ -213,7 +221,8 @@ _BUILD = os.path.join(_CSRC, "build")
 # each (source, part) is one nvcc process, all started together; the objects
 # are linked into one library.  hopping.cu is built in five parts
 # (-DTM_PART, see the note above its tm_part_* functions).
-_JOBS = tuple(("hopping.cu", part) for part in range(5)) + (("hopping_slab.cu", None),)
+_JOBS = tuple(("hopping.cu", part) for part in range(5)) + (("hopping_slab.cu", None),
+                                                            ("gauge_force.cu", None))
 _HEADERS = ("hopping_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-Xcompiler", "-fPIC")
@@ -319,6 +328,8 @@ def kernel_library(verbose: bool = False) -> ctypes.CDLL:
         lib.tm_slab_info.restype = i
         lib.tm_ug_vjp_slab.argtypes = [vp] * 5 + [i] * 5 + [vp]
         lib.tm_ug_vjp_slab.restype = i
+        lib.tm_gauge_force.argtypes = [vp, vp, i, i, i, i, f, f, vp]
+        lib.tm_gauge_force.restype = i
         _lib_handle = lib
         return lib
 
@@ -1761,7 +1772,10 @@ hopping_ug_vjp_slab_plain.calls = 0
 
 
 def reset_counters() -> None:
-    """Zero every launch and call counter of this module."""
+    """Zero every launch and call counter of this module, and the calls
+    KG's plain version (`gauge_action.gauge_force_plain`) served."""
+    from tmlqcd_tpu_torch.ops import gauge_action
+
     hopping_split.launches = 0
     hopping_split.clover_launches = 0
     hopping_split.bf16_launches = 0
@@ -1794,6 +1808,49 @@ def reset_counters() -> None:
     hopping_schur_nd_plain.calls = 0
     halo_pack.plain_calls = 0
     hopping_ug_vjp_slab_plain.calls = 0
+    gauge_force_cuda.launches = 0
+    gauge_action.gauge_force_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# the MD gauge force (KG)
+# ---------------------------------------------------------------------------
+
+
+def gauge_force_cuda(u: torch.Tensor, beta: float, c1: float, lat: Lattice) -> torch.Tensor:
+    """KG: the MD gauge force of the whole lattice's links u
+    [3, 3, 4, T, X, Y*Z] complex64 in one launch (`csrc/gauge_force.cu`),
+    F_mu(x) = TA(U_mu(x) [-(beta c0/3) A_mu(x) - (beta c1/3) R_mu(x)]) with
+    c0 = 1 - 8 c1, A the plaquette and R the rectangle staples; c1 == 0
+    runs no rectangles.  Its plain version is
+    `gauge_action.gauge_force_plain`; `gauge_action.gauge_force` routes."""
+    if lat.mesh is not None:
+        raise ValueError("the gauge-force kernel takes a whole lattice, not a slab of a mesh "
+                         "(a slab's shifts cross ranks)")
+    if u.dtype != torch.complex64:
+        raise TypeError(f"u must be complex64, got {u.dtype}")
+    shape = (3, 3, 4) + lat.site_shape
+    if tuple(u.shape) != shape:
+        raise ValueError(f"u has shape {tuple(u.shape)}, expected {shape}")
+    if not u.is_contiguous() or u.is_conj():
+        raise ValueError("u must be contiguous, with no lazy conjugation")
+    if u.device.type != "cuda":
+        raise ValueError(f"no gauge-force kernel for device {u.device}")
+    lib = kernel_library()
+    out = torch.empty_like(u)
+    t, x, y, z = lat.dims
+    c0 = 1.0 - 8.0 * c1
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        rc = lib.tm_gauge_force(u.data_ptr(), out.data_ptr(), t, x, y, z, -(beta * c0) / 3.0,
+                                -(beta * c1) / 3.0, stream)
+    if rc != 0:
+        raise RuntimeError(f"gauge-force kernel (KG) launch failed: CUDA error {rc}")
+    gauge_force_cuda.launches += 1
+    return out
+
+
+gauge_force_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ Port of `tmlqcd_tpu/ops/gauge_action.py`:
 Gradient convention: `ta_force_from_grad` expects the reference's (JAX's)
 convention dS = Re sum(G dU).  PyTorch's `.grad` of a real loss with respect
 to a complex leaf is the complex CONJUGATE of that G, so callers pass
-`grad.conj()` (see `gauge_force` and `hmc/monomials.py`).
+`grad.conj()` (see `gauge_force_ad` and `hmc/monomials.py`).
 
 Layout: gauge u [3, 3, 4 mu, T, X, Y*Z].
 """
@@ -20,14 +20,16 @@ import torch
 from tmlqcd_tpu_torch import su3
 from tmlqcd_tpu_torch.comm import global_sum
 from tmlqcd_tpu_torch.lattice import Lattice, shift_full
+from tmlqcd_tpu_torch.ops import dslash_cuda
 
 __all__ = [
     "plaquette_field",
     "plaquette",
     "rectangle",
     "gauge_action",
-    "staple_sum",
     "gauge_force",
+    "gauge_force_plain",
+    "gauge_force_ad",
     "ta_force_from_grad",
     "torch_grad_to_jax",
 ]
@@ -100,35 +102,69 @@ def torch_grad_to_jax(g: torch.Tensor) -> torch.Tensor:
     return torch.conj_physical(g)
 
 
-def staple_sum(u: torch.Tensor, mu: int, lat: Lattice) -> torch.Tensor:
-    """A_mu(x) = sum_{nu != mu} [forward + backward staple], so that the six
-    plaquettes holding U_mu(x) sum to Re tr[U_mu(x) A_mu(x)]."""
-    umu = u[:, :, mu]
-    acc = None
-    for nu in range(4):
-        if nu == mu:
-            continue
-        unu = u[:, :, nu]
-        unu_pmu = shift_full(unu, mu, +1, lat)
-        fwd = su3.mul(su3.mul(unu_pmu, su3.adj(shift_full(umu, nu, +1, lat))), su3.adj(unu))
-        bwd = shift_full(su3.mul(su3.mul(su3.adj(unu_pmu), su3.adj(umu)), unu), nu, -1, lat)
-        term = fwd + bwd
-        acc = term if acc is None else acc + term
-    return acc
+def gauge_force_plain(u: torch.Tensor, beta: float, lat: Lattice, c1: float = 0.0) -> torch.Tensor:
+    """Plain version of the gauge-force kernel (`dslash_cuda.gauge_force_cuda`),
+    the same staples on whole fields:
+
+        F_mu(x) = TA(U_mu(x) [-(beta c0/3) A_mu(x) - (beta c1/3) R_mu(x)])
+
+    A_mu the 6 plaquette staples, R_mu the 18 rectangle staples (1x2 and 2x1,
+    both orientations, in each plane), so that the loops holding U_mu(x) sum
+    to Re tr[U_mu(x) A] and Re tr[U_mu(x) R].  Grouped for few shifts (each
+    one crosses the ranks on a distributed slab): with S the forward staple
+    U_nu(x+mu) U_mu(x+nu)^+ U_nu(x)^+ or the backward one (a staple at
+    x - nu, shifted), the rectangles of a plane are
+
+        [U_mu S](x+mu) S(x) + S(x) [S U_mu](x-mu)       (2x1, each S)
+        U_nu(x+mu) S_fwd(x+nu) U_nu(x)^+,  [U_nu(x+mu)^+ S_bwd U_nu](x-nu)   (1x2)
+
+    3 shifts a plane for the plaquettes, 6 more for the rectangles."""
+    gauge_force_plain.calls += 1
+    c0 = 1.0 - 8.0 * c1
+    cp, cr = -(beta * c0) / 3.0, -(beta * c1) / 3.0
+    forces = []
+    for mu in range(4):
+        umu = u[:, :, mu]
+        plaq = rect = None
+        for nu in range(4):
+            if nu == mu:
+                continue
+            unu = u[:, :, nu]
+            unu_pmu = shift_full(unu, mu, +1, lat)
+            fwd = su3.mul(su3.mul(unu_pmu, su3.adj(shift_full(umu, nu, +1, lat))), su3.adj(unu))
+            bwd = shift_full(su3.mul(su3.mul(su3.adj(unu_pmu), su3.adj(umu)), unu), nu, -1, lat)
+            term = fwd + bwd
+            plaq = term if plaq is None else plaq + term
+            if c1 == 0.0:
+                continue
+            term = (su3.mul(su3.mul(unu_pmu, shift_full(fwd, nu, +1, lat)), su3.adj(unu))
+                    + shift_full(su3.mul(su3.mul(su3.adj(unu_pmu), bwd), unu), nu, -1, lat))
+            for s in (fwd, bwd):
+                term = (term + su3.mul(shift_full(su3.mul(umu, s), mu, +1, lat), s)
+                        + su3.mul(s, shift_full(su3.mul(s, umu), mu, -1, lat)))
+            rect = term if rect is None else rect + term
+        acc = cp * plaq if rect is None else cp * plaq + cr * rect
+        forces.append(su3.ta_project(su3.mul(umu, acc)))
+    return torch.stack(forces, dim=2)
+
+
+gauge_force_plain.calls = 0
+
+
+def gauge_force_ad(u: torch.Tensor, beta: float, lat: Lattice, c1: float = 0.0) -> torch.Tensor:
+    """F = TA(U G^T), G the autograd gradient of `gauge_action`: the oracle
+    of the staple forces (the reference's `gauge_force_ad`)."""
+    with torch.enable_grad():
+        uu = u.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(gauge_action(uu, beta, lat, c1), uu)
+    return ta_force_from_grad(u, torch_grad_to_jax(g))
 
 
 def gauge_force(u: torch.Tensor, beta: float, lat: Lattice, c1: float = 0.0) -> torch.Tensor:
-    """MD gauge force, plaquette part summed from staples:
-    F_mu(x) = -(beta c0 / 3) TA(U_mu(x) A_mu(x)); the rectangle part (c1 != 0)
-    by autograd of the rectangle action."""
-    c0 = 1.0 - 8.0 * c1
-    scale = -(beta * c0) / 3.0
-    f = torch.stack([su3.ta_project(scale * su3.mul(u[:, :, mu], staple_sum(u, mu, lat)))
-                     for mu in range(4)], dim=2)
-    if c1 != 0.0:
-        with torch.enable_grad():
-            uu = u.detach().requires_grad_(True)
-            s = beta * c1 * (12.0 * lat.global_volume - _rect_sum(uu, lat) / 3.0)
-            (g,) = torch.autograd.grad(s, uu)
-        f = f + ta_force_from_grad(u, torch_grad_to_jax(g))
-    return f
+    """MD gauge force (`gauge_force_plain`'s formula).  A CUDA tensor of a
+    whole lattice launches the kernel (`dslash_cuda.gauge_force_cuda`); a CPU
+    tensor, or a slab of a distributed mesh (its shifts cross ranks), takes
+    the plain version."""
+    if u.device.type == "cuda" and lat.mesh is None:
+        return dslash_cuda.gauge_force_cuda(u.resolve_conj().contiguous(), beta, c1, lat)
+    return gauge_force_plain(u, beta, lat, c1)
